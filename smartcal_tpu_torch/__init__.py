@@ -1,0 +1,36 @@
+"""PyTorch/CUDA port of smartcal_tpu for one NVIDIA H100.
+
+The layout mirrors the JAX package module for module
+(``smartcal_tpu_torch/cal/solver.py`` is the counterpart of
+``smartcal_tpu/cal/solver.py``).  Every entry point takes an explicit
+``device`` that defaults to ``"cuda"`` and raises when no GPU is present;
+the CPU runs the same code only when the caller asks for it (the parity
+tests do).  The direct-DFT imager, the one TPU kernel on the calibration
+episode path, is a hand-written CUDA kernel (``csrc/dft_imager.cu``); the
+rest of the math is plain tensor code, as it is plain XLA in the JAX
+package.
+
+This package imports neither ``jax`` nor anything of ``smartcal_tpu``:
+what it needs from there it keeps as its own copy.
+"""
+
+import torch
+
+# TF32 off everywhere: the JAX policy pins the ``admm``, ``hessian`` and
+# ``solve_4n`` rows to full f32 (smartcal_tpu/cal/precision.py:31-35 —
+# bf16-level narrowing there measurably breaks the sigma_res band), and
+# TF32 matmuls would quietly keep only ~10 mantissa bits on those same
+# contractions.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a :class:`torch.device`; raises for a CUDA device when
+    no GPU is visible (the port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "smartcal_tpu_torch: CUDA device requested but no GPU is "
+            "available; pass device='cpu' explicitly to run on the CPU")
+    return dev

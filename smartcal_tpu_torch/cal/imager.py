@@ -1,0 +1,92 @@
+"""Dirty imaging: visibilities -> sky image (counterpart of
+smartcal_tpu/cal/imager.py).
+
+Two formulations, as in the JAX package:
+
+* the direct DFT ``dirty_image_sr`` — img[p] = mean_r Re(V_r exp(-i phi)),
+  the data/residual images behind every reward.  It is the hand-written
+  CUDA kernel of ``ops/dft_imager.py`` on a CUDA tensor, and that module's
+  plain version on a CPU tensor;
+* the rank-factored DFT ``dirty_image_factored_sr`` — the influence-map
+  imager: per-axis trig planes and two (npix, R) @ (R, npix) matmuls.
+
+The npix >= 512 blocked factored imager and its Pallas kernel are still
+to be ported.
+"""
+
+import torch
+
+from smartcal_tpu_torch.cal import precision as prec
+from smartcal_tpu_torch.ops import dft_imager
+
+C_LIGHT = 2.99792458e8
+
+
+def pixel_grid(npix, cell, device="cpu"):
+    """(npix^2, 2) direction cosines (l, m), row-major with m fastest."""
+    return dft_imager.pixel_grid(npix, cell, device)
+
+
+def default_cell(uvw, freq, oversample=3.0):
+    """Pixel size (rad) from the longest projected baseline:
+    cell = 1 / (oversample * 2 * max|uv|_wavelengths)."""
+    uv = uvw[..., :2] * (float(freq) / C_LIGHT)
+    umax = float(torch.max(torch.abs(uv)))
+    return 1.0 / (oversample * 2.0 * max(umax, 1.0))
+
+
+def dirty_image_sr(uvw, vis, freq, cell, npix=128):
+    """Dirty image (npix, npix) from split-real Stokes visibilities:
+    uvw (R, 3) meters, vis (R, 2).  Goes through ``ops.dft_imager`` (the
+    CUDA kernel for CUDA tensors)."""
+    return dft_imager.dirty_image(uvw, vis, freq, cell, npix=npix)
+
+
+def _factored_planes(uvw, vis, freq, cell, npix):
+    """(p1, p2, cb, sb) planes of the factored imager, f32 trig."""
+    scale = float(dft_imager.uv_scale(freq))
+    u = uvw[:, 0] * scale
+    v = uvw[:, 1] * scale
+    half = npix // 2
+    idx = (torch.arange(npix, device=uvw.device) - half).to(prec.F32) * cell
+    a = idx[:, None] * u[None, :]                          # (npix, R) l u
+    b = idx[:, None] * v[None, :]                          # (npix, R) m v
+    ca, sa = torch.cos(a), torch.sin(a)
+    cb, sb = torch.cos(b), torch.sin(b)
+    vr, vi = vis[:, 0], vis[:, 1]
+    p1 = ca * vr[None, :] + sa * vi[None, :]
+    p2 = ca * vi[None, :] - sa * vr[None, :]
+    return p1, p2, cb, sb
+
+
+def dirty_image_factored_sr(uvw, vis, freq, cell, npix=128):
+    """Rank-factored DFT image: the pixel grid is separable, so
+    cos/sin(l u + m v) expand by the angle-addition identity and the image
+    is img = [(cos a Vr + sin a Vi) @ cos(b)^T
+              + (cos a Vi - sin a Vr) @ sin(b)^T] / R,  a = l u, b = m v.
+    Same math as the direct DFT to float round-off; the matmuls run in
+    full f32 (TF32 is off)."""
+    p1, p2, cb, sb = _factored_planes(uvw, vis, freq, cell, npix)
+    return (p1 @ cb.T + p2 @ sb.T) / vis.shape[0]
+
+
+def stokes_i_vis(V):
+    """(T, B, 2, 2, 2) full-pol solver visibilities -> (T*B, 2) Stokes I."""
+    sI = 0.5 * (V[..., 0, 0, :] + V[..., 1, 1, :])
+    return sI.reshape(-1, 2)
+
+
+def image_observation_sr(uvw, V, freq, cell, npix=128):
+    """Dirty Stokes-I image of solver-convention visibilities
+    (uvw (T, B, 3), V (T, B, 2, 2, 2))."""
+    return dirty_image_sr(uvw.reshape(-1, 3), stokes_i_vis(V).contiguous(),
+                          freq, cell, npix=npix)
+
+
+def multifreq_image_sr(uvw, V_list, freqs, cell, npix=128):
+    """Mean dirty image over frequency sub-bands (calmean.sh's role);
+    V_list (Nf, T, B, 2, 2, 2), uvw shared across sub-bands (meters).
+    One imager launch per band."""
+    imgs = [image_observation_sr(uvw, V_list[f], f_hz, cell, npix=npix)
+            for f, f_hz in enumerate(torch.as_tensor(freqs).tolist())]
+    return torch.mean(torch.stack(imgs), dim=0)

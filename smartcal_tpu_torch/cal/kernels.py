@@ -1,0 +1,148 @@
+"""Residual Hessian, adjoint influence column means and the LLR detector:
+the unblocked, formulation-optimized chain of smartcal_tpu/cal/kernels.py.
+
+Shapes follow the JAX package (and the reference calibration_tools.py):
+N stations, B = N(N-1)/2 baselines (p < q row-major), T timeslots of one
+interval, K directions, split-real (..., 2) complex.  The scatter-free
+moves are kept: station sums are one-hot matmuls and the off-diagonal
+block placement is a gather of a zero-padded table, so every reduction
+has a fixed order on the GPU.  The blocked (SKA-scale) Hessian and its
+Pallas kernel are still to be ported.
+"""
+
+import numpy as np
+import torch
+
+from smartcal_tpu_torch.cal import creal
+
+EPS_SINGULAR = 1e-12   # reference: EPS in Dsolutions (calibration_tools.py:696)
+EPS_DIV = 1e-12        # reference: EPS in log_likelihood_ratio (:1203)
+
+_J_OF_R = np.asarray([0, 0, 0, 0, 1, 1, 1, 1])
+_V_OF_R = np.asarray([0, 0, 1, 1, 0, 0, 1, 1])
+_ODD_R = np.asarray([False, True] * 4)
+
+
+def baseline_indices(n_stations, device="cpu"):
+    """(p, q) station indices per baseline, p < q row-major, as long
+    tensors on ``device``."""
+    p, q = np.triu_indices(n_stations, 1)
+    return (torch.as_tensor(p, device=device),
+            torch.as_tensor(q, device=device))
+
+
+def baseline_onehots(n_stations, dtype=torch.float32, device="cpu"):
+    """One-hot (N, B) selection matrices of the p and q station of each
+    baseline: a gather becomes a matmul whose transpose is a matmul too."""
+    p_idx, q_idx = np.triu_indices(n_stations, 1)
+    eye = torch.eye(n_stations, dtype=dtype, device=device)
+    return (eye[:, torch.as_tensor(p_idx, device=device)],
+            eye[:, torch.as_tensor(q_idx, device=device)])
+
+
+def offdiag_index_map(n_stations):
+    """(N, N) map [p, q] -> baseline index b for p < q, else B (the index of
+    a zero-pad slot).  Host numpy."""
+    p_idx, q_idx = np.triu_indices(n_stations, 1)
+    B = p_idx.size
+    m = np.full((n_stations, n_stations), B, np.int64)
+    m[p_idx, q_idx] = np.arange(B)
+    return m
+
+
+def _hessian_block_sums(R3, C5, Jp, Jq, n_stations):
+    """Off-diagonal blocks + station-summed diagonal contributions:
+    R3 (T, B, 2, 2, 2); C5 (K, T, B, 2, 2, 2); Jp/Jq (K, B, 2, 2, 2).
+    Returns (off (K, B, 4, 4, 2), Dsum (K, N, 2, 2, 2)), unnormalized."""
+    K, nb = C5.shape[0], C5.shape[2]
+    off = -creal.einsum("ktbij,tbuv->kbiujv", creal.conj(C5), R3)
+    off = off.reshape(K, nb, 4, 4, 2)
+
+    A1 = creal.einsum("ktbuv,kbwv->ktbuw", C5, creal.conj(Jq))
+    Sp = creal.einsum("ktbuw,ktbvw->kbuv", A1, creal.conj(A1))
+    A2 = creal.einsum("kbuv,ktbvw->ktbuw", Jp, C5)
+    Sq = creal.einsum("ktbuv,ktbuw->kbvw", creal.conj(A2), A2)
+
+    ohp, ohq = baseline_onehots(n_stations, R3.dtype, R3.device)
+    Dsum = (torch.einsum("nb,kbuvz->knuvz", ohp, Sp)
+            + torch.einsum("nb,kbuvz->knuvz", ohq, Sq))
+    return off, Dsum
+
+
+def _hessian_assemble(off, Dsum, n_stations, B, T):
+    """Placement of the off-diagonal table (gather of the zero-padded
+    table, each (p, q) slot holds one baseline) and the diagonal krons.
+    Returns (K, 4N, 4N, 2) normalized by B*T."""
+    K = off.shape[0]
+    dev = off.device
+    eye2 = torch.eye(2, dtype=off.dtype, device=dev)
+    diag_blocks = torch.einsum("knjiz,uv->kniujvz", Dsum, eye2).reshape(
+        K, n_stations, 4, 4, 2)
+
+    idx = torch.as_tensor(offdiag_index_map(n_stations), device=dev)
+    off_pad = torch.cat(
+        [off, torch.zeros((K, 1, 4, 4, 2), dtype=off.dtype, device=dev)],
+        dim=1)
+    herm_pad = creal.conj(off_pad.transpose(-3, -2))
+    Hup = off_pad[:, idx]
+    Hlow = herm_pad[:, idx.T]
+    eyeN = torch.eye(n_stations, dtype=off.dtype, device=dev)
+    Hd = torch.einsum("nm,knijz->knmijz", eyeN, diag_blocks)
+    H = (Hup + Hlow + Hd).transpose(2, 3)
+    N4 = 4 * n_stations
+    return H.reshape(K, N4, N4, 2) / (B * T)
+
+
+def _hessian_res_core_sr(R3, C5, Jp, Jq, n_stations):
+    """Scatter-free residual Hessian (K, 4N, 4N, 2), averaged over
+    baselines*time (reference Hessianres, calibration_tools.py:590-631)."""
+    T, B = C5.shape[1], C5.shape[2]
+    off, Dsum = _hessian_block_sums(R3, C5, Jp, Jq, n_stations)
+    return _hessian_assemble(off, Dsum, n_stations, B, T)
+
+
+def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T):
+    """Adjoint-form Dsolutions -> Dresiduals column means (8, 4, B, 2) on
+    the pre-built lhs blocks ``lhs = Jq Csum^H`` (K, B, 2, 2, 2) and the
+    consensus-augmented Hessian ``Dgs`` (K, 4N, 4N, 2).
+
+    Solves the transpose system A^T y_k = w_k (4 right-hand sides per
+    direction, batched over directions) instead of the 8B-column forward
+    solve, and contracts y against the closed form of AdV (see the JAX twin
+    for the derivation).  The influence chain's ``addself=False`` form: the
+    identity term of dR is not added.
+    """
+    N = n_stations
+    K, B = lhs.shape[0], lhs.shape[1]
+    dev, dt = lhs.device, lhs.dtype
+    onehot_p = baseline_onehots(N, dt, dev)[0]
+    # G[k, n, i, j] = sum over baselines with p(b) = n of -conj(lhs)
+    G = torch.einsum("nb,kbijz->knijz", onehot_p, -creal.conj(lhs))
+    eye2 = torch.eye(2, dtype=dt, device=dev)
+    W = torch.einsum("knijz,vu->kjnviuz", G, eye2).reshape(K, 4 * N, 4, 2)
+    A = Dgs.clone()
+    A[..., 0] += EPS_SINGULAR * torch.eye(4 * N, dtype=dt, device=dev)
+    Y = creal.solve(A.transpose(1, 2), W)                # A^T y = w
+
+    # gather y at each baseline's p station, contract against lhs
+    bbt = float(B) * B * T      # float: the int product overflows at N>=256
+    p_idx = baseline_indices(N, dev)[0]
+    Y6 = Y.reshape(K, 2, N, 2, 4, 2)                     # (k,j,n,u',c,2)
+    Yr = Y6[:, :, p_idx][:, :, :, torch.as_tensor(_V_OF_R, device=dev)]
+    Lr = lhs[:, :, torch.as_tensor(_J_OF_R, device=dev)]  # (k,b,r,j,2)
+    out = creal.einsum("kjbrc,kbrj->rcb", Yr, Lr)        # (8, 4, B, 2)
+    odd = torch.as_tensor(_ODD_R, device=dev)[:, None, None, None]
+    return torch.where(odd, creal.mul_i(out), out) / bbt
+
+
+def _llr_core_sr(R3, C5, Jp, Jq):
+    """Per-direction log-likelihood ratio (K,): (||r+mu||^2 - ||r||^2) /
+    sigma^2 with mu = Jp C Jq^H per sample and sigma^2 from Stokes V of
+    the residual (reference calibration_tools.py:1181-1223)."""
+    tmp = creal.einsum("kbuv,ktbvw->ktbuw", Jp, C5)
+    mu = creal.einsum("ktbuw,kbxw->ktbux", tmp, creal.conj(Jq))
+    sV = 0.5 * (R3[..., 0, 1, :] - R3[..., 1, 0, :])
+    sigma2 = torch.sum(creal.abs2(sV))
+    rn2 = torch.sum(creal.abs2(R3))
+    rpmu2 = torch.sum(creal.abs2(R3[None] + mu), dim=(1, 2, 3, 4))
+    return (rpmu2 - rn2) / (sigma2 + EPS_DIV)

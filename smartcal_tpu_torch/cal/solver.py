@@ -1,0 +1,407 @@
+"""Direction-dependent calibration: per-direction Jones solve + consensus
+ADMM across frequency (counterpart of smartcal_tpu/cal/solver.py).
+
+One solve route: the fused math of ``solve_admm``.  The (Nf, Ts)
+independent inner L-BFGS solves are ONE batched ``lbfgs_solve`` over a lane
+axis of size L = Nf*Ts (the JAX package's ``vmap(vmap(...))``), the ADMM
+loop is a Python loop, and the consensus polynomial update is a small
+reduction over frequency.  The JAX package's host-segmented solve
+(``solve_admm_host``) computes the same thing in bounded dispatches for
+TPU watchdogs; it is not needed on one GPU and is still to be ported, as
+are the sharded routes and solver telemetry.
+
+All math is split-real float32; samples are time-major ck = t*B + b and
+baselines enumerate p < q row-major.
+"""
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from smartcal_tpu_torch.cal import consensus, creal
+from smartcal_tpu_torch.cal.kernels import baseline_indices, baseline_onehots
+from smartcal_tpu_torch.ops import lbfgs
+
+
+class SolverConfig(NamedTuple):
+    """Static configuration (see the JAX twin): consensus polynomial terms,
+    outer ADMM iterations, L-BFGS iterations per outer iteration, chi2-only
+    init iterations, and the basis type (0 ordinary / 1 Bernstein)."""
+
+    n_stations: int
+    n_dirs: int
+    n_poly: int = 3
+    admm_iters: int = 10
+    lbfgs_iters: int = 8
+    init_iters: int = 40
+    polytype: int = 0
+
+
+class SolveResult(NamedTuple):
+    J: torch.Tensor          # (Nf, Ts, K, 2N, 2, 2) per-subband solutions
+    Z: torch.Tensor          # (Ts, K, Ne, 2N, 2, 2) global poly solutions
+    residual: torch.Tensor   # (Nf, T, B, 2, 2, 2) V - sum_k Jp C Jq^H
+    sigma_res: torch.Tensor  # () std of residual (all subbands)
+    sigma_data: torch.Tensor # () std of data
+    final_cost: torch.Tensor # (Nf, Ts) inner cost at the last ADMM
+                             # iteration, in DATA units
+
+
+class SolverDegradedError(RuntimeError):
+    """Every rho-boosted retry still produced non-finite iterates."""
+
+
+def predict_vis_sr(J, C5, n_stations):
+    """Model visibilities sum_k Jp C Jq^H: J (..., K, 2N, 2, 2),
+    C5 (..., K, Tc, B, 2, 2, 2) -> (..., Tc, B, 2, 2, 2)."""
+    p_idx, q_idx = baseline_indices(n_stations, J.device)
+    J4 = J.reshape(J.shape[:-3] + (n_stations, 2, 2, 2))
+    Jp = J4.index_select(-4, p_idx)
+    Jq = J4.index_select(-4, q_idx)
+    JpC = creal.einsum("...kbij,...ktbjl->...ktbil", Jp, C5)
+    return creal.einsum("...ktbil,...kbml->...tbim", JpC, creal.conj(Jq))
+
+
+def coherency_to_chunks(C, B, Ts):
+    """Kernel-convention C (..., K, T*B, 4, 2) -> solver chunks
+    (..., Ts, K, Tdelta, B, 2, 2, 2) (order='F' 2x2 blocks)."""
+    lead, K = C.shape[:-4], C.shape[-4]
+    C5 = C.reshape(lead + (K, -1, B, 2, 2, 2)).transpose(-3, -2)
+    T = C5.shape[-5]
+    C6 = C5.reshape(lead + (K, Ts, T // Ts, B, 2, 2, 2))
+    return C6.movedim(-7, -6)
+
+
+def vis_to_chunks(V, Ts):
+    """(..., T, B, 2, 2, 2) -> (..., Ts, Tdelta, B, 2, 2, 2)."""
+    lead, T = V.shape[:-5], V.shape[-5]
+    return V.reshape(lead + (Ts, T // Ts) + tuple(V.shape[-4:]))
+
+
+def _model_bilinear(Ja, Jb, Cp, onehot_p, onehot_q, cfg: SolverConfig):
+    """K-summed model planes of F(Ja, Jb) = sum_k Ja_p C_k Jb_q^H per lane.
+
+    Ja/Jb (L, K, 2N, 2, 2); Cp (L, K, j, l, c, Tc, B).  Returns
+    ``planes[i][m] = (re, im)``, each (L, Tc, B).  F is linear in each Jones
+    argument, which makes the line-search objective an exact quartic.  The
+    2x2 complex algebra is unrolled over planes whose minor axis is
+    baselines; the station->baseline expansion is a one-hot matmul."""
+    L, K, N = Ja.shape[0], cfg.n_dirs, cfg.n_stations
+    Ja5 = Ja.reshape(L, K, N, 2, 2, 2).permute(0, 1, 3, 4, 5, 2)
+    Jb5 = Jb.reshape(L, K, N, 2, 2, 2).permute(0, 1, 3, 4, 5, 2)
+    Jp = Ja5 @ onehot_p                                  # (L, K, i, j, c, B)
+    Jq = Jb5 @ onehot_q
+
+    jpc = [[None] * 2 for _ in range(2)]
+    for i in range(2):
+        for l in range(2):
+            tr = ti = 0.0
+            for j in range(2):
+                ar = Jp[:, :, i, j, 0][:, :, None, :]    # (L, K, 1, B)
+                ai = Jp[:, :, i, j, 1][:, :, None, :]
+                br = Cp[:, :, j, l, 0]                   # (L, K, Tc, B)
+                bi = Cp[:, :, j, l, 1]
+                tr = tr + ar * br - ai * bi
+                ti = ti + ar * bi + ai * br
+            jpc[i][l] = (tr, ti)
+
+    planes = [[None] * 2 for _ in range(2)]
+    for i in range(2):
+        for m in range(2):
+            mr = mi = 0.0
+            for l in range(2):
+                tr, ti = jpc[i][l]
+                cr = Jq[:, :, m, l, 0][:, :, None, :]
+                ci = Jq[:, :, m, l, 1][:, :, None, :]    # conj: -ci below
+                mr = mr + tr * cr + ti * ci
+                mi = mi - tr * ci + ti * cr
+            planes[i][m] = (mr.sum(dim=1), mi.sum(dim=1))  # sum over k
+    return planes
+
+
+def _cost_fn_onehot(x, Vp, Cp, onehots, prior, half_rho, cfg: SolverConfig):
+    """Per-lane chi^2 + sum_k rho_k/2 ||J_k - prior_k||^2: x (L, n),
+    Vp (L, i, m, c, Tc, B), Cp (L, K, j, l, c, Tc, B), prior
+    (L, K, 2N, 2, 2).  Returns (L,)."""
+    L = x.shape[0]
+    J = x.reshape(L, cfg.n_dirs, 2 * cfg.n_stations, 2, 2)
+    planes = _model_bilinear(J, J, Cp, onehots[0], onehots[1], cfg)
+    chi2 = 0.0
+    for i in range(2):
+        for m in range(2):
+            mr, mi = planes[i][m]
+            dr = Vp[:, i, m, 0] - mr
+            di = Vp[:, i, m, 1] - mi
+            chi2 = (chi2 + torch.sum(dr * dr, dim=(-2, -1))
+                    + torch.sum(di * di, dim=(-2, -1)))
+    pr = torch.sum((J - prior) ** 2, dim=(2, 3, 4))      # (L, K)
+    return chi2 + torch.sum(half_rho * pr, dim=-1)
+
+
+def _quartic_coeffs(x, d, Vp, Cp, onehots, prior, half_rho,
+                    cfg: SolverConfig):
+    """(L, 5) coefficients c0..c4 of the exact line-search quartic
+    phi(alpha) = cost(x + alpha d): the residual along d is
+    R0 - alpha P1 - alpha^2 P2 with R0 = V - F(J,J), P1 = F(D,J) + F(J,D)
+    and P2 = F(D,D).  P1 comes from the two mixed evaluations directly
+    (the polarization form cancels catastrophically in f32 once |D| << |J|,
+    see the JAX twin)."""
+    L = x.shape[0]
+    J = x.reshape(L, cfg.n_dirs, 2 * cfg.n_stations, 2, 2)
+    D = d.reshape(J.shape)
+    oh_p, oh_q = onehots
+    m0 = _model_bilinear(J, J, Cp, oh_p, oh_q, cfg)
+    m2 = _model_bilinear(D, D, Cp, oh_p, oh_q, cfg)
+    mdj = _model_bilinear(D, J, Cp, oh_p, oh_q, cfg)
+    mjd = _model_bilinear(J, D, Cp, oh_p, oh_q, cfg)
+    c0 = c1 = c2 = c3 = c4 = torch.zeros(L, dtype=x.dtype, device=x.device)
+
+    def tot(a):
+        return torch.sum(a, dim=(-2, -1))
+
+    for i in range(2):
+        for m in range(2):
+            for comp in range(2):
+                r0 = Vp[:, i, m, comp] - m0[i][m][comp]
+                p2 = m2[i][m][comp]
+                p1 = mdj[i][m][comp] + mjd[i][m][comp]
+                c0 = c0 + tot(r0 * r0)
+                c1 = c1 - 2.0 * tot(r0 * p1)
+                c2 = c2 + tot(p1 * p1) - 2.0 * tot(r0 * p2)
+                c3 = c3 + 2.0 * tot(p1 * p2)
+                c4 = c4 + tot(p2 * p2)
+    e = J - prior
+    c0 = c0 + torch.sum(half_rho * torch.sum(e * e, dim=(2, 3, 4)), dim=-1)
+    c1 = c1 + 2.0 * torch.sum(half_rho * torch.sum(e * D, dim=(2, 3, 4)),
+                              dim=-1)
+    c2 = c2 + torch.sum(half_rho * torch.sum(D * D, dim=(2, 3, 4)), dim=-1)
+    return torch.stack([c0, c1, c2, c3, c4], dim=-1)
+
+
+def _quartic_phi(coeffs):
+    """phi(alpha) -> (value, slope) of the quartic, per lane."""
+    c0, c1, c2, c3, c4 = coeffs.unbind(-1)
+
+    def phi(a):
+        val = c0 + a * (c1 + a * (c2 + a * (c3 + a * c4)))
+        der = c1 + a * (2.0 * c2 + a * (3.0 * c3 + a * 4.0 * c4))
+        return val, der
+
+    return phi
+
+
+class _QuarticLineSearch:
+    """``lbfgs.strong_wolfe_cubic`` on the quartic's (L, 5) coefficients.
+
+    The search is ~700 lane-masked ops on (L,) tensors.  Launched one by
+    one on a GPU they cost the host more than the whole search costs the
+    device, so on CUDA they are captured once into a CUDA graph and each
+    call is one replay.  Elsewhere the search runs eagerly."""
+
+    def __init__(self, n_lanes, dtype, device):
+        self.n_lanes, self.dtype, self.device = n_lanes, dtype, device
+        self.graph = None
+
+    def _search(self, coeffs):
+        return lbfgs.strong_wolfe_cubic(_quartic_phi(coeffs), self.n_lanes,
+                                        dtype=self.dtype, device=self.device)
+
+    def __call__(self, coeffs):
+        if self.device.type != "cuda":
+            return self._search(coeffs)
+        if self.graph is None:
+            self.coeffs = coeffs.clone()
+            side = torch.cuda.Stream(self.device)     # warm-up, then capture
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._search(self.coeffs)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.step = self._search(self.coeffs)
+        self.coeffs.copy_(coeffs)
+        self.graph.replay()
+        return self.step.clone()
+
+
+def _eval_operands(V6, C7):
+    """Planes-major inner-evaluation operands, flattened to lanes, built once
+    per solve: V6 (Nf, Ts, td, B, 2, 2, 2) -> Vp (L, i, m, c, td, B);
+    C7 (Nf, Ts, K, td, B, 2, 2, 2) -> Cp (L, K, j, l, c, td, B)."""
+    Vp = V6.permute(0, 1, 4, 5, 6, 2, 3)
+    Cp = C7.permute(0, 1, 2, 5, 6, 7, 3, 4)
+    return (Vp.reshape((-1,) + tuple(Vp.shape[2:])).contiguous(),
+            Cp.reshape((-1,) + tuple(Cp.shape[2:])).contiguous())
+
+
+def _prep(V, C, freqs, f0, rho, cfg: SolverConfig, Ts):
+    """Scale normalization + chunking + consensus operators.  Data and model
+    are divided by the data scale and rho by its square (the minimizer is
+    unchanged, the f32 arithmetic stays O(1)); _finalize undoes it."""
+    B = V.shape[2]
+    data_scale = torch.sqrt(torch.mean(V * V)) + 1e-20
+    V = V / data_scale
+    C = C / data_scale
+    rho = rho / (data_scale * data_scale)
+    V6 = vis_to_chunks(V, Ts)                            # (Nf,Ts,td,B,...)
+    C7 = coherency_to_chunks(C, B, Ts)                   # (Nf,Ts,K,td,B,...)
+    bfull = consensus.poly_basis(freqs, f0, cfg.n_poly, cfg.polytype)
+    btb = bfull.T @ bfull
+    tr = torch.trace(btb) / cfg.n_poly
+    eye = torch.eye(cfg.n_poly, dtype=btb.dtype, device=btb.device)
+    Bi = torch.linalg.pinv(rho[:, None, None] * btb
+                           + (1e-6 * rho * tr + 1e-30)[:, None, None] * eye)
+    return V6, C7, rho, data_scale, bfull, Bi
+
+
+def _bz(bfull, Z):
+    """B_f Z: (Nf, Ts, K, 2N, 2, 2) from Z (Ts, K, Ne, 2N, 2, 2)."""
+    return torch.einsum("fe,tkenij->ftknij", bfull, Z)
+
+
+def _z_update(bfull, Bi, rho, J, Y):
+    """Z = Bi_k sum_f b_f (rho_k J_fk + Y_fk)."""
+    w = rho[None, None, :, None, None, None] * J + Y
+    S = torch.einsum("fe,ftknij->tkenij", bfull, w)
+    return torch.einsum("kem,tkmnij->tkenij", Bi, S)
+
+
+def _finalize(J, V6, C7, data_scale, cost, cfg: SolverConfig, T):
+    """Residual over the full data + noise statistics, in DATA units."""
+    Nf, B = V6.shape[0], V6.shape[3]
+    r = V6 - predict_vis_sr(J, C7, cfg.n_stations)
+    residual = r.reshape(Nf, T, B, 2, 2, 2) * data_scale
+    n_res = torch.sum(residual * residual)
+    n_dat = torch.sum(V6 * V6) * data_scale * data_scale
+    count = float(residual.numel())
+    return (residual, torch.sqrt(n_res / count), torch.sqrt(n_dat / count),
+            cost * data_scale * data_scale)
+
+
+def _value_and_grad(cost):
+    """(L, n) -> ((L,) values, (L, n) gradients) of a per-lane cost.  Lanes
+    are independent, so the gradient of the lane sum is exact per lane."""
+    def vag(x):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            val = cost(xr)
+            (g,) = torch.autograd.grad(val.sum(), xr)
+        return val.detach(), g
+    return vag
+
+
+def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
+               admm_iters: Optional[int] = None) -> SolveResult:
+    """Consensus-ADMM calibration over frequency sub-bands, cold start.
+
+    V     : (Nf, T, B, 2, 2, 2) observed visibilities (split-real 2x2)
+    C     : (Nf, K, T*B, 4, 2) model coherencies (kernel convention)
+    freqs : (Nf,) Hz; f0 reference frequency
+    rho   : (K,) per-direction ADMM regularization
+    n_chunks : solution intervals Ts; the chi2-only init phase runs first
+    admm_iters : optional override of ``cfg.admm_iters``
+    """
+    dev = V.device
+    Nf, T = V.shape[0], V.shape[1]
+    K, N = cfg.n_dirs, cfg.n_stations
+    Ts = n_chunks
+    niter = cfg.admm_iters if admm_iters is None else int(admm_iters)
+    rho = torch.as_tensor(rho, dtype=V.dtype, device=dev)
+    V6, C7, rho, data_scale, bfull, Bi = _prep(V, C, freqs, f0, rho, cfg,
+                                               Ts)
+    eye = torch.zeros((2, 2, 2), dtype=V.dtype, device=dev)
+    eye[:, :, 0] = torch.eye(2, dtype=V.dtype, device=dev)
+    J = eye.expand(Nf, Ts, K, N, 2, 2, 2).reshape(Nf, Ts, K, 2 * N, 2, 2)
+
+    Vp, Cp = _eval_operands(V6, C7)
+    onehots = baseline_onehots(N, V.dtype, dev)
+    L = Nf * Ts
+    x_shape = (L, K * 2 * N * 2 * 2)
+    p_shape = (L, K, 2 * N, 2, 2)
+    search = _QuarticLineSearch(L, V.dtype, dev)
+
+    def inner_solve(x0, prior, half_rho, iters):
+        def cost(x):
+            return _cost_fn_onehot(x, Vp, Cp, onehots, prior, half_rho, cfg)
+
+        def line_search(x, d):
+            return search(_quartic_coeffs(x, d, Vp, Cp, onehots, prior,
+                                          half_rho, cfg))
+
+        return lbfgs.lbfgs_solve(_value_and_grad(cost), x0, max_iters=iters,
+                                 line_search=line_search)
+
+    if cfg.init_iters > 0:
+        # chi2-only initialization at the per-subband data optimum
+        res = inner_solve(J.reshape(x_shape), J.reshape(p_shape),
+                          torch.zeros_like(rho), cfg.init_iters)
+        J = res.x.reshape(J.shape)
+
+    half_rho = 0.5 * rho
+    rho6 = rho[None, None, :, None, None, None]
+    Y = torch.zeros_like(J)
+    Z = _z_update(bfull, Bi, rho, J, Y)
+    cost = torch.zeros((Nf, Ts), dtype=V.dtype, device=dev)
+    for _ in range(niter):
+        prior = _bz(bfull, Z) - Y / rho6
+        res = inner_solve(J.reshape(x_shape), prior.reshape(p_shape),
+                          half_rho, cfg.lbfgs_iters)
+        J = res.x.reshape(J.shape)
+        cost = res.loss.reshape(Nf, Ts)
+        Z = _z_update(bfull, Bi, rho, J, Y)
+        Y = Y + rho6 * (J - _bz(bfull, Z))
+
+    residual, sigma_res, sigma_data, fcost = _finalize(
+        J, V6, C7, data_scale, cost, cfg, T)
+    return SolveResult(J=J, Z=Z, residual=residual, sigma_res=sigma_res,
+                       sigma_data=sigma_data, final_cost=fcost)
+
+
+def result_finite(res: SolveResult) -> bool:
+    """Are the solutions, residuals and costs all finite?  One sync."""
+    ok = (torch.isfinite(res.J).all() & torch.isfinite(res.residual).all()
+          & torch.isfinite(res.final_cost).all())
+    return bool(ok)
+
+
+def solve_admm_safe(solve_fn, rho, *, max_retries: int = 2,
+                    rho_boost: float = 10.0):
+    """Graceful degradation around a solve: non-finite iterates re-solve at
+    ``rho * rho_boost**attempt`` (bounded retries), then raise
+    :class:`SolverDegradedError`.  Returns ``(result, info)``.  (The JAX
+    ladder's last rung, the host-segmented route, is not ported.)"""
+    info = {"degraded": False, "attempts": 0, "rho_scale": 1.0}
+    res = solve_fn(rho)
+    if result_finite(res):
+        return res, info
+    info["degraded"] = True
+    for attempt in range(1, max_retries + 1):
+        scale = float(rho_boost) ** attempt
+        info.update(attempts=attempt, rho_scale=scale)
+        res = solve_fn(rho * scale)
+        if result_finite(res):
+            return res, info
+    raise SolverDegradedError(
+        f"non-finite ADMM iterates survived {info['attempts']} rho-boosted "
+        f"retries (x{rho_boost})")
+
+
+def simulate_vis_multi_sr(J, C, n_stations, Ts):
+    """Corrupt model coherencies with per-interval Jones for every sub-band:
+    J (Nf, Ts, K, 2N, 2, 2), C (Nf, K, T*B, 4, 2) -> (Nf, T, B, 2, 2, 2)."""
+    B = n_stations * (n_stations - 1) // 2
+    C7 = coherency_to_chunks(C, B, Ts)                   # (Nf,Ts,K,td,B,..)
+    V = predict_vis_sr(J, C7, n_stations)                # (Nf,Ts,td,B,..)
+    return V.reshape(V.shape[0], -1, B, 2, 2, 2)
+
+
+def residual_to_kernel(residual):
+    """(T, B, 2, 2, 2) solver residual -> kernel-convention R (2BT, 2, 2)."""
+    T, B = residual.shape[0], residual.shape[1]
+    return residual.reshape(2 * T * B, 2, 2)
+
+
+def stokes_i_std(V):
+    """std of Stokes I = (XX + YY)/2 real/imag planes (population std)."""
+    sI = 0.5 * (V[..., 0, 0, :] + V[..., 1, 1, :])
+    return torch.std(sI, correction=0)

@@ -1,0 +1,306 @@
+"""Full-batch L-BFGS with the strong-Wolfe cubic line search, batched over
+an explicit lane axis (counterpart of smartcal_tpu/ops/lbfgs.py).
+
+The JAX solver runs ``lbfgs_solve`` under ``vmap(vmap(...))`` over the
+(frequency, interval) lanes.  A batched JAX ``while_loop`` runs until
+EVERY lane has stopped, and a stopped lane keeps its carry (the loop
+condition becomes a select); every ``lax.cond`` becomes a select too, so
+both branches run and the lane picks one.  This module writes those
+semantics out: every tensor carries a leading lane axis ``L``, the loop
+runs while any lane is active, and inactive lanes are frozen with
+``torch.where``.  The trajectories therefore follow the JAX package's
+lane by lane.
+
+The line search only ever sees ``phi(alpha) -> (value, slope)`` on (L,)
+tensors, and every branch of it is a lane-masked ``torch.where``, so it
+runs where ``x`` lives without a host sync.  The one sync per iteration is
+the ``active.any()`` test that ends the loop.
+"""
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+LBFGS_HISTORY_DEFAULT = 7
+
+
+class LBFGSHistory(NamedTuple):
+    """Ring buffers of curvature pairs per lane, oldest row first: ``count``
+    rows at the END of (L, m, n) ``s``/``y`` are valid; ``gamma`` (L,) is
+    the initial inverse-Hessian scale y's/y'y of the newest pair."""
+
+    s: torch.Tensor
+    y: torch.Tensor
+    count: torch.Tensor
+    gamma: torch.Tensor
+
+
+class LBFGSResult(NamedTuple):
+    x: torch.Tensor          # (L, n)
+    loss: torch.Tensor       # (L,)
+    grad: torch.Tensor       # (L, n)
+    hist: LBFGSHistory
+    n_iters: torch.Tensor    # (L,) int32
+    converged: torch.Tensor  # (L,) bool
+    stop: torch.Tensor       # (L,) bool
+    diverged: torch.Tensor   # (L,) bool
+
+
+def history_init(n_lanes, n, history_size=LBFGS_HISTORY_DEFAULT,
+                 dtype=torch.float32, device="cpu") -> LBFGSHistory:
+    z = torch.zeros((n_lanes, history_size, n), dtype=dtype, device=device)
+    return LBFGSHistory(
+        s=z, y=z.clone(),
+        count=torch.zeros(n_lanes, dtype=torch.int32, device=device),
+        gamma=torch.ones(n_lanes, dtype=dtype, device=device))
+
+
+def history_push(hist: LBFGSHistory, s, y, accept) -> LBFGSHistory:
+    """Append a curvature pair on the lanes where ``accept`` holds,
+    evicting the oldest (lbfgsnew.py:610-622)."""
+    m = hist.s.shape[1]
+    new_s = torch.cat([hist.s[:, 1:], s[:, None]], dim=1)
+    new_y = torch.cat([hist.y[:, 1:], y[:, None]], dim=1)
+    ys = torch.sum(y * s, dim=-1)
+    yy = torch.sum(y * y, dim=-1)
+    a3 = accept[:, None, None]
+    return LBFGSHistory(
+        s=torch.where(a3, new_s, hist.s),
+        y=torch.where(a3, new_y, hist.y),
+        count=torch.where(accept, torch.clamp(hist.count + 1, max=m),
+                          hist.count),
+        gamma=torch.where(accept, ys / yy, hist.gamma))
+
+
+def two_loop_direction(hist: LBFGSHistory, grad):
+    """Descent direction -H^{-1} g per lane by the two-loop recursion,
+    invalid ring rows masked to no-ops (lbfgsnew.py:629-651)."""
+    m = hist.s.shape[1]
+    rows = torch.arange(m, device=grad.device)
+    valid = rows[None, :] >= (m - hist.count)[:, None]          # (L, m)
+    ys = torch.sum(hist.y * hist.s, dim=-1)
+    rho = torch.where(valid, 1.0 / torch.where(valid, ys, torch.ones_like(ys)),
+                      torch.zeros_like(ys))
+    q = -grad
+    al = [None] * m
+    for i in reversed(range(m)):                                # newest first
+        al[i] = rho[:, i] * torch.sum(hist.s[:, i] * q, dim=-1)
+        q = q - al[i][:, None] * hist.y[:, i]
+    scale = torch.where(hist.count > 0, hist.gamma,
+                        torch.ones_like(hist.gamma))
+    r = q * scale[:, None]
+    for i in range(m):
+        be = rho[:, i] * torch.sum(hist.y[:, i] * r, dim=-1)
+        r = r + (al[i] - be)[:, None] * hist.s[:, i]
+    return r
+
+
+def _cubic_choose(phi, a, fa, fad, b, fb, fbd):
+    """Cubic-interpolation trial point in [a, b] from precomputed endpoint
+    values (lbfgsnew.py:319-409); at most one new phi eval.  Returns
+    (point, f(point), f'(point)) per lane."""
+    one = torch.ones_like(a)
+    denom = torch.where(b == a, one, b - a)
+    aa = 3.0 * (fa - fb) / denom + fbd - fad
+    disc = aa * aa - fad * fbd
+
+    # disc > 0 branch
+    cc = torch.sqrt(torch.clamp(disc, min=0.0))
+    den2 = fbd - fad + 2.0 * cc
+    z0 = torch.where(den2 == 0.0, 0.5 * (a + b),
+                     b - (fbd + cc - aa) * (b - a)
+                     / torch.where(den2 == 0.0, one, den2))
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    inside = (z0 <= hi) & (z0 >= lo)
+    fz0, fz0d = phi(z0)
+    fz0 = torch.where(inside, fz0, torch.full_like(fz0, float("inf")))
+    pick_a = (fa < fb) & (fa < fz0)
+    pick_b = (~pick_a) & (fb < fz0)
+    p_out = torch.where(pick_a, a, torch.where(pick_b, b, z0))
+    p_f = torch.where(pick_a, fa, torch.where(pick_b, fb, fz0))
+    p_fd = torch.where(pick_a, fad, torch.where(pick_b, fbd, fz0d))
+
+    # disc <= 0 branch
+    pa = fa < fb
+    n_out = torch.where(pa, a, b)
+    n_f = torch.where(pa, fa, fb)
+    n_fd = torch.where(pa, fad, fbd)
+
+    pos = disc > 0.0
+    return (torch.where(pos, p_out, n_out), torch.where(pos, p_f, n_f),
+            torch.where(pos, p_fd, n_fd))
+
+
+def strong_wolfe_cubic(phi: Callable, n_lanes: int, lr: float = 1.0,
+                       dtype=torch.float32, device="cpu"):
+    """Fletcher strong-Wolfe line search with cubic interpolation, per lane
+    (lbfgsnew.py:192-316; bracket trip count 3, zoom 4).  ``phi(alpha)``
+    maps (L,) step sizes on ``device`` to (value, directional derivative).
+    Returns the (L,) step; no host sync."""
+    sigma, rho_ls = 0.1, 0.01
+    t1, t2, t3 = 9.0, 0.1, 0.5
+
+    phi_0, gphi_0 = phi(torch.zeros(n_lanes, dtype=dtype, device=device))
+
+    def full(v):
+        return torch.full((n_lanes,), v, dtype=dtype, device=device)
+
+    tol = torch.clamp(phi_0 * 0.01, max=1e-6)
+    mu = (tol - phi_0) / (rho_ls * gphi_0)
+
+    def keep(flag, old, new):
+        return torch.where(flag, old, new)
+
+    def zoom(a, b, fa, fad):
+        aj, bj, faj, fajd = a, b, fa, fad
+        alphak, found = full(lr), torch.zeros(n_lanes, dtype=torch.bool,
+                                              device=device)
+        for _ in range(4):
+            p01 = aj + t2 * (bj - aj)
+            p02 = bj - t3 * (bj - aj)
+            f01, f01d = phi(p01)
+            f02, f02d = phi(p02)
+            alphaj, phi_j, gphi_j = _cubic_choose(phi, p01, f01, f01d,
+                                                  p02, f02, f02d)
+            cond_shrink = ((phi_j > phi_0 + rho_ls * alphaj * gphi_0)
+                           | (phi_j >= faj))
+            term1 = (aj - alphaj) * gphi_j <= 1e-6
+            term2 = torch.abs(gphi_j) <= -sigma * gphi_0
+            newly_found = (~cond_shrink) & (term1 | term2)
+            bj_new = torch.where(cond_shrink, alphaj,
+                                 torch.where(gphi_j * (bj - aj) >= 0.0,
+                                             aj, bj))
+            aj_new = torch.where(cond_shrink, aj, alphaj)
+            faj_new = torch.where(cond_shrink, faj, phi_j)
+            fajd_new = torch.where(cond_shrink, fajd, gphi_j)
+            alphak = torch.where(found, alphak, alphaj)
+            aj, bj = keep(found, aj, aj_new), keep(found, bj, bj_new)
+            faj, fajd = keep(found, faj, faj_new), keep(found, fajd, fajd_new)
+            found = found | newly_found
+        return alphak
+
+    # bracket phase
+    alphai, alphai1 = full(10.0 * lr), full(0.0)
+    fi, fid = phi(alphai)
+    fi1, fi1d, phi_prev = phi_0, gphi_0, phi_0
+    alphak = full(lr)
+    done = torch.zeros(n_lanes, dtype=torch.bool, device=device)
+    for i in range(3):
+        phi_i, gphi_i = fi, fid
+        cond0 = phi_i < tol
+        cond1 = phi_i > phi_0 + alphai * gphi_0
+        if i > 0:
+            cond1 = cond1 | (phi_i >= phi_prev)
+        cond2 = torch.abs(gphi_i) <= -sigma * gphi_0
+        cond3 = gphi_i >= 0.0
+        need_zoom = (~cond0) & (cond1 | ((~cond2) & cond3))
+        za = torch.where(cond1, alphai1, alphai)
+        zb = torch.where(cond1, alphai, alphai1)
+        fza = torch.where(cond1, fi1, fi)
+        fzad = torch.where(cond1, fi1d, fid)
+        zoom_val = torch.where(need_zoom, zoom(za, zb, fza, fzad), full(lr))
+
+        newly_done = cond0 | cond1 | cond2 | cond3
+        val = torch.where(cond0, alphai,
+                          torch.where(cond1, zoom_val,
+                                      torch.where(cond2, alphai, zoom_val)))
+
+        # continuation: extrapolate or interpolate the next trial point
+        lo = 2.0 * alphai - alphai1
+        hi = torch.minimum(mu, alphai + t1 * (alphai - alphai1))
+        flo, flod = phi(lo)
+        fhi, fhid = phi(hi)
+        cand, fcand, fcandd = _cubic_choose(phi, lo, flo, flod, hi, fhi, fhid)
+        use_mu = mu <= lo
+        next_ai = torch.where(use_mu, mu, cand)
+        next_ai1 = torch.where(use_mu, alphai, alphai1)
+        fmu, fmud = phi(mu)
+        fnext = torch.where(use_mu, fmu, fcand)
+        fnextd = torch.where(use_mu, fmud, fcandd)
+        fnext1 = torch.where(use_mu, fi, fi1)
+        fnext1d = torch.where(use_mu, fid, fi1d)
+
+        alphak = torch.where(done, alphak,
+                             torch.where(newly_done, val, alphak))
+        done = done | newly_done
+        alphai, alphai1 = keep(done, alphai, next_ai), keep(done, alphai1,
+                                                             next_ai1)
+        fi, fid = keep(done, fi, fnext), keep(done, fid, fnextd)
+        fi1, fi1d = keep(done, fi1, fnext1), keep(done, fi1d, fnext1d)
+        phi_prev = keep(done, phi_prev, phi_i)
+
+    # degenerate-slope guards (the reference returns 1.0)
+    degenerate = (torch.abs(gphi_0) < 1e-12) | torch.isnan(mu)
+    alphak = torch.where(degenerate, full(1.0), alphak)
+    return torch.where(torch.isnan(alphak), full(lr), alphak)
+
+
+def _default_line_search(value_and_grad, lr):
+    """Strong-Wolfe search on phi(alpha) = (f(x + alpha d),
+    g(x + alpha d) . d) per lane: the generic objective when the cost has
+    no cheaper form."""
+    def line_search(x, d):
+        def phi(alpha):
+            f, g = value_and_grad(x + alpha[:, None] * d)
+            return f, torch.sum(g * d, dim=-1)
+        return strong_wolfe_cubic(phi, x.shape[0], lr=lr, dtype=x.dtype,
+                                  device=x.device)
+    return line_search
+
+
+def lbfgs_solve(value_and_grad: Callable, x0, max_iters: int = 200,
+                history_size: int = LBFGS_HISTORY_DEFAULT,
+                tolerance_grad: float = 1e-5,
+                tolerance_change: float = 1e-9, lr: float = 1.0,
+                line_search: Optional[Callable] = None) -> LBFGSResult:
+    """Minimise independent per-lane objectives by L-BFGS.
+
+    ``value_and_grad(x)`` maps (L, n) iterates to ((L,) values, (L, n)
+    gradients); ``line_search(x, d)`` returns the (L,) step along ``d``.  The
+    six early-exit tests of lbfgsnew.py:725-741 stop a lane; the loop ends
+    when no lane is active, checked once per iteration (the only sync)."""
+    L, n = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    line_search = line_search or _default_line_search(value_and_grad, lr)
+    x = x0
+    loss, g = value_and_grad(x0)
+    hist = history_init(L, n, history_size, dtype, dev)
+    it = torch.zeros(L, dtype=torch.int32, device=dev)
+    stop = torch.sum(torch.abs(g), dim=-1) <= tolerance_grad
+    diverged = torch.isnan(loss)
+    while True:
+        active = (it < max_iters) & (~stop)
+        if not bool(active.any()):
+            break
+        d = two_loop_direction(hist, g)
+        gtd = torch.sum(g * d, dim=-1)
+        t = line_search(x, d)
+        s = t[:, None] * d
+        x_new = x + s
+        loss_new, g_new = value_and_grad(x_new)
+
+        # curvature acceptance (lbfgsnew.py:610-613)
+        y_new = g_new - g
+        accept = torch.sum(y_new * s, dim=-1) > 1e-10 * torch.sum(s * s,
+                                                                  dim=-1)
+        hist_new = history_push(hist, s, y_new, accept & active)
+
+        abs_gsum = torch.sum(torch.abs(g_new), dim=-1)
+        diverged_new = diverged | torch.isnan(abs_gsum) | torch.isnan(loss_new)
+        stop_new = ((abs_gsum <= tolerance_grad)
+                    | (gtd > -tolerance_change)
+                    | (torch.sum(torch.abs(s), dim=-1) <= tolerance_change)
+                    | (torch.abs(loss_new - loss) < tolerance_change)
+                    | diverged_new)
+
+        a2 = active[:, None]
+        x = torch.where(a2, x_new, x)
+        g = torch.where(a2, g_new, g)
+        loss = torch.where(active, loss_new, loss)
+        hist = hist_new
+        it = it + active.to(torch.int32)
+        stop = torch.where(active, stop_new, stop)
+        diverged = torch.where(active, diverged_new, diverged)
+    return LBFGSResult(x=x, loss=loss, grad=g, hist=hist, n_iters=it,
+                       converged=stop & ~diverged, stop=stop,
+                       diverged=diverged)

@@ -1,0 +1,57 @@
+"""Import hygiene of the PyTorch port: no module of smartcal_tpu_torch and
+not chip_smoke.py imports ``jax`` or anything of the JAX package
+``smartcal_tpu`` (the ``smartcal_tpu_torch`` prefix itself is allowed)."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "smartcal_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax", "smartcal_tpu")
+
+
+def _imports(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def test_port_has_modules():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("cal/creal", "cal/precision", "cal/coords",
+                "cal/observation", "cal/coherency", "cal/simulate",
+                "cal/consensus", "cal/kernels", "ops/lbfgs", "cal/solver",
+                "cal/influence", "cal/imager", "ops/dft_imager",
+                "envs/radio", "envs/calib"):
+        assert f"smartcal_tpu_torch/{mod}.py" in names, mod
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_jax_package_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_forbidden_matches_prefix_correctly():
+    assert _forbidden("smartcal_tpu.cal.solver")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("smartcal_tpu_torch.cal.solver")
+    assert not _forbidden("torch")
