@@ -5,18 +5,28 @@
 1. checks for a GPU and prints its name and power limit;
 2. builds every CUDA kernel of smartcal_tpu_torch from csrc/ (one nvcc per
    source, all started together);
-3. drives the port's main path once: CalibEnv(M=10) on the reference-scale
-   RadioBackend (N=62 stations, Nf=3, T=20, tdelta=10, npix=128), reset
-   and two steps with the analytic hint, random sky from seed 0, with the
-   kernel launch counts zeroed just before and read just after;
-   then profiles a third step and one more solve with torch.profiler to
-   take the device's idle share (1 - busy device seconds / wall seconds);
-4. holds every kernel against its plain PyTorch version on the card, at the
-   main path's shapes (the episode's own uvw and data) and at a ragged R,
-   and times kernel, plain version and yardstick with CUDA events;
-5. checks the outputs (finite, sigma_res < sigma_data, launches on the
-   path, a tiny episode on the GPU against the same episode on the CPU);
-6. prints the kernel table as one JSON line, the card line, and last
+3. drives the reference-scale path: CalibEnv(M=10) on RadioBackend (N=62
+   stations, Nf=3, T=20, tdelta=10, npix=128), reset and two steps with the
+   analytic hint, random sky from seed 0, with the kernel launch counts
+   zeroed just before and read just after; then profiles a third step and
+   one more solve with torch.profiler to take the device's idle share
+   (1 - busy device seconds / wall seconds);
+4. holds the direct-DFT imager against its plain version at that path's
+   shapes and at a ragged R, and times kernel, plain version and the
+   factored-imager yardstick with CUDA events;
+5. drives the SKA-tier path: CalibEnv(M=10) on RadioBackend (N=256, Nf=3,
+   T=20, npix=1024: the blocked Hessian and the large-tier factored imager
+   chosen by threshold), reset and one step with the hint, counts zeroed
+   just before and read just after; the first call of each kernel in the
+   step keeps its operands; a second step is profiled for the idle share;
+6. holds each kernel against its plain version on the card at those
+   operands (the direct-DFT imager on a 4096-pixel subset) and at a ragged
+   case, and times kernel, plain version and library yardstick with CUDA
+   events; counts how many of three factored-imager launches
+   torch.profiler records (a check on the idle shares);
+7. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
+   blocked tier forced) and compares them;
+8. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -42,6 +52,17 @@ SFU_PER_CLOCK_PER_SM = 16
 BOOST_HZ = 1.98e9
 
 IMAGER_RTOL, IMAGER_ATOL = 2e-4, 2e-5   # tests/test_pallas_imager.py
+# tests/test_nscale_kernels.py: atol is this times max|ref|
+FACTORED_RTOL, FACTORED_ATOL = 2e-4, 2e-4
+# tests/test_pallas_hessian.py's rtol; the atol is taken relative to
+# max|ref| because the path's operands are not unit-scale
+HESSIAN_RTOL, HESSIAN_ATOL = 2e-4, 2e-5
+
+SKA = dict(n_stations=256, n_freqs=3, n_times=20, tdelta=10, n_poly=2,
+           admm_iters=10, lbfgs_iters=8, init_iters=30, npix=1024)
+SKA_STATICS = {"block_baselines": 2048, "imager_block_r": 4096}
+TINY = dict(n_stations=6, n_freqs=2, n_times=4, tdelta=2, admm_iters=2,
+            lbfgs_iters=3, init_iters=5, npix=32)
 
 
 def card_line():
@@ -51,9 +72,9 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=2):
     """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -67,17 +88,41 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
-def imager_bound_ms(P, R, n_sm):
-    """Least time for one direct-DFT image: bytes (uvw and vis read once,
-    the image written once) over HBM rate, and operations — 7 FP32 flops
-    per (pixel, sample) pair over the FP32 rate, and the 2 sine/cosine per
-    pair over the SFU rate.  Returns (ms, bound_by)."""
-    t_bytes = (R * 3 * 4 + R * 2 * 4 + P * 4) / HBM_BYTES_PER_S
-    t_flops = 7.0 * P * R / FP32_FLOPS_PER_S
-    t_sfu = 2.0 * P * R / (SFU_PER_CLOCK_PER_SM * n_sm * BOOST_HZ)
-    t_ops = max(t_flops, t_sfu)
+def bound(n_bytes, flops, sfu, n_sm):
+    """Least time (ms) for the work: bytes over the HBM rate, against FP32
+    flops over the FP32 rate and sine/cosine values over the SFU rate.
+    Returns (ms, bound_by)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(flops / FP32_FLOPS_PER_S,
+                sfu / (SFU_PER_CLOCK_PER_SM * n_sm * BOOST_HZ))
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
+
+
+def imager_bound_ms(P, R, n_sm):
+    """Direct-DFT image: uvw and vis read once, the image written once;
+    7 FP32 flops and 2 sine/cosine per (pixel, sample) pair."""
+    return bound(R * 3 * 4 + R * 2 * 4 + P * 4, 7.0 * P * R, 2.0 * P * R,
+                 n_sm)
+
+
+def factored_bound_ms(npix, R, n_sm):
+    """Factored image: uvw and vis read once, the image written once;
+    4 npix^2 R FP32 flops (two FMAs per pixel and sample) and the
+    4 npix R sine/cosine values of the axis planes."""
+    return bound(R * 3 * 4 + R * 2 * 4 + npix * npix * 4,
+                 4.0 * npix * npix * R, 4.0 * npix * R, n_sm)
+
+
+def hessian_bound_ms(args, n_sm):
+    """Block sums: every operand read once, off and Dsum written once;
+    384 FP32 flops per (k, t, b) (off 128, A1, Sp, A2, Sq 64 each)."""
+    R3, C5, Jp, Jq, p_idx, q_idx, N = args
+    K, Td, B = C5.shape[0], C5.shape[1], C5.shape[2]
+    n_in = sum(t.numel() * t.element_size()
+               for t in (R3, C5, Jp, Jq, p_idx, q_idx))
+    n_out = (K * B * 32 + K * N * 8) * 4
+    return bound(n_in + n_out, 384.0 * K * Td * B, 0.0, n_sm)
 
 
 def device_busy_seconds(fn):
@@ -108,8 +153,65 @@ def device_busy_seconds(fn):
     return wall, 1e-9 * (busy_ns + cur_e - cur_s)
 
 
-def check_imager(dft_imager, imager, uvw, vis, freq, cell, npix, label):
-    """Kernel vs plain version on the card; returns the error stats."""
+def profiler_capture(fn, name_part, reps=3):
+    """How many of ``reps`` calls of ``fn`` (one launch each of a kernel
+    whose name holds ``name_part``) torch.profiler records, and their mean
+    recorded milliseconds: a check on the device spans behind the idle
+    shares, which are upper bounds when records go missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [1e-6 * e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and name_part in e.name()]
+    return len(durs), (float(np.mean(durs)) if durs else None)
+
+
+class FirstCall:
+    """Stands in for ``module.name`` and keeps the arguments of its first
+    call; every call goes through to the wrapped function (which counts
+    its launches itself)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args = None
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        if self.args is None:
+            self.args = (args, kw)
+        return self.fn(*args, **kw)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def check_close(name, label, out, ref, rtol, atol_scale, atol_ref):
+    """Raise unless |out - ref| <= atol_scale * atol_ref + rtol * |ref|
+    everywhere and out is finite; returns the max abs error."""
+    err = (out - ref).abs()
+    tol = atol_scale * atol_ref + rtol * ref.abs()
+    ok = bool(torch.isfinite(out).all()) and bool((err <= tol).all())
+    max_abs = float(err.max())
+    max_rel = float((err / ref.abs().clamp(min=1e-30)).max())
+    print(f"{name} check {label}: shape {tuple(out.shape)} max_abs_err="
+          f"{max_abs:.3e} max_rel_err={max_rel:.3e} tol=|d| <= {atol_scale}"
+          f"*{atol_ref:.4g} + {rtol}*|ref| -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({label})")
+    return max_abs
+
+
+def check_imager(dft_imager, uvw, vis, freq, cell, npix, label):
+    """Direct-DFT kernel vs plain version on the card; returns
+    (uv, lm, vis, max abs error)."""
     scale = torch.tensor(dft_imager.uv_scale(freq), device=uvw.device)
     uv = (uvw[:, :2] * scale).contiguous()
     lm = dft_imager.pixel_grid(npix, cell, uvw.device)
@@ -117,21 +219,86 @@ def check_imager(dft_imager, imager, uvw, vis, freq, cell, npix, label):
     out = dft_imager.dirty_image_cuda(uv, lm, vis)
     ref = dft_imager.dirty_image_reference(uv, lm, vis)
     torch.cuda.synchronize()
-    err = (out - ref).abs()
-    vscale = float(vis.abs().mean())
-    tol = IMAGER_ATOL * vscale + IMAGER_RTOL * ref.abs()
-    ok = bool(torch.isfinite(out).all()) and bool((err <= tol).all())
-    max_abs = float(err.max())
-    max_rel = float((err / ref.abs().clamp(min=1e-30)).max())
-    print(f"imager check {label}: npix={npix} R={uv.shape[0]} "
-          f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-          f"tol=|d| <= {IMAGER_ATOL}*mean|vis| + {IMAGER_RTOL}*|ref| "
-          f"(mean|vis|={vscale:.4g}) -> {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise AssertionError(f"dft_imager disagrees with its plain version "
-                             f"({label})")
-    return uv, lm, vis, max_abs
+    err = check_close("dft_imager", f"{label} npix={npix} R={uv.shape[0]}",
+                      out, ref, IMAGER_RTOL, IMAGER_ATOL,
+                      float(vis.abs().mean()))
+    return uv, lm, vis, err
+
+
+def random_imager_case(seed, R, dev, freq=150e6):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    uvw = (torch.rand((R, 3), generator=g) * 4e3 - 2e3).to(dev)
+    vis = torch.randn((R, 2), generator=g).to(dev)
+    return uvw, vis, freq
+
+
+def check_outputs(obs_list, steps, npix, K):
+    for o in obs_list:
+        if not all(np.all(np.isfinite(v)) for v in o.values()):
+            raise AssertionError("non-finite observation")
+        if o["img"].shape != (npix, npix) or o["sky"].shape != (K + 1, 7):
+            raise AssertionError(f"observation shapes {o['img'].shape} "
+                                 f"{o['sky'].shape}")
+    for s in steps:
+        if not (math.isfinite(s["reward"]) and math.isfinite(s["sigma_res"])):
+            raise AssertionError("non-finite reward or sigma_res")
+        if not s["sigma_res"] < s["sigma_data"]:
+            raise AssertionError("calibration did not reduce the residual")
+
+
+def run_steps(env, n):
+    steps = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        obs, reward, _done, _hint, info = env.step(env.hint)
+        steps.append({"seconds": time.perf_counter() - t0,
+                      "reward": float(reward), **info})
+    return obs, steps
+
+
+def print_path(label, env, backend, t_reset, steps, peak, launches):
+    print(f"{label}: K={env.K} reset {t_reset:.3f} s, steps "
+          + ", ".join(f"{s['seconds']:.3f} s" for s in steps), flush=True)
+    for s in steps:
+        print(f"  reward {s['reward']:.6f} sigma_res {s['sigma_res']:.6f} "
+              f"sigma_data {s['sigma_data']:.6f}", flush=True)
+    print("  stage seconds (host clock, synchronized): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in backend.stage_seconds.items())
+          + f"; peak device memory {peak / 2**20:.0f} MiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+
+
+def idle_share(label, wall, busy, wall_prof):
+    if busy is None:
+        print(f"{label} idle share: not measured (the profiler saw no device "
+              "activity)", flush=True)
+        return None
+    share = 1.0 - busy / wall
+    print(f"{label} idle share {share:.4f} (busy {busy:.4f} s of {wall:.4f} "
+          f"s; profiled wall {wall_prof:.4f} s)", flush=True)
+    return share
+
+
+def tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, label, **extra):
+    """The same tiny episode on the GPU and on the CPU; raises beyond
+    1e-3 (f32 reduction order and trig differ)."""
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        e = CalibEnv(M=3, backend=RadioBackend(device=d, **TINY, **extra),
+                     seed=0, provide_hint=True, device=d)
+        o = e.reset()
+        o2, r, _, _, inf = e.step(e.hint)
+        outs.append((o["img"], o2["img"], r, inf["sigma_res"]))
+    rel = [float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+           for a, b in zip(outs[0][:2], outs[1][:2])]
+    rel_r = abs(outs[0][2] - outs[1][2]) / abs(outs[1][2])
+    rel_s = abs(outs[0][3] - outs[1][3]) / abs(outs[1][3])
+    print(f"tiny episode {label} GPU vs CPU: img rel {rel[0]:.2e}/"
+          f"{rel[1]:.2e}, reward rel {rel_r:.2e}, sigma_res rel {rel_s:.2e} "
+          "(tolerance 1e-3: f32 reduction order and trig differ)", flush=True)
+    if max(rel + [rel_r, rel_s]) > 1e-3:
+        raise AssertionError(f"tiny episode {label}: GPU and CPU disagree")
+    return rel + [rel_r, rel_s]
 
 
 def main():
@@ -142,19 +309,32 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from smartcal_tpu_torch.cal import imager
+    from smartcal_tpu_torch.cal import imager, kernels
     from smartcal_tpu_torch.envs.calib import CalibEnv
     from smartcal_tpu_torch.envs.radio import RadioBackend
-    from smartcal_tpu_torch.ops import build, dft_imager
+    from smartcal_tpu_torch.ops import (build, dft_imager, factored_imager,
+                                        hessian_blocks)
+
+    t_start = time.perf_counter()
+    counters = {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
+                "factored_imager": factored_imager}
+
+    def zero_counts():
+        for m in counters.values():
+            m.launches = 0
+
+    def read_counts():
+        return {k: m.launches for k, m in counters.items()}
 
     report = {}
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     props = torch.cuda.get_device_properties(dev)
+    n_sm = props.multi_processor_count
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {props.name} sms "
-          f"{props.multi_processor_count}", flush=True)
+          f"cuda {torch.version.cuda} device {props.name} sms {n_sm}",
+          flush=True)
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -163,57 +343,36 @@ def main():
     for name, (sec, log) in built.items():
         print(f"built {name} in {sec:.2f} s\n{log.strip()}", flush=True)
     print(f"build total {report['build_seconds']:.2f} s", flush=True)
+    missing = set(counters) - set(build.sources())
+    if missing:
+        raise AssertionError(f"no CUDA source for {sorted(missing)}")
 
-    # -- main path: reference-scale CalibEnv, reset + 2 steps --------------
+    # -- reference-scale path: CalibEnv(M=10) at N=62, reset + 2 steps ------
     backend = RadioBackend(n_stations=62, n_freqs=3, n_times=20, tdelta=10,
                            n_poly=2, admm_iters=10, lbfgs_iters=8,
                            init_iters=30, npix=128, device=dev)
     env = CalibEnv(M=10, backend=backend, seed=0, provide_hint=True,
                    device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    dft_imager.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     obs0 = env.reset()
     t_reset = time.perf_counter() - t0
-    steps = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        obs, reward, _done, _hint, info = env.step(env.hint)
-        steps.append({"seconds": time.perf_counter() - t0,
-                      "reward": float(reward), **info})
-    path_launches = dft_imager.launches
-    report.update(reset_seconds=t_reset, steps=steps, K=env.K,
-                  stage_seconds=dict(backend.stage_seconds),
-                  peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
-                  dft_imager_launches=path_launches,
-                  sigma_data_img=env._sigma_data_img)
-    print(f"main path: K={env.K} reset {t_reset:.3f} s, steps "
-          + ", ".join(f"{s['seconds']:.3f} s" for s in steps), flush=True)
-    for s in steps:
-        print(f"  reward {s['reward']:.6f} sigma_res {s['sigma_res']:.6f} "
-              f"sigma_data {s['sigma_data']:.6f}", flush=True)
-    print("stage seconds (host clock, synchronized): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in backend.stage_seconds.items())
-          + f"; peak device memory {report['peak_mem_bytes'] / 2**20:.0f} MiB"
-          f"; dft_imager launches {path_launches}", flush=True)
-    for o in (obs0, obs):
-        if not all(np.all(np.isfinite(v)) for v in o.values()):
-            raise AssertionError("non-finite observation")
-        if o["img"].shape != (128, 128) or o["sky"].shape != (11, 7):
-            raise AssertionError("observation shapes")
-    for s in steps:
-        if not (math.isfinite(s["reward"]) and math.isfinite(s["sigma_res"])):
-            raise AssertionError("non-finite reward or sigma_res")
-        if not s["sigma_res"] < s["sigma_data"]:
-            raise AssertionError("calibration did not reduce the residual")
-    if path_launches < 9:
-        raise AssertionError(f"dft_imager launched {path_launches} times on "
-                             "the main path, expected >= 9")
+    obs, steps = run_steps(env, 2)
+    n62_launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print_path("N=62 path", env, backend, t_reset, steps, peak, n62_launches)
+    check_outputs((obs0, obs), steps, 128, env.M)
+    if n62_launches["dft_imager"] < 9:
+        raise AssertionError(f"dft_imager launched {n62_launches} times on "
+                             "the N=62 path, expected >= 9")
+    report["n62"] = dict(reset_seconds=t_reset, steps=steps, K=env.K,
+                         stage_seconds=dict(backend.stage_seconds),
+                         peak_mem_bytes=peak, launches=n62_launches,
+                         sigma_data_img=env._sigma_data_img)
 
-    # -- device idle share: a third step and its solve, profiled -----------
-    # busy = union of device kernel/copy spans; the share is taken against
-    # the unprofiled step seconds above (the profiler slows the host)
-    t_prof = time.perf_counter()
+    # device idle share: a third step and its solve, profiled; the share is
+    # taken against the unprofiled seconds (the profiler slows the host)
     step_wall_prof, step_busy = device_busy_seconds(
         lambda: env.step(env.hint))
     mask = np.zeros(env.M, np.float32)
@@ -226,87 +385,260 @@ def main():
     solve_wall_prof, solve_busy = device_busy_seconds(
         lambda: backend.calibrate(env.ep, rho, mask=mask))
     step_wall = float(np.mean([s["seconds"] for s in steps]))
-    print(f"idle-share phase {time.perf_counter() - t_prof:.2f} s",
-          flush=True)
-    idle = {"step_wall_s": step_wall, "step_wall_profiled_s": step_wall_prof,
-            "step_device_busy_s": step_busy, "solve_wall_s": solve_wall,
-            "solve_wall_profiled_s": solve_wall_prof,
-            "solve_device_busy_s": solve_busy}
-    if step_busy is None or solve_busy is None:
-        print("device idle share: not measured (the profiler saw no device "
-              "activity)", flush=True)
-    else:
-        idle["step_idle_share"] = 1.0 - step_busy / step_wall
-        idle["solve_idle_share"] = 1.0 - solve_busy / solve_wall
-        print(f"device idle share: step {idle['step_idle_share']:.4f} "
-              f"(busy {step_busy:.4f} s of {step_wall:.4f} s; profiled wall "
-              f"{step_wall_prof:.4f} s), solve {idle['solve_idle_share']:.4f} "
-              f"(busy {solve_busy:.4f} s of {solve_wall:.4f} s; profiled "
-              f"wall {solve_wall_prof:.4f} s)", flush=True)
-    report["idle"] = idle
+    report["n62"]["idle"] = {
+        "step_wall_s": step_wall, "step_wall_profiled_s": step_wall_prof,
+        "step_device_busy_s": step_busy, "solve_wall_s": solve_wall,
+        "solve_wall_profiled_s": solve_wall_prof,
+        "solve_device_busy_s": solve_busy,
+        "step_idle_share": idle_share("N=62 step", step_wall, step_busy,
+                                      step_wall_prof),
+        "solve_idle_share": idle_share("N=62 solve", solve_wall, solve_busy,
+                                       solve_wall_prof)}
 
-    # -- kernel vs plain version at the path's shapes, and a ragged R ------
+    # -- direct-DFT imager at the N=62 path's shapes, and a ragged R -------
     ep = env.ep
     uvw = ep.obs.uvw.reshape(-1, 3)
     freq = float(ep.obs.freqs[0])
     cell = imager.default_cell(ep.obs.uvw, float(ep.obs.freqs[-1]))
     vis = imager.stokes_i_vis(ep.V[0])
-    uv, lm, visc, err_path = check_imager(dft_imager, imager, uvw, vis, freq,
-                                          cell, 128, "path")
-    g = torch.Generator(device="cpu").manual_seed(0)
-    ru = (torch.rand((1000, 3), generator=g) * 4e3 - 2e3).to(dev)
-    rv = torch.randn((1000, 2), generator=g).to(dev)
-    _, _, _, err_ragged = check_imager(
-        dft_imager, imager, ru, rv, 150e6,
-        imager.default_cell(ru, 150e6), 32, "ragged")
-
+    uv, lm, visc, err_path = check_imager(dft_imager, uvw, vis, freq, cell,
+                                          128, "N=62 path")
+    ru, rv, rf = random_imager_case(0, 1000, dev)
+    _, _, _, err_ragged = check_imager(dft_imager, ru, rv, rf,
+                                       imager.default_cell(ru, rf), 32,
+                                       "ragged")
     P, R = lm.shape[0], uv.shape[0]
-    kernel_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, lm, visc), 20)
-    plain_ms = cuda_ms(lambda: dft_imager.dirty_image_reference(uv, lm, visc),
-                       5)
+    dft_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, lm, visc), 20)
+    dft_plain_ms = cuda_ms(
+        lambda: dft_imager.dirty_image_reference(uv, lm, visc), 5)
     factored_ms = cuda_ms(lambda: imager.dirty_image_factored_sr(
         uvw, visc, freq, cell, npix=128), 20)
-    kernel_ms2 = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, lm, visc), 20)
-    bound_ms, bound_by = imager_bound_ms(P, R, props.multi_processor_count)
-    print(f"dft_imager at P={P} R={R}: kernel {kernel_ms:.4f} / "
-          f"{kernel_ms2:.4f} ms (median, two runs), plain {plain_ms:.4f} ms, "
+    dft_ms2 = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, lm, visc), 20)
+    dft_bound, dft_bound_by = imager_bound_ms(P, R, n_sm)
+    print(f"dft_imager at P={P} R={R}: kernel {dft_ms:.4f} / {dft_ms2:.4f} "
+          f"ms (median, two runs), plain {dft_plain_ms:.4f} ms, "
           f"factored-imager yardstick {factored_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}; SFU sin/cos at the data-sheet "
-          "rate)", flush=True)
+          f"{dft_bound:.4f} ms ({dft_bound_by})", flush=True)
+    del env, backend, ep, uvw, vis, uv, lm, visc
 
-    # -- the same tiny episode on the GPU and on the CPU -------------------
-    tiny = dict(n_stations=6, n_freqs=2, n_times=4, tdelta=2, admm_iters=2,
-                lbfgs_iters=3, init_iters=5, npix=32)
-    outs = []
-    for d in (dev, torch.device("cpu")):
-        e = CalibEnv(M=3, backend=RadioBackend(device=d, **tiny), seed=0,
-                     provide_hint=True, device=d)
-        o = e.reset()
-        o2, r, _, _, inf = e.step(e.hint)
-        outs.append((o["img"], o2["img"], r, inf["sigma_res"]))
-    rel = [float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
-           for a, b in zip(outs[0][:2], outs[1][:2])]
-    rel_r = abs(outs[0][2] - outs[1][2]) / abs(outs[1][2])
-    rel_s = abs(outs[0][3] - outs[1][3]) / abs(outs[1][3])
-    print(f"tiny episode GPU vs CPU: img rel {rel[0]:.2e}/{rel[1]:.2e}, "
-          f"reward rel {rel_r:.2e}, sigma_res rel {rel_s:.2e} "
-          "(tolerance 1e-3: f32 reduction order and trig differ)", flush=True)
-    if max(rel + [rel_r, rel_s]) > 1e-3:
-        raise AssertionError("tiny episode: GPU and CPU disagree")
+    # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
+    ska_backend = RadioBackend(device=dev, **SKA)
+    statics = ska_backend._influence_statics(SKA["npix"])
+    if statics != SKA_STATICS:
+        raise AssertionError(f"SKA statics {statics}, expected "
+                             f"{SKA_STATICS}")
+    ska_env = CalibEnv(M=10, backend=ska_backend, seed=0, provide_hint=True,
+                       device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    ska_obs0 = ska_env.reset()
+    t_ska_reset = time.perf_counter() - t0
+    spies = {"dft_imager": FirstCall(dft_imager, "dirty_image_cuda"),
+             "hessian_blocks": FirstCall(hessian_blocks,
+                                         "hessian_block_sums_cuda"),
+             "factored_imager": FirstCall(factored_imager,
+                                          "dirty_image_factored_cuda")}
+    ska_obs, ska_steps = run_steps(ska_env, 1)
+    for s in spies.values():
+        s.restore()
+    ska_launches = read_counts()
+    ska_peak = torch.cuda.max_memory_allocated(dev)
+    print_path("SKA path (N=256, npix=1024)", ska_env, ska_backend,
+               t_ska_reset, ska_steps, ska_peak, ska_launches)
+    check_outputs((ska_obs0, ska_obs), ska_steps, SKA["npix"], ska_env.M)
+    for name, least in (("hessian_blocks", 12), ("factored_imager", 6),
+                        ("dft_imager", 6)):
+        if ska_launches[name] < least:
+            raise AssertionError(f"{name} launched {ska_launches[name]} "
+                                 f"times on the SKA path, expected >= "
+                                 f"{least}")
+    report["ska"] = dict(config=SKA, statics=statics,
+                         reset_seconds=t_ska_reset, steps=ska_steps,
+                         K=ska_env.K,
+                         stage_seconds=dict(ska_backend.stage_seconds),
+                         peak_mem_bytes=ska_peak, launches=ska_launches,
+                         sigma_data_img=ska_env._sigma_data_img)
+    ska_step_prof, ska_busy = device_busy_seconds(
+        lambda: ska_env.step(ska_env.hint))
+    report["ska"]["idle"] = {
+        "step_wall_s": ska_steps[0]["seconds"],
+        "step_wall_profiled_s": ska_step_prof, "step_device_busy_s": ska_busy,
+        "step_idle_share": idle_share("SKA step", ska_steps[0]["seconds"],
+                                      ska_busy, ska_step_prof)}
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    kernels = [{
-        "name": "dft_imager", "route": "cuda",
-        "source": "smartcal_tpu_torch/csrc/dft_imager.cu",
-        "replaces": "smartcal_tpu/ops/pallas_imager.py:58",
-        "launches": path_launches, "max_abs_err": max(err_path, err_ragged),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        "yardstick_factored_ms": factored_ms}]
-    report.update(kernels=kernels, card=card, tiny_rel=rel + [rel_r, rel_s])
+    # -- hessian_blocks: path operands (band 0, chunk 0 of the step) -------
+    hargs, hkw = spies["hessian_blocks"].args
+    R3, C5, Jp, Jq, p_idx, q_idx, N = hargs
+    off, dsum = hessian_blocks.hessian_block_sums_cuda(*hargs, **hkw)
+    off_ref, dsum_ref = kernels._hessian_block_sums(*hargs)
+    torch.cuda.synchronize()
+    h_lab = (f"SKA path K={C5.shape[0]} Td={C5.shape[1]} B={C5.shape[2]} "
+             f"N={N}")
+    h_err = [check_close("hessian_blocks off", h_lab, off, off_ref,
+                         HESSIAN_RTOL, HESSIAN_ATOL,
+                         float(off_ref.abs().max())),
+             check_close("hessian_blocks Dsum", h_lab, dsum, dsum_ref,
+                         HESSIAN_RTOL, HESSIAN_ATOL,
+                         float(dsum_ref.abs().max()))]
+    del off, dsum, off_ref, dsum_ref
+    g = torch.Generator(device="cpu").manual_seed(1)
+    for n_st, k_r, td_r, subset in ((100, 3, 5, False), (20, 2, 3, True)):
+        p, q = kernels.baseline_indices(n_st, dev)
+        if subset:                    # every third baseline + 2 sentinels
+            p = torch.cat([p[::3], p.new_full((2,), n_st)])
+            q = torch.cat([q[::3], q.new_full((2,), n_st)])
+        nb = p.numel()
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g).to(dev)
+
+        rargs = (rnd(td_r, nb, 2, 2, 2), rnd(k_r, td_r, nb, 2, 2, 2),
+                 rnd(k_r, nb, 2, 2, 2), rnd(k_r, nb, 2, 2, 2), p, q, n_st)
+        o_k, d_k = hessian_blocks.hessian_block_sums_cuda(*rargs)
+        o_r, d_r = kernels._hessian_block_sums(*rargs)
+        lab = f"ragged N={n_st} B={nb}{' subset+sentinels' if subset else ''}"
+        h_err += [check_close("hessian_blocks off", lab, o_k, o_r,
+                              HESSIAN_RTOL, HESSIAN_ATOL,
+                              float(o_r.abs().max())),
+                  check_close("hessian_blocks Dsum", lab, d_k, d_r,
+                              HESSIAN_RTOL, HESSIAN_ATOL,
+                              float(d_r.abs().max()))]
+    def h_kernel():
+        return hessian_blocks.hessian_block_sums_cuda(*hargs, **hkw)
+
+    h_ms = cuda_ms(h_kernel, 20)
+    h_plain_ms = cuda_ms(lambda: kernels._hessian_block_sums(*hargs), 5)
+    h_ms2 = cuda_ms(h_kernel, 20)
+    h_bound, h_bound_by = hessian_bound_ms(hargs, n_sm)
+    print(f"hessian_blocks at {h_lab}: kernel {h_ms:.4f} / {h_ms2:.4f} ms "
+          f"(median, two runs), plain {h_plain_ms:.4f} ms, bound "
+          f"{h_bound:.4f} ms ({h_bound_by})", flush=True)
+    del hargs, hkw, R3, C5, Jp, Jq
+
+    # -- factored_imager: path operands (band-0 influence visibilities) ----
+    (f_uvw, f_vis, f_freq, f_cell), f_kw = spies["factored_imager"].args
+    npix = f_kw["npix"]
+    f_out = factored_imager.dirty_image_factored_cuda(f_uvw, f_vis, f_freq,
+                                                      f_cell, npix=npix)
+    f_ref = imager.dirty_image_factored_blocked_sr(
+        f_uvw, f_vis, f_freq, f_cell, npix=npix,
+        block_r=SKA_STATICS["imager_block_r"])
+    torch.cuda.synchronize()
+    f_R = f_uvw.shape[0]
+    f_err = [check_close("factored_imager", f"SKA path npix={npix} R={f_R}",
+                         f_out, f_ref, FACTORED_RTOL, FACTORED_ATOL,
+                         float(f_ref.abs().max()))]
+    del f_out, f_ref
+    for r_n, r_npix in ((100003, 1000), (777, 200)):
+        ru, rv, rf = random_imager_case(r_n, r_n, dev)
+        rc = imager.default_cell(ru, rf)
+        o_k = factored_imager.dirty_image_factored_cuda(ru, rv, rf, rc,
+                                                        npix=r_npix)
+        o_r = imager.dirty_image_factored_blocked_sr(ru, rv, rf, rc,
+                                                     npix=r_npix, block_r=4096)
+        f_err.append(check_close("factored_imager",
+                                 f"ragged npix={r_npix} R={r_n}", o_k, o_r,
+                                 FACTORED_RTOL, FACTORED_ATOL,
+                                 float(o_r.abs().max())))
+    def f_kernel():
+        return factored_imager.dirty_image_factored_cuda(
+            f_uvw, f_vis, f_freq, f_cell, npix=npix)
+
+    f_ms = cuda_ms(f_kernel, 5, warmup=1)
+    f_plain_ms = cuda_ms(lambda: imager.dirty_image_factored_blocked_sr(
+        f_uvw, f_vis, f_freq, f_cell, npix=npix,
+        block_r=SKA_STATICS["imager_block_r"]), 3, warmup=1)
+    # library yardstick: one cuBLAS SGEMM of the precomputed planes
+    p1, p2, cb, sb = imager._factored_planes(f_uvw, f_vis, f_freq, f_cell,
+                                             npix)
+    lhs = torch.cat([p1, p2], 1)
+    rhs = torch.cat([cb, sb], 1).T
+    del p1, p2, cb, sb
+    f_lib_ms = cuda_ms(lambda: torch.matmul(lhs, rhs), 3, warmup=1)
+    del lhs, rhs
+    torch.cuda.empty_cache()
+    f_ms2 = cuda_ms(f_kernel, 5, warmup=1)
+    seen, seen_ms = profiler_capture(f_kernel, "factored_partial")
+    report["profiler_capture"] = {"kernel": "factored_partial_kernel",
+                                  "launches": 3, "recorded": seen,
+                                  "recorded_mean_ms": seen_ms,
+                                  "cuda_event_ms": f_ms2}
+    print(f"torch.profiler recorded {seen} of 3 launches of the factored "
+          f"kernel (mean recorded {seen_ms} ms; CUDA events {f_ms2:.3f} ms "
+          "per call): the idle shares above are upper bounds if it missed "
+          "any", flush=True)
+    f_bound, f_bound_by = factored_bound_ms(npix, f_R, n_sm)
+    print(f"factored_imager at npix={npix} R={f_R}: kernel {f_ms:.3f} / "
+          f"{f_ms2:.3f} ms (median, two runs), plain {f_plain_ms:.3f} ms, "
+          f"library (cuBLAS SGEMM of the planes) {f_lib_ms:.3f} ms, bound "
+          f"{f_bound:.3f} ms ({f_bound_by})", flush=True)
+
+    # -- dft_imager at the SKA path's shapes, held on a pixel subset -------
+    (s_uv, s_lm, s_vis), _ = spies["dft_imager"].args
+    s_out = dft_imager.dirty_image_cuda(s_uv, s_lm, s_vis)
+    sub = torch.randperm(s_lm.shape[0], generator=g)[:4096].to(dev)
+    s_ref = dft_imager.dirty_image_reference(s_uv, s_lm[sub], s_vis)
+    torch.cuda.synchronize()
+    s_P, s_R = s_lm.shape[0], s_uv.shape[0]
+    s_err = check_close("dft_imager",
+                        f"SKA path P={s_P} R={s_R} (4096-pixel subset)",
+                        s_out[sub], s_ref, IMAGER_RTOL, IMAGER_ATOL,
+                        float(s_vis.abs().mean()))
+    s_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(s_uv, s_lm, s_vis), 3,
+                   warmup=1)
+    s_bound, s_bound_by = imager_bound_ms(s_P, s_R, n_sm)
+    print(f"dft_imager at P={s_P} R={s_R}: kernel {s_ms:.3f} ms (median of "
+          f"3), bound {s_bound:.3f} ms ({s_bound_by})", flush=True)
+    del ska_env, ska_backend, spies, s_uv, s_lm, s_vis, s_out
+    torch.cuda.empty_cache()
+
+    # -- the same tiny episodes on the GPU and on the CPU ------------------
+    tiny_rel = tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, "unblocked")
+    tiny_blk_rel = tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev,
+                                   "blocked tier", block_baselines=4,
+                                   imager_block_r=256)
+
+    kernels_line = [
+        {"name": "dft_imager", "route": "cuda",
+         "source": "smartcal_tpu_torch/csrc/dft_imager.cu",
+         "replaces": "smartcal_tpu/ops/pallas_imager.py:58",
+         "launches": ska_launches["dft_imager"],
+         "launches_n62_path": n62_launches["dft_imager"],
+         "max_abs_err": max(err_path, err_ragged), "ms": dft_ms,
+         "plain_ms": dft_plain_ms, "bound_ms": dft_bound,
+         "bound_by": dft_bound_by, "library_ms": None,
+         "shapes": f"P={P} R={R}", "yardstick_factored_ms": factored_ms,
+         "ska_ms": s_ms, "ska_bound_ms": s_bound,
+         "ska_shapes": f"P={s_P} R={s_R}", "ska_max_abs_err_subset": s_err},
+        {"name": "hessian_blocks", "route": "cuda",
+         "source": "smartcal_tpu_torch/csrc/hessian_blocks.cu",
+         "replaces": "smartcal_tpu/ops/pallas_hessian.py:60",
+         "launches": ska_launches["hessian_blocks"],
+         "max_abs_err": max(h_err), "ms": h_ms, "plain_ms": h_plain_ms,
+         "bound_ms": h_bound, "bound_by": h_bound_by, "library_ms": None,
+         "shapes": h_lab},
+        {"name": "factored_imager", "route": "cuda",
+         "source": "smartcal_tpu_torch/csrc/factored_imager.cu",
+         "replaces": "smartcal_tpu/ops/pallas_imager.py:159",
+         "launches": ska_launches["factored_imager"],
+         "max_abs_err": max(f_err), "ms": f_ms, "plain_ms": f_plain_ms,
+         "bound_ms": f_bound, "bound_by": f_bound_by, "library_ms": f_lib_ms,
+         "shapes": f"npix={npix} R={f_R}"}]
+    report.update(kernels=kernels_line, card=card, tiny_rel=tiny_rel,
+                  tiny_blocked_rel=tiny_blk_rel,
+                  kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],
+                                     "hessian_blocks": [h_ms, h_ms2],
+                                     "factored_imager": [f_ms, f_ms2]},
+                  total_seconds=time.perf_counter() - t_start)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=float)
-    print(json.dumps({"kernels": kernels}))
+    print(f"total {report['total_seconds']:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,15 +9,16 @@ Two formulations, as in the JAX package:
   plain version on a CPU tensor;
 * the rank-factored DFT ``dirty_image_factored_sr`` — the influence-map
   imager: per-axis trig planes and two (npix, R) @ (R, npix) matmuls.
-
-The npix >= 512 blocked factored imager and its Pallas kernel are still
-to be ported.
+  From npix >= 512 its planes reach GB scale, and
+  ``dirty_image_factored_large_sr`` takes over: the hand-written CUDA
+  kernel of ``ops/factored_imager.py`` on a CUDA tensor, the R-blocked
+  plain version ``dirty_image_factored_blocked_sr`` on a CPU tensor.
 """
 
 import torch
 
 from smartcal_tpu_torch.cal import precision as prec
-from smartcal_tpu_torch.ops import dft_imager
+from smartcal_tpu_torch.ops import dft_imager, factored_imager
 
 C_LIGHT = 2.99792458e8
 
@@ -47,8 +48,7 @@ def _factored_planes(uvw, vis, freq, cell, npix):
     scale = float(dft_imager.uv_scale(freq))
     u = uvw[:, 0] * scale
     v = uvw[:, 1] * scale
-    half = npix // 2
-    idx = (torch.arange(npix, device=uvw.device) - half).to(prec.F32) * cell
+    idx = factored_imager.axis_grid(npix, cell, uvw.device)
     a = idx[:, None] * u[None, :]                          # (npix, R) l u
     b = idx[:, None] * v[None, :]                          # (npix, R) m v
     ca, sa = torch.cos(a), torch.sin(a)
@@ -68,6 +68,41 @@ def dirty_image_factored_sr(uvw, vis, freq, cell, npix=128):
     full f32 (TF32 is off)."""
     p1, p2, cb, sb = _factored_planes(uvw, vis, freq, cell, npix)
     return (p1 @ cb.T + p2 @ sb.T) / vis.shape[0]
+
+
+def dirty_image_factored_blocked_sr(uvw, vis, freq, cell, npix=1024,
+                                    block_r=4096):
+    """R-blocked :func:`dirty_image_factored_sr` (the npix >= 512 tier): a
+    loop over blocks of ``block_r`` samples accumulates the image in f32,
+    so the largest live buffer is one (npix, block_r) plane.  R is
+    zero-padded to the block (pad vis rows are 0 and add nothing).  Same
+    math to float round-off; the plain version of the kernel in
+    ``ops/factored_imager.py``."""
+    R = uvw.shape[0]
+    nblk = -(-R // block_r)
+    padr = nblk * block_r - R
+    uvp = torch.cat([uvw, uvw.new_zeros((padr, uvw.shape[1]))])
+    visp = torch.cat([vis, vis.new_zeros((padr, 2))])
+    img = torch.zeros((npix, npix), dtype=prec.F32, device=uvw.device)
+    for i in range(nblk):
+        s = slice(i * block_r, (i + 1) * block_r)
+        p1, p2, cb, sb = _factored_planes(uvp[s], visp[s], freq, cell, npix)
+        img = img + (p1 @ cb.T + p2 @ sb.T)
+    return img / R
+
+
+def dirty_image_factored_large_sr(uvw, vis, freq, cell, npix=1024,
+                                  block_r=4096):
+    """The npix >= 512 factored imager: the CUDA kernel for CUDA tensors
+    (any npix and R), :func:`dirty_image_factored_blocked_sr` for CPU
+    tensors.  Any other device raises."""
+    if uvw.device.type == "cuda":
+        return factored_imager.dirty_image_factored_cuda(uvw, vis, freq, cell,
+                                                         npix=npix)
+    if uvw.device.type == "cpu":
+        return dirty_image_factored_blocked_sr(uvw, vis, freq, cell,
+                                               npix=npix, block_r=block_r)
+    raise ValueError(f"factored_imager: unsupported device {uvw.device}")
 
 
 def stokes_i_vis(V):

@@ -6,8 +6,12 @@ Per calibration interval (chunk of Tdelta timeslots):
   column means of dR through the adjoint 4-RHS transpose solve
   influence per baseline, replicated over the interval, scaled 8*B*Td.
 The consensus Hessian addition is a scalar per direction
-(:func:`consensus_hadd_all`).  The oracle chain, the per-direction
-variant and the blocked/sharded tiers are still to be ported.
+(:func:`consensus_hadd_all`).  The SKA tier's statics select the blocked
+Hessian (``block_baselines`` > 0: the CUDA kernel of
+``ops/hessian_blocks.py`` on the card, the blocked plain core on the CPU)
+and the factored imager's large tier (``imager_block_r`` > 0).  The oracle
+chain, the per-direction variant and the sharded tiers are still to be
+ported.
 """
 
 from typing import NamedTuple
@@ -16,6 +20,7 @@ import torch
 
 from smartcal_tpu_torch.cal import consensus, creal, imager, kernels
 from smartcal_tpu_torch.cal import precision as prec
+from smartcal_tpu_torch.ops import hessian_blocks
 
 
 def consensus_hadd_all(rho_spectral, rho_spatial, freqs, f0, n_poly=2,
@@ -51,12 +56,22 @@ class InfluenceResult(NamedTuple):
     llr: torch.Tensor   # (Ts, K) per-chunk log-likelihood ratios
 
 
-def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations):
+def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
+                         block_baselines=0):
     """One calibration interval on hoisted operands: R3 (Td, B, 2, 2, 2);
     C5 (K, Td, B, 2, 2, 2); Jp/Jq (K, B, 2, 2, 2); lhs (K, B, 2, 2, 2);
-    hadd (K,).  Returns ((B, 4, 2) Stokes-I-only vis, (K,) llr)."""
+    hadd (K,).  Returns ((B, 4, 2) Stokes-I-only vis, (K,) llr).
+
+    ``block_baselines`` > 0 selects the blocked Hessian: the CUDA kernel
+    for tensors on the card, the blocked plain core for CPU tensors."""
     Td = C5.shape[1]
-    H = kernels._hessian_res_core_sr(R3, C5, Jp, Jq, n_stations)
+    if not block_baselines:
+        H = kernels._hessian_res_core_sr(R3, C5, Jp, Jq, n_stations)
+    elif C5.device.type == "cpu":
+        H = kernels._hessian_res_core_blocked_sr(R3, C5, Jp, Jq, n_stations,
+                                                 block_baselines)
+    else:
+        H = hessian_blocks.hessian_res_core_sr(R3, C5, Jp, Jq, n_stations)
     N4 = H.shape[1]
     diag = torch.arange(N4, device=H.device)
     H[:, diag, diag, 0] += hadd[:, None]
@@ -66,11 +81,13 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations):
     return vis, kernels._llr_core_sr(R3, C5, Jp, Jq)
 
 
-def influence_visibilities(R, C, J, hadd, n_stations, n_chunks):
+def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
+                           block_baselines=0):
     """Influence visibilities over all calibration intervals.
 
     R : (2*B*T, 2, 2) kernel-convention residuals of one sub-band
     C : (K, T*B, 4, 2) coherencies;  J : (Ts, K, 2N, 2, 2);  hadd : (K,)
+    ``block_baselines`` > 0 runs the blocked Hessian (SKA tier).
     Returns vis (T*B, 4, 2) scaled by 8*B*Tdelta, and llr (Ts, K)."""
     B = n_stations * (n_stations - 1) // 2
     K = C.shape[0]
@@ -78,14 +95,15 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks):
     Td = T // n_chunks
     R3 = R.reshape(n_chunks, Td, B, 2, 2, 2)
     C5 = C.reshape(K, n_chunks, Td, B, 2, 2, 2).transpose(-3, -2) \
-        .movedim(1, 0)                                   # (Ts, K, Td, B, ..)
+        .movedim(1, 0).contiguous()                      # (Ts, K, Td, B, ..)
     p_idx, q_idx = kernels.baseline_indices(n_stations, R.device)
     J4 = J.reshape(n_chunks, K, n_stations, 2, 2, 2)
     Jp, Jq = J4[:, :, p_idx], J4[:, :, q_idx]            # (Ts, K, B, ...)
     Csum = torch.sum(C5, dim=2)                          # (Ts, K, B, ...)
     lhs = creal.einsum("skbuv,skbwv->skbuw", Jq, creal.conj(Csum))
     outs = [_chunk_influence_opt(R3[s], C5[s], Jp[s], Jq[s], lhs[s], hadd,
-                                 n_stations) for s in range(n_chunks)]
+                                 n_stations, block_baselines)
+            for s in range(n_chunks)]
     vis_b = torch.stack([o[0] for o in outs])            # (Ts, B, 4, 2)
     llr = torch.stack([o[1] for o in outs])
     vis = vis_b[:, None].expand(n_chunks, Td, B, 4, 2).reshape(T * B, 4, 2)
@@ -98,14 +116,21 @@ def stokes_i_influence(vis):
 
 
 def influence_image_single_sr(residual_f, C_f, J_f, hadd_f, freq, uvw,
-                              cell, n_stations, n_chunks, npix):
+                              cell, n_stations, n_chunks, npix,
+                              block_baselines=0, imager_block_r=0):
     """One sub-band's Stokes-I influence dirty image: the optimized
     influence chain, then the rank-factored imager.  residual_f
     (T, B, 2, 2, 2), C_f (K, T*B, 4, 2), J_f (Ts, K, 2N, 2, 2), hadd_f
-    (K,), uvw (T*B, 3) meters."""
+    (K,), uvw (T*B, 3) meters.  The SKA-tier statics select the blocked
+    Hessian (``block_baselines``) and the large-tier factored imager
+    (``imager_block_r``)."""
     from smartcal_tpu_torch.cal import solver
 
     Rk = solver.residual_to_kernel(residual_f)
-    inf = influence_visibilities(Rk, C_f, J_f, hadd_f, n_stations, n_chunks)
+    inf = influence_visibilities(Rk, C_f, J_f, hadd_f, n_stations, n_chunks,
+                                 block_baselines=block_baselines)
     ivis = stokes_i_influence(inf.vis)
+    if imager_block_r:
+        return imager.dirty_image_factored_large_sr(
+            uvw, ivis, freq, cell, npix=npix, block_r=imager_block_r)
     return imager.dirty_image_factored_sr(uvw, ivis, freq, cell, npix=npix)

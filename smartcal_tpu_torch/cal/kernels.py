@@ -6,8 +6,9 @@ N stations, B = N(N-1)/2 baselines (p < q row-major), T timeslots of one
 interval, K directions, split-real (..., 2) complex.  The scatter-free
 moves are kept: station sums are one-hot matmuls and the off-diagonal
 block placement is a gather of a zero-padded table, so every reduction
-has a fixed order on the GPU.  The blocked (SKA-scale) Hessian and its
-Pallas kernel are still to be ported.
+has a fixed order on the GPU.  The blocked (SKA-scale) Hessian core is
+here too: its per-subset block sums are the plain version of the CUDA
+kernel in ``ops/hessian_blocks.py``.
 """
 
 import numpy as np
@@ -50,10 +51,19 @@ def offdiag_index_map(n_stations):
     return m
 
 
-def _hessian_block_sums(R3, C5, Jp, Jq, n_stations):
-    """Off-diagonal blocks + station-summed diagonal contributions:
-    R3 (T, B, 2, 2, 2); C5 (K, T, B, 2, 2, 2); Jp/Jq (K, B, 2, 2, 2).
-    Returns (off (K, B, 4, 4, 2), Dsum (K, N, 2, 2, 2)), unnormalized."""
+def _block_onehot(idx, n_stations, dtype):
+    """(N, nb) one-hot from a station-index vector.  Sentinel indices >= N
+    (pad slots) give all-zero columns, so padded baselines contribute
+    nothing."""
+    stations = torch.arange(n_stations, device=idx.device)
+    return (idx[None, :] == stations[:, None]).to(dtype)
+
+
+def _hessian_block_sums(R3, C5, Jp, Jq, p_idx, q_idx, n_stations):
+    """Off-diagonal blocks + station-summed diagonal contributions of ONE
+    baseline subset: R3 (T, nb, 2, 2, 2); C5 (K, T, nb, 2, 2, 2); Jp/Jq
+    (K, nb, 2, 2, 2); p_idx/q_idx (nb,) station indices (N = pad slot).
+    Returns (off (K, nb, 4, 4, 2), Dsum (K, N, 2, 2, 2)), unnormalized."""
     K, nb = C5.shape[0], C5.shape[2]
     off = -creal.einsum("ktbij,tbuv->kbiujv", creal.conj(C5), R3)
     off = off.reshape(K, nb, 4, 4, 2)
@@ -63,7 +73,8 @@ def _hessian_block_sums(R3, C5, Jp, Jq, n_stations):
     A2 = creal.einsum("kbuv,ktbvw->ktbuw", Jp, C5)
     Sq = creal.einsum("ktbuv,ktbuw->kbvw", creal.conj(A2), A2)
 
-    ohp, ohq = baseline_onehots(n_stations, R3.dtype, R3.device)
+    ohp = _block_onehot(p_idx, n_stations, R3.dtype)
+    ohq = _block_onehot(q_idx, n_stations, R3.dtype)
     Dsum = (torch.einsum("nb,kbuvz->knuvz", ohp, Sp)
             + torch.einsum("nb,kbuvz->knuvz", ohq, Sq))
     return off, Dsum
@@ -97,7 +108,43 @@ def _hessian_res_core_sr(R3, C5, Jp, Jq, n_stations):
     """Scatter-free residual Hessian (K, 4N, 4N, 2), averaged over
     baselines*time (reference Hessianres, calibration_tools.py:590-631)."""
     T, B = C5.shape[1], C5.shape[2]
-    off, Dsum = _hessian_block_sums(R3, C5, Jp, Jq, n_stations)
+    p_idx, q_idx = baseline_indices(n_stations, R3.device)
+    off, Dsum = _hessian_block_sums(R3, C5, Jp, Jq, p_idx, q_idx, n_stations)
+    return _hessian_assemble(off, Dsum, n_stations, B, T)
+
+
+def _hessian_res_core_blocked_sr(R3, C5, Jp, Jq, n_stations,
+                                 block_baselines):
+    """Blocked :func:`_hessian_res_core_sr` on the same operands: a loop
+    over baseline blocks bounds the einsum temporaries to the block.  The
+    ragged tail is zero-padded with sentinel station indices.  Same math
+    to float round-off (the station sums are reassociated per block)."""
+    K, T, B = C5.shape[0], C5.shape[1], C5.shape[2]
+    dev = R3.device
+    p_idx, q_idx = baseline_indices(n_stations, dev)
+    blk = min(int(block_baselines), B)
+    nblk = -(-B // blk)
+    padb = nblk * blk - B
+
+    def pad_b(x, axis):
+        shape = list(x.shape)
+        shape[axis] = padb
+        return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+    pi = torch.cat([p_idx, p_idx.new_full((padb,), n_stations)])
+    qi = torch.cat([q_idx, q_idx.new_full((padb,), n_stations)])
+    R3p, C5p = pad_b(R3, 1), pad_b(C5, 2)
+    Jpp, Jqp = pad_b(Jp, 1), pad_b(Jq, 1)
+    Dsum = torch.zeros((K, n_stations, 2, 2, 2), dtype=R3.dtype, device=dev)
+    offs = []
+    for i in range(nblk):
+        s = slice(i * blk, (i + 1) * blk)
+        off_b, dsum_b = _hessian_block_sums(
+            R3p[:, s], C5p[:, :, s], Jpp[:, s], Jqp[:, s], pi[s], qi[s],
+            n_stations)
+        Dsum = Dsum + dsum_b
+        offs.append(off_b)
+    off = torch.cat(offs, dim=1)[:, :B]
     return _hessian_assemble(off, Dsum, n_stations, B, T)
 
 

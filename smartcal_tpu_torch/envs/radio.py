@@ -12,7 +12,10 @@ each, with the same math:
   the host-segmented solve computes the same thing for TPU watchdogs),
   wrapped in the rho-boost retry of ``solve_admm_safe``;
 * ``influence_image`` -> ``influence.influence_image_single_sr`` per
-  sub-band, averaged (the JAX host-segmented route's unit);
+  sub-band, averaged (the JAX host-segmented route's unit), with the
+  SKA-tier statics of :meth:`RadioBackend._influence_statics`: the blocked
+  Hessian from B >= 8128 (N >= 128) and the large-tier factored imager
+  from npix >= 512, each a hand-written CUDA kernel on the card;
 * ``data_image`` / ``residual_image`` -> ``imager.multifreq_image_sr``,
   one direct-DFT kernel launch per sub-band.
 
@@ -32,6 +35,17 @@ from smartcal_tpu_torch import resolve_device
 from smartcal_tpu_torch.cal import (coherency, imager, influence, observation,
                                     simulate, solver)
 
+# SKA-tier thresholds (the JAX backend's, smartcal_tpu/envs/radio.py:69-72):
+# from _BLOCK_MIN_B baselines (N=128 -> B=8128) the influence chain's
+# per-chunk (K, Td, B) einsum temporaries are the memory wall, so the
+# blocked Hessian takes over; from npix >= _IMAGER_BLOCK_MIN_NPIX the
+# factored imager's (npix, R) planes reach GB scale, so its large tier
+# (R-blocked on the CPU, the tiled kernel on the card) takes over.
+_BLOCK_MIN_B = 8128
+_BLOCK_BASELINES = 2048
+_IMAGER_BLOCK_MIN_NPIX = 512
+_IMAGER_BLOCK_R = 4096
+
 
 class Episode(NamedTuple):
     """Device-resident state of one simulated observation."""
@@ -49,11 +63,14 @@ class RadioBackend:
 
     n_times = Ts * tdelta integration slots; every ``tdelta`` slots share
     one solution interval.  ``device`` defaults to "cuda" and raises when
-    no GPU is present."""
+    no GPU is present.  ``block_baselines`` / ``imager_block_r`` override
+    the SKA-tier block sizes: None picks them by threshold, 0 forces the
+    unblocked path."""
 
     def __init__(self, n_stations=14, n_freqs=3, n_times=20, tdelta=10,
                  n_poly=2, admm_iters=10, lbfgs_iters=8, init_iters=30,
-                 polytype=0, npix=128, device="cuda"):
+                 polytype=0, npix=128, device="cuda", block_baselines=None,
+                 imager_block_r=None):
         if n_times <= 0 or n_times % tdelta != 0:
             raise ValueError(
                 f"n_times={n_times} must be a positive multiple of "
@@ -71,6 +88,8 @@ class RadioBackend:
         self.init_iters = init_iters
         self.polytype = polytype
         self.npix = npix
+        self.block_baselines = block_baselines
+        self.imager_block_r = imager_block_r
         self.stage_seconds = defaultdict(float)
 
     @contextmanager
@@ -167,10 +186,25 @@ class RadioBackend:
     def _cell(self, ep):
         return imager.default_cell(ep.obs.uvw, float(ep.obs.freqs[-1]))
 
+    def _influence_statics(self, npix):
+        """The SKA-tier block sizes of the influence chain, decided on the
+        host from the episode geometry: the blocked Hessian from the
+        baseline threshold, the large-tier imager from the npix
+        threshold.  The precision policy stays f32 (the bf16 rows are not
+        ported)."""
+        bb = self.block_baselines
+        if bb is None:
+            bb = _BLOCK_BASELINES if self.n_baselines >= _BLOCK_MIN_B else 0
+        ibr = self.imager_block_r
+        if ibr is None:
+            ibr = _IMAGER_BLOCK_R if npix >= _IMAGER_BLOCK_MIN_NPIX else 0
+        return {"block_baselines": bb, "imager_block_r": ibr}
+
     def influence_image(self, ep: Episode, result: solver.SolveResult, rho,
                         rho_spatial, npix=None):
         """Mean Stokes-I influence dirty image over sub-bands."""
         npix = npix or self.npix
+        statics = self._influence_statics(npix)
         with self._stage("influence"):
             uvw = ep.obs.uvw.reshape(-1, 3)
             cell = self._cell(ep)
@@ -185,7 +219,7 @@ class RadioBackend:
                     result.residual[fi], ep.Ccal[fi], result.J[fi],
                     hadd_all[fi], freqs[fi], uvw, cell,
                     n_stations=self.n_stations, n_chunks=self.n_chunks,
-                    npix=npix)
+                    npix=npix, **statics)
                 acc = img if acc is None else acc + img
             return acc / self.n_freqs
 

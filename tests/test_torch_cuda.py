@@ -62,3 +62,63 @@ def test_graphed_line_search_matches_eager_on_gpu():
                                         device=dev)
         got = search(coeffs)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_hessian_blocks_kernel_matches_plain_on_gpu():
+    """Ragged baseline counts (B=15: one partial block; B=190: two blocks,
+    the second partial) and a subset with sentinel stations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from smartcal_tpu_torch.cal import kernels
+    from smartcal_tpu_torch.ops import hessian_blocks
+    rng = np.random.default_rng(4)
+    for N, K, Td, subset in ((6, 3, 4, False), (20, 2, 5, False),
+                             (20, 3, 2, True)):
+        p, q = np.triu_indices(N, 1)
+        if subset:
+            p = np.concatenate([p[::3], [N, N]])
+            q = np.concatenate([q[::3], [N, N]])
+        B = p.size
+        dev = torch.device("cuda")
+
+        def arr(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        R3, C5 = arr(Td, B, 2, 2, 2), arr(K, Td, B, 2, 2, 2)
+        Jp, Jq = arr(K, B, 2, 2, 2), arr(K, B, 2, 2, 2)
+        pi, qi = torch.from_numpy(p).to(dev), torch.from_numpy(q).to(dev)
+        before = hessian_blocks.launches
+        off, dsum = hessian_blocks.hessian_block_sums(R3, C5, Jp, Jq, pi, qi,
+                                                      N)
+        assert hessian_blocks.launches == before + 1
+        off_ref, dsum_ref = kernels._hessian_block_sums(R3, C5, Jp, Jq, pi,
+                                                        qi, N)
+        np.testing.assert_allclose(off.cpu().numpy(), off_ref.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(dsum.cpu().numpy(),
+                                   dsum_ref.cpu().numpy(), rtol=2e-4,
+                                   atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_factored_imager_kernel_matches_plain_on_gpu():
+    """npix and R that are not multiples of the kernel's tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from smartcal_tpu_torch.cal import imager
+    from smartcal_tpu_torch.ops import factored_imager
+    for npix, R in ((100, 700), (130, 5001)):
+        uvw, vis, freq, cell = _case(npix + R, R)
+        u = torch.from_numpy(uvw).cuda()
+        v = torch.from_numpy(vis).cuda()
+        before = factored_imager.launches
+        out = imager.dirty_image_factored_large_sr(u, v, freq, cell,
+                                                   npix=npix, block_r=256)
+        assert factored_imager.launches == before + 1
+        ref = imager.dirty_image_factored_blocked_sr(u, v, freq, cell,
+                                                     npix=npix, block_r=256)
+        ref = ref.cpu().numpy()
+        np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=2e-4,
+                                   atol=2e-4 * np.abs(ref).max())

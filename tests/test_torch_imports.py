@@ -39,6 +39,7 @@ def test_port_has_modules():
                 "cal/observation", "cal/coherency", "cal/simulate",
                 "cal/consensus", "cal/kernels", "ops/lbfgs", "cal/solver",
                 "cal/influence", "cal/imager", "ops/dft_imager",
+                "ops/hessian_blocks", "ops/factored_imager",
                 "envs/radio", "envs/calib"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
