@@ -11,19 +11,23 @@
    zeroed just before and read just after; then profiles a third step and
    one more solve with torch.profiler to take the device's idle share
    (1 - busy device seconds / wall seconds);
-4. holds the direct-DFT imager against its plain version at that path's
-   shapes and at a ragged R, and times kernel, plain version and the
-   factored-imager yardstick with CUDA events;
+4. holds the imager kernel (the separable-grid engine behind dft_imager)
+   against its plain version, the direct DFT, over the full N=62 image and
+   at ragged npix and R that cross the engine's tile and stage edges, and
+   times kernel, plain version and the plain factored-imager yardstick with
+   CUDA events;
 5. drives the SKA-tier path: CalibEnv(M=10) on RadioBackend (N=256, Nf=3,
    T=20, npix=1024: the blocked Hessian and the large-tier factored imager
    chosen by threshold), reset and one step with the hint, counts zeroed
    just before and read just after; the first call of each kernel in the
    step keeps its operands; a second step is profiled for the idle share;
 6. holds each kernel against its plain version on the card at those
-   operands (the direct-DFT imager on a 4096-pixel subset) and at a ragged
-   case, and times kernel, plain version and library yardstick with CUDA
-   events; counts how many of three factored-imager launches
-   torch.profiler records (a check on the idle shares);
+   operands (the imager against the direct DFT on a 4096-pixel subset) and
+   at ragged cases, and times kernel, plain version and library yardstick
+   with CUDA events; times the Hessian kernel's two passes alone (events
+   around the C launch, CSR lists prebuilt); counts how many of three
+   factored-imager launches torch.profiler records (a check on the idle
+   shares);
 7. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
    blocked tier forced) and compares them;
 8. prints the kernel table as one JSON line, the card line, and last
@@ -31,12 +35,24 @@
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Details go to DIR/chip_smoke.json (default smoke_out/).
+
+    python3 chip_smoke.py --ablation [--out DIR]
+
+instead builds the imaging engine (csrc/separable_imager.cuh behind
+dft_imager.cu) as shipped and with one design choice undone in each copy
+(``ablation_variants``), runs each at the SKA tier's shapes (npix=1024,
+R=652,800, random and coherent visibilities) and the N=62 tier's
+(npix=128, R=37,820), holds it against the direct DFT on 4096 pixels and
+the phase centre and times it with CUDA events; one JSON line per variant
+and case, details in DIR/engine_ablation.json.
 """
 
 import argparse
+import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -44,10 +60,12 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet rates (HBM3 bandwidth, dense FP32) and the SFU rate
-# of sm_90 (16 sine/cosine results per clock per SM) at the 1.98 GHz boost
+# H100 SXM data-sheet rates (HBM3 bandwidth, dense FP32, dense TF32 tensor
+# cores) and the SFU rate of sm_90 (16 sine/cosine results per clock per
+# SM) at the 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 SFU_PER_CLOCK_PER_SM = 16
 BOOST_HZ = 1.98e9
 
@@ -99,19 +117,25 @@ def bound(n_bytes, flops, sfu, n_sm):
             "bytes" if t_bytes > t_ops else "operations")
 
 
-def imager_bound_ms(P, R, n_sm):
-    """Direct-DFT image: uvw and vis read once, the image written once;
-    7 FP32 flops and 2 sine/cosine per (pixel, sample) pair."""
-    return bound(R * 3 * 4 + R * 2 * 4 + P * 4, 7.0 * P * R, 2.0 * P * R,
-                 n_sm)
-
-
-def factored_bound_ms(npix, R, n_sm):
-    """Factored image: uvw and vis read once, the image written once;
-    4 npix^2 R FP32 flops (two FMAs per pixel and sample) and the
-    4 npix R sine/cosine values of the axis planes."""
-    return bound(R * 3 * 4 + R * 2 * 4 + npix * npix * 4,
-                 4.0 * npix * npix * R, 4.0 * npix * R, n_sm)
+def separable_bounds(npix, R, n_sm):
+    """Least times (ms) for the dirty image on the separable grid, uvw and
+    vis read once and the image written once.  ``bound_ms``: at f32
+    accuracy, the 4 npix^2 R flops as 3xTF32 (three TF32 products) at the
+    dense TF32 tensor-core rate, against the 4 npix R sine/cosine values on
+    the SFUs and the bytes; ``bound_fp32_ms``: the same flops in FP32 on the
+    CUDA cores; ``bound_direct_ms``: the direct DFT, 2 npix^2 R sine/cosine
+    values and 7 FP32 flops per (pixel, sample) pair."""
+    P = npix * npix
+    n_bytes = R * 3 * 4 + R * 2 * 4 + P * 4
+    flops = 4.0 * P * R
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_sfu = 4.0 * npix * R / (SFU_PER_CLOCK_PER_SM * n_sm * BOOST_HZ)
+    t_ops = max(3.0 * flops / TF32_FLOPS_PER_S, t_sfu)
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_fp32_ms": bound(n_bytes, flops, 4.0 * npix * R, n_sm)[0],
+            "bound_direct_ms": bound(n_bytes, 7.0 * P * R, 2.0 * P * R,
+                                     n_sm)[0]}
 
 
 def hessian_bound_ms(args, n_sm):
@@ -123,6 +147,36 @@ def hessian_bound_ms(args, n_sm):
                for t in (R3, C5, Jp, Jq, p_idx, q_idx))
     n_out = (K * B * 32 + K * N * 8) * 4
     return bound(n_in + n_out, 384.0 * K * Td * B, 0.0, n_sm)
+
+
+def hessian_device_ms(hessian_blocks, hargs, csr):
+    """Milliseconds of the Hessian kernel's two passes alone: operands
+    aligned, CSR lists and outputs prebuilt, CUDA events around the C
+    launch only (the wrapper's host work and allocations left out)."""
+    R3, C5, Jp, Jq, p_idx, q_idx, N = hargs
+    K, Td, B = C5.shape[0], C5.shape[1], C5.shape[2]
+    dev = C5.device
+    R3, C5, Jp, Jq = (hessian_blocks._aligned(t) for t in (R3, C5, Jp, Jq))
+    if csr is None:
+        csr = (hessian_blocks.station_csr(p_idx, N)
+               + hessian_blocks.station_csr(q_idx, N))
+    p_perm, p_off, q_perm, q_off = csr
+    off = torch.empty((K, B, 4, 4, 2), dtype=torch.float32, device=dev)
+    spsq = torch.empty((2, K, B, 8), dtype=torch.float32, device=dev)
+    dsum = torch.empty((K, N, 2, 2, 2), dtype=torch.float32, device=dev)
+    lib = hessian_blocks._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        rc = lib.hessian_blocks_launch(
+            C5.data_ptr(), R3.data_ptr(), Jp.data_ptr(), Jq.data_ptr(),
+            p_perm.data_ptr(), p_off.data_ptr(), q_perm.data_ptr(),
+            q_off.data_ptr(), K, Td, B, N, off.data_ptr(), spsq.data_ptr(),
+            dsum.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError("hessian_blocks launch failed")
+
+    return cuda_ms(launch, 20)
 
 
 def device_busy_seconds(fn):
@@ -209,20 +263,31 @@ def check_close(name, label, out, ref, rtol, atol_scale, atol_ref):
     return max_abs
 
 
-def check_imager(dft_imager, uvw, vis, freq, cell, npix, label):
-    """Direct-DFT kernel vs plain version on the card; returns
-    (uv, lm, vis, max abs error)."""
-    scale = torch.tensor(dft_imager.uv_scale(freq), device=uvw.device)
-    uv = (uvw[:, :2] * scale).contiguous()
-    lm = dft_imager.pixel_grid(npix, cell, uvw.device)
-    vis = vis.contiguous()
-    out = dft_imager.dirty_image_cuda(uv, lm, vis)
+def check_imager(dft_imager, uv, vis, npix, cell, label, gen=None):
+    """Imager kernel vs its plain version, the direct DFT, on the card:
+    over the whole image, or over 4096 random pixels of it when ``gen``
+    is given; returns the max abs error."""
+    out = dft_imager.dirty_image_cuda(uv, vis, npix, cell).reshape(-1)
+    lm = dft_imager.pixel_grid(npix, cell, uv.device)
+    if gen is not None:
+        sub = torch.randperm(lm.shape[0], generator=gen)[:4096].to(uv.device)
+        out, lm = out[sub], lm[sub]
+        label += " (4096-pixel subset)"
     ref = dft_imager.dirty_image_reference(uv, lm, vis)
     torch.cuda.synchronize()
-    err = check_close("dft_imager", f"{label} npix={npix} R={uv.shape[0]}",
-                      out, ref, IMAGER_RTOL, IMAGER_ATOL,
-                      float(vis.abs().mean()))
-    return uv, lm, vis, err
+    return check_close("dft_imager", f"{label} npix={npix} R={uv.shape[0]}",
+                       out, ref, IMAGER_RTOL, IMAGER_ATOL,
+                       float(vis.abs().mean()))
+
+
+def scaled_uv(dft_imager, uvw, freq):
+    scale = torch.tensor(dft_imager.uv_scale(freq), device=uvw.device)
+    return (uvw[:, :2] * scale).contiguous()
+
+
+# ragged (R, npix) cases that cross the engine's 128-pixel tile and
+# 16-sample stage edges
+RAGGED = ((1001, 100), (777, 200), (100003, 1000))
 
 
 def random_imager_case(seed, R, dev, freq=150e6):
@@ -301,14 +366,121 @@ def tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, label, **extra):
     return rel + [rel_r, rel_s]
 
 
+# -- --ablation: the engine with one design choice undone -----------------
+
+IEEE_REDUCE = """__device__ __forceinline__ float reduce_2pi(float x) {
+  return x - kTwoPi * rintf(x / kTwoPi);
+}"""
+CVT_SPLIT = """__device__ __forceinline__ void split_tf32(float x, float& big,
+                                           float& small) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  big = __uint_as_float(r);
+  small = x - big;
+}"""
+
+
+def ablation_variants(header):
+    """{name: engine header}: as shipped; ``ieee_div``, the range reduction
+    with the IEEE division and rintf of the earlier SIMT kernels;
+    ``cvt_rna``, the 3xTF32 split by cvt.rna.tf32 (integer pipe) in place
+    of Veltkamp's; ``promote_2`` and ``no_promotion``, the tensor-core
+    partial sum added into the f32 registers every 2 stages, or never
+    (the whole R chunk in the tensor cores' accumulator)."""
+    def fn(pattern):
+        return re.search(pattern, header, re.S).group(0)
+
+    reduce_fn = fn(r"__device__ __forceinline__ float reduce_2pi.*?\n\}")
+    split_fn = fn(r"__device__ __forceinline__ void split_tf32.*?\n\}")
+    promote = fn(r"constexpr int kPromote = \d+;")
+    return {"shipped": header,
+            "ieee_div": header.replace(reduce_fn, IEEE_REDUCE),
+            "cvt_rna": header.replace(split_fn, CVT_SPLIT),
+            "promote_2": header.replace(promote,
+                                        "constexpr int kPromote = 2;"),
+            "no_promotion": header.replace(
+                promote, "constexpr int kPromote = 1 << 30;")}
+
+
+def ablation(out_dir, card):
+    """Build every variant (one nvcc each, all at once) under _build/,
+    run and hold each against the direct DFT; returns the rows."""
+    from smartcal_tpu_torch.cal import imager
+    from smartcal_tpu_torch.ops import build, dft_imager
+    src = (build.CSRC / "dft_imager.cu").read_text()
+    header = (build.CSRC / "separable_imager.cuh").read_text()
+    procs = {}
+    for name, text in ablation_variants(header).items():
+        d = build.BUILD_DIR / "ablation" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "separable_imager.cuh").write_text(text)
+        (d / "dft_imager.cu").write_text(src)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+               str(d / "libablation.so"), str(d / "dft_imager.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       d / "libablation.so")
+    libs = {}
+    for name, (proc, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        regs = re.findall(r"Used (\d+) registers", log)
+        print(f"built {name}: registers {regs}", flush=True)
+        libs[name] = dft_imager.bind(ctypes.CDLL(str(path)), "dft_image")
+    dev = torch.device("cuda", 0)
+    rows = []
+    for case, npix, R in (("ska", 1024, 652800), ("ska_coherent", 1024,
+                                                  652800),
+                          ("n62", 128, 37820)):
+        g = torch.Generator().manual_seed(npix + R)
+        uvw = (torch.rand((R, 3), generator=g) * 4e3 - 2e3).to(dev)
+        vis = torch.randn((R, 2), generator=g).to(dev)
+        if case == "ska_coherent":     # a source at the phase centre
+            vis = 0.01 * vis
+            vis[:, 0] += 1.0
+        cell = imager.default_cell(uvw, 150e6)
+        uv = scaled_uv(dft_imager, uvw, 150e6)
+        sub = torch.randperm(npix * npix, generator=g)[:4096].to(dev)
+        sub[0] = (npix // 2) * npix + npix // 2
+        ref = dft_imager.dirty_image_reference(
+            uv, dft_imager.pixel_grid(npix, cell, dev)[sub], vis)
+        tol = IMAGER_ATOL * float(vis.abs().mean()) + IMAGER_RTOL * ref.abs()
+        for name, lib in libs.items():
+            def run():
+                return dft_imager.engine_image(lib, "dft_image", uv, vis,
+                                               npix, cell)
+
+            err = (run().reshape(-1)[sub] - ref).abs()
+            row = {"variant": name, "case": case, "npix": npix, "R": R,
+                   "ms": cuda_ms(run, 5 if npix == 1024 else 20),
+                   "max_err_over_tol": float((err / tol).max()),
+                   "centre_rel_err": float(err[0] / ref[0].abs()),
+                   "card": card}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "engine_ablation.json"), "w") as fh:
+        json.dump(rows, fh, indent=1)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="smoke_out",
                     help="directory for chip_smoke.json")
+    ap.add_argument("--ablation", action="store_true",
+                    help="time the imaging engine's design variants instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.ablation:
+        card = card_line()
+        print(card, flush=True)
+        ablation(args.out, card)
+        print(card)
+        return 0
     from smartcal_tpu_torch.cal import imager, kernels
     from smartcal_tpu_torch.envs.calib import CalibEnv
     from smartcal_tpu_torch.envs.radio import RadioBackend
@@ -395,31 +567,39 @@ def main():
         "solve_idle_share": idle_share("N=62 solve", solve_wall, solve_busy,
                                        solve_wall_prof)}
 
-    # -- direct-DFT imager at the N=62 path's shapes, and a ragged R -------
+    # -- imager kernel at the N=62 path's shapes, and ragged cases ---------
     ep = env.ep
     uvw = ep.obs.uvw.reshape(-1, 3)
     freq = float(ep.obs.freqs[0])
     cell = imager.default_cell(ep.obs.uvw, float(ep.obs.freqs[-1]))
-    vis = imager.stokes_i_vis(ep.V[0])
-    uv, lm, visc, err_path = check_imager(dft_imager, uvw, vis, freq, cell,
-                                          128, "N=62 path")
-    ru, rv, rf = random_imager_case(0, 1000, dev)
-    _, _, _, err_ragged = check_imager(dft_imager, ru, rv, rf,
-                                       imager.default_cell(ru, rf), 32,
-                                       "ragged")
+    visc = imager.stokes_i_vis(ep.V[0]).contiguous()
+    uv = scaled_uv(dft_imager, uvw, freq)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    dft_err = [check_imager(dft_imager, uv, visc, 128, cell, "N=62 path")]
+    for r_n, r_npix in RAGGED:
+        ru, rv, rf = random_imager_case(r_n, r_n, dev)
+        dft_err.append(check_imager(
+            dft_imager, scaled_uv(dft_imager, ru, rf), rv, r_npix,
+            imager.default_cell(ru, rf), "ragged",
+            gen=g if r_npix * r_npix > 4 * 4096 else None))
+    lm = dft_imager.pixel_grid(128, cell, dev)
     P, R = lm.shape[0], uv.shape[0]
-    dft_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, lm, visc), 20)
+
+    def dft_kernel():
+        return dft_imager.dirty_image_cuda(uv, visc, 128, cell)
+
+    dft_ms = cuda_ms(dft_kernel, 20)
     dft_plain_ms = cuda_ms(
         lambda: dft_imager.dirty_image_reference(uv, lm, visc), 5)
     factored_ms = cuda_ms(lambda: imager.dirty_image_factored_sr(
         uvw, visc, freq, cell, npix=128), 20)
-    dft_ms2 = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, lm, visc), 20)
-    dft_bound, dft_bound_by = imager_bound_ms(P, R, n_sm)
+    dft_ms2 = cuda_ms(dft_kernel, 20)
+    dft_bounds = separable_bounds(128, R, n_sm)
     print(f"dft_imager at P={P} R={R}: kernel {dft_ms:.4f} / {dft_ms2:.4f} "
           f"ms (median, two runs), plain {dft_plain_ms:.4f} ms, "
-          f"factored-imager yardstick {factored_ms:.4f} ms, bound "
-          f"{dft_bound:.4f} ms ({dft_bound_by})", flush=True)
-    del env, backend, ep, uvw, vis, uv, lm, visc
+          f"plain factored-imager yardstick {factored_ms:.4f} ms, bounds "
+          + ", ".join(f"{k} {v}" for k, v in dft_bounds.items()), flush=True)
+    del env, backend, ep, uvw, visc, uv, lm
 
     # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
     ska_backend = RadioBackend(device=dev, **SKA)
@@ -478,6 +658,7 @@ def main():
     torch.cuda.synchronize()
     h_lab = (f"SKA path K={C5.shape[0]} Td={C5.shape[1]} B={C5.shape[2]} "
              f"N={N}")
+    h_dev_ms = hessian_device_ms(hessian_blocks, hargs, hkw.get("csr"))
     h_err = [check_close("hessian_blocks off", h_lab, off, off_ref,
                          HESSIAN_RTOL, HESSIAN_ATOL,
                          float(off_ref.abs().max())),
@@ -485,7 +666,6 @@ def main():
                          HESSIAN_RTOL, HESSIAN_ATOL,
                          float(dsum_ref.abs().max()))]
     del off, dsum, off_ref, dsum_ref
-    g = torch.Generator(device="cpu").manual_seed(1)
     for n_st, k_r, td_r, subset in ((100, 3, 5, False), (20, 2, 3, True)):
         p, q = kernels.baseline_indices(n_st, dev)
         if subset:                    # every third baseline + 2 sentinels
@@ -515,7 +695,8 @@ def main():
     h_ms2 = cuda_ms(h_kernel, 20)
     h_bound, h_bound_by = hessian_bound_ms(hargs, n_sm)
     print(f"hessian_blocks at {h_lab}: kernel {h_ms:.4f} / {h_ms2:.4f} ms "
-          f"(median, two runs), plain {h_plain_ms:.4f} ms, bound "
+          f"(median, two runs; wrapper included), device {h_dev_ms:.4f} ms "
+          f"(two passes alone), plain {h_plain_ms:.4f} ms, bound "
           f"{h_bound:.4f} ms ({h_bound_by})", flush=True)
     del hargs, hkw, R3, C5, Jp, Jq
 
@@ -533,7 +714,7 @@ def main():
                          f_out, f_ref, FACTORED_RTOL, FACTORED_ATOL,
                          float(f_ref.abs().max()))]
     del f_out, f_ref
-    for r_n, r_npix in ((100003, 1000), (777, 200)):
+    for r_n, r_npix in RAGGED:
         ru, rv, rf = random_imager_case(r_n, r_n, dev)
         rc = imager.default_cell(ru, rf)
         o_k = factored_imager.dirty_image_factored_cuda(ru, rv, rf, rc,
@@ -562,8 +743,8 @@ def main():
     del lhs, rhs
     torch.cuda.empty_cache()
     f_ms2 = cuda_ms(f_kernel, 5, warmup=1)
-    seen, seen_ms = profiler_capture(f_kernel, "factored_partial")
-    report["profiler_capture"] = {"kernel": "factored_partial_kernel",
+    seen, seen_ms = profiler_capture(f_kernel, "separable_partial")
+    report["profiler_capture"] = {"kernel": "separable_partial_kernel",
                                   "launches": 3, "recorded": seen,
                                   "recorded_mean_ms": seen_ms,
                                   "cuda_event_ms": f_ms2}
@@ -571,29 +752,35 @@ def main():
           f"kernel (mean recorded {seen_ms} ms; CUDA events {f_ms2:.3f} ms "
           "per call): the idle shares above are upper bounds if it missed "
           "any", flush=True)
-    f_bound, f_bound_by = factored_bound_ms(npix, f_R, n_sm)
+    f_bounds = separable_bounds(npix, f_R, n_sm)
     print(f"factored_imager at npix={npix} R={f_R}: kernel {f_ms:.3f} / "
           f"{f_ms2:.3f} ms (median, two runs), plain {f_plain_ms:.3f} ms, "
-          f"library (cuBLAS SGEMM of the planes) {f_lib_ms:.3f} ms, bound "
-          f"{f_bound:.3f} ms ({f_bound_by})", flush=True)
+          f"library (cuBLAS SGEMM of the planes) {f_lib_ms:.3f} ms, bounds "
+          + ", ".join(f"{k} {v}" for k, v in f_bounds.items()), flush=True)
+    if not max(f_ms, f_ms2) < f_lib_ms:
+        raise AssertionError("factored_imager is not faster than the cuBLAS "
+                             "SGEMM yardstick")
 
     # -- dft_imager at the SKA path's shapes, held on a pixel subset -------
-    (s_uv, s_lm, s_vis), _ = spies["dft_imager"].args
-    s_out = dft_imager.dirty_image_cuda(s_uv, s_lm, s_vis)
-    sub = torch.randperm(s_lm.shape[0], generator=g)[:4096].to(dev)
-    s_ref = dft_imager.dirty_image_reference(s_uv, s_lm[sub], s_vis)
-    torch.cuda.synchronize()
-    s_P, s_R = s_lm.shape[0], s_uv.shape[0]
-    s_err = check_close("dft_imager",
-                        f"SKA path P={s_P} R={s_R} (4096-pixel subset)",
-                        s_out[sub], s_ref, IMAGER_RTOL, IMAGER_ATOL,
-                        float(s_vis.abs().mean()))
-    s_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(s_uv, s_lm, s_vis), 3,
-                   warmup=1)
-    s_bound, s_bound_by = imager_bound_ms(s_P, s_R, n_sm)
-    print(f"dft_imager at P={s_P} R={s_R}: kernel {s_ms:.3f} ms (median of "
-          f"3), bound {s_bound:.3f} ms ({s_bound_by})", flush=True)
-    del ska_env, ska_backend, spies, s_uv, s_lm, s_vis, s_out
+    (s_uv, s_vis, s_npix, s_cell), _ = spies["dft_imager"].args
+    s_err = check_imager(dft_imager, s_uv, s_vis, s_npix, s_cell, "SKA path",
+                         gen=g)
+
+    def s_kernel():
+        return dft_imager.dirty_image_cuda(s_uv, s_vis, s_npix, s_cell)
+
+    s_ms = cuda_ms(s_kernel, 3, warmup=1)
+    s_ms2 = cuda_ms(s_kernel, 3, warmup=1)
+    s_P, s_R = s_npix * s_npix, s_uv.shape[0]
+    s_bounds = separable_bounds(s_npix, s_R, n_sm)
+    print(f"dft_imager at P={s_P} R={s_R}: kernel {s_ms:.3f} / {s_ms2:.3f} "
+          "ms (median of 3, two runs), bounds "
+          + ", ".join(f"{k} {v}" for k, v in s_bounds.items()), flush=True)
+    if max(s_ms, s_ms2) > 150.0 or max(dft_ms, dft_ms2) > factored_ms:
+        raise AssertionError("dft_imager slower than its limits: 150 ms at "
+                             "the SKA shapes, the plain factored imager at "
+                             "N=62")
+    del ska_env, ska_backend, spies, s_uv, s_vis
     torch.cuda.empty_cache()
 
     # -- the same tiny episodes on the GPU and on the CPU ------------------
@@ -605,32 +792,36 @@ def main():
     kernels_line = [
         {"name": "dft_imager", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/dft_imager.cu",
+         "engine": "smartcal_tpu_torch/csrc/separable_imager.cuh",
          "replaces": "smartcal_tpu/ops/pallas_imager.py:58",
          "launches": ska_launches["dft_imager"],
          "launches_n62_path": n62_launches["dft_imager"],
-         "max_abs_err": max(err_path, err_ragged), "ms": dft_ms,
-         "plain_ms": dft_plain_ms, "bound_ms": dft_bound,
-         "bound_by": dft_bound_by, "library_ms": None,
+         "max_abs_err": max(dft_err), "ms": dft_ms,
+         "plain_ms": dft_plain_ms, **dft_bounds, "library_ms": None,
          "shapes": f"P={P} R={R}", "yardstick_factored_ms": factored_ms,
-         "ska_ms": s_ms, "ska_bound_ms": s_bound,
+         "ska_ms": s_ms, "ska_bound_ms": s_bounds["bound_ms"],
+         "ska_bound_fp32_ms": s_bounds["bound_fp32_ms"],
+         "ska_bound_direct_ms": s_bounds["bound_direct_ms"],
          "ska_shapes": f"P={s_P} R={s_R}", "ska_max_abs_err_subset": s_err},
         {"name": "hessian_blocks", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/hessian_blocks.cu",
          "replaces": "smartcal_tpu/ops/pallas_hessian.py:60",
          "launches": ska_launches["hessian_blocks"],
-         "max_abs_err": max(h_err), "ms": h_ms, "plain_ms": h_plain_ms,
-         "bound_ms": h_bound, "bound_by": h_bound_by, "library_ms": None,
-         "shapes": h_lab},
+         "max_abs_err": max(h_err), "ms": h_ms, "device_ms": h_dev_ms,
+         "plain_ms": h_plain_ms, "bound_ms": h_bound, "bound_by": h_bound_by,
+         "library_ms": None, "shapes": h_lab},
         {"name": "factored_imager", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/factored_imager.cu",
+         "engine": "smartcal_tpu_torch/csrc/separable_imager.cuh",
          "replaces": "smartcal_tpu/ops/pallas_imager.py:159",
          "launches": ska_launches["factored_imager"],
          "max_abs_err": max(f_err), "ms": f_ms, "plain_ms": f_plain_ms,
-         "bound_ms": f_bound, "bound_by": f_bound_by, "library_ms": f_lib_ms,
+         **f_bounds, "library_ms": f_lib_ms,
          "shapes": f"npix={npix} R={f_R}"}]
     report.update(kernels=kernels_line, card=card, tiny_rel=tiny_rel,
                   tiny_blocked_rel=tiny_blk_rel,
                   kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],
+                                     "dft_imager_ska": [s_ms, s_ms2],
                                      "hessian_blocks": [h_ms, h_ms2],
                                      "factored_imager": [f_ms, f_ms2]},
                   total_seconds=time.perf_counter() - t_start)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``smartcal_tpu_torch/_build/lib<name>-<hash>.so`` on
 first use, then loaded with ``ctypes``.  The file name carries a hash of
-the source and the flags, so an edited source is rebuilt, never reused
-stale.  :func:`build` starts one ``nvcc`` per source, all at once.
+the source, of the shared headers ``csrc/*.cuh`` it may include and of the
+flags, so an edited source or header is rebuilt, never reused stale.
+:func:`build` starts one ``nvcc`` per source, all at once.
 """
 
 import ctypes
@@ -43,9 +44,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Where the library of kernel ``name`` is built: the name carries a
+    hash of its source, of every shared header ``csrc/*.cuh`` and of the
+    flags, so an edit to any of them builds anew."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict:

@@ -1,5 +1,7 @@
-"""Direct-DFT dirty imager: the CUDA kernel ``csrc/dft_imager.cu`` and its
-plain PyTorch version.
+"""Dirty imager: the CUDA kernel ``csrc/dft_imager.cu`` and its plain
+PyTorch version, and the Python side of the separable-grid engine
+(``csrc/separable_imager.cuh``) that this kernel and ``ops/factored_imager``
+share.
 
 Replaces the Pallas TPU kernel smartcal_tpu/ops/pallas_imager.py
 ``_imager_kernel`` (wrapper ``dirty_image_pallas``):
@@ -7,13 +9,14 @@ Replaces the Pallas TPU kernel smartcal_tpu/ops/pallas_imager.py
     img[p] = (1/R) sum_r [cos(phi_pr) v_re[r] + sin(phi_pr) v_im[r]],
     phi_pr = l_p u_r + m_p v_r,   reduced mod 2 pi before the trig.
 
-On the card the kernel is bound by the SFU sine/cosine rate: at 16 results
-per clock per SM on sm_90, the 2 P R ~ 1.24e9 transcendentals of one band
-at P = 16384, R = 37820 take >= ~0.3 ms on an H100 SXM (derived from the
-data sheet, not measured; memory traffic is ~0.6 MB per band, negligible).
-The kernel loops over R inside each block and splits R across the grid,
-with a second fixed-order pass over the partial sums (no atomics); see the
-source for the design.
+The TPU wrapper only images the separable grid l_i = m_i =
+(i - npix/2) cell, so the kernel evaluates the image by angle addition as
+one GEMM of depth 2R whose trig operands are made on chip, on the TF32
+tensor cores in 3xTF32 (see the engine's source).  Evaluated directly the
+image needs 2 P R sine/cosine values (>= 327 ms at P = 1024^2, R = 652800
+on an H100 SXM, from the data sheet); the GEMM is >= 16.6 ms there.
+:func:`dirty_image_reference`, the direct DFT, stays the definition the
+kernel is held against.
 
 :func:`dirty_image` launches the kernel for CUDA tensors and raises if the
 build or the launch fails; it runs :func:`dirty_image_reference` only for
@@ -28,9 +31,8 @@ import torch
 
 C_LIGHT = 2.99792458e8
 F32 = torch.float32
-THREADS = 256            # threads per block = samples per R tile
-PIX_PER_THREAD = 2       # pixels per thread (csrc/dft_imager.cu kPix)
-WAVE_BLOCKS_PER_SM = 8   # 256-thread blocks resident per SM (2048 threads)
+TILE = 128               # output rows = columns per block (engine kTile)
+STAGE_SAMPLES = 16       # samples per pipeline stage (engine kSamples)
 
 #: kernel launches so far (one per image); only the CUDA path counts
 launches = 0
@@ -43,11 +45,17 @@ def uv_scale(freq) -> np.float32:
     return np.float32(2.0 * math.pi) * np.float32(freq) / np.float32(C_LIGHT)
 
 
+def axis_grid(npix, cell, device="cpu"):
+    """(npix,) direction cosines of one image axis, centred: both l (rows)
+    and m (columns) of the separable pixel grid."""
+    half = npix // 2
+    return (torch.arange(npix, device=device) - half).to(F32) * cell
+
+
 def pixel_grid(npix, cell, device="cpu"):
     """(npix^2, 2) direction cosines (l, m) of the image pixels; row-major
     with m varying fastest; centered, north up."""
-    half = npix // 2
-    idx = (torch.arange(npix, device=device) - half).to(F32) * cell
+    idx = axis_grid(npix, cell, device)
     ll, mm = torch.meshgrid(idx, idx, indexing="ij")
     return torch.stack([ll.reshape(-1), mm.reshape(-1)], dim=-1)
 
@@ -55,7 +63,7 @@ def pixel_grid(npix, cell, device="cpu"):
 def dirty_image_reference(uv, lm, vis, chunk=2048):
     """Plain PyTorch version of the kernel: uv (R, 2) scaled, lm (P, 2),
     vis (R, 2) -> (P,).  The phase is materialised in R-chunks and reduced
-    mod 2 pi exactly like the kernel."""
+    mod 2 pi exactly like the TPU kernel."""
     R = uv.shape[0]
     two_pi = torch.tensor(2.0 * math.pi, dtype=F32, device=uv.device)
     out = torch.zeros(lm.shape[0], dtype=F32, device=uv.device)
@@ -68,14 +76,50 @@ def dirty_image_reference(uv, lm, vis, chunk=2048):
     return out / R
 
 
-def split_plan(P, R, n_sm):
-    """(n_split, chunk): split R so the pass-1 grid fills one wave of
-    resident blocks, in chunks that are whole 256-sample tiles."""
-    p_blocks = -(-P // (THREADS * PIX_PER_THREAD))
-    n_split = max(1, min((WAVE_BLOCKS_PER_SM * n_sm) // p_blocks,
-                         -(-R // THREADS)))
-    chunk = -(-(-(-R // n_split)) // THREADS) * THREADS
+def split_plan(npix, R, n_sm):
+    """(n_split, chunk) of the engine: R split so that the output tiles
+    times the splits fill the card's SMs once (one block per SM), in chunks
+    of whole stages."""
+    tiles = (-(-npix // TILE)) ** 2
+    n_split = max(1, min(n_sm // tiles, -(-R // STAGE_SAMPLES)))
+    chunk = -(-(-(-R // n_split)) // STAGE_SAMPLES) * STAGE_SAMPLES
     return -(-R // chunk), chunk
+
+
+def bind(lib, prefix):
+    """Set the ctypes signatures of an engine entry point ``<prefix>_launch``
+    and its ``<prefix>_error_string``; returns the library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch = getattr(lib, f"{prefix}_launch")
+    launch.argtypes = [p, p, p, p, i, i, i, i, p]
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{prefix}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def engine_image(lib, prefix, uv, vis, npix, cell):
+    """(npix, npix) image of CUDA float32 uv (R, 2) scaled and vis (R, 2)
+    through the engine entry point ``<prefix>_launch`` of ``lib``, on the
+    current stream; raises if the launch fails."""
+    dev = uv.device
+    R = uv.shape[0]
+    axis = axis_grid(npix, cell, dev)
+    samples = torch.cat([uv, vis], 1).contiguous()   # one float4 per sample
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, chunk = split_plan(npix, R, n_sm)
+    partial = torch.empty((n_split, npix, npix), dtype=F32, device=dev)
+    out = torch.empty((npix, npix), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"{prefix}_launch")(
+            axis.data_ptr(), samples.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), npix, R, n_split, chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"{prefix} launch failed: " + getattr(
+            lib, f"{prefix}_error_string")(rc).decode())
+    return out
 
 
 def _lib():
@@ -84,48 +128,28 @@ def _lib():
 
     lib = build.load("dft_imager")
     if not _argtypes_set:
-        p = ctypes.c_void_p
-        lib.dft_image_launch.argtypes = [p, p, p, p, p, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int, p]
-        lib.dft_image_launch.restype = ctypes.c_int
-        lib.dft_image_error_string.argtypes = [ctypes.c_int]
-        lib.dft_image_error_string.restype = ctypes.c_char_p
+        bind(lib, "dft_image")
         _argtypes_set = True
     return lib
 
 
-def dirty_image_cuda(uv, lm, vis):
-    """Launch the kernel on CUDA tensors uv (R, 2), lm (P, 2), vis (R, 2),
-    all float32 and contiguous, on the current stream.  Returns (P,)."""
+def dirty_image_cuda(uv, vis, npix, cell):
+    """Launch the kernel on contiguous float32 CUDA tensors uv (R, 2)
+    scaled and vis (R, 2), on the current stream: the (npix, npix) image
+    of the grid ``axis_grid(npix, cell)``.  Any npix and R: the ragged
+    edges are masked in the kernel."""
     global launches
-    for name, t in (("uv", uv), ("lm", lm), ("vis", vis)):
+    for name, t in (("uv", uv), ("vis", vis)):
         if t.device.type != "cuda" or t.dtype != F32 or t.dim() != 2 \
                 or t.shape[1] != 2 or not t.is_contiguous():
             raise ValueError(f"dft_imager: {name} must be a contiguous "
-                             f"(n, 2) float32 CUDA tensor, got "
+                             f"(R, 2) float32 CUDA tensor, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if not (uv.device == lm.device == vis.device) or \
-            uv.shape[0] != vis.shape[0]:
+    if uv.device != vis.device or uv.shape[0] != vis.shape[0]:
         raise ValueError("dft_imager: uv/vis length or device mismatch")
-    P, R = lm.shape[0], uv.shape[0]
-    if R == 0:
-        raise ValueError("dft_imager: no visibilities")
-    dev = uv.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, chunk = split_plan(P, R, n_sm)
-    partial = torch.empty((n_split, P), dtype=F32, device=dev)
-    out = torch.empty(P, dtype=F32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dft_image_launch(lm.data_ptr(), uv.data_ptr(),
-                                  vis.data_ptr(), partial.data_ptr(),
-                                  out.data_ptr(), P, R, n_split, chunk,
-                                  stream)
-    if rc != 0:
-        raise RuntimeError("dft_imager launch failed: "
-                           + lib.dft_image_error_string(rc).decode())
+    if uv.shape[0] == 0 or npix <= 0:
+        raise ValueError("dft_imager: no visibilities or no pixels")
+    out = engine_image(_lib(), "dft_image", uv, vis, npix, cell)
     launches += 1
     return out
 
@@ -144,11 +168,10 @@ def dirty_image(uvw, vis, freq, cell, npix=128):
         raise ValueError("dft_imager: uvw and vis on different devices")
     scale = torch.tensor(uv_scale(freq), dtype=F32, device=uvw.device)
     uv = (uvw[:, :2] * scale).contiguous()
-    lm = pixel_grid(npix, cell, uvw.device)
     if uvw.device.type == "cuda":
-        img = dirty_image_cuda(uv, lm, vis.contiguous())
+        img = dirty_image_cuda(uv, vis.contiguous(), npix, cell)
     elif uvw.device.type == "cpu":
-        img = dirty_image_reference(uv, lm, vis)
+        img = dirty_image_reference(uv, pixel_grid(npix, cell), vis)
     else:
         raise ValueError(f"dft_imager: unsupported device {uvw.device}")
     return img.reshape(npix, npix)

@@ -24,9 +24,11 @@ def _case(seed, R, freq=150e6):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_gpu():
+    """The imager kernel against the direct DFT; npix=100 and R=1001 are
+    ragged against the engine's 128-pixel tile and 16-sample stage."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for npix, R in ((32, 700), (128, 5000)):
+    for npix, R in ((32, 700), (128, 5000), (100, 1001)):
         uvw, vis, freq, cell = _case(npix, R)
         u = torch.from_numpy(uvw).cuda()
         v = torch.from_numpy(vis).cuda()

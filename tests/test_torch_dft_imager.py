@@ -5,8 +5,11 @@ is held against the Pallas kernel in interpret mode and against the XLA
 oracle, at the tolerance tests/test_pallas_imager.py uses for the Pallas
 kernel (rtol 2e-4, atol 2e-5: f32 trig and summation order differ).  The
 CUDA kernel itself runs only on a GPU (tests/test_torch_cuda.py);
-chip_smoke.py holds it against the plain version on the card.
+chip_smoke.py holds it against the plain version on the card, and
+tests/test_torch_separable_imager.py holds its arithmetic here.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -65,7 +68,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
 def test_kernel_wrapper_rejects_non_cuda_tensors():
     t = torch.zeros((8, 2))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        dft_imager.dirty_image_cuda(t, t, t)
+        dft_imager.dirty_image_cuda(t, t, 16, 1e-3)
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
@@ -85,11 +88,15 @@ def test_pixel_grid_matches_jax():
 @pytest.mark.parametrize("P,R", [(16384, 37820), (1024, 700), (1024, 10),
                                  (4096, 512)])
 def test_split_plan_covers_r_in_whole_tiles(P, R):
-    n_split, chunk = dft_imager.split_plan(P, R, 132)
-    assert chunk % dft_imager.THREADS == 0
+    """The engine's split of R for an npix^2 = P image: whole 16-sample
+    stages, every sample in one chunk, no more blocks than the card has
+    SMs."""
+    npix = math.isqrt(P)
+    n_split, chunk = dft_imager.split_plan(npix, R, 132)
+    assert chunk % dft_imager.STAGE_SAMPLES == 0
     assert n_split * chunk >= R > (n_split - 1) * chunk
-    p_blocks = -(-P // (dft_imager.THREADS * dft_imager.PIX_PER_THREAD))
-    assert n_split == 1 or p_blocks * n_split <= 8 * 132
+    tiles = (-(-npix // dft_imager.TILE)) ** 2
+    assert n_split == 1 or tiles * n_split <= 132
 
 
 def test_factored_imager_matches_jax():

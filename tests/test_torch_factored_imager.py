@@ -21,7 +21,7 @@ import torch
 from smartcal_tpu.cal import imager as jimager
 from smartcal_tpu.ops import pallas_imager
 from smartcal_tpu_torch.cal import imager as timager
-from smartcal_tpu_torch.ops import factored_imager
+from smartcal_tpu_torch.ops import dft_imager, factored_imager
 
 NPIX, R = 128, 700
 RTOL, ATOL_SCALE = 2e-4, 2e-4
@@ -76,10 +76,11 @@ def test_large_dispatch_on_cpu_runs_plain(case, ref_name):
 
 
 def test_split_plan_covers_r_in_whole_tiles():
-    """The kernel's split of R: whole R tiles, every sample in one chunk,
-    and enough blocks for the card's resident slots."""
+    """The kernel's split of R (the engine's, shared with dft_imager):
+    whole 16-sample stages, every sample in one chunk, one block per SM."""
     for npix, r in ((1024, 652800), (128, 700), (1000, 17), (32, 5000)):
         n_split, chunk = factored_imager.split_plan(npix, r, 132)
-        assert chunk % factored_imager.R_TILE == 0
+        assert chunk % dft_imager.STAGE_SAMPLES == 0
         assert (n_split - 1) * chunk < r <= n_split * chunk
-    assert factored_imager.split_plan(1024, 652800, 132) == (4, 163200)
+        assert (-(-npix // dft_imager.TILE)) ** 2 * n_split <= 132
+    assert factored_imager.split_plan(1024, 652800, 132) == (2, 326400)
