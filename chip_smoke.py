@@ -24,8 +24,14 @@
 6. holds each kernel against its plain version on the card at those
    operands (the imager against the direct DFT on a 4096-pixel subset) and
    at ragged cases, and times kernel, plain version and library yardstick
-   with CUDA events; times the Hessian kernel's two passes alone (events
-   around the C launch, CSR lists prebuilt); counts how many of three
+   with CUDA events; the Hessian also bit for bit over two launches, on
+   full sets with partial tiles, with R3 streamed (Td=80) and on a subset
+   with sentinels, and its launches alone (``device_ms``: events around
+   the C call, schedule and outputs prebuilt); times the pieces of the
+   SKA influence chain on the step's own operands (Hessian kernel,
+   placement, consensus add + adjoint column means and the solve inside
+   them, LLR, the operand preparation and the whole of
+   influence_visibilities, the factored imager); counts how many of three
    factored-imager launches torch.profiler records (a check on the idle
    shares);
 7. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
@@ -45,6 +51,17 @@ R=652,800, random and coherent visibilities) and the N=62 tier's
 (npix=128, R=37,820), holds it against the direct DFT on 4096 pixels and
 the phase centre and times it with CUDA events; one JSON line per variant
 and case, details in DIR/engine_ablation.json.
+
+    python3 chip_smoke.py --hessian-split PARENT_CU [--out DIR]
+
+instead times the Hessian kernels launch by launch at the SKA path's
+shapes (K=10, Td=10, N=256), CUDA events around each launch and around 20
+back-to-back launches: the two-pass kernel of commit dc0ef65 (PARENT_CU,
+e.g. ``git show dc0ef65:smartcal_tpu_torch/csrc/hessian_blocks.cu``) pass
+by pass, the shipped kernel's tile pass and combine, and copies of the
+shipped kernel with one choice changed (``HESSIAN_VARIANTS``: tile shape,
+ring depth, and the copies or the algebra alone); details in
+DIR/hessian_split.json.
 """
 
 import argparse
@@ -56,6 +73,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -106,6 +124,25 @@ def cuda_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
+def cuda_ms_batched(fn, n=20, reps=5, warmup=2):
+    """Median over ``reps`` of the milliseconds per call of ``n`` calls of
+    ``fn()`` between one pair of CUDA events: the device time of
+    back-to-back launches, without the host's gap before a lone launch."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
 def bound(n_bytes, flops, sfu, n_sm):
     """Least time (ms) for the work: bytes over the HBM rate, against FP32
     flops over the FP32 rate and sine/cosine values over the SFU rate.
@@ -139,44 +176,134 @@ def separable_bounds(npix, R, n_sm):
 
 
 def hessian_bound_ms(args, n_sm):
-    """Block sums: every operand read once, off and Dsum written once;
-    384 FP32 flops per (k, t, b) (off 128, A1, Sp, A2, Sq 64 each)."""
+    """Block sums: every operand read once, off and Dsum written once; the
+    kernel's FP32 flops: 192 per (k, t, b) (off 128, the Gram matrix of C
+    64) and 384 per (k, b) (Jq^H Jq and Jp^H Jp 128, Sp and Sq from the
+    Gram matrix 256)."""
     R3, C5, Jp, Jq, p_idx, q_idx, N = args
     K, Td, B = C5.shape[0], C5.shape[1], C5.shape[2]
     n_in = sum(t.numel() * t.element_size()
                for t in (R3, C5, Jp, Jq, p_idx, q_idx))
     n_out = (K * B * 32 + K * N * 8) * 4
-    return bound(n_in + n_out, 384.0 * K * Td * B, 0.0, n_sm)
+    return bound(n_in + n_out, 192.0 * K * Td * B + 384.0 * K * B, 0.0, n_sm)
 
 
-def hessian_device_ms(hessian_blocks, hargs, csr):
-    """Milliseconds of the Hessian kernel's two passes alone: operands
-    aligned, CSR lists and outputs prebuilt, CUDA events around the C
-    launch only (the wrapper's host work and allocations left out)."""
+# ragged Hessian cases (N, K, Td, subset): full sets with partial tiles on
+# both station axes and direction chunks; Td=80, whose R3 tile does not
+# fit in shared memory (streamed per step); a subset with sentinels
+HESSIAN_RAGGED = ((100, 3, 5, False), (64, 2, 4, False), (20, 2, 80, False),
+                  (20, 3, 3, True))
+
+
+def check_hessian(hessian_blocks, kernels, args, kw, label):
+    """Two launches of the Hessian kernel: bit-identical, and within the
+    tolerance of the plain version; returns the max abs errors."""
+    off, dsum = hessian_blocks.hessian_block_sums_cuda(*args, **kw)
+    off2, dsum2 = hessian_blocks.hessian_block_sums_cuda(*args, **kw)
+    off_ref, dsum_ref = kernels._hessian_block_sums(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(off, off2) and torch.equal(dsum, dsum2)
+    print(f"hessian_blocks {label}: two launches bit-identical: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"hessian_blocks: two launches differ ({label})")
+    return [check_close("hessian_blocks off", label, off, off_ref,
+                        HESSIAN_RTOL, HESSIAN_ATOL,
+                        float(off_ref.abs().max())),
+            check_close("hessian_blocks Dsum", label, dsum, dsum_ref,
+                        HESSIAN_RTOL, HESSIAN_ATOL,
+                        float(dsum_ref.abs().max()))]
+
+
+def influence_pieces(chunk_call, vis_call, reps=5):
+    """Milliseconds (CUDA events, median of ``reps``) of the pieces of the
+    SKA influence chain on the step's own operands (the first call of
+    ``_chunk_influence_opt`` and of ``influence_visibilities``).  Per
+    chunk: the Hessian kernel, the placement tail, the consensus add plus
+    the adjoint column means (with a clone of H), the real solve inside
+    the column means alone, the LLR.  Per band: the operand preparation of
+    ``influence_visibilities`` (C5 transpose, Jp/Jq gathers, Csum, lhs
+    einsum) and the whole function."""
+    from smartcal_tpu_torch.cal import creal, influence, kernels
+    from smartcal_tpu_torch.ops import hessian_blocks
+    (R3, C5, Jp, Jq, lhs, hadd, N, _), _ = chunk_call
+    Td, B = C5.shape[1], C5.shape[2]
+    sched, p, q = hessian_blocks.full_schedule(N, C5.device)
+    off, dsum = hessian_blocks.hessian_block_sums_cuda(R3, C5, Jp, Jq, p, q,
+                                                       N, sched=sched)
+    H = kernels._hessian_assemble(off, dsum, N, B, Td)
+    diag = torch.arange(H.shape[1], device=H.device)
+    H_add = H.clone()
+    H_add[:, diag, diag, 0] += hadd[:, None]
+    W = torch.randn((H.shape[0], H.shape[1], 4, 2), generator=torch.Generator(
+        ).manual_seed(5)).to(H.device)
+
+    def colmeans():
+        Hc = H.clone()
+        Hc[:, diag, diag, 0] += hadd[:, None]
+        return kernels._colmeans_adjoint_core_sr(lhs, Hc, N, Td)
+
+    (R, C, J, hadd_f, n_st, n_chunks), vis_kw = vis_call
+
+    def prep():
+        K = C.shape[0]
+        td = C.shape[1] // B // n_chunks
+        C5a = C.reshape(K, n_chunks, td, B, 2, 2, 2).transpose(-3, -2) \
+            .movedim(1, 0).contiguous()
+        pi, qi = kernels.baseline_indices(n_st, R.device)
+        J4 = J.reshape(n_chunks, K, n_st, 2, 2, 2)
+        Csum = torch.sum(C5a, dim=2)
+        return (J4[:, :, pi], creal.einsum("skbuv,skbwv->skbuw",
+                                           J4[:, :, qi], creal.conj(Csum)))
+
+    pieces = {
+        "hessian_kernel": lambda: hessian_blocks.hessian_block_sums_cuda(
+            R3, C5, Jp, Jq, p, q, N, sched=sched),
+        "hessian_assemble": lambda: kernels._hessian_assemble(off, dsum, N,
+                                                              B, Td),
+        "hadd_colmeans": colmeans,
+        "solve_in_colmeans": lambda: creal.solve(H_add.transpose(1, 2), W),
+        "llr": lambda: kernels._llr_core_sr(R3, C5, Jp, Jq),
+        "visibilities_prep": prep,
+        "influence_visibilities": lambda: influence.influence_visibilities(
+            R, C, J, hadd_f, n_st, n_chunks, **vis_kw),
+    }
+    out = {name: cuda_ms(fn, reps, warmup=1) for name, fn in pieces.items()}
+    out["n_chunks"] = n_chunks
+    return out
+
+
+def hessian_launcher(hessian_blocks, hargs, sched, lib=None,
+                     entry="hessian_blocks_launch"):
+    """A closure that launches the Hessian kernel's C entry ``entry`` of
+    ``lib`` (default: the shipped library) on prebuilt outputs: operands
+    aligned, the schedule built, nothing allocated per launch.  Returns
+    (launch, off, dsum)."""
     R3, C5, Jp, Jq, p_idx, q_idx, N = hargs
     K, Td, B = C5.shape[0], C5.shape[1], C5.shape[2]
     dev = C5.device
     R3, C5, Jp, Jq = (hessian_blocks._aligned(t) for t in (R3, C5, Jp, Jq))
-    if csr is None:
-        csr = (hessian_blocks.station_csr(p_idx, N)
-               + hessian_blocks.station_csr(q_idx, N))
-    p_perm, p_off, q_perm, q_off = csr
+    if sched is None:
+        sched = hessian_blocks.subset_schedule(p_idx, q_idx, N, dev)
     off = torch.empty((K, B, 4, 4, 2), dtype=torch.float32, device=dev)
-    spsq = torch.empty((2, K, B, 8), dtype=torch.float32, device=dev)
+    part = torch.empty((K, max(sched.n_rows, 1), 8), dtype=torch.float32,
+                       device=dev)
     dsum = torch.empty((K, N, 2, 2, 2), dtype=torch.float32, device=dev)
-    lib = hessian_blocks._lib()
+    fn = getattr(lib or hessian_blocks._lib(), entry)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p] * 4
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        rc = lib.hessian_blocks_launch(
-            C5.data_ptr(), R3.data_ptr(), Jp.data_ptr(), Jq.data_ptr(),
-            p_perm.data_ptr(), p_off.data_ptr(), q_perm.data_ptr(),
-            q_off.data_ptr(), K, Td, B, N, off.data_ptr(), spsq.data_ptr(),
-            dsum.data_ptr(), stream)
+        rc = fn(C5.data_ptr(), R3.data_ptr(), Jp.data_ptr(), Jq.data_ptr(),
+                sched.cell_b.data_ptr(), sched.slot_dst.data_ptr(),
+                sched.st_off.data_ptr(), K, Td, B, N, sched.cell_b.shape[0],
+                sched.n_rows, off.data_ptr(), part.data_ptr(),
+                dsum.data_ptr(), stream)
         if rc != 0:
-            raise RuntimeError("hessian_blocks launch failed")
+            raise RuntimeError(f"hessian_blocks {entry} failed ({rc})")
 
-    return cuda_ms(launch, 20)
+    return launch, off, dsum
 
 
 def device_busy_seconds(fn):
@@ -465,23 +592,285 @@ def ablation(out_dir, card):
     return rows
 
 
+# -- --hessian-split: the Hessian kernels' launches timed apart ------------
+
+# appended to the two-pass source (csrc/hessian_blocks.cu up to commit
+# dc0ef65): each pass behind a C entry of its own
+PARENT_PASS_ENTRIES = """
+extern "C" int split_pass1(const float* C5, const float* R3, const float* Jp,
+                           const float* Jq, int K, int Td, int B, float* off,
+                           float* spsq, void* stream) {
+  const dim3 grid1((B + kThreads - 1) / kThreads, K);
+  hessian_pass1_kernel<<<grid1, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      C5, R3, Jp, Jq, Td, B, off, spsq);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int split_pass2(const float* spsq, const int* p_perm,
+                           const int* p_off, const int* q_perm,
+                           const int* q_off, int K, int B, int N,
+                           float* dsum, void* stream) {
+  const int64_t n2 = static_cast<int64_t>(K) * N * 8;
+  hessian_pass2_kernel<<<static_cast<unsigned>((n2 + 255) / 256), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      spsq, p_perm, p_off, q_perm, q_off, K, B, N, dsum);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def parent_csr(n_stations, dev):
+    """The two-pass kernel's station lists of the full baseline set:
+    (p_perm, p_off, q_perm, q_off), int32, baselines sorted stably by
+    station and the start of each station's run."""
+    out = []
+    for idx in np.triu_indices(n_stations, 1):
+        perm = np.argsort(idx, kind="stable").astype(np.int32)
+        offsets = np.zeros(n_stations + 1, np.int32)
+        offsets[1:] = np.cumsum(np.bincount(idx, minlength=n_stations))
+        out += [torch.from_numpy(perm).to(dev),
+                torch.from_numpy(offsets).to(dev)]
+    return out
+
+
+# appended to the shipped source: its tile pass and its combine alone, with
+# the signature of hessian_blocks_launch
+SHIPPED_PASS_ENTRIES = """
+extern "C" int split_tiles(const float* C5, const float* R3, const float* Jp,
+                           const float* Jq, const int* cell_b,
+                           const int* slot_dst, const int* st_off, int K,
+                           int Td, int B, int N, int n_tiles, int n_rows,
+                           float* off, float* part, float* dsum,
+                           void* stream) {
+  const bool resident = smem_bytes(Td, true) <= kMaxSmem;
+  const size_t smem = smem_bytes(Td, resident);
+  cudaError_t err = cudaFuncSetAttribute(
+      hessian_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hessian_tiles_kernel<<<n_tiles, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      C5, R3, Jp, Jq, cell_b, slot_dst, K, Td, B, n_rows, resident ? 1 : 0,
+      off, part);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int split_combine(const float* C5, const float* R3,
+                             const float* Jp, const float* Jq,
+                             const int* cell_b, const int* slot_dst,
+                             const int* st_off, int K, int Td, int B, int N,
+                             int n_tiles, int n_rows, float* off,
+                             float* part, float* dsum, void* stream) {
+  const int64_t n2 = static_cast<int64_t>(K) * N * 8;
+  hessian_combine_kernel<<<static_cast<unsigned>((n2 + 255) / 256), 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      part, st_off, K, N, n_rows, dsum);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _tile(rows, cols):
+    return ((r"constexpr int kRows = \d+;", f"constexpr int kRows = {rows};"),
+            (r"constexpr int kCols = \d+;", f"constexpr int kCols = {cols};"))
+
+
+# name: (replacements in the shipped source, tile shape or None for the
+# shipped one)
+HESSIAN_VARIANTS = {
+    # other tile shapes of 64 cells: longer runs of consecutive baselines
+    "tile4x16": (_tile(4, 16), (4, 16)),
+    "tile2x32": (_tile(2, 32), (2, 32)),
+    "stages4": (((r"constexpr int kStages = \d+;",
+                  "constexpr int kStages = 4;"),), None),
+    # diagnostics, wrong results: the copies alone (no 2x2 algebra), and
+    # the algebra alone (no C5 copies, on whatever shared memory holds)
+    "copies_only": (((r"if \(live\) \{\n(\s+const float\* cs)",
+                      r"if (live && K < 0) {\n\1"),), None),
+    "algebra_only": (((r"if \(b >= 0 && k < K\) \{\n(\s+const float\* src)",
+                       r"if (b >= 0 && k < 0) {\n\1"),), None),
+}
+DIAGNOSTIC_VARIANTS = ("copies_only", "algebra_only")
+
+
+def shipped_variants(src):
+    """{name: source}: the shipped Hessian kernel and the copies of
+    ``HESSIAN_VARIANTS``, each with some constants or lines replaced."""
+    out = {"shipped": src}
+    for name, (subs, _) in HESSIAN_VARIANTS.items():
+        text = src
+        for pattern, value in subs:
+            text, n = re.subn(pattern, value, text)
+            if n == 0:
+                raise AssertionError(f"{name}: pattern {pattern} not found")
+        out[name] = text
+    return out
+
+
+def build_split_libs(sources):
+    """nvcc each {name: source text} into _build/hessian_split/, all at
+    once; returns {name: (library, registers reported by ptxas)}."""
+    from smartcal_tpu_torch.ops import build
+    d = build.BUILD_DIR / "hessian_split"
+    d.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        (d / f"{name}.cu").write_text(text)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+               str(d / f"lib{name}.so"), str(d / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        stack = re.findall(r"(\d+) bytes stack frame", log)
+        print(f"built {name}: registers {regs} spill stores {spills} "
+              f"stack frames {stack}", flush=True)
+        libs[name] = (ctypes.CDLL(str(d / f"lib{name}.so")), regs)
+    return libs
+
+
+def hessian_split(out_dir, card, parent_src, reps=50):
+    """Time the Hessian kernels launch by launch at the SKA path's shapes
+    (K=10, Td=10, N=256, B=32,640; random operands from seed 0), CUDA
+    events around each launch, outputs and host tables prebuilt: the
+    two-pass kernel of ``parent_src`` (pass 1, pass 2, both), the shipped
+    kernel (tile pass, combine, both) and its variants (both); in two
+    turns, the second in reverse order.  Each is held against the plain
+    version, the shipped ones also bit for bit over two launches."""
+    from smartcal_tpu_torch.cal import kernels
+    from smartcal_tpu_torch.ops import build, hessian_blocks
+    dev = torch.device("cuda", 0)
+    K, Td, N = 10, 10, 256
+    B = N * (N - 1) // 2
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    R3, C5 = rnd(Td, B, 2, 2, 2), rnd(K, Td, B, 2, 2, 2)
+    Jp, Jq = rnd(K, B, 2, 2, 2), rnd(K, B, 2, 2, 2)
+    p_idx, q_idx = kernels.baseline_indices(N, dev)
+    off_ref, dsum_ref = kernels._hessian_block_sums(R3, C5, Jp, Jq, p_idx,
+                                                    q_idx, N)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    src = (build.CSRC / "hessian_blocks.cu").read_text()
+    libs = build_split_libs(
+        {"parent": Path(parent_src).read_text() + PARENT_PASS_ENTRIES,
+         **{name: text + SHIPPED_PASS_ENTRIES
+            for name, text in shipped_variants(src).items()}})
+    lib, regs = libs.pop("parent")
+    lib.split_pass1.argtypes = [P, P, P, P, I, I, I, P, P, P]
+    lib.split_pass2.argtypes = [P, P, P, P, P, I, I, I, P, P]
+    lib.hessian_blocks_launch.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
+                                          I, P, P, P, P]
+    p_perm, p_off, q_perm, q_off = parent_csr(N, dev)
+    off = torch.empty((K, B, 4, 4, 2), device=dev)
+    spsq = torch.empty((2, K, B, 8), device=dev)
+    dsum = torch.empty((K, N, 2, 2, 2), device=dev)
+    ptr = [t.data_ptr() for t in (C5, R3, Jp, Jq, p_perm, p_off, q_perm,
+                                  q_off, off, spsq, dsum)]
+
+    def checked(rc):
+        if rc != 0:
+            raise RuntimeError(f"hessian split launch failed ({rc})")
+
+    runs = {
+        "parent_pass1": (lambda: checked(lib.split_pass1(
+            *ptr[:4], K, Td, B, ptr[8], ptr[9], stream)), regs),
+        "parent_pass2": (lambda: checked(lib.split_pass2(
+            ptr[9], *ptr[4:8], K, B, N, ptr[10], stream)), regs),
+        "parent_both": (lambda: checked(lib.hessian_blocks_launch(
+            *ptr[:8], K, Td, B, N, ptr[8], ptr[9], ptr[10], stream)), regs),
+    }
+    runs["parent_both"][0]()
+    torch.cuda.synchronize()
+    for name, out, ref in (("off", off, off_ref), ("Dsum", dsum, dsum_ref)):
+        check_close("hessian_blocks parent " + name, "SKA shapes", out, ref,
+                    HESSIAN_RTOL, HESSIAN_ATOL, float(ref.abs().max()))
+
+    hargs = (R3, C5, Jp, Jq, p_idx, q_idx, N)
+    p_np, q_np = np.triu_indices(N, 1)
+    for name, (vlib, vregs) in libs.items():
+        shape = HESSIAN_VARIANTS.get(name, ((), None))[1]
+        sched = (hessian_blocks.full_schedule(N, dev)[0] if shape is None
+                 else hessian_blocks.to_schedule(
+                     hessian_blocks.full_cells(N, shape), p_np, q_np, N, dev,
+                     shape))
+        both, v_off, v_dsum = hessian_launcher(hessian_blocks, hargs, sched,
+                                               lib=vlib)
+        both()
+        first = (v_off.clone(), v_dsum.clone())
+        both()
+        torch.cuda.synchronize()
+        for part, out, ref, again in (("off", v_off, off_ref, first[0]),
+                                      ("Dsum", v_dsum, dsum_ref, first[1])):
+            if name in DIAGNOSTIC_VARIANTS:
+                continue
+            check_close(f"hessian_blocks {name} {part}", "SKA shapes", out,
+                        ref, HESSIAN_RTOL, HESSIAN_ATOL,
+                        float(ref.abs().max()))
+            if not torch.equal(out, again):
+                raise AssertionError(f"hessian_blocks {name}: two launches "
+                                     f"differ in {part}")
+        runs[f"{name}_both"] = (both, vregs)
+        if name == "shipped":
+            for entry in ("tiles", "combine"):
+                runs[f"shipped_{entry}"] = (hessian_launcher(
+                    hessian_blocks, hargs, sched, lib=vlib,
+                    entry=f"split_{entry}")[0], vregs)
+    # yardstick of the card's streaming rate: one PyTorch copy that reads
+    # and writes as many bytes as the kernel must move
+    n_move = sum(t.numel() for t in (R3, C5, Jp, Jq)) + K * B * 32 + K * N * 8
+    copy_src = torch.empty(n_move // 2, device=dev).normal_()
+    copy_dst = torch.empty_like(copy_src)
+    runs["stream_copy_same_bytes"] = (lambda: copy_dst.copy_(copy_src), [])
+    rows = []
+    for turn in range(2):
+        order = list(runs) if turn == 0 else list(runs)[::-1]
+        for name in order:
+            fn, r = runs[name]
+            row = {"run": name, "turn": turn, "ms": cuda_ms(fn, reps),
+                   "ms_batched": cuda_ms_batched(fn),
+                   "registers": r, "card": card,
+                   "shapes": f"K={K} Td={Td} B={B} N={N}"}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "hessian_split.json"), "w") as fh:
+        json.dump(rows, fh, indent=1)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="smoke_out",
                     help="directory for chip_smoke.json")
     ap.add_argument("--ablation", action="store_true",
                     help="time the imaging engine's design variants instead")
+    ap.add_argument("--hessian-split", metavar="PARENT_CU",
+                    help="time the Hessian kernels' launches apart instead: "
+                         "PARENT_CU is the two-pass hessian_blocks.cu of "
+                         "commit dc0ef65")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.ablation:
+    if args.ablation or args.hessian_split:
         card = card_line()
         print(card, flush=True)
-        ablation(args.out, card)
+        if args.ablation:
+            ablation(args.out, card)
+        else:
+            hessian_split(args.out, card, args.hessian_split)
         print(card)
         return 0
-    from smartcal_tpu_torch.cal import imager, kernels
+    from smartcal_tpu_torch.cal import imager, influence, kernels
     from smartcal_tpu_torch.envs.calib import CalibEnv
     from smartcal_tpu_torch.envs.radio import RadioBackend
     from smartcal_tpu_torch.ops import (build, dft_imager, factored_imager,
@@ -620,7 +1009,11 @@ def main():
              "hessian_blocks": FirstCall(hessian_blocks,
                                          "hessian_block_sums_cuda"),
              "factored_imager": FirstCall(factored_imager,
-                                          "dirty_image_factored_cuda")}
+                                          "dirty_image_factored_cuda"),
+             "_chunk_influence_opt": FirstCall(influence,
+                                               "_chunk_influence_opt"),
+             "influence_visibilities": FirstCall(influence,
+                                                 "influence_visibilities")}
     ska_obs, ska_steps = run_steps(ska_env, 1)
     for s in spies.values():
         s.restore()
@@ -653,20 +1046,13 @@ def main():
     # -- hessian_blocks: path operands (band 0, chunk 0 of the step) -------
     hargs, hkw = spies["hessian_blocks"].args
     R3, C5, Jp, Jq, p_idx, q_idx, N = hargs
-    off, dsum = hessian_blocks.hessian_block_sums_cuda(*hargs, **hkw)
-    off_ref, dsum_ref = kernels._hessian_block_sums(*hargs)
-    torch.cuda.synchronize()
+    if hkw.get("sched") is None:
+        raise AssertionError("the SKA path's Hessian call did not take the "
+                             "full-set schedule")
     h_lab = (f"SKA path K={C5.shape[0]} Td={C5.shape[1]} B={C5.shape[2]} "
              f"N={N}")
-    h_dev_ms = hessian_device_ms(hessian_blocks, hargs, hkw.get("csr"))
-    h_err = [check_close("hessian_blocks off", h_lab, off, off_ref,
-                         HESSIAN_RTOL, HESSIAN_ATOL,
-                         float(off_ref.abs().max())),
-             check_close("hessian_blocks Dsum", h_lab, dsum, dsum_ref,
-                         HESSIAN_RTOL, HESSIAN_ATOL,
-                         float(dsum_ref.abs().max()))]
-    del off, dsum, off_ref, dsum_ref
-    for n_st, k_r, td_r, subset in ((100, 3, 5, False), (20, 2, 3, True)):
+    h_err = check_hessian(hessian_blocks, kernels, hargs, hkw, h_lab)
+    for n_st, k_r, td_r, subset in HESSIAN_RAGGED:
         p, q = kernels.baseline_indices(n_st, dev)
         if subset:                    # every third baseline + 2 sentinels
             p = torch.cat([p[::3], p.new_full((2,), n_st)])
@@ -678,27 +1064,37 @@ def main():
 
         rargs = (rnd(td_r, nb, 2, 2, 2), rnd(k_r, td_r, nb, 2, 2, 2),
                  rnd(k_r, nb, 2, 2, 2), rnd(k_r, nb, 2, 2, 2), p, q, n_st)
-        o_k, d_k = hessian_blocks.hessian_block_sums_cuda(*rargs)
-        o_r, d_r = kernels._hessian_block_sums(*rargs)
-        lab = f"ragged N={n_st} B={nb}{' subset+sentinels' if subset else ''}"
-        h_err += [check_close("hessian_blocks off", lab, o_k, o_r,
-                              HESSIAN_RTOL, HESSIAN_ATOL,
-                              float(o_r.abs().max())),
-                  check_close("hessian_blocks Dsum", lab, d_k, d_r,
-                              HESSIAN_RTOL, HESSIAN_ATOL,
-                              float(d_r.abs().max()))]
+        rkw = {} if subset else {
+            "sched": hessian_blocks.full_schedule(n_st, dev)[0]}
+        h_err += check_hessian(
+            hessian_blocks, kernels, rargs, rkw,
+            f"ragged N={n_st} K={k_r} Td={td_r} B={nb}"
+            + (" subset+sentinels" if subset else " full set"))
+
     def h_kernel():
         return hessian_blocks.hessian_block_sums_cuda(*hargs, **hkw)
 
+    h_launch = hessian_launcher(hessian_blocks, hargs, hkw["sched"])[0]
     h_ms = cuda_ms(h_kernel, 20)
+    h_dev_ms = cuda_ms_batched(h_launch)
+    h_dev_one = cuda_ms(h_launch, 20)
     h_plain_ms = cuda_ms(lambda: kernels._hessian_block_sums(*hargs), 5)
+    h_dev_ms2 = cuda_ms_batched(h_launch)
     h_ms2 = cuda_ms(h_kernel, 20)
     h_bound, h_bound_by = hessian_bound_ms(hargs, n_sm)
     print(f"hessian_blocks at {h_lab}: kernel {h_ms:.4f} / {h_ms2:.4f} ms "
-          f"(median, two runs; wrapper included), device {h_dev_ms:.4f} ms "
-          f"(two passes alone), plain {h_plain_ms:.4f} ms, bound "
-          f"{h_bound:.4f} ms ({h_bound_by})", flush=True)
-    del hargs, hkw, R3, C5, Jp, Jq
+          f"(median, two runs; wrapper included), device {h_dev_ms:.4f} / "
+          f"{h_dev_ms2:.4f} ms (tile pass + combine alone, 20 back-to-back "
+          f"launches; one launch between events {h_dev_one:.4f} ms), plain "
+          f"{h_plain_ms:.4f} ms, bound {h_bound:.4f} ms ({h_bound_by})",
+          flush=True)
+    del hargs, hkw, R3, C5, Jp, Jq, h_launch
+
+    # -- where the SKA influence stage goes: its pieces on the step's own
+    # operands (band 0, chunk 0), CUDA events, median of 5 -----------------
+    infl = influence_pieces(spies["_chunk_influence_opt"].args,
+                            spies["influence_visibilities"].args)
+    del spies["_chunk_influence_opt"], spies["influence_visibilities"]
 
     # -- factored_imager: path operands (band-0 influence visibilities) ----
     (f_uvw, f_vis, f_freq, f_cell), f_kw = spies["factored_imager"].args
@@ -761,6 +1157,27 @@ def main():
         raise AssertionError("factored_imager is not faster than the cuBLAS "
                              "SGEMM yardstick")
 
+    # one influence stage call = Nf bands, each influence_visibilities (the
+    # preparation, then n_chunks chunks) and one factored image
+    infl["factored_imager"] = f_ms
+    n_calls = report["ska"]["launches"]["factored_imager"] // SKA["n_freqs"]
+    infl["stage_s_per_call"] = (report["ska"]["stage_seconds"]["influence"]
+                                / max(n_calls, 1))
+    infl["bands_estimate_s"] = SKA["n_freqs"] * 1e-3 * (
+        infl["influence_visibilities"] + f_ms)
+    report["ska"]["influence_pieces_ms"] = infl
+    print("SKA influence pieces (ms, CUDA events, median of 5, step's own "
+          "operands): per chunk (x" + str(infl["n_chunks"]) + " per band): "
+          + ", ".join(f"{k} {infl[k]:.4f}" for k in (
+              "hessian_kernel", "hessian_assemble", "hadd_colmeans",
+              "solve_in_colmeans", "llr"))
+          + f"; per band (x{SKA['n_freqs']} per call): visibilities_prep "
+          f"{infl['visibilities_prep']:.4f}, influence_visibilities "
+          f"{infl['influence_visibilities']:.4f}, factored_imager "
+          f"{f_ms:.4f}; bands estimate {infl['bands_estimate_s']:.4f} s "
+          f"against the stage's {infl['stage_s_per_call']:.4f} s per call",
+          flush=True)
+
     # -- dft_imager at the SKA path's shapes, held on a pixel subset -------
     (s_uv, s_vis, s_npix, s_cell), _ = spies["dft_imager"].args
     s_err = check_imager(dft_imager, s_uv, s_vis, s_npix, s_cell, "SKA path",
@@ -809,7 +1226,8 @@ def main():
          "launches": ska_launches["hessian_blocks"],
          "max_abs_err": max(h_err), "ms": h_ms, "device_ms": h_dev_ms,
          "plain_ms": h_plain_ms, "bound_ms": h_bound, "bound_by": h_bound_by,
-         "library_ms": None, "shapes": h_lab},
+         "device_ms_one_launch": h_dev_one, "library_ms": None,
+         "shapes": h_lab, "bit_identical": True},
         {"name": "factored_imager", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/factored_imager.cu",
          "engine": "smartcal_tpu_torch/csrc/separable_imager.cuh",
@@ -823,6 +1241,8 @@ def main():
                   kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],
                                      "dft_imager_ska": [s_ms, s_ms2],
                                      "hessian_blocks": [h_ms, h_ms2],
+                                     "hessian_blocks_device": [h_dev_ms,
+                                                               h_dev_ms2],
                                      "factored_imager": [f_ms, f_ms2]},
                   total_seconds=time.perf_counter() - t_start)
     os.makedirs(args.out, exist_ok=True)

@@ -51,6 +51,19 @@ def offdiag_index_map(n_stations):
     return m
 
 
+_offdiag_on_device = {}
+
+
+def _offdiag_index(n_stations, device):
+    """:func:`offdiag_index_map` as a tensor on ``device``, built once per
+    (N, device): no host-to-device copy per call."""
+    key = (int(n_stations), torch.device(device))
+    if key not in _offdiag_on_device:
+        _offdiag_on_device[key] = torch.as_tensor(offdiag_index_map(key[0]),
+                                                  device=key[1])
+    return _offdiag_on_device[key]
+
+
 def _block_onehot(idx, n_stations, dtype):
     """(N, nb) one-hot from a station-index vector.  Sentinel indices >= N
     (pad slots) give all-zero columns, so padded baselines contribute
@@ -90,7 +103,7 @@ def _hessian_assemble(off, Dsum, n_stations, B, T):
     diag_blocks = torch.einsum("knjiz,uv->kniujvz", Dsum, eye2).reshape(
         K, n_stations, 4, 4, 2)
 
-    idx = torch.as_tensor(offdiag_index_map(n_stations), device=dev)
+    idx = _offdiag_index(n_stations, dev)
     off_pad = torch.cat(
         [off, torch.zeros((K, 1, 4, 4, 2), dtype=off.dtype, device=dev)],
         dim=1)

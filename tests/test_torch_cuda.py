@@ -68,21 +68,29 @@ def test_graphed_line_search_matches_eager_on_gpu():
 
 @pytest.mark.cuda
 def test_hessian_blocks_kernel_matches_plain_on_gpu():
-    """Ragged baseline counts (B=15: one partial block; B=190: two blocks,
-    the second partial) and a subset with sentinel stations."""
+    """Full sets through the station-pair tiles (N=6: one partial tile;
+    N=20, 64, 100: several tiles, partial on both station axes at 20 and
+    100; K=5 leaves a partial direction chunk; Td=80 streams R3 per step),
+    the same indices and a subset with sentinels through the general
+    layout; two launches give the same bits.  The larger cases take atol
+    relative to max|ref| (chip_smoke.py's rule): their sums run over
+    thousands of products, so round-off near zero grows with them."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from smartcal_tpu_torch.cal import kernels
     from smartcal_tpu_torch.ops import hessian_blocks
     rng = np.random.default_rng(4)
-    for N, K, Td, subset in ((6, 3, 4, False), (20, 2, 5, False),
-                             (20, 3, 2, True)):
+    dev = torch.device("cuda")
+    for N, K, Td, route, scaled in (
+            (6, 3, 4, "full", False), (20, 2, 5, "full", False),
+            (64, 5, 3, "full", True), (100, 2, 3, "full", True),
+            (20, 2, 80, "full", True), (20, 2, 5, "general", False),
+            (20, 3, 2, "subset", False)):
         p, q = np.triu_indices(N, 1)
-        if subset:
+        if route == "subset":
             p = np.concatenate([p[::3], [N, N]])
             q = np.concatenate([q[::3], [N, N]])
         B = p.size
-        dev = torch.device("cuda")
 
         def arr(*shape):
             return torch.from_numpy(
@@ -91,17 +99,22 @@ def test_hessian_blocks_kernel_matches_plain_on_gpu():
         R3, C5 = arr(Td, B, 2, 2, 2), arr(K, Td, B, 2, 2, 2)
         Jp, Jq = arr(K, B, 2, 2, 2), arr(K, B, 2, 2, 2)
         pi, qi = torch.from_numpy(p).to(dev), torch.from_numpy(q).to(dev)
+        sched = (hessian_blocks.full_schedule(N, dev)[0] if route == "full"
+                 else None)
         before = hessian_blocks.launches
         off, dsum = hessian_blocks.hessian_block_sums(R3, C5, Jp, Jq, pi, qi,
-                                                      N)
+                                                      N, sched=sched)
         assert hessian_blocks.launches == before + 1
+        off2, dsum2 = hessian_blocks.hessian_block_sums(R3, C5, Jp, Jq, pi,
+                                                        qi, N, sched=sched)
+        assert torch.equal(off, off2) and torch.equal(dsum, dsum2)
         off_ref, dsum_ref = kernels._hessian_block_sums(R3, C5, Jp, Jq, pi,
                                                         qi, N)
-        np.testing.assert_allclose(off.cpu().numpy(), off_ref.cpu().numpy(),
-                                   rtol=2e-4, atol=2e-5)
-        np.testing.assert_allclose(dsum.cpu().numpy(),
-                                   dsum_ref.cpu().numpy(), rtol=2e-4,
-                                   atol=2e-5)
+        for out, ref in ((off, off_ref), (dsum, dsum_ref)):
+            ref = ref.cpu().numpy()
+            atol = 2e-5 * (np.abs(ref).max() if scaled else 1.0)
+            np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=2e-4,
+                                       atol=atol)
 
 
 @pytest.mark.cuda

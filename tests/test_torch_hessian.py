@@ -19,6 +19,7 @@ import torch
 
 from smartcal_tpu.cal import kernels as jkernels
 from smartcal_tpu.ops import pallas_hessian
+from smartcal_tpu_torch.cal import creal
 from smartcal_tpu_torch.cal import kernels as tkernels
 from smartcal_tpu_torch.ops import hessian_blocks
 
@@ -118,28 +119,124 @@ def test_kernel_module_cpu_path_is_plain_version():
                                atol=ATOL)
 
 
-def test_station_csr_orders_and_skips_sentinels():
-    """The kernel's CSR lists: each station's baselines in ascending order,
-    sentinel slots past the last offset."""
-    p, q = np.triu_indices(5, 1)
-    q_s = torch.from_numpy(np.concatenate([q, [5, 5]]))
-    perm, offsets = hessian_blocks.station_csr(q_s, 5)
-    assert offsets.tolist() == [0, 0, 1, 3, 6, 10]
-    for n in range(5):
-        got = perm[offsets[n]:offsets[n + 1]].tolist()
-        assert got == sorted(np.flatnonzero(q == n).tolist())
-    assert sorted(perm[10:].tolist()) == [10, 11]
+def _per_baseline_sp_sq(C5, Jp, Jq):
+    """Per-baseline Sp, Sq (K, B, 8): the einsums of the plain version
+    before its one-hot station sums."""
+    A1 = creal.einsum("ktbuv,kbwv->ktbuw", C5, creal.conj(Jq))
+    Sp = creal.einsum("ktbuw,ktbvw->kbuv", A1, creal.conj(A1))
+    A2 = creal.einsum("kbuv,ktbvw->ktbuw", Jp, C5)
+    Sq = creal.einsum("ktbuv,ktbuw->kbvw", creal.conj(A2), A2)
+    K, B = Sp.shape[0], Sp.shape[1]
+    return Sp.reshape(K, B, 8), Sq.reshape(K, B, 8)
 
 
-@pytest.mark.parametrize("n_stations", [6, 20])
-def test_full_csr_matches_station_csr(n_stations):
-    """The host-built lists of the full baseline set are the ones the
-    wrapper would build from the indices."""
-    p, q = (torch.from_numpy(i) for i in np.triu_indices(n_stations, 1))
-    want = hessian_blocks.station_csr(p, n_stations) \
-        + hessian_blocks.station_csr(q, n_stations)
-    got = hessian_blocks.full_csr(n_stations, "cpu")
-    assert len(got) == 4
-    for g, w in zip(got, want):
-        assert g.dtype == torch.int32
-        assert torch.equal(g, w)
+def _subset_indices(n_stations):
+    """Every third baseline of the full set, then 5 sentinel slots."""
+    p, q = np.triu_indices(n_stations, 1)
+    sel = np.arange(1, p.size, 3)
+    pad = np.full(5, n_stations)
+    return np.concatenate([p[sel], pad]), np.concatenate([q[sel], pad])
+
+
+@pytest.mark.parametrize("case", ["full-6", "full-20", "full-256",
+                                  "subset-6", "subset-20"])
+def test_schedule_reproduces_plain_dsum(case):
+    """The kernel's station reduction, applied in PyTorch to per-baseline
+    Sp/Sq (cell rows and columns, then each station's partial rows in
+    ``st_off`` order), gives the plain version's Dsum.  N=256 is the SKA
+    tier's full set (K=1, Td=1 keeps it small); the subsets carry sentinel
+    stations, which must add nothing."""
+    kind, n = case.split("-")
+    N = int(n)
+    if kind == "full":
+        p, q = np.triu_indices(N, 1)
+        sched = hessian_blocks.full_schedule(N, "cpu")[0]
+    else:
+        p, q = _subset_indices(N)
+        sched = hessian_blocks.subset_schedule(torch.from_numpy(p),
+                                               torch.from_numpy(q), N, "cpu")
+    K, Td = (1, 1) if N == 256 else (3, 2)
+    rng = np.random.default_rng(N)
+    C5, R3, Jp, Jq = _t(*(rng.standard_normal(s).astype(np.float32)
+                          for s in ((K, Td, p.size, 2, 2, 2),
+                                    (Td, p.size, 2, 2, 2),
+                                    (K, p.size, 2, 2, 2),
+                                    (K, p.size, 2, 2, 2))))
+    _, dsum_ref = tkernels._hessian_block_sums(
+        R3, C5, Jp, Jq, torch.from_numpy(p), torch.from_numpy(q), N)
+    Sp, Sq = _per_baseline_sp_sq(C5, Jp, Jq)
+    dsum = hessian_blocks.combine(Sp, Sq, sched, N)
+    np.testing.assert_allclose(dsum.numpy(), dsum_ref.reshape(K, N, 8),
+                               rtol=RTOL, atol=ATOL * float(
+                                   dsum_ref.abs().max()))
+
+
+@pytest.mark.parametrize("n_stations", [6, 20, 21])
+def test_full_schedule_tables(n_stations):
+    """Full-set tiles: every baseline in exactly one cell, a cell row is
+    one p-station and a column one q-station, and each station's partial
+    rows run p side first, then q side, each in tile order (N=21 leaves a
+    partial block on both station axes)."""
+    N = n_stations
+    R, C = hessian_blocks.ROWS, hessian_blocks.COLS
+    p, q = np.triu_indices(N, 1)
+    cells = hessian_blocks.full_cells(N)
+    assert cells.shape[1] == R * C == 64
+    live = cells[cells >= 0]
+    assert np.array_equal(np.sort(live), np.arange(p.size))
+    slot_dst, st_off, n_rows = hessian_blocks.schedule(cells, p, q, N)
+    assert slot_dst.shape == (cells.shape[0], R + C)
+    assert st_off[0] == 0 and st_off[-1] == n_rows
+    assert np.all(np.diff(st_off) > 0)
+    assert np.array_equal(np.sort(slot_dst[slot_dst >= 0]),
+                          np.arange(n_rows))
+
+    def line(t, s):     # the live baselines of slot s of tile t
+        c = cells[t].reshape(R, C)
+        x = c[s, :] if s < R else c[:, s - R]
+        return x[x >= 0]
+
+    station = {(t, s): int((p if s < R else q)[line(t, s)[0]])
+               for t in range(cells.shape[0]) for s in range(R + C)
+               if slot_dst[t, s] >= 0}
+    for (t, s), n in station.items():
+        assert np.all((p if s < R else q)[line(t, s)] == n)
+    for n in range(N):
+        mine = sorted((s >= R, t, int(slot_dst[t, s]))
+                      for (t, s), m in station.items() if m == n)
+        assert [r[2] for r in mine] == list(range(st_off[n], st_off[n + 1]))
+
+
+def test_subset_schedule_skips_sentinels():
+    """Subset layout: one baseline per row and column; the sentinel
+    baselines (station N) own cells but write no partial row."""
+    N = 7
+    p, q = _subset_indices(N)
+    cells = hessian_blocks.subset_cells(p.size)
+    slot_dst, st_off, n_rows = hessian_blocks.schedule(cells, p, q, N)
+    assert n_rows == 2 * (p.size - 5)
+    assert st_off[-1] == n_rows
+    flat = cells.reshape(-1, 8, 8)
+    for b in range(p.size):
+        t, i = divmod(b, 8)
+        assert flat[t, i, i] == b
+        assert (slot_dst[t, i] >= 0) == (p[b] < N)
+        assert (slot_dst[t, 8 + i] >= 0) == (q[b] < N)
+    with pytest.raises(ValueError):
+        hessian_blocks.schedule(hessian_blocks.full_cells(8),
+                                np.zeros(28, np.int64),
+                                np.arange(28), 8)
+
+
+def test_schedules_built_once_per_stations_and_device():
+    """The full set's schedule and indices, and the placement tail's
+    off-diagonal map, are built once per (N, device) and reused."""
+    a = hessian_blocks.full_schedule(12, "cpu")
+    assert hessian_blocks.full_schedule(12, torch.device("cpu")) is a
+    assert hessian_blocks.full_schedule(13, "cpu") is not a
+    sched, p, q = a
+    assert sched.cell_b.dtype == sched.slot_dst.dtype == torch.int32
+    assert torch.equal(p, torch.from_numpy(np.triu_indices(12, 1)[0]))
+    m = tkernels._offdiag_index(12, "cpu")
+    assert tkernels._offdiag_index(12, torch.device("cpu")) is m
+    assert torch.equal(m, torch.from_numpy(tkernels.offdiag_index_map(12)))
