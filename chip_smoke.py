@@ -16,12 +16,20 @@
    at ragged npix and R that cross the engine's tile and stage edges, and
    times kernel, plain version and the plain factored-imager yardstick with
    CUDA events;
-5. drives the SKA-tier path: CalibEnv(M=10) on RadioBackend (N=256, Nf=3,
+5. drives the train path: ``train/calib_sac.py`` (9 episodes of 4 steps
+   with the hint, seed 0) on the same N=62 backend, counts zeroed just
+   before and read just after; checks the nine scores, the saved agent
+   (learn_counter 5) and ring (36 transitions); loads the agent and times
+   learn (batch 32, 128² image, M=10), choose_action and store_transition
+   with CUDA events, takes a learn step's idle share, and holds 3 learn
+   steps on the card against the CPU from the same state, batch indices
+   and noise (rtol 1e-4 / atol 1e-5);
+6. drives the SKA-tier path: CalibEnv(M=10) on RadioBackend (N=256, Nf=3,
    T=20, npix=1024: the blocked Hessian and the large-tier factored imager
    chosen by threshold), reset and one step with the hint, counts zeroed
    just before and read just after; the first call of each kernel in the
    step keeps its operands; a second step is profiled for the idle share;
-6. holds each kernel against its plain version on the card at those
+7. holds each kernel against its plain version on the card at those
    operands (the imager against the direct DFT on a 4096-pixel subset) and
    at ragged cases, and times kernel, plain version and library yardstick
    with CUDA events; the Hessian also bit for bit over two launches, on
@@ -34,9 +42,9 @@
    influence_visibilities, the factored imager); counts how many of three
    factored-imager launches torch.profiler records (a check on the idle
    shares);
-7. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
+8. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
    blocked tier forced) and compares them;
-8. prints the kernel table as one JSON line, the card line, and last
+9. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -309,9 +317,10 @@ def hessian_launcher(hessian_blocks, hargs, sched, lib=None,
 def device_busy_seconds(fn):
     """Run ``fn()`` under torch.profiler (device activity only); returns
     (host seconds, seconds in which at least one device kernel or copy
-    ran), or None for the second when the profiler saw no device activity.
-    The raw kineto events are read directly: building the profiler's
-    Python event tree takes minutes for the ~10^5 launches of a step."""
+    ran, the number of device kernels and copies recorded), with None for
+    the second when the profiler saw no device activity.  The raw kineto
+    events are read directly: building the profiler's Python event tree
+    takes minutes for the ~10^5 launches of a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -324,14 +333,14 @@ def device_busy_seconds(fn):
                    for e in prof.profiler.kineto_results.events()
                    if e.device_type() == DeviceType.CUDA)
     if not spans:
-        return wall, None
+        return wall, None, 0
     busy_ns, cur_s, cur_e = 0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
         if s > cur_e:
             busy_ns += cur_e - cur_s
             cur_s = s
         cur_e = max(cur_e, e)
-    return wall, 1e-9 * (busy_ns + cur_e - cur_s)
+    return wall, 1e-9 * (busy_ns + cur_e - cur_s), len(spans)
 
 
 def profiler_capture(fn, name_part, reps=3):
@@ -491,6 +500,196 @@ def tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, label, **extra):
     if max(rel + [rel_r, rel_s]) > 1e-3:
         raise AssertionError(f"tiny episode {label}: GPU and CPU disagree")
     return rel + [rel_r, rel_s]
+
+
+# -- the train path: train/calib_sac.py on the N=62 backend ----------------
+
+TRAIN_ARGS = ["--stations", "62", "--episodes", "9", "--steps", "4",
+              "--use_hint", "--seed", "0", "--quiet"]
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5     # tests/test_torch_sac.py
+
+
+class StepTimer:
+    """Stands in for ``CalibEnv.step`` and keeps the host seconds of each
+    call (the step ends in a device sync: its images come to the host) and
+    the env it stepped."""
+
+    def __init__(self, env_cls):
+        self.env_cls, self.step = env_cls, env_cls.step
+        self.seconds = []
+        self.env = None
+        timer = self
+
+        def timed(env, action):
+            timer.env = env
+            t0 = time.perf_counter()
+            try:
+                return timer.step(env, action)
+            finally:
+                timer.seconds.append(time.perf_counter() - t0)
+
+        env_cls.step = timed
+
+    def restore(self):
+        self.env_cls.step = self.step
+
+
+def state_diff(a, b):
+    """(max abs difference, max of |a - b| / (TRAIN_ATOL + TRAIN_RTOL |b|))
+    over two agents' ``to_host`` payloads; raises unless that ratio is at
+    most 1 everywhere and every count is equal."""
+    worst = [0.0, 0.0]
+    for k, va in a.items():
+        vb = b[k]
+        if isinstance(va, dict):
+            worst = [max(x, y) for x, y in zip(worst, state_diff(va, vb))]
+        elif isinstance(va, int):
+            if va != vb:
+                raise AssertionError(f"{k}: {va} against {vb}")
+        else:
+            err = np.abs(np.asarray(va, np.float64) - vb)
+            ratio = float((err / (TRAIN_ATOL + TRAIN_RTOL * np.abs(
+                np.asarray(vb, np.float64)))).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f"{k}: GPU and CPU learn steps "
+                                     f"disagree ({ratio:.3g} x tolerance)")
+            worst = [max(worst[0], float(err.max())), max(worst[1], ratio)]
+    return worst
+
+
+def learn_gpu_vs_cpu(sac, cfg, state, buf, dev, n_steps=3):
+    """``n_steps`` learn steps from ``state`` on the card and from its copy
+    on the CPU, with the same batch indices (drawn on the CPU from the ring's
+    filled slots) and the same noise; raises beyond TRAIN_RTOL / TRAIN_ATOL
+    on the losses, alpha, rho and every parameter and Adam moment.  Returns
+    the max abs errors."""
+    gpu, cpu = state.copy_to(dev), state.copy_to("cpu")
+    g = torch.Generator().manual_seed(7)
+    B = cfg.batch_size
+    err = {"metrics": 0.0}
+    for _ in range(n_steps):
+        idx = torch.randperm(buf.filled, generator=g)[:B]
+        noise = tuple(torch.randn((B, cfg.n_actions), generator=g)
+                      for _ in range(3))
+        batch = {k: v[idx.to(dev)] for k, v in buf.data.items()}
+        m_gpu = sac.learn_from_batch(cfg, gpu, batch, torch.ones(B,
+                                                                 device=dev),
+                                     tuple(n.to(dev) for n in noise))
+        m_cpu = sac.learn_from_batch(
+            cfg, cpu, {k: v.cpu() for k, v in batch.items()}, torch.ones(B),
+            noise)
+        for k in ("critic_loss", "actor_loss", "alpha", "rho"):
+            a, b = float(m_gpu[k]), float(m_cpu[k])
+            if not abs(a - b) <= TRAIN_ATOL + TRAIN_RTOL * abs(b):
+                raise AssertionError(f"learn step GPU vs CPU: {k} {a} "
+                                     f"against {b}")
+            err["metrics"] = max(err["metrics"], abs(a - b))
+    err["state"], err["state_over_tolerance"] = state_diff(gpu.to_host(),
+                                                           cpu.to_host())
+    print(f"learn GPU vs CPU ({n_steps} steps, batch {B}): max abs err "
+          f"losses/alpha/rho {err['metrics']:.3e}, parameters and Adam "
+          f"moments {err['state']:.3e}, at most "
+          f"{err['state_over_tolerance']:.3f} of the tolerance (rtol "
+          f"{TRAIN_RTOL} / atol {TRAIN_ATOL}) -> ok", flush=True)
+    return err
+
+
+def train_path(dev, out_dir, zero_counts, read_counts):
+    """Drive train/calib_sac.py on the card (9 episodes of 4 steps at the
+    N=62 backend: 36 transitions, learning from the 32nd), with the kernel
+    counts zeroed just before and read just after; check what it saved;
+    time learn / choose_action / store_transition of the saved agent with
+    CUDA events, take a learn step's idle share, and hold 3 learn steps on
+    the card against the CPU.  Returns the report section."""
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.train import calib_sac
+    prefix = os.path.join(out_dir, "calib_sac_")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StepTimer(CalibEnv)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        scores = calib_sac.main(TRAIN_ARGS + ["--prefix", prefix])
+    finally:
+        timer.restore()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_episodes, n_steps = 9, len(timer.seconds)
+    if len(scores) != n_episodes or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"train path scores {scores}")
+    if launches["dft_imager"] < 3 * (n_episodes + n_steps):
+        raise AssertionError(f"dft_imager launched {launches['dft_imager']} "
+                             f"times on the train path, expected >= "
+                             f"{3 * (n_episodes + n_steps)}")
+
+    cfg = calib_sac.agent_config(128, 10, use_hint=True)
+    agent = sac.SACAgent(cfg, seed=0, name_prefix=prefix, device=dev)
+    if not agent.load_models():
+        raise AssertionError("the train path saved no agent")
+    if agent.state.learn_counter != 5 or agent.buffer.cntr != 36:
+        raise AssertionError(f"saved agent: learn_counter "
+                             f"{agent.state.learn_counter}, ring cntr "
+                             f"{agent.buffer.cntr}; expected 5 and 36")
+    t1 = time.perf_counter()
+    agent.save_models()             # as train/calib_sac.py does per episode
+    save_s = time.perf_counter() - t1
+    for name in ("sac_state.pkl", "replaymem_sac.pkl"):   # ~100 MB, read
+        os.remove(prefix + name)
+    t1 = time.perf_counter()
+    gpu_cpu = learn_gpu_vs_cpu(sac, cfg, agent.state, agent.buffer, dev)
+    gpu_cpu_s = time.perf_counter() - t1
+
+    flat = agent.buffer.data["state"][0].cpu().numpy()
+    hint = agent.buffer.data["hint"][0].cpu().numpy()
+    action = agent.choose_action(flat)
+    times = {
+        "learn_ms": cuda_ms(agent.learn, 20, warmup=3),
+        "choose_action_ms": cuda_ms(lambda: agent.choose_action(flat), 20,
+                                    warmup=3),
+        "store_transition_ms": cuda_ms(lambda: agent.store_transition(
+            flat, action, 1.0, flat, False, hint), 20, warmup=3)}
+    learn_prof_s, learn_busy, learn_kernels = device_busy_seconds(
+        agent.learn)
+    learn_idle = idle_share("learn step", 1e-3 * times["learn_ms"],
+                            learn_busy, learn_prof_s)
+    out = {"args": TRAIN_ARGS, "scores": [float(x) for x in scores],
+           "train_seconds": train_s, "seconds_per_episode": train_s
+           / n_episodes, "env_steps": n_steps,
+           "env_step_seconds_mean": float(np.mean(timer.seconds)),
+           "env_step_seconds": timer.seconds, "peak_mem_bytes": peak,
+           "stage_seconds": dict(timer.env.backend.stage_seconds),
+           "save_models_seconds": save_s,
+           "launches": launches, "learn_counter": 5, "ring_cntr": 36,
+           **times, "learn_idle_share": learn_idle,
+           "learn_device_busy_s": learn_busy,
+           "learn_profiled_wall_s": learn_prof_s,
+           "learn_device_kernels": learn_kernels,
+           "gpu_vs_cpu_max_abs_err": gpu_cpu, "gpu_vs_cpu_seconds": gpu_cpu_s,
+           "phase_seconds": time.perf_counter() - t0}
+    print(f"train path (calib_sac {' '.join(TRAIN_ARGS)}): {train_s:.3f} s, "
+          f"{out['seconds_per_episode']:.3f} s per episode, env step mean "
+          f"{out['env_step_seconds_mean']:.3f} s over {n_steps}; scores "
+          + ", ".join(f"{x:.4f}" for x in scores)
+          + "; stage seconds (host clock, synchronized) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_seconds"].items())
+          + f"; save_models {save_s:.3f} s"
+          + f"; learn_counter 5, ring cntr 36; peak device memory "
+          f"{peak / 2**20:.0f} MiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; learn {times['learn_ms']:.3f} ms, choose_action "
+          f"{times['choose_action_ms']:.3f} ms, store_transition "
+          f"{times['store_transition_ms']:.3f} ms (CUDA events, median of "
+          f"20 after 3 warm-ups); learn step device kernels and copies "
+          f"{learn_kernels}; GPU vs CPU check {gpu_cpu_s:.3f} s; phase "
+          f"{out['phase_seconds']:.3f} s", flush=True)
+    del agent
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- --ablation: the engine with one design choice undone -----------------
@@ -934,7 +1133,7 @@ def main():
 
     # device idle share: a third step and its solve, profiled; the share is
     # taken against the unprofiled seconds (the profiler slows the host)
-    step_wall_prof, step_busy = device_busy_seconds(
+    step_wall_prof, step_busy, _ = device_busy_seconds(
         lambda: env.step(env.hint))
     mask = np.zeros(env.M, np.float32)
     mask[:env.K] = 1.0
@@ -943,7 +1142,7 @@ def main():
     t0 = time.perf_counter()
     backend.calibrate(env.ep, rho, mask=mask)
     solve_wall = time.perf_counter() - t0
-    solve_wall_prof, solve_busy = device_busy_seconds(
+    solve_wall_prof, solve_busy, _ = device_busy_seconds(
         lambda: backend.calibrate(env.ep, rho, mask=mask))
     step_wall = float(np.mean([s["seconds"] for s in steps]))
     report["n62"]["idle"] = {
@@ -990,6 +1189,10 @@ def main():
           + ", ".join(f"{k} {v}" for k, v in dft_bounds.items()), flush=True)
     del env, backend, ep, uvw, visc, uv, lm
 
+    # -- train path: train/calib_sac.py on the N=62 backend, 9 episodes ----
+    report["train"] = train_path(dev, args.out, zero_counts, read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
     ska_backend = RadioBackend(device=dev, **SKA)
     statics = ska_backend._influence_statics(SKA["npix"])
@@ -1034,7 +1237,7 @@ def main():
                          stage_seconds=dict(ska_backend.stage_seconds),
                          peak_mem_bytes=ska_peak, launches=ska_launches,
                          sigma_data_img=ska_env._sigma_data_img)
-    ska_step_prof, ska_busy = device_busy_seconds(
+    ska_step_prof, ska_busy, _ = device_busy_seconds(
         lambda: ska_env.step(ska_env.hint))
     report["ska"]["idle"] = {
         "step_wall_s": ska_steps[0]["seconds"],
@@ -1213,6 +1416,7 @@ def main():
          "replaces": "smartcal_tpu/ops/pallas_imager.py:58",
          "launches": ska_launches["dft_imager"],
          "launches_n62_path": n62_launches["dft_imager"],
+         "launches_train_path": report["train"]["launches"]["dft_imager"],
          "max_abs_err": max(dft_err), "ms": dft_ms,
          "plain_ms": dft_plain_ms, **dft_bounds, "library_ms": None,
          "shapes": f"P={P} R={R}", "yardstick_factored_ms": factored_ms,

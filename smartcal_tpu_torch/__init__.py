@@ -2,13 +2,25 @@
 
 The layout mirrors the JAX package module for module
 (``smartcal_tpu_torch/cal/solver.py`` is the counterpart of
-``smartcal_tpu/cal/solver.py``).  Every entry point takes an explicit
-``device`` that defaults to ``"cuda"`` and raises when no GPU is present;
-the CPU runs the same code only when the caller asks for it (the parity
-tests do).  The direct-DFT imager, the one TPU kernel on the calibration
-episode path, is a hand-written CUDA kernel (``csrc/dft_imager.cu``); the
-rest of the math is plain tensor code, as it is plain XLA in the JAX
-package.
+``smartcal_tpu/cal/solver.py``):
+
+* ``cal/``, ``envs/``: the calibration episode (simulate, consensus ADMM,
+  influence map, images, reward) and ``CalibEnv``;
+* ``ops/``: the hand-written CUDA kernels of the JAX package's three TPU
+  kernels, built from ``csrc/`` on first use: the direct-DFT imager
+  (``csrc/dft_imager.cu``) and the rank-factored imager
+  (``csrc/factored_imager.cu``), two entry points of one tensor-core
+  engine (``csrc/separable_imager.cuh``), and the blocked Hessian
+  (``csrc/hessian_blocks.cu``);
+* ``rl/``: the SAC agent, its networks and the device replay ring;
+* ``train/``: the calibration SAC trainer (``train/calib_sac.py``) and the
+  plumbing it needs;
+* ``runtime/``: crash-safe saves.
+
+Every entry point takes an explicit ``device`` that defaults to ``"cuda"``
+and raises when no GPU is present; the CPU runs the same code only when
+the caller asks for it (the parity tests do).  Outside the kernels the
+math is plain tensor code, as it is plain XLA in the JAX package.
 
 This package imports neither ``jax`` nor anything of ``smartcal_tpu``:
 what it needs from there it keeps as its own copy.

@@ -1,9 +1,10 @@
 """Carry state from the JAX package into the port.
 
-The JAX package's ``Episode`` and ``SolveResult`` (any objects with the same
-field names, holding arrays that ``numpy.asarray`` accepts) become the
-port's types, so one episode can be fed to both packages.  Nothing here
-imports the JAX package: the fields are read by name.
+The JAX package's ``Episode``, ``SolveResult`` and ``SACState`` (any
+objects with the same field names, holding arrays that ``numpy.asarray``
+accepts) and flax parameter trees become the port's types, so one episode
+or one agent can be fed to both packages.  Nothing here imports the JAX
+package: the fields are read by name.
 """
 
 import numpy as np
@@ -11,6 +12,7 @@ import torch
 
 from smartcal_tpu_torch.cal import observation, solver
 from smartcal_tpu_torch.envs import radio
+from smartcal_tpu_torch.rl import sac
 
 
 def _t(x, device):
@@ -39,3 +41,81 @@ def solve_result_from_numpy(res, device="cpu") -> solver.SolveResult:
         sigma_res=_t(res.sigma_res, device),
         sigma_data=_t(res.sigma_data, device),
         final_cost=_t(res.final_cost, device))
+
+
+# flax leaf name -> torch parameter name
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def params_from_flax(tree, module: torch.nn.Module) -> dict:
+    """The ``state_dict`` of ``module`` (a network of ``rl.networks``) that
+    holds the flax ``params`` ``tree`` (nested dicts of arrays): Dense
+    kernels (in, out) transposed to (out, in), Conv kernels HWIO to OIHW,
+    norm ``scale`` to ``weight``.  Raises unless the tree fills every
+    parameter of ``module`` with the right shape."""
+    out = {}
+    for path, leaf in _leaves(tree):
+        try:
+            sub = module.get_submodule(".".join(path[:-1]))
+        except AttributeError as e:
+            raise ValueError(f"flax path {'/'.join(path)}: {e}") from e
+        x = torch.as_tensor(np.array(leaf, np.float32))
+        if path[-1] == "kernel" and isinstance(sub, torch.nn.Linear):
+            x = x.T
+        elif path[-1] == "kernel" and isinstance(sub, torch.nn.Conv2d):
+            x = x.permute(3, 2, 0, 1)
+        out[".".join(path[:-1] + (_LEAF[path[-1]],))] = x.contiguous()
+    want = module.state_dict()
+    if set(out) != set(want):
+        raise ValueError(f"flax tree and module differ: "
+                         f"{sorted(set(out) ^ set(want))}")
+    for k, v in want.items():
+        if tuple(out[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: flax {tuple(out[k].shape)}, module "
+                             f"{tuple(v.shape)}")
+    return out
+
+
+def _adam_from_optax(opt, module):
+    """``optax.adam`` state ``(ScaleByAdamState(count, mu, nu), ...)`` ->
+    the port's host form {"count", "mu", "nu"}."""
+    a = opt[0]
+    if module is None:                       # the scalar log_alpha's Adam
+        return {"count": int(a.count),
+                "mu": {"log_alpha": np.array(a.mu, np.float32)},
+                "nu": {"log_alpha": np.array(a.nu, np.float32)}}
+    return {"count": int(a.count),
+            "mu": {k: v.numpy() for k, v in
+                   params_from_flax(a.mu, module).items()},
+            "nu": {k: v.numpy() for k, v in
+                   params_from_flax(a.nu, module).items()}}
+
+
+def sac_state_from_jax(st, cfg, device="cpu"):
+    """The port's :class:`~smartcal_tpu_torch.rl.sac.SACState` of a JAX
+    ``SACState`` (fields read by name): actor, both critics and targets,
+    the three Adam states (moments and count), alpha, rho, learn_counter,
+    log_alpha and its Adam state.  ``cfg`` is the port's ``SACConfig``."""
+    actor, critic = sac.build_nets(cfg, device="cpu")
+    nets = {"actor": (st.actor_params, actor), "c1": (st.c1_params, critic),
+            "c2": (st.c2_params, critic), "t1": (st.t1_params, critic),
+            "t2": (st.t2_params, critic)}
+    host = {k: {n: v.numpy() for n, v in params_from_flax(tree, m).items()}
+            for k, (tree, m) in nets.items()}
+    host.update(
+        actor_opt=_adam_from_optax(st.actor_opt, actor),
+        c1_opt=_adam_from_optax(st.c1_opt, critic),
+        c2_opt=_adam_from_optax(st.c2_opt, critic),
+        alpha=float(st.alpha), rho=float(st.rho),
+        learn_counter=int(st.learn_counter),
+        log_alpha=float(st.log_alpha),
+        alpha_opt=_adam_from_optax(st.alpha_opt, None))
+    return sac.SACState.from_host(cfg, host, device)

@@ -1,0 +1,480 @@
+"""Soft Actor-Critic (counterpart of smartcal_tpu/rl/sac.py).
+
+The reference SAC agent (``elasticnet/enet_sac.py:478-658``; CNN variants
+``calibration/calib_sac.py``) with the JAX package's learn step, update for
+update:
+
+* the target value uses the OLD actor, the targets and the old alpha;
+* the critics step first (Adam), then the actor loss reads the UPDATED
+  critics, with no gradient into them, plus the old alpha and rho; the
+  hint-constrained loss adds ``0.5 rho_admm g^2 + rho g`` with
+  ``g = max(0, D(a, hint) - thresh)^2``, D an MSE or a KL divergence of
+  softmaxed vectors;
+* every 10 learn calls (the counter before the increment, so the first
+  call too) the dual/temperature update runs on the NEW actor:
+  ``rho += rho_admm g``, and alpha by the reference's clamped SGD or by
+  Adam on log_alpha (``alpha_rule='sac_v2'``);
+* the targets move to ``tau * critic + (1 - tau) * target``.
+
+Each gradient is taken with ``torch.autograd.grad`` against one network's
+parameters, so no ``.grad`` buffer is shared between the critic and actor
+losses.  Adam is optax's (b1 0.9, b2 0.999, eps 1e-8), applied in place
+with ``torch._foreach`` ops; its state (moments and count) is carried
+like optax's.
+
+Randomness is explicit: :func:`learn_from_batch` takes the three unit
+normal draws ``(n_next, n_pi, n_dual)``, :func:`learn` the replay draws
+(Gumbel noise or uniforms), and :class:`SACAgent` draws them from its own
+``torch.Generator`` on the device.  The learn counter is a host int, so
+"learn or not" and "dual update or not" are decided without a device
+sync.
+"""
+
+import copy
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch.rl import replay as rp
+from smartcal_tpu_torch.rl.networks import (MLPActor, MLPCritic,
+                                            SplitImageMetaActor,
+                                            SplitImageMetaCritic,
+                                            gaussian_sample)
+from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8       # optax.adam defaults
+DUAL_EVERY = 10                                     # enet_sac.py:608
+
+
+@dataclasses.dataclass(frozen=True)
+class SACConfig:
+    obs_dim: int
+    n_actions: int
+    gamma: float = 0.99
+    tau: float = 0.005
+    lr_a: float = 1e-3
+    lr_c: float = 1e-3
+    alpha: float = 0.03           # entropy temperature (enet main_sac.py:36)
+    reward_scale: float = 20.0    # reference reward_scale=N
+    batch_size: int = 64
+    mem_size: int = 1024
+    use_hint: bool = False
+    hint_threshold: float = 0.1   # enet_sac.py:514
+    admm_rho: float = 0.01        # enet_sac.py:516
+    hint_distance: str = "mse"    # 'mse' | 'kld'
+    learn_alpha: bool = False
+    alpha_lr: float = 1e-4
+    # 'reference': alpha = max(0, alpha + alpha_lr*mean(target_entropy +
+    # logpi)) from the ``alpha`` argument (enet_sac.py:500,613); 'sac_v2':
+    # Adam on log_alpha, alpha = exp(log_alpha) from 1 (the JAX package's
+    # deliberate deviation)
+    alpha_rule: str = "reference"
+    prioritized: bool = False
+    error_clip: float = 100.0     # PER absolute_error_upper (enet_sac.py:212)
+    replay_backend: str = "hbm"
+    # image + metadata towers over a flat obs when set (obs_dim = H*W +
+    # meta_dim); use_image=False drops the CNN branch
+    img_shape: Optional[Tuple[int, int]] = None
+    use_image: bool = True
+    is_clip: float = 0.0
+    ere_eta: float = 1.0
+
+    def __post_init__(self):
+        if self.alpha_rule not in ("reference", "sac_v2"):
+            raise ValueError(
+                f"alpha_rule must be 'reference' or 'sac_v2', got "
+                f"{self.alpha_rule!r}")
+        if self.replay_backend not in ("hbm", "native"):
+            raise ValueError(
+                f"replay_backend must be 'hbm' or 'native', got "
+                f"{self.replay_backend!r}")
+        rp.validate_fleet_knobs(self.is_clip, self.ere_eta,
+                                self.replay_backend)
+        if self.is_clip > 0:
+            raise NotImplementedError(
+                "is_clip (the fleet's staleness-clipped importance "
+                "weights) is not ported yet: ROADMAP queue 1 item 13")
+        if self.replay_backend == "native":
+            raise NotImplementedError(
+                "replay_backend='native' (the host sum tree) is not ported "
+                "yet: ROADMAP queue 1 item 12")
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax ``ScaleByAdamState``: the step count and the first and second
+    moments, keyed by parameter name."""
+    count: int
+    mu: dict
+    nu: dict
+
+
+def adam_init(params: dict) -> AdamState:
+    return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
+                     {k: torch.zeros_like(v) for k, v in params.items()})
+
+
+@torch.no_grad()
+def adam_update(opt: AdamState, params: dict, grads, lr: float) -> None:
+    """One ``optax.adam(lr)`` step applied in place: ``p -= lr * mu_hat /
+    (sqrt(nu_hat) + eps)`` with bias-corrected moments; ``grads`` in the
+    order of ``params``."""
+    opt.count += 1
+    names = list(params)
+    p = [params[k] for k in names]
+    mu = [opt.mu[k] for k in names]
+    nu = [opt.nu[k] for k in names]
+    grads = list(grads)
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - ADAM_B1)
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - ADAM_B2)
+    den = torch._foreach_div(nu, 1.0 - ADAM_B2 ** opt.count)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, ADAM_EPS)
+    step = torch._foreach_div(mu, 1.0 - ADAM_B1 ** opt.count)
+    torch._foreach_div_(step, den)
+    torch._foreach_add_(p, step, alpha=-lr)
+
+
+def build_nets(cfg: SACConfig, generator=None, device="cpu"):
+    """(actor, critic) modules of ``cfg``'s shape, freshly initialised."""
+    if cfg.img_shape is not None:
+        return (SplitImageMetaActor(cfg.img_shape, cfg.obs_dim,
+                                    cfg.n_actions, use_image=cfg.use_image,
+                                    generator=generator, device=device),
+                SplitImageMetaCritic(cfg.img_shape, cfg.obs_dim,
+                                     cfg.n_actions, use_image=cfg.use_image,
+                                     generator=generator, device=device))
+    return (MLPActor(cfg.obs_dim, cfg.n_actions, generator=generator,
+                     device=device),
+            MLPCritic(cfg.obs_dim, cfg.n_actions, generator=generator,
+                      device=device))
+
+
+def _params(module) -> dict:
+    return dict(module.named_parameters())
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+@dataclasses.dataclass
+class SACState:
+    """The agent: actor, critics and targets (modules), their Adam states,
+    alpha and rho (0-d tensors), the learn counter (host int), and log_alpha
+    with its Adam state (used by ``alpha_rule='sac_v2'``)."""
+    actor: torch.nn.Module
+    c1: torch.nn.Module
+    c2: torch.nn.Module
+    t1: torch.nn.Module
+    t2: torch.nn.Module
+    actor_opt: AdamState
+    c1_opt: AdamState
+    c2_opt: AdamState
+    alpha: torch.Tensor
+    rho: torch.Tensor
+    learn_counter: int
+    log_alpha: torch.Tensor
+    alpha_opt: AdamState
+
+    NETS = ("actor", "c1", "c2", "t1", "t2")
+    OPTS = ("actor_opt", "c1_opt", "c2_opt", "alpha_opt")
+
+    def to_host(self) -> dict:
+        """Everything as numpy arrays and Python numbers (the pickle of
+        ``save_models``)."""
+        out = {k: {n: _host(v) for n, v in getattr(self, k).state_dict()
+                   .items()} for k in self.NETS}
+        for k in self.OPTS:
+            o = getattr(self, k)
+            out[k] = {"count": o.count,
+                      "mu": {n: _host(v) for n, v in o.mu.items()},
+                      "nu": {n: _host(v) for n, v in o.nu.items()}}
+        out.update(alpha=float(self.alpha), rho=float(self.rho),
+                   learn_counter=self.learn_counter,
+                   log_alpha=float(self.log_alpha))
+        return out
+
+    @classmethod
+    def from_host(cls, cfg: SACConfig, host: dict, device) -> "SACState":
+        """The state of a :meth:`to_host` payload, on ``device``."""
+        def tensor(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        nets = {}
+        for k in cls.NETS:
+            actor, critic = build_nets(cfg, device=device)
+            net = actor if k == "actor" else critic
+            net.load_state_dict({n: tensor(v) for n, v in host[k].items()})
+            nets[k] = net.requires_grad_(k[0] != "t")
+        opts = {k: AdamState(int(host[k]["count"]),
+                             {n: tensor(v) for n, v in host[k]["mu"].items()},
+                             {n: tensor(v) for n, v in host[k]["nu"].items()})
+                for k in cls.OPTS}
+        return cls(**nets, **opts, alpha=tensor(host["alpha"]),
+                   rho=tensor(host["rho"]),
+                   learn_counter=int(host["learn_counter"]),
+                   log_alpha=tensor(host["log_alpha"]))
+
+    def copy_to(self, device) -> "SACState":
+        """An independent copy of the state on ``device``."""
+        st = copy.deepcopy(self)
+        for k in self.NETS:
+            getattr(st, k).to(device)
+        for k in self.OPTS:
+            o = getattr(st, k)
+            o.mu = {n: v.to(device) for n, v in o.mu.items()}
+            o.nu = {n: v.to(device) for n, v in o.nu.items()}
+        st.alpha, st.rho, st.log_alpha = (t.to(device) for t in (
+            st.alpha, st.rho, st.log_alpha))
+        return st
+
+
+def sac_init(cfg: SACConfig, generator=None, device="cuda") -> SACState:
+    """A fresh agent on ``device`` (default "cuda": raises without a GPU),
+    initialised from ``generator`` (a ``torch.Generator`` on that device)."""
+    dev = resolve_device(device)
+    actor, c1 = build_nets(cfg, generator, dev)
+    _, c2 = build_nets(cfg, generator, dev)
+    t1 = copy.deepcopy(c1).requires_grad_(False)
+    t2 = copy.deepcopy(c2).requires_grad_(False)
+    # under the 'reference' rule alpha itself is the learned variable, from
+    # the alpha argument; 'sac_v2' starts at exp(log_alpha = 0) = 1
+    alpha0 = 1.0 if cfg.learn_alpha and cfg.alpha_rule == "sac_v2" \
+        else cfg.alpha
+    log_alpha = torch.zeros((), device=dev)
+    return SACState(
+        actor=actor, c1=c1, c2=c2, t1=t1, t2=t2,
+        actor_opt=adam_init(_params(actor)), c1_opt=adam_init(_params(c1)),
+        c2_opt=adam_init(_params(c2)),
+        alpha=torch.tensor(alpha0, dtype=torch.float32, device=dev),
+        rho=torch.zeros((), device=dev), learn_counter=0,
+        log_alpha=log_alpha,
+        alpha_opt=adam_init({"log_alpha": log_alpha}))
+
+
+@torch.no_grad()
+def choose_action(cfg: SACConfig, st: SACState, obs, noise=None,
+                  deterministic: bool = False):
+    """Sample an action (reference ``choose_action``); ``noise`` is the unit
+    normal draw of the actor's mean's shape."""
+    mu, logsigma = st.actor(obs)
+    if deterministic:
+        return torch.tanh(mu)
+    return gaussian_sample(mu, logsigma, noise)[0]
+
+
+@torch.no_grad()
+def policy_apply(cfg: SACConfig, actor, obs):
+    """Deterministic policy head: ``tanh(mu)`` of the actor module."""
+    return torch.tanh(actor(obs)[0])
+
+
+@torch.no_grad()
+def policy_heads(cfg: SACConfig, actor, obs):
+    """:func:`policy_apply` that also returns the distribution heads:
+    ``(tanh(mu), mu, logsigma)``."""
+    mu, logsigma = actor(obs)
+    return torch.tanh(mu), mu, logsigma
+
+
+def _hint_gap(cfg: SACConfig, actions, hints):
+    """g = max(0, D(a, hint) - thresh)^2 with D the MSE (enet_sac.py:601) or
+    the KL divergence of the softmaxed vectors (calib_sac.py:361-366)."""
+    if cfg.hint_distance == "kld":
+        p = torch.softmax(hints, dim=-1)
+        q = torch.softmax(actions, dim=-1)
+        d = torch.mean(torch.sum(p * (torch.log(p + 1e-9)
+                                      - torch.log(q + 1e-9)), dim=-1))
+    else:
+        d = torch.mean((actions - hints) ** 2)
+    return torch.clamp(d - cfg.hint_threshold, min=0.0) ** 2
+
+
+def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
+                     noise) -> dict:
+    """The SAC learn step on an already-sampled ``batch`` (field -> (B, ...)
+    tensors), with PER importance weights ``is_w`` (B,) and the unit normal
+    draws ``noise = (n_next, n_pi, n_dual)``, each (B, n_actions).  Updates
+    ``st`` in place; returns the losses, alpha, rho and ``td`` = |Q1 - y|
+    per transition (the PER priority signal), all on the device."""
+    n_next, n_pi, n_dual = noise
+    s, a, s2, hint = (batch[k] for k in ("state", "action", "new_state",
+                                          "hint"))
+    r = cfg.reward_scale * batch["reward"][:, None]
+    done = batch["done"][:, None]
+    alpha, rho = st.alpha, st.rho
+
+    # -- target value (enet_sac.py:569-575)
+    with torch.no_grad():
+        a2, lp2 = gaussian_sample(*st.actor(s2), n_next)
+        min_t = torch.minimum(st.t1(s2, a2), st.t2(s2, a2)) - alpha * lp2
+        y = r + cfg.gamma * torch.where(done, 0.0, min_t)
+
+    # -- critic update (enet_sac.py:577-587)
+    p1, p2 = _params(st.c1), _params(st.c2)
+    q1, q2 = st.c1(s, a), st.c2(s, a)
+    if cfg.prioritized:
+        closs = rp.per_mse(q1, y, is_w) + rp.per_mse(q2, y, is_w)
+    else:
+        closs = torch.mean((q1 - y) ** 2) + torch.mean((q2 - y) ** 2)
+    g = torch.autograd.grad(closs, list(p1.values()) + list(p2.values()))
+    adam_update(st.c1_opt, p1, g[:len(p1)], cfg.lr_c)
+    adam_update(st.c2_opt, p2, g[len(p1):], cfg.lr_c)
+
+    # -- actor update with the hint ADMM penalty (enet_sac.py:589-605),
+    # against the updated critics
+    pa = _params(st.actor)
+    acts, lp = gaussian_sample(*st.actor(s), n_pi)
+    qa = torch.minimum(st.c1(s, acts), st.c2(s, acts))
+    aloss = torch.mean(alpha * lp - qa)
+    if cfg.use_hint:
+        gap = _hint_gap(cfg, acts, hint)
+        aloss = aloss + 0.5 * cfg.admm_rho * gap * gap + rho * gap
+    adam_update(st.actor_opt, pa, torch.autograd.grad(aloss,
+                                                      list(pa.values())),
+                cfg.lr_a)
+
+    # -- dual/temperature updates every 10 learn calls
+    # (enet_sac.py:608-617), on the updated actor
+    if (cfg.use_hint or cfg.learn_alpha) \
+            and st.learn_counter % DUAL_EVERY == 0:
+        with torch.no_grad():
+            acts_d, lp_d = gaussian_sample(*st.actor(s), n_dual)
+            if cfg.learn_alpha:
+                target_entropy = -float(cfg.n_actions)
+                if cfg.alpha_rule == "reference":
+                    st.alpha = torch.clamp(
+                        alpha + cfg.alpha_lr
+                        * torch.mean(target_entropy + lp_d), min=0.0)
+                else:
+                    g_la = -torch.mean(lp_d + target_entropy)
+                    adam_update(st.alpha_opt, {"log_alpha": st.log_alpha},
+                                [g_la], cfg.alpha_lr)
+                    st.alpha = torch.exp(st.log_alpha)
+            if cfg.use_hint:
+                st.rho = rho + cfg.admm_rho * _hint_gap(cfg, acts_d, hint)
+
+    # -- soft target update (enet_sac.py:523-542)
+    with torch.no_grad():
+        for t, c in ((st.t1, p1), (st.t2, p2)):
+            tp = list(t.parameters())
+            torch._foreach_mul_(tp, 1.0 - cfg.tau)
+            torch._foreach_add_(tp, list(c.values()), alpha=cfg.tau)
+    st.learn_counter += 1
+    return {"critic_loss": closs.detach(), "actor_loss": aloss.detach(),
+            "alpha": st.alpha, "rho": st.rho,
+            "td": (q1 - y).abs().squeeze(-1).detach()}
+
+
+def sample_batch(cfg: SACConfig, buf: rp.ReplayState, generator=None,
+                 sample_noise=None):
+    """Draw one batch from ``buf`` as :func:`learn` does: PER (with ERE
+    modulation when ``cfg.ere_eta`` < 1), ERE, or uniform.  Returns (batch,
+    idx, is_w)."""
+    ere = cfg.ere_eta if cfg.ere_eta < 1.0 else None
+    B = cfg.batch_size
+    if cfg.prioritized:
+        return rp.replay_sample_per(buf, B, generator, u=sample_noise,
+                                    recency_eta=ere)
+    if ere is not None:
+        batch, idx = rp.replay_sample_ere(buf, B, ere, generator,
+                                          u=sample_noise)
+    else:
+        batch, idx = rp.replay_sample_uniform(buf, B, generator,
+                                              gumbel_noise=sample_noise)
+    return batch, idx, torch.ones(B, device=buf.device)
+
+
+def learn(cfg: SACConfig, st: SACState, buf: rp.ReplayState, generator=None,
+          sample_noise=None, noise=None) -> dict:
+    """One learn step: sample from ``buf``, :func:`learn_from_batch`, and
+    re-prioritise the sampled slots under PER.  A no-op while the buffer
+    holds fewer than ``batch_size`` transitions (decided on the host
+    counter).  ``sample_noise`` (Gumbel noise for uniform sampling,
+    uniforms for PER/ERE) and ``noise`` default to draws from
+    ``generator``.  Updates ``st`` and ``buf`` in place; returns the
+    metrics without ``td``."""
+    if buf.cntr < cfg.batch_size:
+        zero = torch.zeros((), device=st.alpha.device)
+        return {"critic_loss": zero, "actor_loss": zero, "alpha": st.alpha,
+                "rho": st.rho}
+    batch, idx, is_w = sample_batch(cfg, buf, generator, sample_noise)
+    if noise is None:
+        noise = tuple(torch.randn((cfg.batch_size, cfg.n_actions),
+                                  generator=generator, device=buf.device)
+                      for _ in range(3))
+    m = learn_from_batch(cfg, st, batch, is_w, noise)
+    td = m.pop("td")
+    if cfg.prioritized:
+        rp.replay_update_priorities(buf, idx, td, cfg.error_clip)
+    return m
+
+
+class SACAgent:
+    """Stateful wrapper with the reference ``Agent`` API (choose_action /
+    store_transition / learn / save_models / load_models) for host-driven
+    training loops.  The agent, its replay ring and its generator live on
+    ``device`` (default "cuda": raises without a GPU)."""
+
+    def __init__(self, cfg: SACConfig, seed: int = 0, name_prefix: str = "",
+                 device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.state = sac_init(cfg, self.generator, self.device)
+        self.buffer = rp.replay_init(
+            cfg.mem_size, rp.transition_spec(cfg.obs_dim, cfg.n_actions),
+            self.device)
+        self.name_prefix = name_prefix
+        self.last_metrics = {}
+        self.last_diag = None      # update diagnostics: ROADMAP item 12
+
+    def choose_action(self, observation, noise=None):
+        """A sampled action as a numpy array; ``noise`` (the unit normal
+        draw) defaults to one from the agent's generator."""
+        obs = torch.as_tensor(np.asarray(observation, np.float32),
+                              device=self.device)
+        if noise is None:
+            noise = torch.randn(obs.shape[:-1] + (self.cfg.n_actions,),
+                                generator=self.generator, device=self.device)
+        else:
+            noise = torch.as_tensor(noise, device=self.device)
+        return _host(choose_action(self.cfg, self.state, obs, noise))
+
+    def store_transition(self, state, action, reward, state_, done, hint):
+        tr = {"state": state, "action": action, "reward": reward,
+              "new_state": state_, "done": done, "hint": hint}
+        # uniform buffers store priority 1; PER the max priority
+        # (enet_sac.py:63-64)
+        rp.replay_add(self.buffer, tr,
+                      priority=None if self.cfg.prioritized else 1.0)
+
+    def learn(self, sample_noise=None, noise=None):
+        """One learn step (a no-op below ``batch_size`` transitions); the
+        replay draws and the normal draws default to the generator's."""
+        self.last_metrics = learn(self.cfg, self.state, self.buffer,
+                                  self.generator, sample_noise, noise)
+
+    def save_models(self, prefix: Optional[str] = None):
+        prefix = prefix if prefix is not None else self.name_prefix
+        atomic_pickle(self.state.to_host(), f"{prefix}sac_state.pkl")
+        rp.save_replay(self.buffer, f"{prefix}replaymem_sac.pkl")
+
+    def load_models(self, prefix: Optional[str] = None) -> bool:
+        """Resume from ``save_models`` files; a missing or corrupt state file
+        warns and keeps the fresh agent (returns False)."""
+        prefix = prefix if prefix is not None else self.name_prefix
+        host = safe_pickle_load(f"{prefix}sac_state.pkl")
+        if host is None:
+            return False
+        self.state = SACState.from_host(self.cfg, host, self.device)
+        mem = safe_pickle_load(f"{prefix}replaymem_sac.pkl")
+        if mem is not None:
+            self.buffer = rp.replay_from_host(mem, self.device)
+        return True

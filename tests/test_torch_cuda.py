@@ -137,3 +137,62 @@ def test_factored_imager_kernel_matches_plain_on_gpu():
         ref = ref.cpu().numpy()
         np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=2e-4,
                                    atol=2e-4 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_full_width_learn_step_matches_cpu():
+    """One learn step of the calibration agent at full width (128² image,
+    M=10, batch 32) on the GPU and on the CPU from the same state, batch
+    and noise: losses, alpha, rho and every parameter and Adam moment
+    within rtol 1e-4 / atol 1e-5.  The state first takes three steps on
+    the GPU, so Adam's moments are not fresh (from fresh moments a
+    gradient near 1e-9 moves its weight by lr * g / (|g| + 1e-8), which
+    amplifies the two devices' round-off 1e5 times)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from smartcal_tpu_torch.rl import sac
+    M, npix, B = 10, 128, 32
+    cfg = sac.SACConfig(obs_dim=npix * npix + (M + 1) * 7, n_actions=2 * M,
+                        batch_size=B, mem_size=B, reward_scale=M,
+                        alpha=0.03, hint_threshold=0.01, admm_rho=1.0,
+                        use_hint=True, hint_distance="kld",
+                        img_shape=(npix, npix))
+    rng = np.random.default_rng(0)
+
+    def draw():
+        batch = {"state": 1e-3 * rng.standard_normal((B, cfg.obs_dim)),
+                 "new_state": 1e-3 * rng.standard_normal((B, cfg.obs_dim)),
+                 "action": rng.uniform(-1, 1, (B, 2 * M)),
+                 "reward": rng.uniform(0, 30, B),
+                 "hint": rng.uniform(-1, 1, (B, 2 * M))}
+        batch = {k: torch.from_numpy(v.astype(np.float32))
+                 for k, v in batch.items()}
+        batch["done"] = torch.zeros(B, dtype=torch.bool)
+        noise = tuple(torch.from_numpy(rng.standard_normal(
+            (B, 2 * M)).astype(np.float32)) for _ in range(3))
+        return batch, noise
+
+    def learn(st, dev, batch, noise):
+        return sac.learn_from_batch(
+            cfg, st, {k: v.to(dev) for k, v in batch.items()},
+            torch.ones(B, device=dev), tuple(n.to(dev) for n in noise))
+
+    gpu = sac.sac_init(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    for _ in range(3):
+        learn(gpu, "cuda", *draw())
+    cpu = gpu.copy_to("cpu")
+    batch, noise = draw()
+    m_gpu = learn(gpu, "cuda", batch, noise)
+    m_cpu = learn(cpu, "cpu", batch, noise)
+    for k in ("critic_loss", "actor_loss", "alpha", "rho"):
+        np.testing.assert_allclose(float(m_gpu[k]), float(m_cpu[k]),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    want, got = cpu.to_host(), gpu.to_host()
+    for part in sac.SACState.NETS + sac.SACState.OPTS:
+        for field in ("mu", "nu") if part.endswith("_opt") else ("",):
+            w = want[part][field] if field else want[part]
+            g = got[part][field] if field else got[part]
+            for name in w:
+                np.testing.assert_allclose(g[name], w[name], rtol=1e-4,
+                                           atol=1e-5,
+                                           err_msg=f"{part} {field} {name}")

@@ -40,7 +40,9 @@ def test_port_has_modules():
                 "cal/consensus", "cal/kernels", "ops/lbfgs", "cal/solver",
                 "cal/influence", "cal/imager", "ops/dft_imager",
                 "ops/hessian_blocks", "ops/factored_imager",
-                "envs/radio", "envs/calib"):
+                "envs/radio", "envs/calib", "rl/networks", "rl/replay",
+                "rl/sac", "train/blocks", "train/calib_sac",
+                "runtime/atomic"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
 
