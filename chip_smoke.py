@@ -24,12 +24,29 @@
    with CUDA events, takes a learn step's idle share, and holds 3 learn
    steps on the card against the CPU from the same state, batch indices
    and noise (rtol 1e-4 / atol 1e-5);
-6. drives the SKA-tier path: CalibEnv(M=10) on RadioBackend (N=256, Nf=3,
+6. drives the elastic-net slice (M = N = 20, no kernel on its path):
+   one EnetEnv reset, three steps and a hint, timed and broken down
+   (solve, influence state, hint; L-BFGS iterations; CUDA kernels per
+   iteration and per step by torch.profiler, and per iteration with the
+   line search's lane-masked form only, which must give the same x; a
+   step's idle share), held
+   against the CPU stage by stage; ``train/enet_sac.py`` (13 episodes of
+   5 steps with the hint: two learn calls at batch 64), its saved agent
+   and ring checked, ``enet_eval`` for one game, learn / choose_action /
+   store_transition timed, 3 learn steps held against the CPU;
+   ``train/enet_td3.py`` and ``train/enet_ddpg.py`` for 2 short episodes
+   and 3 full-width learn steps of each agent held against the CPU;
+   ``train/calib_td3.py`` (1 episode of 2 steps with the hint) and
+   ``train/calib_ddpg.py`` (1 episode of 1 step) at N=62 with the DFT
+   kernel's launches counted, and one full-width CNN TD3 learn step held
+   against the CPU; counts zeroed just before and read just after each
+   path;
+7. drives the SKA-tier path: CalibEnv(M=10) on RadioBackend (N=256, Nf=3,
    T=20, npix=1024: the blocked Hessian and the large-tier factored imager
    chosen by threshold), reset and one step with the hint, counts zeroed
    just before and read just after; the first call of each kernel in the
    step keeps its operands; a second step is profiled for the idle share;
-7. holds each kernel against its plain version on the card at those
+8. holds each kernel against its plain version on the card at those
    operands (the imager against the direct DFT on a 4096-pixel subset) and
    at ragged cases, and times kernel, plain version and library yardstick
    with CUDA events; the Hessian also bit for bit over two launches, on
@@ -42,9 +59,9 @@
    influence_visibilities, the factored imager); counts how many of three
    factored-imager launches torch.profiler records (a check on the idle
    shares);
-8. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
+9. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
    blocked tier forced) and compares them;
-9. prints the kernel table as one JSON line, the card line, and last
+10. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -74,6 +91,7 @@ DIR/hessian_split.json.
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -692,6 +710,457 @@ def train_path(dev, out_dir, zero_counts, read_counts):
     return out
 
 
+# -- the elastic-net slice and the calibration TD3/DDPG trainers ----------
+
+ENET_SAC_EPISODES, ENET_SAC_STEPS = 13, 5     # 65 transitions: 2 learns
+ENET_SHORT = ["--episodes", "2", "--steps", "2", "--seed", "0", "--quiet"]
+CALIB_TD3_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "2",
+                  "--use_hint", "--seed", "0", "--quiet"]
+CALIB_DDPG_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "1",
+                   "--seed", "0", "--quiet"]
+ENET_ITER_RTOL, ENET_ITER_ATOL = 1e-4, 1e-6   # tests/test_torch_enet.py
+
+
+class Timed:
+    """Stands in for ``module.name``: every call runs between two device
+    syncs, and its host seconds and result are kept."""
+
+    def __init__(self, module, name, dev):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = []
+        timer = self
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = timer.fn(*args, **kw)
+            torch.cuda.synchronize(dev)
+            timer.calls.append((time.perf_counter() - t0, out))
+            return out
+
+        setattr(module, name, timed)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def _to(tree, dev):
+    """A NamedTuple of tensors (or of such NamedTuples) on ``dev``."""
+    return type(tree)(*(_to(v, dev) if isinstance(v, tuple) else v.to(dev)
+                        for v in tree))
+
+
+def _hold(name, got, want, rtol, atol):
+    err = float((got.cpu() - want.cpu()).abs().max())
+    ok = bool(torch.allclose(got.cpu(), want.cpu(), rtol=rtol, atol=atol))
+    print(f"enet GPU vs CPU {name}: max abs err {err:.3e} (rtol {rtol} / "
+          f"atol {atol}) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"enet GPU vs CPU: {name} disagrees")
+    return err
+
+
+def enet_gpu_vs_cpu(enet, cfg, st, action, noise):
+    """The enet step and hint on the card against the CPU, stage by stage
+    on the same inputs: the solve's first 5 iterations, the influence
+    state on the CPU's solution and curvature pairs, the step around the
+    CPU's solve, and the hint's 50 MSEs on the CPU's 50 solutions.  End to
+    end the devices part as the two packages do (float32 round-off in the
+    L-BFGS trajectories, ROADMAP queue 3): those differences are printed,
+    not held.  Returns the report."""
+    cpu = _to(st, "cpu")
+    rho, _ = enet.action_to_rho(action.cpu())
+    out = {}
+    short = dataclasses.replace(cfg, lbfgs_iters=5)
+    a = enet._solve(short, cpu.A, cpu.y, rho)
+    b = enet._solve(short, st.A, st.y, rho.to(st.A.device))
+    out["solve_5_iters"] = _hold("solve x after 5 iterations", b.x, a.x,
+                                 ENET_ITER_RTOL, ENET_ITER_ATOL)
+    if int(a.n_iters[0]) != int(b.n_iters[0]):
+        raise AssertionError("enet GPU vs CPU: iteration counts differ")
+    res = enet._solve(cfg, cpu.A, cpu.y, rho)
+    dres = _to(res, st.A.device)
+    out["influence"] = _hold(
+        "influence state on one solve",
+        enet._influence(cfg, st.A, st.y, rho.to(st.A.device), dres),
+        enet._influence(cfg, cpu.A, cpu.y, rho, res), 1e-4, 1e-5)
+    mses, hres = enet.hint_solve(cfg, cpu)
+    out["hint_mses"] = _hold("hint MSEs on 50 solutions",
+                             enet.hint_mses(cfg, st, hres.x.to(
+                                 st.A.device)), mses, 1e-5, 0.0)
+    # end to end, printed
+    g_st, g_obs, g_r, _ = enet.step(cfg, st, action, noise)
+    c_st, c_obs, c_r, _ = enet.step(cfg, cpu, action.cpu(), noise.cpu())
+    g_mses, _ = enet.hint_solve(cfg, g_st)
+    c_mses, _ = enet.hint_solve(cfg, c_st)
+    out["end_to_end"] = {
+        "x_max_abs": float((g_st.x.cpu() - c_st.x).abs().max()),
+        "obs_max_abs": float((g_obs.cpu() - c_obs).abs().max()),
+        "reward_rel": abs(float(g_r) / float(c_r) - 1.0),
+        "hint_mse_max_rel": float(((g_mses.cpu() - c_mses).abs()
+                                   / c_mses.abs()).max())}
+    print("enet GPU vs CPU end to end (not held: round-off parts the "
+          "L-BFGS trajectories, ROADMAP queue 3): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in out["end_to_end"].items()),
+          flush=True)
+    return out
+
+
+def enet_step_phase(dev):
+    """One EnetEnv (M = N = 20) reset, three steps and one hint on the
+    card, each timed and broken down (solve, influence state, hint),
+    L-BFGS iterations per solve, CUDA kernels per iteration and per step
+    (torch.profiler), a step's idle share, and the GPU-vs-CPU stages."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.ops import lbfgs
+    env = enet.EnetEnv(seed=0, device=dev)
+    cfg = env.cfg
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timers = {n: Timed(enet, n, dev) for n in ("_solve", "_influence",
+                                                "hint_solve")}
+    rng = np.random.default_rng(0)
+    steps = []
+    try:
+        t0 = time.perf_counter()
+        env.reset()
+        t_reset = time.perf_counter() - t0
+        for i in range(3):
+            action = rng.uniform(-1, 1, 2).astype(np.float32)
+            t0 = time.perf_counter()
+            _, reward, _, _ = env.step(action)
+            steps.append({"seconds": time.perf_counter() - t0,
+                          "reward": reward})
+            if i == 0:
+                t0 = time.perf_counter()
+                hint = env.get_hint()
+                t_hint = time.perf_counter() - t0
+    finally:
+        for tm in timers.values():
+            tm.restore()
+    for s, (sec, res), (isec, _) in zip(steps, timers["_solve"].calls,
+                                        timers["_influence"].calls):
+        s.update(solve_seconds=sec, influence_seconds=isec,
+                 iters=int(res.n_iters[0]))
+    hsec, (_, hres) = timers["hint_solve"].calls[0]
+    h_iters = hres.n_iters.cpu().numpy()
+    if not (np.all(np.isfinite([s["reward"] for s in steps]))
+            and np.all(np.isfinite(hint))):
+        raise AssertionError("enet step: non-finite reward or hint")
+
+    # kernels per iteration (one solve) and per step, and a step's idle
+    # share against the unprofiled wall of the same call
+    st = env.state
+    action = torch.tensor([0.3, -0.5], device=dev)
+    noise = torch.randn(cfg.N, generator=env.generator, device=dev)
+    rho, _ = enet.action_to_rho(action)
+    solved = []
+    s_wall, s_busy, s_kernels = device_busy_seconds(
+        lambda: solved.append(enet._solve(cfg, st.A, st.y, rho)))
+    s_iters = int(solved[0].n_iters[0])
+    # the same solve with the search's lane-masked form only (as under
+    # graph capture): the kernels the skips save, and the same steps
+    can_sync = lbfgs._can_sync
+    lbfgs._can_sync = lambda device: False
+    try:
+        m_wall, _, m_kernels = device_busy_seconds(
+            lambda: solved.append(enet._solve(cfg, st.A, st.y, rho)))
+    finally:
+        lbfgs._can_sync = can_sync
+    if not torch.equal(solved[0].x, solved[1].x):
+        raise AssertionError("enet solve: the search's skips changed x")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    enet.step(cfg, st, action, noise)
+    torch.cuda.synchronize(dev)
+    step_wall = time.perf_counter() - t0
+    step_prof, step_busy, step_kernels = device_busy_seconds(
+        lambda: enet.step(cfg, st, action, noise))
+    out = {"reset_seconds": t_reset, "steps": steps,
+           "hint_seconds": t_hint, "hint_solve_seconds": hsec,
+           "hint_iters_max": int(h_iters.max()),
+           "hint_iters_mean": float(h_iters.mean()),
+           "profiled_solve": {"iters": s_iters, "wall_s": s_wall,
+                              "busy_s": s_busy, "kernels": s_kernels,
+                              "kernels_per_iter": s_kernels / max(s_iters,
+                                                                  1),
+                              "masked_wall_s": m_wall,
+                              "masked_kernels_per_iter": m_kernels
+                              / max(s_iters, 1)},
+           "profiled_step": {"wall_s": step_wall, "profiled_wall_s":
+                             step_prof, "busy_s": step_busy,
+                             "kernels": step_kernels},
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    out["step_idle_share"] = idle_share("enet step", step_wall, step_busy,
+                                        step_prof)
+    print(f"enet step (M=N=20): reset {t_reset:.3f} s; steps "
+          + "; ".join(f"{s['seconds']:.3f} s (solve {s['solve_seconds']:.3f}"
+                      f" s, {s['iters']} iterations; influence/eig "
+                      f"{s['influence_seconds']:.4f} s)" for s in steps)
+          + f"; hint {t_hint:.3f} s (its solve {hsec:.3f} s, lanes' "
+          f"iterations max {int(h_iters.max())} mean {h_iters.mean():.1f})"
+          f"; one solve profiled: {s_kernels} kernels and copies over "
+          f"{s_iters} iterations = {out['profiled_solve']['kernels_per_iter']:.0f}"
+          f" per iteration ({out['profiled_solve']['masked_kernels_per_iter']:.0f}"
+          f" and {m_wall:.3f} s profiled with the lane-masked search only, "
+          f"the same x); one step: {step_kernels} kernels and copies; "
+          f"peak device memory {out['peak_mem_bytes'] / 2**20:.0f} MiB",
+          flush=True)
+    out["gpu_vs_cpu"] = enet_gpu_vs_cpu(enet, cfg, st, action, noise)
+    return out
+
+
+def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
+    """Drive train/enet_sac.py on the card (ENET_SAC_EPISODES x 5 steps
+    with the hint), counts zeroed just before and read just after; check
+    what it saved; run enet_eval for one game on the saved agent; time
+    learn / choose_action / store_transition with CUDA events, a learn
+    step's idle share, and 3 learn steps on the card against the CPU."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.runtime.atomic import strict_pickle_load
+    from smartcal_tpu_torch.train import enet_eval, enet_sac
+    prefix = os.path.join(out_dir, "enet_sac_")
+    args = ["--episodes", str(ENET_SAC_EPISODES), "--steps",
+            str(ENET_SAC_STEPS), "--use_hint", "--seed", "0", "--quiet",
+            "--prefix", prefix]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = enet_sac.main(args)
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = ENET_SAC_EPISODES * ENET_SAC_STEPS
+    scores = strict_pickle_load(prefix + "scores.pkl")
+    cfg = enet_sac.agent_config(enet.EnetConfig(), use_hint=True)
+    agent = sac.SACAgent(cfg, seed=0, name_prefix=prefix, device=dev)
+    if not agent.load_models():
+        raise AssertionError("enet_sac saved no agent")
+    want_learns = n - cfg.batch_size + 1
+    if (len(scores) != ENET_SAC_EPISODES or not np.all(np.isfinite(scores))
+            or agent.buffer.cntr != n or want_learns < 2
+            or agent.state.learn_counter != want_learns):
+        raise AssertionError(f"enet_sac: scores {scores}, ring cntr "
+                             f"{agent.buffer.cntr}, learn_counter "
+                             f"{agent.state.learn_counter}")
+    t1 = time.perf_counter()
+    rows = enet_eval.main(["--agent", prefix + "sac_state.pkl", "--games",
+                           "1", "--seed", "0"])
+    eval_s = time.perf_counter() - t1
+    if not (np.isfinite(rows[0]["rl_rel_err"])
+            and np.isfinite(rows[0]["grid_rel_err"])):
+        raise AssertionError(f"enet_eval: {rows}")
+    for name in ("sac_state.pkl", "replaymem_sac.pkl"):       # read
+        os.remove(prefix + name)
+    gpu_cpu = learn_gpu_vs_cpu(sac, cfg, agent.state, agent.buffer, dev)
+    flat = agent.buffer.data["state"][0].cpu().numpy()
+    hint = agent.buffer.data["hint"][0].cpu().numpy()
+    action = agent.choose_action(flat)
+    times = {
+        "learn_ms": cuda_ms(agent.learn, 20, warmup=3),
+        "choose_action_ms": cuda_ms(lambda: agent.choose_action(flat), 20,
+                                    warmup=3),
+        "store_transition_ms": cuda_ms(lambda: agent.store_transition(
+            flat, action, 1.0, flat, False, hint), 20, warmup=3)}
+    l_prof, l_busy, l_kernels = device_busy_seconds(agent.learn)
+    out = {"args": args, "summary": summary, "scores": list(scores),
+           "train_seconds": train_s, "launches": launches,
+           "peak_mem_bytes": peak, "ring_cntr": n,
+           "learn_counter": want_learns, "eval": rows,
+           "eval_seconds": eval_s, **times,
+           "learn_idle_share": idle_share("enet learn step",
+                                          1e-3 * times["learn_ms"], l_busy,
+                                          l_prof),
+           "learn_device_kernels": l_kernels,
+           "gpu_vs_cpu_max_abs_err": gpu_cpu}
+    print(f"enet_sac ({' '.join(args[:-2])}): {train_s:.3f} s, "
+          f"env_steps_per_sec {summary['env_steps_per_sec']} (the trainer's "
+          f"JSON), final_avg_score {summary['final_avg_score']:.4f}; ring "
+          f"cntr {n}, learn_counter {want_learns}; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; peak device memory {peak / 2**20:.0f} MiB; enet_eval 1 "
+          f"game {eval_s:.3f} s (RL rel err {rows[0]['rl_rel_err']:.4f}, "
+          f"grid {rows[0]['grid_rel_err']:.4f}); learn "
+          f"{times['learn_ms']:.3f} ms, choose_action "
+          f"{times['choose_action_ms']:.3f} ms, store_transition "
+          f"{times['store_transition_ms']:.3f} ms (CUDA events, median of "
+          f"20 after 3 warm-ups); learn step kernels and copies "
+          f"{l_kernels}", flush=True)
+    del agent
+    return out
+
+
+def _random_ring(rp, cfg, n, dev, priority, seed=0):
+    """A ring of ``n`` random full-width transitions of ``cfg``'s shape."""
+    rng = np.random.default_rng(seed)
+    buf = rp.replay_init(cfg.mem_size, rp.transition_spec(
+        cfg.obs_dim, cfg.n_actions), dev)
+    for _ in range(n):
+        r = float(rng.uniform(0, 3))
+        rp.replay_add(buf, {
+            "state": 1e-2 * rng.standard_normal(cfg.obs_dim).astype(
+                np.float32),
+            "new_state": 1e-2 * rng.standard_normal(cfg.obs_dim).astype(
+                np.float32),
+            "action": rng.uniform(-1, 1, cfg.n_actions).astype(np.float32),
+            "reward": r, "done": False,
+            "hint": rng.uniform(-1, 1, cfg.n_actions).astype(np.float32)},
+            priority=priority(r))
+    return buf
+
+
+def learns_gpu_vs_cpu(name, state, buf, dev, learn_step, n_steps, seed=7):
+    """``n_steps`` of ``learn_step(state, batch, draws)`` from ``state`` on
+    the card and from its copy on the CPU, with the same batch indices
+    (drawn on the CPU from the ring's filled slots) and draws; raises
+    beyond TRAIN_RTOL / TRAIN_ATOL on any parameter, target, Adam moment
+    or counter.  Returns the max abs error and its share of the
+    tolerance."""
+    gpu, cpu = state.copy_to(dev), state.copy_to("cpu")
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(n_steps):
+        idx = torch.randperm(buf.filled, generator=g)[:64]
+        draws = torch.rand(64, generator=g), torch.randn((), generator=g)
+        batch = {k: v[idx.to(dev)] for k, v in buf.data.items()}
+        learn_step(gpu, batch, tuple(d.to(dev) for d in draws))
+        learn_step(cpu, {k: v.cpu() for k, v in batch.items()}, draws)
+    err = state_diff(gpu.to_host(), cpu.to_host())
+    print(f"{name} GPU vs CPU ({n_steps} learn steps): parameters, targets "
+          f"and Adam moments max abs err {err[0]:.3e}, at most {err[1]:.3f} "
+          f"of the tolerance (rtol {TRAIN_RTOL} / atol {TRAIN_ATOL}) -> ok",
+          flush=True)
+    return err
+
+
+def enet_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
+    """Drive train/enet_td3.py and train/enet_ddpg.py for 2 short episodes
+    each (counts zeroed and read around each); then 3 full-width learn
+    steps of each agent (TD3 with PER and the hint: the second is the
+    delayed ADMM actor step) on the card against the CPU, from a 96-slot
+    ring and a state with Adam history; times one learn of each."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.rl import ddpg, td3
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.train import enet_ddpg, enet_td3
+    out = {}
+    for name, main in (("enet_td3", enet_td3.main),
+                       ("enet_ddpg", enet_ddpg.main)):
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = main(ENET_SHORT + ["--prefix",
+                                     os.path.join(out_dir, name + "_")])
+        out[name] = {"summary": summary, "launches": read_counts(),
+                     "seconds": time.perf_counter() - t0}
+        for f in ("td3_state.pkl", "replaymem_td3.pkl"):  # tens of MB
+            path = os.path.join(out_dir, f"{name}_{f}")
+            if os.path.exists(path):
+                os.remove(path)
+        if not np.isfinite(summary["final_avg_score"]):
+            raise AssertionError(f"{name}: {summary}")
+        print(f"{name} ({' '.join(ENET_SHORT)}): "
+              f"{out[name]['seconds']:.3f} s, env_steps_per_sec "
+              f"{summary['env_steps_per_sec']}", flush=True)
+    env_cfg = enet.EnetConfig()
+
+    tcfg = enet_td3.agent_config(env_cfg)
+    buf = _random_ring(rp, tcfg, 96, dev,
+                       lambda r: td3.store_priority(tcfg, r))
+    st = td3.td3_init(tcfg, torch.Generator(dev).manual_seed(0), dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    for _ in range(4):                       # Adam history, actor included
+        td3.learn(tcfg, st, buf, gen)
+    st.learn_counter = 0
+
+    def td3_step(s, batch, draws):
+        td3.learn_from_batch(tcfg, s, batch, 0.5 + 0.5 * draws[0], draws[1])
+
+    out["td3_gpu_vs_cpu"] = learns_gpu_vs_cpu("enet TD3 (PER, hint ADMM)",
+                                              st, buf, dev, td3_step, 3)
+    out["td3_learn_ms"] = cuda_ms(lambda: td3.learn(tcfg, st, buf, gen), 20,
+                                  warmup=3)
+
+    dcfg = enet_ddpg.agent_config(env_cfg)
+    dbuf = _random_ring(rp, dcfg, 96, dev, lambda r: 1.0)
+    dst = ddpg.ddpg_init(dcfg, torch.Generator(dev).manual_seed(0), dev)
+    for _ in range(4):
+        ddpg.learn(dcfg, dst, dbuf, gen)
+
+    def ddpg_step(s, batch, draws):
+        ddpg.learn_from_batch(dcfg, s, batch)
+
+    out["ddpg_gpu_vs_cpu"] = learns_gpu_vs_cpu("enet DDPG", dst, dbuf, dev,
+                                               ddpg_step, 3)
+    out["ddpg_learn_ms"] = cuda_ms(lambda: ddpg.learn(dcfg, dst, dbuf, gen),
+                                   20, warmup=3)
+    print(f"enet learn ms (CUDA events, median of 20 after 3 warm-ups, "
+          f"batch 64): TD3 {out['td3_learn_ms']:.3f} (alternate calls run "
+          f"the 5-step ADMM actor update), DDPG {out['ddpg_learn_ms']:.3f}",
+          flush=True)
+    return out
+
+
+def calib_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
+    """Drive train/calib_td3.py and train/calib_ddpg.py on the N=62 backend
+    (counts zeroed just before and read just after each; dft_imager >= 3
+    launches per env call), then hold one full-width CNN TD3 learn step
+    (batch 32, 128², M=10, an ADMM actor step) on the card against the
+    CPU from a state with Adam history."""
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import td3
+    from smartcal_tpu_torch.train import calib_ddpg, calib_td3
+    out = {}
+    for name, main, args in (("calib_td3", calib_td3.main, CALIB_TD3_ARGS),
+                             ("calib_ddpg", calib_ddpg.main,
+                              CALIB_DDPG_ARGS)):
+        prefix = os.path.join(out_dir, name)
+        timer = StepTimer(CalibEnv)
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            scores = main(args + ["--prefix", prefix])
+        finally:
+            timer.restore()
+        launches = read_counts()
+        seconds = time.perf_counter() - t0
+        env_calls = 1 + len(timer.seconds)        # one reset per episode
+        if not np.all(np.isfinite(scores)) or \
+                launches["dft_imager"] < 3 * env_calls:
+            raise AssertionError(f"{name}: scores {scores}, launches "
+                                 f"{launches} over {env_calls} env calls")
+        for f in os.listdir(out_dir):                 # the agent pickles
+            if f.startswith(name) and f.endswith(".pkl"):
+                os.remove(os.path.join(out_dir, f))
+        out[name] = {"args": args, "scores": list(scores),
+                     "seconds": seconds, "env_step_seconds": timer.seconds,
+                     "launches": launches}
+        print(f"{name} ({' '.join(args)}): {seconds:.3f} s, env steps "
+              + ", ".join(f"{x:.3f}" for x in timer.seconds)
+              + " s; launches " + ", ".join(f"{k} {v}" for k, v in
+                                           launches.items()), flush=True)
+
+    cfg = calib_td3.agent_config(128, 10, use_hint=True)
+    buf = _random_ring(rp, dataclasses.replace(cfg, mem_size=64), 48, dev,
+                       lambda r: 1.0)
+    st = td3.td3_init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    for _ in range(4):
+        td3.learn(cfg, st, buf, gen)
+    st.learn_counter = 1                  # the compared step updates the actor
+
+    def step(s, batch, draws):
+        s_batch = {k: v[:cfg.batch_size] for k, v in batch.items()}
+        td3.learn_from_batch(cfg, s, s_batch, torch.ones(
+            cfg.batch_size, device=draws[1].device), draws[1])
+
+    out["cnn_td3_gpu_vs_cpu"] = learns_gpu_vs_cpu(
+        "calibration TD3 (CNN, hint ADMM)", st, buf, dev, step, 1)
+    return out
+
+
 # -- --ablation: the engine with one design choice undone -----------------
 
 IEEE_REDUCE = """__device__ __forceinline__ float reduce_2pi(float x) {
@@ -1193,6 +1662,24 @@ def main():
     report["train"] = train_path(dev, args.out, zero_counts, read_counts)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # -- the elastic-net slice: one step measured, then the trainers --------
+    print(f"enet phases: step path reset + 3 steps + 1 hint; enet_sac "
+          f"{ENET_SAC_EPISODES} episodes x {ENET_SAC_STEPS} steps with the "
+          f"hint; enet_td3 / enet_ddpg {' '.join(ENET_SHORT)}; calib_td3 "
+          f"{' '.join(CALIB_TD3_ARGS)}; calib_ddpg "
+          f"{' '.join(CALIB_DDPG_ARGS)}", flush=True)
+    zero_counts()
+    report["enet_step"] = enet_step_phase(dev)
+    report["enet_step"]["launches"] = read_counts()
+    report["enet_sac"] = enet_sac_phase(dev, args.out, zero_counts,
+                                        read_counts)
+    report["enet_td3_ddpg"] = enet_td3_ddpg_phase(dev, args.out, zero_counts,
+                                                  read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    report["calib_td3_ddpg"] = calib_td3_ddpg_phase(dev, args.out,
+                                                    zero_counts, read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
     ska_backend = RadioBackend(device=dev, **SKA)
     statics = ska_backend._influence_statics(SKA["npix"])
@@ -1417,6 +1904,14 @@ def main():
          "launches": ska_launches["dft_imager"],
          "launches_n62_path": n62_launches["dft_imager"],
          "launches_train_path": report["train"]["launches"]["dft_imager"],
+         "launches_calib_td3_path":
+             report["calib_td3_ddpg"]["calib_td3"]["launches"]["dft_imager"],
+         "launches_calib_ddpg_path":
+             report["calib_td3_ddpg"]["calib_ddpg"]["launches"][
+                 "dft_imager"],
+         "launches_enet_paths": sum(
+             report[k]["launches"]["dft_imager"] for k in ("enet_step",
+                                                           "enet_sac")),
          "max_abs_err": max(dft_err), "ms": dft_ms,
          "plain_ms": dft_plain_ms, **dft_bounds, "library_ms": None,
          "shapes": f"P={P} R={R}", "yardstick_factored_ms": factored_ms,

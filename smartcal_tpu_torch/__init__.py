@@ -5,16 +5,19 @@ The layout mirrors the JAX package module for module
 ``smartcal_tpu/cal/solver.py``):
 
 * ``cal/``, ``envs/``: the calibration episode (simulate, consensus ADMM,
-  influence map, images, reward) and ``CalibEnv``;
+  influence map, images, reward), ``CalibEnv`` and the elastic-net
+  ``EnetEnv``;
 * ``ops/``: the hand-written CUDA kernels of the JAX package's three TPU
   kernels, built from ``csrc/`` on first use: the direct-DFT imager
   (``csrc/dft_imager.cu``) and the rank-factored imager
   (``csrc/factored_imager.cu``), two entry points of one tensor-core
   engine (``csrc/separable_imager.cuh``), and the blocked Hessian
-  (``csrc/hessian_blocks.cu``);
-* ``rl/``: the SAC agent, its networks and the device replay ring;
-* ``train/``: the calibration SAC trainer (``train/calib_sac.py``) and the
-  plumbing it needs;
+  (``csrc/hessian_blocks.cu``); the lane-batched L-BFGS and the
+  ``torch.func`` autodiff tools;
+* ``rl/``: the SAC, TD3 and DDPG agents, their networks and the device
+  replay ring;
+* ``train/``: the calibration SAC/TD3/DDPG trainers, the elastic-net
+  SAC/TD3/DDPG trainers and evaluation, and the plumbing they need;
 * ``runtime/``: crash-safe saves.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``

@@ -21,6 +21,7 @@ import torch
 from smartcal_tpu_torch.cal import consensus, creal
 from smartcal_tpu_torch.cal.kernels import baseline_indices, baseline_onehots
 from smartcal_tpu_torch.ops import lbfgs
+from smartcal_tpu_torch.ops.autodiff import lane_value_and_grad
 
 
 class SolverConfig(NamedTuple):
@@ -278,18 +279,6 @@ def _finalize(J, V6, C7, data_scale, cost, cfg: SolverConfig, T):
             cost * data_scale * data_scale)
 
 
-def _value_and_grad(cost):
-    """(L, n) -> ((L,) values, (L, n) gradients) of a per-lane cost.  Lanes
-    are independent, so the gradient of the lane sum is exact per lane."""
-    def vag(x):
-        with torch.enable_grad():
-            xr = x.detach().requires_grad_(True)
-            val = cost(xr)
-            (g,) = torch.autograd.grad(val.sum(), xr)
-        return val.detach(), g
-    return vag
-
-
 def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
                admm_iters: Optional[int] = None) -> SolveResult:
     """Consensus-ADMM calibration over frequency sub-bands, cold start.
@@ -328,7 +317,8 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
             return search(_quartic_coeffs(x, d, Vp, Cp, onehots, prior,
                                           half_rho, cfg))
 
-        return lbfgs.lbfgs_solve(_value_and_grad(cost), x0, max_iters=iters,
+        return lbfgs.lbfgs_solve(lane_value_and_grad(cost), x0,
+                                 max_iters=iters,
                                  line_search=line_search)
 
     if cfg.init_iters > 0:

@@ -1,6 +1,7 @@
 """Carry state from the JAX package into the port.
 
-The JAX package's ``Episode``, ``SolveResult`` and ``SACState`` (any
+The JAX package's ``Episode``, ``SolveResult``, ``SACState``,
+``TD3State`` and ``DDPGState`` (any
 objects with the same field names, holding arrays that ``numpy.asarray``
 accepts) and flax parameter trees become the port's types, so one episode
 or one agent can be fed to both packages.  Nothing here imports the JAX
@@ -12,7 +13,7 @@ import torch
 
 from smartcal_tpu_torch.cal import observation, solver
 from smartcal_tpu_torch.envs import radio
-from smartcal_tpu_torch.rl import sac
+from smartcal_tpu_torch.rl import ddpg, sac, td3
 
 
 def _t(x, device):
@@ -99,17 +100,23 @@ def _adam_from_optax(opt, module):
                    params_from_flax(a.nu, module).items()}}
 
 
+def _nets_from_jax(st, fields, actor, critic):
+    """{port name: flax params} of the networks named by ``fields`` (port
+    name -> JAX field), in the port's host form."""
+    return {k: {n: v.numpy() for n, v in params_from_flax(
+        getattr(st, f), actor if k in ("actor", "t_actor") else critic)
+        .items()} for k, f in fields.items()}
+
+
 def sac_state_from_jax(st, cfg, device="cpu"):
     """The port's :class:`~smartcal_tpu_torch.rl.sac.SACState` of a JAX
     ``SACState`` (fields read by name): actor, both critics and targets,
     the three Adam states (moments and count), alpha, rho, learn_counter,
     log_alpha and its Adam state.  ``cfg`` is the port's ``SACConfig``."""
     actor, critic = sac.build_nets(cfg, device="cpu")
-    nets = {"actor": (st.actor_params, actor), "c1": (st.c1_params, critic),
-            "c2": (st.c2_params, critic), "t1": (st.t1_params, critic),
-            "t2": (st.t2_params, critic)}
-    host = {k: {n: v.numpy() for n, v in params_from_flax(tree, m).items()}
-            for k, (tree, m) in nets.items()}
+    host = _nets_from_jax(st, {"actor": "actor_params", "c1": "c1_params",
+                               "c2": "c2_params", "t1": "t1_params",
+                               "t2": "t2_params"}, actor, critic)
     host.update(
         actor_opt=_adam_from_optax(st.actor_opt, actor),
         c1_opt=_adam_from_optax(st.c1_opt, critic),
@@ -119,3 +126,37 @@ def sac_state_from_jax(st, cfg, device="cpu"):
         log_alpha=float(st.log_alpha),
         alpha_opt=_adam_from_optax(st.alpha_opt, None))
     return sac.SACState.from_host(cfg, host, device)
+
+
+def td3_state_from_jax(st, cfg, device="cpu"):
+    """The port's :class:`~smartcal_tpu_torch.rl.td3.TD3State` of a JAX
+    ``TD3State``: actor, critics and targets, the three Adam states and
+    the two counters.  ``cfg`` is the port's ``TD3Config``."""
+    actor, critic = td3.build_nets(cfg)
+    host = _nets_from_jax(st, {"actor": "actor_params", "c1": "c1_params",
+                               "c2": "c2_params",
+                               "t_actor": "t_actor_params",
+                               "t1": "t1_params", "t2": "t2_params"},
+                          actor, critic)
+    host.update(actor_opt=_adam_from_optax(st.actor_opt, actor),
+                c1_opt=_adam_from_optax(st.c1_opt, critic),
+                c2_opt=_adam_from_optax(st.c2_opt, critic),
+                learn_counter=int(st.learn_counter),
+                time_step=int(st.time_step))
+    return td3.TD3State.from_host(cfg, host, device)
+
+
+def ddpg_state_from_jax(st, cfg, device="cpu"):
+    """The port's :class:`~smartcal_tpu_torch.rl.ddpg.DDPGState` of a JAX
+    ``DDPGState``: actor, critic and targets, the two Adam states and the
+    OU noise state.  ``cfg`` is the port's ``DDPGConfig``."""
+    actor, critic = td3.build_nets(cfg)
+    host = _nets_from_jax(st, {"actor": "actor_params",
+                               "critic": "critic_params",
+                               "t_actor": "t_actor_params",
+                               "t_critic": "t_critic_params"},
+                          actor, critic)
+    host.update(actor_opt=_adam_from_optax(st.actor_opt, actor),
+                critic_opt=_adam_from_optax(st.critic_opt, critic),
+                noise=np.array(st.noise.x_prev, np.float32))
+    return ddpg.DDPGState.from_host(cfg, host, device)

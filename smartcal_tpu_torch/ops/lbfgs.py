@@ -13,8 +13,10 @@ lane by lane.
 
 The line search only ever sees ``phi(alpha) -> (value, slope)`` on (L,)
 tensors, and every branch of it is a lane-masked ``torch.where``, so it
-runs where ``x`` lives without a host sync.  The one sync per iteration is
-the ``active.any()`` test that ends the loop.
+can run where ``x`` lives without a host sync (inside a CUDA graph it
+does).  Elsewhere it syncs a few times to skip work that every lane
+discards (:func:`strong_wolfe_cubic`); the loop's own sync per iteration
+is the ``active.any()`` test that ends it.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -74,8 +76,14 @@ def history_push(hist: LBFGSHistory, s, y, accept) -> LBFGSHistory:
 
 def two_loop_direction(hist: LBFGSHistory, grad):
     """Descent direction -H^{-1} g per lane by the two-loop recursion,
-    invalid ring rows masked to no-ops (lbfgsnew.py:629-651)."""
+    invalid ring rows masked to no-ops (lbfgsnew.py:629-651).  ``grad`` is
+    (L, n), or (L, k, n) for k vectors per lane at once."""
     m = hist.s.shape[1]
+    extra = (1,) * (grad.dim() - 2)
+
+    def lane(t):                     # (L, ...) -> broadcastable over k
+        return t.reshape(t.shape[:1] + extra + t.shape[1:])
+
     rows = torch.arange(m, device=grad.device)
     valid = rows[None, :] >= (m - hist.count)[:, None]          # (L, m)
     ys = torch.sum(hist.y * hist.s, dim=-1)
@@ -84,15 +92,29 @@ def two_loop_direction(hist: LBFGSHistory, grad):
     q = -grad
     al = [None] * m
     for i in reversed(range(m)):                                # newest first
-        al[i] = rho[:, i] * torch.sum(hist.s[:, i] * q, dim=-1)
-        q = q - al[i][:, None] * hist.y[:, i]
+        al[i] = lane(rho[:, i]) * torch.sum(lane(hist.s[:, i]) * q, dim=-1)
+        q = q - al[i][..., None] * lane(hist.y[:, i])
     scale = torch.where(hist.count > 0, hist.gamma,
                         torch.ones_like(hist.gamma))
-    r = q * scale[:, None]
+    r = q * lane(scale)[..., None]
     for i in range(m):
-        be = rho[:, i] * torch.sum(hist.y[:, i] * r, dim=-1)
-        r = r + (al[i] - be)[:, None] * hist.s[:, i]
+        be = lane(rho[:, i]) * torch.sum(lane(hist.y[:, i]) * r, dim=-1)
+        r = r + (al[i] - be)[..., None] * lane(hist.s[:, i])
     return r
+
+
+def inv_hessian_mult(hist: LBFGSHistory, q):
+    """``H^{-1} q`` per lane from the stored curvature pairs (BFGS
+    approximation; autograd_tools.py:35-66): the two-loop recursion with
+    the initial scale of the newest pair, and ``q`` unchanged on a lane
+    with no pair.  ``q`` is (L, n), or (L, n, k): k columns per lane, each
+    multiplied as its own vector."""
+    cols = q.dim() == 3
+    qq = q.transpose(1, 2) if cols else q
+    r = -two_loop_direction(hist, qq)
+    has = (hist.count > 0).reshape((-1,) + (1,) * (qq.dim() - 1))
+    r = torch.where(has, r, qq)
+    return r.transpose(1, 2) if cols else r
 
 
 def _cubic_choose(phi, a, fa, fad, b, fb, fbd):
@@ -131,14 +153,29 @@ def _cubic_choose(phi, a, fa, fad, b, fb, fbd):
             torch.where(pos, p_fd, n_fd))
 
 
+def _can_sync(device) -> bool:
+    """False while a CUDA graph is being captured on ``device``'s stream."""
+    return (torch.device(device).type != "cuda"
+            or not torch.cuda.is_current_stream_capturing())
+
+
 def strong_wolfe_cubic(phi: Callable, n_lanes: int, lr: float = 1.0,
                        dtype=torch.float32, device="cpu"):
     """Fletcher strong-Wolfe line search with cubic interpolation, per lane
     (lbfgsnew.py:192-316; bracket trip count 3, zoom 4).  ``phi(alpha)``
     maps (L,) step sizes on ``device`` to (value, directional derivative).
-    Returns the (L,) step; no host sync."""
+    Returns the (L,) step.
+
+    Every branch is lane-masked, so the result needs no host sync.  Outside
+    a CUDA graph capture the search still asks the host a few questions
+    that only skip work whose result every lane discards: a zoom no live
+    lane needs, zoom trips after every live lane has its step, and bracket
+    trips after every lane is done.  The steps are the same either way;
+    on one lane this is the work the JAX package's un-vmapped search does
+    (its ``lax.cond`` branches are real there)."""
     sigma, rho_ls = 0.1, 0.01
     t1, t2, t3 = 9.0, 0.1, 0.5
+    sync = _can_sync(device)
 
     phi_0, gphi_0 = phi(torch.zeros(n_lanes, dtype=dtype, device=device))
 
@@ -151,11 +188,13 @@ def strong_wolfe_cubic(phi: Callable, n_lanes: int, lr: float = 1.0,
     def keep(flag, old, new):
         return torch.where(flag, old, new)
 
-    def zoom(a, b, fa, fad):
+    def zoom(a, b, fa, fad, live):
         aj, bj, faj, fajd = a, b, fa, fad
         alphak, found = full(lr), torch.zeros(n_lanes, dtype=torch.bool,
                                               device=device)
         for _ in range(4):
+            if sync and bool((found | ~live).all()):
+                break
             p01 = aj + t2 * (bj - aj)
             p02 = bj - t3 * (bj - aj)
             f01, f01d = phi(p01)
@@ -198,12 +237,22 @@ def strong_wolfe_cubic(phi: Callable, n_lanes: int, lr: float = 1.0,
         zb = torch.where(cond1, alphai, alphai1)
         fza = torch.where(cond1, fi1, fi)
         fzad = torch.where(cond1, fi1d, fid)
-        zoom_val = torch.where(need_zoom, zoom(za, zb, fza, fzad), full(lr))
+        live = need_zoom & ~done
+        if sync and not bool(live.any()):
+            zoom_val = full(lr)
+        else:
+            zoom_val = torch.where(need_zoom, zoom(za, zb, fza, fzad, live),
+                                   full(lr))
 
         newly_done = cond0 | cond1 | cond2 | cond3
         val = torch.where(cond0, alphai,
                           torch.where(cond1, zoom_val,
                                       torch.where(cond2, alphai, zoom_val)))
+        alphak = torch.where(done, alphak,
+                             torch.where(newly_done, val, alphak))
+        done = done | newly_done
+        if sync and bool(done.all()):
+            break
 
         # continuation: extrapolate or interpolate the next trial point
         lo = 2.0 * alphai - alphai1
@@ -220,9 +269,6 @@ def strong_wolfe_cubic(phi: Callable, n_lanes: int, lr: float = 1.0,
         fnext1 = torch.where(use_mu, fi, fi1)
         fnext1d = torch.where(use_mu, fid, fi1d)
 
-        alphak = torch.where(done, alphak,
-                             torch.where(newly_done, val, alphak))
-        done = done | newly_done
         alphai, alphai1 = keep(done, alphai, next_ai), keep(done, alphai1,
                                                              next_ai1)
         fi, fid = keep(done, fi, fnext), keep(done, fid, fnextd)

@@ -168,6 +168,23 @@ class MLPActor(nn.Module):
                             LOG_SIG_MAX))
 
 
+class MLPDeterministicActor(nn.Module):
+    """Deterministic tanh policy of TD3/DDPG (reference enet_td3.py /
+    enet_ddpg.py actor): LayerNorm + elu stack 512->256->128 ->
+    tanh(n_actions)."""
+
+    def __init__(self, obs_dim, n_actions, hidden=(512, 256, 128),
+                 generator=None, device=None):
+        super().__init__()
+        names = _Names(self)
+        self.body, d = _tower(names, obs_dim, hidden, generator, device)
+        self.mu = names.add("Dense", _dense(d, n_actions, True, generator,
+                                            device))
+
+    def forward(self, x):
+        return torch.tanh(getattr(self, self.mu)(_run(self, self.body, x)))
+
+
 class MLPCritic(nn.Module):
     """Two-tower Q network (reference ``CriticNetwork``): state 512->256,
     action 128->64, concatenated into the Q head."""
@@ -271,6 +288,15 @@ class SplitImageMetaActor(nn.Module):
 
     def forward(self, obs):
         return self.ImageMetaActor_0(*split_obs(obs, self.img_shape))
+
+
+class SplitImageMetaDeterministicActor(SplitImageMetaActor):
+    """Deterministic tanh variant for TD3/DDPG (reference calib_td3.py):
+    ``tanh(mu)`` of :class:`ImageMetaActor`.  The logsigma head is unused
+    but kept, as flax creates its parameters; it gets no gradient."""
+
+    def forward(self, obs):
+        return torch.tanh(super().forward(obs)[0])
 
 
 class SplitImageMetaCritic(nn.Module):

@@ -121,13 +121,15 @@ def adam_init(params: dict) -> AdamState:
 def adam_update(opt: AdamState, params: dict, grads, lr: float) -> None:
     """One ``optax.adam(lr)`` step applied in place: ``p -= lr * mu_hat /
     (sqrt(nu_hat) + eps)`` with bias-corrected moments; ``grads`` in the
-    order of ``params``."""
+    order of ``params``, None for a parameter the loss does not reach (a
+    zero gradient, as optax sees it)."""
     opt.count += 1
     names = list(params)
     p = [params[k] for k in names]
     mu = [opt.mu[k] for k in names]
     nu = [opt.nu[k] for k in names]
-    grads = list(grads)
+    grads = [torch.zeros_like(q) if g is None else g
+             for q, g in zip(p, grads)]
     torch._foreach_mul_(mu, ADAM_B1)
     torch._foreach_add_(mu, grads, alpha=1.0 - ADAM_B1)
     torch._foreach_mul_(nu, ADAM_B2)
@@ -138,6 +140,14 @@ def adam_update(opt: AdamState, params: dict, grads, lr: float) -> None:
     step = torch._foreach_div(mu, 1.0 - ADAM_B1 ** opt.count)
     torch._foreach_div_(step, den)
     torch._foreach_add_(p, step, alpha=-lr)
+
+
+def soft_update(target, source, tau: float) -> None:
+    """``target <- tau * source + (1 - tau) * target``, in place."""
+    with torch.no_grad():
+        tp = list(target.parameters())
+        torch._foreach_mul_(tp, 1.0 - tau)
+        torch._foreach_add_(tp, list(source.parameters()), alpha=tau)
 
 
 def build_nets(cfg: SACConfig, generator=None, device="cpu"):
@@ -163,8 +173,72 @@ def _host(t):
     return t.detach().cpu().numpy()
 
 
+class AgentState:
+    """Host round trip and device copies of an agent state: ``NETS`` name
+    the modules (targets start with "t" and take no gradient), ``OPTS``
+    their Adam states, ``TENSORS`` the other tensors and ``INTS`` the host
+    counters.  A subclass says how to build a fresh module of each name
+    (:meth:`build`)."""
+
+    NETS: Tuple[str, ...] = ()
+    OPTS: Tuple[str, ...] = ()
+    TENSORS: Tuple[str, ...] = ()
+    INTS: Tuple[str, ...] = ()
+
+    @staticmethod
+    def build(cfg, name: str, device) -> torch.nn.Module:
+        raise NotImplementedError
+
+    def to_host(self) -> dict:
+        """Everything as numpy arrays and Python numbers (the pickle of
+        ``save_models``)."""
+        out = {k: {n: _host(v) for n, v in getattr(self, k).state_dict()
+                   .items()} for k in self.NETS}
+        for k in self.OPTS:
+            o = getattr(self, k)
+            out[k] = {"count": o.count,
+                      "mu": {n: _host(v) for n, v in o.mu.items()},
+                      "nu": {n: _host(v) for n, v in o.nu.items()}}
+        for k in self.TENSORS:
+            t = getattr(self, k)
+            out[k] = float(t) if t.dim() == 0 else _host(t)
+        out.update({k: getattr(self, k) for k in self.INTS})
+        return out
+
+    @classmethod
+    def from_host(cls, cfg, host: dict, device):
+        """The state of a :meth:`to_host` payload, on ``device``."""
+        def tensor(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        nets = {}
+        for k in cls.NETS:
+            net = cls.build(cfg, k, device)
+            net.load_state_dict({n: tensor(v) for n, v in host[k].items()})
+            nets[k] = net.requires_grad_(k[0] != "t")
+        opts = {k: AdamState(int(host[k]["count"]),
+                             {n: tensor(v) for n, v in host[k]["mu"].items()},
+                             {n: tensor(v) for n, v in host[k]["nu"].items()})
+                for k in cls.OPTS}
+        return cls(**nets, **opts, **{k: tensor(host[k]) for k in cls.TENSORS},
+                   **{k: int(host[k]) for k in cls.INTS})
+
+    def copy_to(self, device):
+        """An independent copy of the state on ``device``."""
+        st = copy.deepcopy(self)
+        for k in self.NETS:
+            getattr(st, k).to(device)
+        for k in self.OPTS:
+            o = getattr(st, k)
+            o.mu = {n: v.to(device) for n, v in o.mu.items()}
+            o.nu = {n: v.to(device) for n, v in o.nu.items()}
+        for k in self.TENSORS:
+            setattr(st, k, getattr(st, k).to(device))
+        return st
+
+
 @dataclasses.dataclass
-class SACState:
+class SACState(AgentState):
     """The agent: actor, critics and targets (modules), their Adam states,
     alpha and rho (0-d tensors), the learn counter (host int), and log_alpha
     with its Adam state (used by ``alpha_rule='sac_v2'``)."""
@@ -184,55 +258,12 @@ class SACState:
 
     NETS = ("actor", "c1", "c2", "t1", "t2")
     OPTS = ("actor_opt", "c1_opt", "c2_opt", "alpha_opt")
+    TENSORS = ("alpha", "rho", "log_alpha")
+    INTS = ("learn_counter",)
 
-    def to_host(self) -> dict:
-        """Everything as numpy arrays and Python numbers (the pickle of
-        ``save_models``)."""
-        out = {k: {n: _host(v) for n, v in getattr(self, k).state_dict()
-                   .items()} for k in self.NETS}
-        for k in self.OPTS:
-            o = getattr(self, k)
-            out[k] = {"count": o.count,
-                      "mu": {n: _host(v) for n, v in o.mu.items()},
-                      "nu": {n: _host(v) for n, v in o.nu.items()}}
-        out.update(alpha=float(self.alpha), rho=float(self.rho),
-                   learn_counter=self.learn_counter,
-                   log_alpha=float(self.log_alpha))
-        return out
-
-    @classmethod
-    def from_host(cls, cfg: SACConfig, host: dict, device) -> "SACState":
-        """The state of a :meth:`to_host` payload, on ``device``."""
-        def tensor(x):
-            return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
-        nets = {}
-        for k in cls.NETS:
-            actor, critic = build_nets(cfg, device=device)
-            net = actor if k == "actor" else critic
-            net.load_state_dict({n: tensor(v) for n, v in host[k].items()})
-            nets[k] = net.requires_grad_(k[0] != "t")
-        opts = {k: AdamState(int(host[k]["count"]),
-                             {n: tensor(v) for n, v in host[k]["mu"].items()},
-                             {n: tensor(v) for n, v in host[k]["nu"].items()})
-                for k in cls.OPTS}
-        return cls(**nets, **opts, alpha=tensor(host["alpha"]),
-                   rho=tensor(host["rho"]),
-                   learn_counter=int(host["learn_counter"]),
-                   log_alpha=tensor(host["log_alpha"]))
-
-    def copy_to(self, device) -> "SACState":
-        """An independent copy of the state on ``device``."""
-        st = copy.deepcopy(self)
-        for k in self.NETS:
-            getattr(st, k).to(device)
-        for k in self.OPTS:
-            o = getattr(st, k)
-            o.mu = {n: v.to(device) for n, v in o.mu.items()}
-            o.nu = {n: v.to(device) for n, v in o.nu.items()}
-        st.alpha, st.rho, st.log_alpha = (t.to(device) for t in (
-            st.alpha, st.rho, st.log_alpha))
-        return st
+    @staticmethod
+    def build(cfg, name, device):
+        return build_nets(cfg, device=device)[0 if name == "actor" else 1]
 
 
 def sac_init(cfg: SACConfig, generator=None, device="cuda") -> SACState:
@@ -361,11 +392,8 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
                 st.rho = rho + cfg.admm_rho * _hint_gap(cfg, acts_d, hint)
 
     # -- soft target update (enet_sac.py:523-542)
-    with torch.no_grad():
-        for t, c in ((st.t1, p1), (st.t2, p2)):
-            tp = list(t.parameters())
-            torch._foreach_mul_(tp, 1.0 - cfg.tau)
-            torch._foreach_add_(tp, list(c.values()), alpha=cfg.tau)
+    soft_update(st.t1, st.c1, cfg.tau)
+    soft_update(st.t2, st.c2, cfg.tau)
     st.learn_counter += 1
     return {"critic_loss": closs.detach(), "actor_loss": aloss.detach(),
             "alpha": st.alpha, "rho": st.rho,

@@ -1,0 +1,102 @@
+"""Elastic-net DDPG trainer (counterpart of
+smartcal_tpu/train/enet_ddpg.py; reference ``elasticnet/main_ddpg.py``):
+episodes of 5 steps with a fresh noisy draw per step and no hint, each run
+fused as ``train/enet_sac.py`` describes.
+
+Usage:
+    python -m smartcal_tpu_torch.train.enet_ddpg --episodes 1000 --steps 5
+        [--seed 0] [--device cuda|cpu]
+"""
+
+import argparse
+import json
+import sys
+
+import torch
+
+from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch.envs import enet
+from smartcal_tpu_torch.rl import ddpg
+from smartcal_tpu_torch.rl import replay as rp
+from smartcal_tpu_torch.runtime.atomic import atomic_pickle
+from smartcal_tpu_torch.train.blocks import (add_obs_args, add_runtime_args,
+                                             reject_unported,
+                                             train_obs_from_args)
+from smartcal_tpu_torch.train.enet_sac import Draws, run_episodes, summary
+
+
+def run_episode(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
+                st: ddpg.DDPGState, buf: rp.ReplayState, draws, steps: int):
+    """One fused episode; updates ``st`` and ``buf`` in place and returns
+    the mean reward (a device scalar)."""
+    env_state, obs = enet.reset(env_cfg, *draws.reset(env_cfg))
+    hint = torch.zeros(cfg.n_actions, device=obs.device)
+    rewards = []
+    for _ in range(steps):
+        action = ddpg.choose_action(cfg, st, obs,
+                                    draws.normal((cfg.n_actions,)))
+        env_state, obs2, reward, done = enet.step(
+            env_cfg, env_state, action, draws.normal((env_cfg.N,)))
+        rp.replay_add(buf, {"state": obs, "action": action,
+                            "reward": reward, "new_state": obs2,
+                            "done": done, "hint": hint}, priority=1.0)
+        ddpg.learn(cfg, st, buf, **draws.learn())
+        rewards.append(reward)
+        obs = obs2
+    return torch.stack(rewards).mean()
+
+
+def agent_config(env_cfg: enet.EnetConfig) -> ddpg.DDPGConfig:
+    """The trainer's agent: 2 actions, batch 64, a 1024-slot ring."""
+    return ddpg.DDPGConfig(obs_dim=env_cfg.obs_dim, n_actions=2,
+                           batch_size=64, mem_size=1024)
+
+
+def train_fused(seed=0, episodes=1000, steps=5, M=20, N=20, prefix="",
+                tob=None, device="cuda"):
+    """Fused episodes on ``device``; saves the scores at the end.  Returns
+    (scores, wall seconds, agent state, ring)."""
+    dev = resolve_device(device)
+    env_cfg = enet.EnetConfig(M=M, N=N)
+    cfg = agent_config(env_cfg)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    agent_state = ddpg.ddpg_init(cfg, generator, dev)
+    buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
+                                                          cfg.n_actions), dev)
+    draws = Draws(generator, dev)
+    scores, wall = run_episodes(
+        episodes, lambda: run_episode(env_cfg, cfg, agent_state, buf, draws,
+                                      steps),
+        lambda sc: atomic_pickle(sc, f"{prefix}scores_ddpg.pkl"), tob=tob,
+        seed=seed)
+    return scores, wall, agent_state, buf
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Elastic net DDPG")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--episodes", default=1000, type=int)
+    p.add_argument("--steps", default=5, type=int)
+    p.add_argument("--prefix", type=str, default="",
+                   help="path prefix of the saved scores")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of env, agent and replay (cuda, or "
+                        "cpu when asked for)")
+    add_obs_args(p)
+    add_runtime_args(p)
+    args = p.parse_args(argv)
+    reject_unported(args)
+    tob = train_obs_from_args(args, "enet_ddpg")
+    try:
+        scores, wall, _, _ = train_fused(
+            seed=args.seed, episodes=args.episodes, steps=args.steps,
+            prefix=args.prefix, tob=tob, device=args.device)
+    finally:
+        tob.close()
+    out = summary(args.episodes, args.steps, wall, scores)
+    sys.stdout.write(json.dumps(out) + "\n")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Elastic-net TD3 trainer (counterpart of
+smartcal_tpu/train/enet_td3.py; reference ``elasticnet/main_td3.py``):
+prioritized replay and hint-constrained adaptive-ADMM actor updates by
+default, episodes of 4 steps, warmup 100.  Each episode runs fused, as
+``train/enet_sac.py`` describes.
+
+Usage:
+    python -m smartcal_tpu_torch.train.enet_td3 --episodes 1000 --steps 4
+        [--seed 0] [--no_hint] [--no_per] [--device cuda|cpu]
+"""
+
+import argparse
+import json
+import sys
+
+import torch
+
+from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch.envs import enet
+from smartcal_tpu_torch.rl import replay as rp
+from smartcal_tpu_torch.rl import td3
+from smartcal_tpu_torch.runtime.atomic import atomic_pickle
+from smartcal_tpu_torch.train.blocks import (add_obs_args, add_runtime_args,
+                                             reject_unported,
+                                             train_obs_from_args)
+from smartcal_tpu_torch.train.enet_sac import (Draws, run_episodes,
+                                               start_episode, summary)
+
+
+def run_episode(env_cfg: enet.EnetConfig, cfg: td3.TD3Config,
+                st: td3.TD3State, buf: rp.ReplayState, draws, steps: int,
+                use_hint: bool):
+    """One fused episode; updates ``st`` and ``buf`` in place and returns
+    the mean reward (a device scalar)."""
+    env_state, obs, hint = start_episode(env_cfg, cfg.n_actions, draws,
+                                         use_hint)
+    rewards = []
+    for i in range(steps):
+        noise = (draws.normal((cfg.n_actions,)),
+                 draws.normal((cfg.n_actions,)))
+        action = td3.choose_action(cfg, st, obs, noise)
+        env_state, obs2, reward, done = enet.step(
+            env_cfg, env_state, action, draws.normal((env_cfg.N,)),
+            keepnoise=i == 0)
+        pri = td3.store_priority(cfg, reward)
+        rp.replay_add(buf, {"state": obs, "action": action,
+                            "reward": reward, "new_state": obs2,
+                            "done": done, "hint": hint},
+                      priority=1.0 if pri is None else pri)
+        td3.learn(cfg, st, buf, **draws.learn())
+        rewards.append(reward)
+        obs = obs2
+    return torch.stack(rewards).mean()
+
+
+def agent_config(env_cfg: enet.EnetConfig, use_hint=True,
+                 prioritized=True) -> td3.TD3Config:
+    """The trainer's agent (enet main_td3.py): 2 actions, batch 64, a
+    1024-slot ring, warmup 100, admm_rho 1."""
+    return td3.TD3Config(
+        obs_dim=env_cfg.obs_dim, n_actions=2, gamma=0.99, tau=0.005,
+        batch_size=64, mem_size=1024, lr_a=1e-3, lr_c=1e-3,
+        update_actor_interval=2, warmup=100, noise=0.1,
+        prioritized=prioritized, use_hint=use_hint, admm_rho=1.0)
+
+
+def save(agent_state, buf, scores, prefix):
+    atomic_pickle(agent_state.to_host(), f"{prefix}td3_state.pkl")
+    rp.save_replay(buf, f"{prefix}replaymem_td3.pkl")
+    atomic_pickle(scores, f"{prefix}scores_td3.pkl")
+
+
+def train_fused(seed=0, episodes=1000, steps=4, use_hint=True,
+                prioritized=True, M=20, N=20, save_every=500, prefix="",
+                tob=None, device="cuda"):
+    """Fused episodes on ``device``; saves every ``save_every`` episodes
+    and at the end.  Returns (scores, wall seconds, agent state, ring)."""
+    dev = resolve_device(device)
+    env_cfg = enet.EnetConfig(M=M, N=N)
+    cfg = agent_config(env_cfg, use_hint, prioritized)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    agent_state = td3.td3_init(cfg, generator, dev)
+    buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
+                                                          cfg.n_actions), dev)
+    draws = Draws(generator, dev)
+    scores, wall = run_episodes(
+        episodes, lambda: run_episode(env_cfg, cfg, agent_state, buf, draws,
+                                      steps, use_hint),
+        lambda sc: save(agent_state, buf, sc, prefix), save_every, tob,
+        seed=seed, use_hint=use_hint)
+    return scores, wall, agent_state, buf
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description="Elastic net TD3 + PER + hint-ADMM")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--episodes", default=1000, type=int)
+    p.add_argument("--steps", default=4, type=int)
+    p.add_argument("--no_hint", action="store_true", default=False)
+    p.add_argument("--no_per", action="store_true", default=False)
+    p.add_argument("--prefix", type=str, default="",
+                   help="path prefix of the saved agent, ring and scores")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of env, agent and replay (cuda, or "
+                        "cpu when asked for)")
+    add_obs_args(p)
+    add_runtime_args(p)
+    args = p.parse_args(argv)
+    reject_unported(args)
+    tob = train_obs_from_args(args, "enet_td3")
+    try:
+        scores, wall, _, _ = train_fused(
+            seed=args.seed, episodes=args.episodes, steps=args.steps,
+            use_hint=not args.no_hint, prioritized=not args.no_per,
+            prefix=args.prefix, tob=tob, device=args.device)
+    finally:
+        tob.close()
+    out = summary(args.episodes, args.steps, wall, scores)
+    sys.stdout.write(json.dumps(out) + "\n")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -196,3 +196,86 @@ def test_full_width_learn_step_matches_cpu():
                 np.testing.assert_allclose(g[name], w[name], rtol=1e-4,
                                            atol=1e-5,
                                            err_msg=f"{part} {field} {name}")
+
+
+@pytest.mark.cuda
+def test_enet_step_stages_match_cpu():
+    """The elastic-net step at full width (M = N = 20) on the GPU against
+    the CPU, stage by stage on the same inputs: the solve's first 5
+    iterations (rtol 1e-4 / atol 1e-6), the influence state on the CPU's
+    solution and curvature pairs (rtol 1e-4 / atol 1e-5), and the hint's
+    50 MSEs on the CPU's 50 solutions (rtol 1e-5).  End to end the two
+    devices part as the two packages do (tests/test_torch_enet.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from smartcal_tpu_torch.envs import enet
+    cfg = enet.EnetConfig()
+    g = torch.Generator().manual_seed(0)
+    st, _ = enet.reset(cfg, *enet.reset_draws(cfg, g, "cpu"))
+    st = enet.draw_noise(cfg, st, torch.randn(cfg.N, generator=g))
+    gst = enet.EnetState(*(v.cuda() for v in st))
+    rho, _ = enet.action_to_rho(torch.tensor([0.3, -0.5]))
+    short = enet.EnetConfig(lbfgs_iters=5)
+    a = enet._solve(short, st.A, st.y, rho)
+    b = enet._solve(short, gst.A, gst.y, rho.cuda())
+    np.testing.assert_allclose(b.x.cpu().numpy(), a.x.numpy(), rtol=1e-4,
+                               atol=1e-6)
+    res = enet._solve(cfg, st.A, st.y, rho)
+    gres = type(res)(*(type(v)(*(u.cuda() for u in v))
+                       if isinstance(v, tuple) else v.cuda() for v in res))
+    np.testing.assert_allclose(
+        enet._influence(cfg, gst.A, gst.y, rho.cuda(), gres).cpu().numpy(),
+        enet._influence(cfg, st.A, st.y, rho, res).numpy(), rtol=1e-4,
+        atol=1e-5)
+    mses, hres = enet.hint_solve(cfg, st)
+    np.testing.assert_allclose(
+        enet.hint_mses(cfg, gst, hres.x.cuda()).cpu().numpy(), mses.numpy(),
+        rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_full_width_td3_learn_step_matches_cpu():
+    """Three learn steps of the elastic-net TD3 agent (PER, hint ADMM:
+    the second step updates the actor) at full width on the GPU and on the
+    CPU from the same state with Adam history, batch and draws: every
+    parameter, target and Adam moment within rtol 1e-4 / atol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import td3
+    cfg = td3.TD3Config(obs_dim=420, n_actions=2, batch_size=64,
+                        mem_size=128, prioritized=True, use_hint=True)
+    rng = np.random.default_rng(0)
+    buf = rp.replay_init(cfg.mem_size, rp.transition_spec(420, 2), "cuda")
+    for _ in range(96):
+        r = float(rng.uniform(0, 3))
+        rp.replay_add(buf, {
+            "state": rng.standard_normal(420).astype(np.float32),
+            "new_state": rng.standard_normal(420).astype(np.float32),
+            "action": rng.uniform(-1, 1, 2).astype(np.float32),
+            "reward": r, "done": False,
+            "hint": rng.uniform(-1, 1, 2).astype(np.float32)},
+            priority=td3.store_priority(cfg, r))
+    gpu = td3.td3_init(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    for _ in range(4):
+        td3.learn(cfg, gpu, buf, torch.Generator("cuda").manual_seed(1))
+    gpu.learn_counter = 0
+    cpu = gpu.copy_to("cpu")
+    for i in range(3):
+        idx = torch.from_numpy(rng.choice(96, 64, replace=False))
+        batch = {k: v[idx.cuda()] for k, v in buf.data.items()}
+        w = torch.from_numpy(rng.uniform(0.5, 1, 64).astype(np.float32))
+        smooth = torch.tensor(float(rng.standard_normal()))
+        for st, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            td3.learn_from_batch(cfg, st, {k: v.to(dev) for k, v in
+                                           batch.items()}, w.to(dev),
+                                 smooth.to(dev))
+    want, got = cpu.to_host(), gpu.to_host()
+    for part in td3.TD3State.NETS + td3.TD3State.OPTS:
+        for field in ("mu", "nu") if part.endswith("_opt") else ("",):
+            w = want[part][field] if field else want[part]
+            g = got[part][field] if field else got[part]
+            for name in w:
+                np.testing.assert_allclose(g[name], w[name], rtol=1e-4,
+                                           atol=1e-5,
+                                           err_msg=f"{part} {field} {name}")

@@ -42,7 +42,10 @@ def test_port_has_modules():
                 "ops/hessian_blocks", "ops/factored_imager",
                 "envs/radio", "envs/calib", "rl/networks", "rl/replay",
                 "rl/sac", "train/blocks", "train/calib_sac",
-                "runtime/atomic"):
+                "runtime/atomic", "ops/autodiff", "envs/enet", "rl/td3",
+                "rl/ddpg", "train/enet_sac", "train/enet_td3",
+                "train/enet_ddpg", "train/enet_eval", "train/calib_td3",
+                "train/calib_ddpg"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
 

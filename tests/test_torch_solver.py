@@ -64,7 +64,7 @@ def test_cost_value_and_gradient_match(seed):
                                        t(prior)[None], t(half_rho),
                                        _torch_cfg(cfg))
 
-    tv, tg = tsolver._value_and_grad(cost)(t(x)[None])
+    tv, tg = tsolver.lane_value_and_grad(cost)(t(x)[None])
     np.testing.assert_allclose(tv.numpy()[0], float(jv), rtol=1e-5)
     assert rel(tg.numpy()[0], jg) < 1e-4
 
@@ -164,3 +164,40 @@ def test_solve_admm_safe_retries_with_boosted_rho():
     with pytest.raises(tsolver.SolverDegradedError):
         tsolver.solve_admm_safe(lambda r: _result(float("nan")),
                                 torch.ones(2), max_retries=1)
+
+
+def test_line_search_skips_only_discarded_work(monkeypatch):
+    """The strong-Wolfe search gives the same steps, bit for bit, with its
+    host-side skips (zooms no live lane needs, finished trips) and without
+    them (as under CUDA graph capture), on lanes that take every branch."""
+    from smartcal_tpu_torch.ops import lbfgs as tl
+    rng = np.random.default_rng(3)
+    L, n = 64, 6
+    H = rng.standard_normal((L, n, n)).astype(np.float32)
+    H = torch.from_numpy(H @ H.transpose(0, 2, 1) + 0.1 * np.eye(n,
+                                                                dtype=np.float32))
+    x = torch.from_numpy(rng.standard_normal((L, n)).astype(np.float32))
+    # steepest-descent directions of assorted lengths: steps of 10, 1 and
+    # 0.01 are each right for some lane
+    g = torch.einsum("lij,lj->li", H, x)
+    d = -g * torch.from_numpy(10.0 ** rng.uniform(-2, 1, (L, 1)).astype(
+        np.float32))
+
+    def phi(alpha):
+        z = x + alpha[:, None] * d
+        hz = torch.einsum("lij,lj->li", H, z)
+        return (0.5 * torch.sum(z * hz, -1) + torch.sum(torch.abs(z), -1),
+                torch.sum((hz + torch.sign(z)) * d, -1))
+
+    def lane_alone(lane):
+        return tl.strong_wolfe_cubic(lambda a: tuple(
+            v[lane:lane + 1] for v in phi(a.expand(L))), 1)
+
+    got = tl.strong_wolfe_cubic(phi, L)
+    alone = [lane_alone(lane) for lane in range(4)]
+    monkeypatch.setattr(tl, "_can_sync", lambda device: False)
+    want = tl.strong_wolfe_cubic(phi, L)
+    assert torch.equal(got, want)
+    assert len(set(np.round(want.numpy(), 3).tolist())) > 4
+    for lane in range(4):                  # one lane alone, with skips
+        assert torch.equal(alone[lane], want[lane:lane + 1])
