@@ -10,30 +10,30 @@
    analytic hint, random sky from seed 0, with the kernel launch counts
    zeroed just before and read just after; then profiles a third step and
    one more solve with torch.profiler to take the device's idle share
-   (1 - busy device seconds / wall seconds);
+   (1 - busy device seconds / wall seconds) and the solve's CUDA kernels
+   per L-BFGS iteration;
 4. holds the imager kernel (the separable-grid engine behind dft_imager)
    against its plain version, the direct DFT, over the full N=62 image and
    at ragged npix and R that cross the engine's tile and stage edges, and
    times kernel, plain version and the plain factored-imager yardstick with
    CUDA events;
-5. drives the train path: ``train/calib_sac.py`` (9 episodes of 4 steps
+5. drives the train path: ``train/calib_sac.py`` (2 episodes of 4 steps
    with the hint, seed 0) on the same N=62 backend, counts zeroed just
-   before and read just after; checks the nine scores, the saved agent
-   (learn_counter 5) and ring (36 transitions); loads the agent and times
-   learn (batch 32, 128² image, M=10), choose_action and store_transition
-   with CUDA events, takes a learn step's idle share, and holds 3 learn
-   steps on the card against the CPU from the same state, batch indices
-   and noise (rtol 1e-4 / atol 1e-5);
+   before and read just after; checks the two scores and the saved ring
+   (8 transitions, no learn: the agent's learn step is measured on the
+   batched trainer's agent, step 6b);
 6. drives the elastic-net slice (M = N = 20, no kernel on its path):
    one EnetEnv reset, three steps and a hint, timed and broken down
    (solve, influence state, hint; L-BFGS iterations; CUDA kernels per
    iteration and per step by torch.profiler, and per iteration with the
    line search's lane-masked form only, which must give the same x; a
    step's idle share), held
-   against the CPU stage by stage; ``train/enet_sac.py`` (13 episodes of
-   5 steps with the hint: two learn calls at batch 64), its saved agent
-   and ring checked, ``enet_eval`` for one game, learn / choose_action /
-   store_transition timed, 3 learn steps held against the CPU;
+   against the CPU stage by stage; ``train/enet_sac.py`` (7 episodes of
+   5 steps with the hint: 35 transitions, no learn at batch 64), its
+   saved agent and ring checked, ``enet_eval`` for one game, then the ring
+   topped up with random transitions and 5 warm-up learns, learn /
+   choose_action / store_transition timed, 3 learn steps held against the
+   CPU;
    ``train/enet_td3.py`` and ``train/enet_ddpg.py`` for 2 short episodes
    and 3 full-width learn steps of each agent held against the CPU;
    ``train/calib_td3.py`` (1 episode of 2 steps with the hint) and
@@ -41,6 +41,29 @@
    kernel's launches counted, and one full-width CNN TD3 learn step held
    against the CPU; counts zeroed just before and read just after each
    path;
+6b. drives the batched slice at the N=62 scale (M=10, hint actions):
+   ``BatchedCalibEnv(n_envs=4)`` reset and two vector steps, counts zeroed
+   just before and read just after (the fused route runs no kernel), with
+   stage seconds, L-BFGS iterations (slowest lane and lane mean) per
+   vector step, a third step profiled for the idle share, and one batched
+   solve profiled for CUDA kernels per L-BFGS iteration (beside the N=62
+   path's single solve, profiled in step 3); the same 4 lanes through
+   the ``fused=False`` oracle (reset and one step): the largest end-to-end
+   error against each of the JAX package's batched tolerances is printed
+   beside a 1-ulp change of V's effect on lane 0's solve (the solve is
+   chaotic in float32), and held are the fused influence, sigmas and
+   reward on the oracle's own step solves (those tolerances) and lane 0's
+   step solve through the batched route at E=1 (bit for bit); the E sweep
+   (E = 1 and 8, reset and one step: env-steps/s and peak memory);
+   ``CalibEnv(prefetch=True)`` against ``prefetch=False`` over 3 resets
+   (equal observations, reset seconds, each prefetch taken ready or
+   waited on, a solve running while the next episode builds);
+   ``train/calib_sac.py --batch-envs 4`` for 3 vector episodes of 4 steps
+   (12 finite scores; 48 transitions, 5 learns); loads its agent and
+   times learn (batch 32, 128² image, M=10), choose_action and
+   store_transition with CUDA events, takes a learn step's idle share,
+   and holds 3 learn steps on the card against the CPU from the same
+   state, batch indices and noise (rtol 1e-4 / atol 1e-5);
 7. drives the SKA-tier path: CalibEnv(M=10) on RadioBackend (N=256, Nf=3,
    T=20, npix=1024: the blocked Hessian and the large-tier factored imager
    chosen by threshold), reset and one step with the hint, counts zeroed
@@ -522,8 +545,9 @@ def tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, label, **extra):
 
 # -- the train path: train/calib_sac.py on the N=62 backend ----------------
 
-TRAIN_ARGS = ["--stations", "62", "--episodes", "9", "--steps", "4",
-              "--use_hint", "--seed", "0", "--quiet"]
+TRAIN_EPISODES = 2
+TRAIN_ARGS = ["--stations", "62", "--episodes", str(TRAIN_EPISODES),
+              "--steps", "4", "--use_hint", "--seed", "0", "--quiet"]
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5     # tests/test_torch_sac.py
 
 
@@ -613,14 +637,13 @@ def learn_gpu_vs_cpu(sac, cfg, state, buf, dev, n_steps=3):
 
 
 def train_path(dev, out_dir, zero_counts, read_counts):
-    """Drive train/calib_sac.py on the card (9 episodes of 4 steps at the
-    N=62 backend: 36 transitions, learning from the 32nd), with the kernel
-    counts zeroed just before and read just after; check what it saved;
-    time learn / choose_action / store_transition of the saved agent with
-    CUDA events, take a learn step's idle share, and hold 3 learn steps on
-    the card against the CPU.  Returns the report section."""
+    """Drive train/calib_sac.py on the card (2 episodes of 4 steps at the
+    N=62 backend: 8 transitions, fewer than a batch of 32, so no learn),
+    with the kernel counts zeroed just before and read just after; check
+    the scores and the saved ring.  The agent's learn step is measured on
+    the batched trainer's agent (:func:`batched_train_phase`).  Returns
+    the report section."""
     from smartcal_tpu_torch.envs.calib import CalibEnv
-    from smartcal_tpu_torch.rl import sac
     from smartcal_tpu_torch.train import calib_sac
     prefix = os.path.join(out_dir, "calib_sac_")
     os.makedirs(out_dir, exist_ok=True)
@@ -637,22 +660,68 @@ def train_path(dev, out_dir, zero_counts, read_counts):
     train_s = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    n_episodes, n_steps = 9, len(timer.seconds)
+    n_episodes, n_steps = TRAIN_EPISODES, len(timer.seconds)
     if len(scores) != n_episodes or not np.all(np.isfinite(scores)):
         raise AssertionError(f"train path scores {scores}")
     if launches["dft_imager"] < 3 * (n_episodes + n_steps):
         raise AssertionError(f"dft_imager launched {launches['dft_imager']} "
                              f"times on the train path, expected >= "
                              f"{3 * (n_episodes + n_steps)}")
+    learn_counter, ring_cntr = saved_counters(prefix)
+    for name in ("sac_state.pkl", "replaymem_sac.pkl"):   # ~100 MB, read
+        os.remove(prefix + name)
+    if learn_counter != 0 or ring_cntr != n_steps:
+        raise AssertionError(f"train path saved learn_counter "
+                             f"{learn_counter}, ring cntr {ring_cntr}; "
+                             f"expected 0 and {n_steps}")
+    out = {"args": TRAIN_ARGS, "scores": [float(x) for x in scores],
+           "train_seconds": train_s, "seconds_per_episode": train_s
+           / n_episodes, "env_steps": n_steps,
+           "env_step_seconds_mean": float(np.mean(timer.seconds)),
+           "env_step_seconds": timer.seconds, "peak_mem_bytes": peak,
+           "stage_seconds": dict(timer.env.backend.stage_seconds),
+           "launches": launches, "learn_counter": learn_counter,
+           "ring_cntr": ring_cntr, "phase_seconds": time.perf_counter() - t0}
+    print(f"train path (calib_sac {' '.join(TRAIN_ARGS)}): {train_s:.3f} s, "
+          f"{out['seconds_per_episode']:.3f} s per episode, env step mean "
+          f"{out['env_step_seconds_mean']:.3f} s over {n_steps}; scores "
+          + ", ".join(f"{x:.4f}" for x in scores)
+          + "; stage seconds (host clock, synchronized) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_seconds"].items())
+          + f"; learn_counter 0, ring cntr {ring_cntr}; peak device memory "
+          f"{peak / 2**20:.0f} MiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return out
 
+
+def saved_counters(prefix):
+    """(learn_counter, ring cntr) of a trainer's saved agent and ring."""
+    import pickle
+    with open(prefix + "sac_state.pkl", "rb") as fh:
+        learn_counter = pickle.load(fh)["learn_counter"]
+    with open(prefix + "replaymem_sac.pkl", "rb") as fh:
+        ring_cntr = pickle.load(fh)["cntr"]
+    return learn_counter, ring_cntr
+
+
+def agent_checks(dev, prefix, learn_counter, ring_cntr):
+    """Load a calibration SAC trainer's saved agent (M=10, 128² image,
+    batch 32), check its counters, time save_models, learn,
+    choose_action and store_transition (CUDA events), take a learn step's
+    idle share, and hold 3 learn steps on the card against the CPU from
+    that state (it has Adam history).  Deletes the ~100 MB pickles."""
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.train import calib_sac
     cfg = calib_sac.agent_config(128, 10, use_hint=True)
     agent = sac.SACAgent(cfg, seed=0, name_prefix=prefix, device=dev)
     if not agent.load_models():
-        raise AssertionError("the train path saved no agent")
-    if agent.state.learn_counter != 5 or agent.buffer.cntr != 36:
+        raise AssertionError("the trainer saved no agent")
+    if (agent.state.learn_counter != learn_counter
+            or agent.buffer.cntr != ring_cntr):
         raise AssertionError(f"saved agent: learn_counter "
                              f"{agent.state.learn_counter}, ring cntr "
-                             f"{agent.buffer.cntr}; expected 5 and 36")
+                             f"{agent.buffer.cntr}; expected {learn_counter} "
+                             f"and {ring_cntr}")
     t1 = time.perf_counter()
     agent.save_models()             # as train/calib_sac.py does per episode
     save_s = time.perf_counter() - t1
@@ -675,44 +744,28 @@ def train_path(dev, out_dir, zero_counts, read_counts):
         agent.learn)
     learn_idle = idle_share("learn step", 1e-3 * times["learn_ms"],
                             learn_busy, learn_prof_s)
-    out = {"args": TRAIN_ARGS, "scores": [float(x) for x in scores],
-           "train_seconds": train_s, "seconds_per_episode": train_s
-           / n_episodes, "env_steps": n_steps,
-           "env_step_seconds_mean": float(np.mean(timer.seconds)),
-           "env_step_seconds": timer.seconds, "peak_mem_bytes": peak,
-           "stage_seconds": dict(timer.env.backend.stage_seconds),
-           "save_models_seconds": save_s,
-           "launches": launches, "learn_counter": 5, "ring_cntr": 36,
-           **times, "learn_idle_share": learn_idle,
-           "learn_device_busy_s": learn_busy,
-           "learn_profiled_wall_s": learn_prof_s,
-           "learn_device_kernels": learn_kernels,
-           "gpu_vs_cpu_max_abs_err": gpu_cpu, "gpu_vs_cpu_seconds": gpu_cpu_s,
-           "phase_seconds": time.perf_counter() - t0}
-    print(f"train path (calib_sac {' '.join(TRAIN_ARGS)}): {train_s:.3f} s, "
-          f"{out['seconds_per_episode']:.3f} s per episode, env step mean "
-          f"{out['env_step_seconds_mean']:.3f} s over {n_steps}; scores "
-          + ", ".join(f"{x:.4f}" for x in scores)
-          + "; stage seconds (host clock, synchronized) "
-          + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_seconds"].items())
-          + f"; save_models {save_s:.3f} s"
-          + f"; learn_counter 5, ring cntr 36; peak device memory "
-          f"{peak / 2**20:.0f} MiB; launches "
-          + ", ".join(f"{k} {v}" for k, v in launches.items())
-          + f"; learn {times['learn_ms']:.3f} ms, choose_action "
-          f"{times['choose_action_ms']:.3f} ms, store_transition "
-          f"{times['store_transition_ms']:.3f} ms (CUDA events, median of "
-          f"20 after 3 warm-ups); learn step device kernels and copies "
-          f"{learn_kernels}; GPU vs CPU check {gpu_cpu_s:.3f} s; phase "
-          f"{out['phase_seconds']:.3f} s", flush=True)
+    print(f"  agent (learn_counter {learn_counter}, ring cntr {ring_cntr}): "
+          f"save_models {save_s:.3f} s; learn {times['learn_ms']:.3f} ms, "
+          f"choose_action {times['choose_action_ms']:.3f} ms, "
+          f"store_transition {times['store_transition_ms']:.3f} ms (CUDA "
+          "events, median of 20 after 3 warm-ups); learn step device "
+          f"kernels and copies {learn_kernels}; GPU vs CPU check "
+          f"{gpu_cpu_s:.3f} s", flush=True)
     del agent
     torch.cuda.empty_cache()
-    return out
+    return {"save_models_seconds": save_s, **times,
+            "learn_idle_share": learn_idle, "learn_device_busy_s": learn_busy,
+            "learn_profiled_wall_s": learn_prof_s,
+            "learn_device_kernels": learn_kernels,
+            "gpu_vs_cpu_max_abs_err": gpu_cpu, "gpu_vs_cpu_seconds": gpu_cpu_s}
 
 
 # -- the elastic-net slice and the calibration TD3/DDPG trainers ----------
 
-ENET_SAC_EPISODES, ENET_SAC_STEPS = 13, 5     # 65 transitions: 2 learns
+# 35 transitions, fewer than a batch of 64: the learn checks top the ring
+# up with random transitions and warm the agent up with 5 learns
+ENET_SAC_EPISODES, ENET_SAC_STEPS = 7, 5
+ENET_WARMUP_LEARNS = 5
 ENET_SHORT = ["--episodes", "2", "--steps", "2", "--seed", "0", "--quiet"]
 CALIB_TD3_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "2",
                   "--use_hint", "--seed", "0", "--quiet"]
@@ -914,9 +967,11 @@ def enet_step_phase(dev):
 def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
     """Drive train/enet_sac.py on the card (ENET_SAC_EPISODES x 5 steps
     with the hint), counts zeroed just before and read just after; check
-    what it saved; run enet_eval for one game on the saved agent; time
-    learn / choose_action / store_transition with CUDA events, a learn
-    step's idle share, and 3 learn steps on the card against the CPU."""
+    what it saved; run enet_eval for one game on the saved agent; top its
+    ring up with random transitions to a batch, learn ENET_WARMUP_LEARNS
+    times, then time learn / choose_action / store_transition with CUDA
+    events, take a learn step's idle share, and hold 3 learn steps on the
+    card against the CPU."""
     from smartcal_tpu_torch.envs import enet
     from smartcal_tpu_torch.rl import sac
     from smartcal_tpu_torch.runtime.atomic import strict_pickle_load
@@ -939,9 +994,9 @@ def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
     agent = sac.SACAgent(cfg, seed=0, name_prefix=prefix, device=dev)
     if not agent.load_models():
         raise AssertionError("enet_sac saved no agent")
-    want_learns = n - cfg.batch_size + 1
+    want_learns = max(n - cfg.batch_size + 1, 0)
     if (len(scores) != ENET_SAC_EPISODES or not np.all(np.isfinite(scores))
-            or agent.buffer.cntr != n or want_learns < 2
+            or agent.buffer.cntr != n
             or agent.state.learn_counter != want_learns):
         raise AssertionError(f"enet_sac: scores {scores}, ring cntr "
                              f"{agent.buffer.cntr}, learn_counter "
@@ -955,6 +1010,16 @@ def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
         raise AssertionError(f"enet_eval: {rows}")
     for name in ("sac_state.pkl", "replaymem_sac.pkl"):       # read
         os.remove(prefix + name)
+    rng = np.random.default_rng(0)
+    while agent.buffer.cntr < cfg.batch_size + ENET_WARMUP_LEARNS - 1:
+        agent.store_transition(
+            1e-2 * rng.standard_normal(cfg.obs_dim).astype(np.float32),
+            rng.uniform(-1, 1, cfg.n_actions).astype(np.float32),
+            float(rng.uniform(0, 3)),
+            1e-2 * rng.standard_normal(cfg.obs_dim).astype(np.float32),
+            False, rng.uniform(-1, 1, cfg.n_actions).astype(np.float32))
+    for _ in range(ENET_WARMUP_LEARNS):      # Adam history for the checks
+        agent.learn()
     gpu_cpu = learn_gpu_vs_cpu(sac, cfg, agent.state, agent.buffer, dev)
     flat = agent.buffer.data["state"][0].cpu().numpy()
     hint = agent.buffer.data["hint"][0].cpu().numpy()
@@ -1162,6 +1227,433 @@ def calib_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
 
 
 # -- --ablation: the engine with one design choice undone -----------------
+
+# -- the batched slice: BatchedCalibEnv, the E sweep, prefetch, the
+# batched trainer (all at the N=62 reference scale) ------------------------
+
+N62 = dict(n_stations=62, n_freqs=3, n_times=20, tdelta=10, n_poly=2,
+           admm_iters=10, lbfgs_iters=8, init_iters=30, npix=128)
+BATCH_M, BATCH_E, E_SWEEP = 10, 4, (1, 8)
+# 3 vector episodes of 4 steps: 48 transitions, learning from the 32nd
+# (5 learns, the Adam history the agent checks start from)
+BATCH_TRAIN_ARGS = ["--stations", "62", "--batch-envs", "4", "--episodes",
+                    "12", "--steps", "4", "--use_hint", "--seed", "0",
+                    "--quiet"]
+# tests/test_batched_radio.py: (rtol, atol) of the fused route against the
+# sequential oracle
+ORACLE_TOL = {"img": (2e-3, 2e-5), "reward": (2e-3, 1e-4),
+              "sigma_res": (1e-3, 0.0)}
+
+
+class LbfgsIters:
+    """Stands in for ``ops.lbfgs.lbfgs_solve`` and keeps each call's
+    per-lane iteration counts (as device tensors, read afterwards)."""
+
+    def __init__(self):
+        from smartcal_tpu_torch.ops import lbfgs
+        self.mod, self.fn = lbfgs, lbfgs.lbfgs_solve
+        self.calls = []
+        lbfgs.lbfgs_solve = self
+
+    def __call__(self, *args, **kw):
+        res = self.fn(*args, **kw)
+        self.calls.append(res.n_iters)
+        return res
+
+    def restore(self):
+        self.mod.lbfgs_solve = self.fn
+
+    def since(self, n0):
+        """(loop iterations = sum over inner solves of the slowest lane's,
+        sum of the lanes' mean, number of lanes) of the calls from n0."""
+        its = [c.cpu().numpy() for c in self.calls[n0:]]
+        if not its:
+            return {"iters_max": 0, "iters_mean": 0.0, "lanes": 0}
+        return {"iters_max": int(sum(int(i.max()) for i in its)),
+                "iters_mean": float(sum(float(i.mean()) for i in its)),
+                "lanes": int(its[0].size), "inner_solves": len(its)}
+
+
+def tol_ratio(got, want, rtol, atol):
+    """max |got - want| / (atol + rtol |want|): at most 1 within tolerance."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def check_batched(obs, rewards, info, E, npix, M):
+    if obs["img"].shape != (E, npix, npix) or obs["sky"].shape != (E, M + 1,
+                                                                   7):
+        raise AssertionError(f"batched observation shapes "
+                             f"{obs['img'].shape} {obs['sky'].shape}")
+    vals = list(obs.values()) + [rewards, info["sigma_res"]]
+    if not all(np.all(np.isfinite(v)) for v in vals):
+        raise AssertionError("batched env: non-finite output")
+    if not np.all(info["sigma_res"] < info["sigma_data"]):
+        raise AssertionError("batched env: calibration did not reduce the "
+                             "residual")
+
+
+def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
+                      n62_kernels_per_iter):
+    """BatchedCalibEnv(M=10, n_envs=4) at N=62: reset and two vector steps
+    on the hint, counts zeroed just before and read just after; stage
+    seconds, L-BFGS iterations (slowest lane and mean) per vector step;
+    a third step profiled for the idle share; one batched solve profiled
+    for CUDA kernels per L-BFGS iteration (beside the N=62 path's single
+    solve); then the same 4 lanes through the fused=False oracle, reset
+    and one step, held at the JAX package's tolerances; then the E sweep."""
+    from smartcal_tpu_torch.cal import solver
+    from smartcal_tpu_torch.envs import calib, radio
+    from smartcal_tpu_torch.envs.calib import BatchedCalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    E = BATCH_E
+    backend = RadioBackend(device=dev, **N62)
+    env = BatchedCalibEnv(M=BATCH_M, n_envs=E, backend=backend, seed=0,
+                          provide_hint=True, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    iters = LbfgsIters()
+    steps = []
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        obs0 = env.reset()
+        t_reset = time.perf_counter() - t0
+        reset_stages = dict(backend.stage_seconds)
+        reset_iters = iters.since(0)
+        hint0 = env.hint.copy()
+        for i in range(2):
+            before, n0 = dict(backend.stage_seconds), len(iters.calls)
+            t0 = time.perf_counter()
+            obs, rew, _, _, info = env.step(env.hint)
+            sec = time.perf_counter() - t0
+            if i == 0:
+                first = (obs, rew, info)
+            steps.append({
+                "seconds": sec, "rewards": rew.tolist(),
+                "sigma_res": info["sigma_res"].tolist(),
+                "sigma_data": info["sigma_data"].tolist(),
+                "stage_seconds": {k: v - before.get(k, 0.0) for k, v in
+                                  backend.stage_seconds.items()},
+                **iters.since(n0)})
+            check_batched(obs, rew, info, E, N62["npix"], BATCH_M)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        check_batched(obs0, np.zeros(E), info, E, N62["npix"], BATCH_M)
+        # a third vector step profiled (idle share against an unprofiled
+        # step's wall); one batched solve profiled
+        step_wall = float(np.mean([s["seconds"] for s in steps]))
+        n0 = len(iters.calls)
+        step_prof, step_busy, step_kernels = device_busy_seconds(
+            lambda: env.step(env.hint))
+        prof_iters = iters.since(n0)
+        rho, mask, _ = env._lane_rho_mask()
+        n0 = len(iters.calls)
+        b_wall, b_busy, b_kernels = device_busy_seconds(
+            lambda: backend.calibrate_batched(env.bep, rho, mask=mask))
+        b_iters = iters.since(n0)
+    finally:
+        iters.restore()
+    if any(launches.values()):
+        raise AssertionError(f"the fused batched route launched {launches}: "
+                             "it runs the factored imager's matmuls and the "
+                             "unblocked chain at N=62, no kernel")
+    out = {"E": E, "M": BATCH_M, "reset_seconds": t_reset,
+           "reset_stage_seconds": reset_stages, "reset_iters": reset_iters,
+           "steps": steps, "launches": launches, "peak_mem_bytes": peak,
+           "env_steps_per_s": E / step_wall,
+           "sequential_env_steps_per_s": 1.0 / n62_step_s,
+           "profiled_step": {"wall_s": step_prof, "busy_s": step_busy,
+                             "kernels": step_kernels, **prof_iters},
+           "profiled_batched_solve": {
+               "wall_s": b_wall, "busy_s": b_busy, "kernels": b_kernels,
+               "kernels_per_iter": b_kernels / max(b_iters["iters_max"], 1),
+               **b_iters},
+           "single_solve_kernels_per_iter": n62_kernels_per_iter}
+    out["step_idle_share"] = idle_share("batched vector step (E=4)",
+                                        step_wall, step_busy, step_prof)
+    print(f"batched env (E={E}, M={BATCH_M}, N=62): K={env.K.tolist()} "
+          f"reset {t_reset:.3f} s (stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in reset_stages.items())
+          + "); vector steps " + "; ".join(
+              f"{s['seconds']:.3f} s (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in s["stage_seconds"].items())
+              + f"; L-BFGS iterations {s['iters_max']} slowest lane, "
+              f"{s['iters_mean']:.1f} mean over {s['lanes']} lanes)"
+              for s in steps)
+          + f"; {out['env_steps_per_s']:.4f} env-steps/s against the "
+          f"sequential N=62 path's {out['sequential_env_steps_per_s']:.4f}; "
+          f"peak device memory {peak / 2**20:.0f} MiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    print(f"  profiled: one batched solve {b_kernels} kernels and copies "
+          f"over {b_iters['iters_max']} iterations = "
+          f"{out['profiled_batched_solve']['kernels_per_iter']:.0f} per "
+          f"iteration ({b_wall:.3f} s profiled, device busy {b_busy} s; "
+          f"the N=62 path's single solve {n62_kernels_per_iter:.0f} per "
+          f"iteration); a vector step {step_kernels} kernels and copies",
+          flush=True)
+
+    # -- the same lanes through the fused=False oracle: reset + one step.
+    # The N=62 solve is chaotic in float32 (a 1-ulp change of V moves
+    # sigma_res by ~1%, ROADMAP queue 3) and the card's reductions change
+    # order with the lane count, so the fused route and the oracle part at
+    # round-off end to end: those errors are printed beside the 1-ulp spread
+    # of lane 0's own solve.  Held at the JAX package's tolerances: the
+    # fused influence, sigmas and reward on the oracle's own step solves;
+    # held bit for bit: lane 0's step solve through the batched route at E=1.
+    ob = RadioBackend(device=dev, **N62)
+    oracle = BatchedCalibEnv(M=BATCH_M, n_envs=E, backend=ob, seed=0,
+                             provide_hint=True, fused=False, device=dev)
+    calibrate, run_cal, solves, cal_out = (ob.calibrate,
+                                           oracle._run_calibration, [], [])
+
+    def keep_solve(*args, **kw):
+        solves.append(calibrate(*args, **kw))
+        return solves[-1]
+
+    def keep_cal():
+        cal_out.append(run_cal())
+        return cal_out[-1]
+
+    ob.calibrate, oracle._run_calibration = keep_solve, keep_cal
+    zero_counts()
+    t0 = time.perf_counter()
+    o_obs0 = oracle.reset()
+    if not np.array_equal(oracle.hint, hint0):
+        raise AssertionError("oracle lanes drew other episodes")
+    o_obs, o_rew, _, _, o_info = oracle.step(oracle.hint)
+    oracle_s = time.perf_counter() - t0
+    oracle_launches = read_counts()
+    ob.calibrate = calibrate
+    obs1, rew1, info1 = first
+    end_to_end = {
+        "img_reset": tol_ratio(obs0["img"], o_obs0["img"],
+                               *ORACLE_TOL["img"]),
+        "img_step": tol_ratio(obs1["img"], o_obs["img"], *ORACLE_TOL["img"]),
+        "reward": tol_ratio(rew1, o_rew, *ORACLE_TOL["reward"]),
+        "sigma_res": tol_ratio(info1["sigma_res"], o_info["sigma_res"],
+                               *ORACLE_TOL["sigma_res"])}
+    sigma_res_rel = (np.abs(info1["sigma_res"] - o_info["sigma_res"])
+                     / o_info["sigma_res"]).tolist()
+    sky_equal = (np.array_equal(obs0["sky"], o_obs0["sky"])
+                 and np.array_equal(obs1["sky"], o_obs["sky"]))
+    # the fused stages on the oracle's step solves
+    step_solves = solves[E:]
+    o_imgs, o_sd, o_sr = cal_out[1][:3]
+    rho, mask, alpha = oracle._lane_rho_mask()
+    bep_o = ob.stack_episodes(oracle.eps)
+    stacked = solver.SolveResult(*(torch.stack([getattr(r, f) for r in
+                                                step_solves])
+                                   for f in solver.SolveResult._fields))
+    f_imgs = ob.influence_images_batched(bep_o, stacked, rho,
+                                         alpha).cpu().numpy()
+    f_sd, f_sr = (t.cpu().numpy() for t in
+                  ob.image_sigmas_batched(bep_o, stacked))
+
+    def reward_terms(sr, imgs):
+        return (oracle._sigma_data_img / np.maximum(sr, 1e-12)
+                + 1e-4 / (imgs.std(axis=(1, 2)) + calib.EPS))
+
+    f_rew = o_rew - reward_terms(o_sr, o_imgs) + reward_terms(f_sr, f_imgs)
+    sc = calib.INF_SCALE
+    stages = {
+        "influence": tol_ratio(f_imgs * sc, o_imgs * sc, *ORACLE_TOL["img"]),
+        "sigma_data_img": tol_ratio(f_sd, o_sd, *ORACLE_TOL["sigma_res"]),
+        "sigma_res_img": tol_ratio(f_sr, o_sr, *ORACLE_TOL["sigma_res"]),
+        "reward": tol_ratio(f_rew, o_rew, *ORACLE_TOL["reward"])}
+    one = radio.BatchedEpisode(*(x[:1] if i < 6 else x
+                                 for i, x in enumerate(bep_o)))
+    r1 = ob.calibrate_batched(one, rho[:1], mask=mask[:1])
+    solve_bitwise = bool(torch.equal(r1.J[0], step_solves[0].J)
+                         and torch.equal(r1.residual[0],
+                                         step_solves[0].residual))
+    ep0 = oracle.eps[0]
+    r_ulp = ob.calibrate(ep0._replace(V=ep0.V * (1 + 2 ** -23)), rho[0],
+                         mask=mask[0])
+    ulp_rel = float(abs(r_ulp.sigma_res - step_solves[0].sigma_res)
+                    / step_solves[0].sigma_res)
+    out["oracle"] = {"seconds": oracle_s, "launches": oracle_launches,
+                     "end_to_end_ratios": end_to_end,
+                     "sigma_res_rel": sigma_res_rel,
+                     "stage_ratios": stages,
+                     "lane0_solve_e1_bitwise": solve_bitwise,
+                     "lane0_sigma_res_rel_under_1ulp_of_V": ulp_rel,
+                     "sky_equal": sky_equal, "tolerances": ORACLE_TOL}
+    print("  fused against the fused=False oracle (reset + 1 step, "
+          f"{oracle_s:.3f} s; launches "
+          + ", ".join(f"{k} {v}" for k, v in oracle_launches.items())
+          + "): largest error over its tolerance end to end "
+          + ", ".join(f"{k} {v:.4f}" for k, v in end_to_end.items())
+          + " (sigma_res relative per lane "
+          + ", ".join(f"{v:.2e}" for v in sigma_res_rel)
+          + f"; lane 0's own solve moves {ulp_rel:.2e} under a 1-ulp change "
+          "of V); the fused stages on the oracle's step solves "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f" (tolerances {ORACLE_TOL}); lane 0's solve at E=1 bit for bit "
+          f"{solve_bitwise}; sky tables equal {sky_equal}", flush=True)
+    if max(stages.values()) > 1.0 or not (sky_equal and solve_bitwise):
+        raise AssertionError("the fused batched route disagrees with its "
+                             "oracle on the same solves")
+    want = 2 * N62["n_freqs"] * E * 2    # data + residual image per band
+    if oracle_launches["dft_imager"] != want:
+        raise AssertionError(f"the oracle launched dft_imager "
+                             f"{oracle_launches['dft_imager']} times, "
+                             f"expected {want}")
+    del env, oracle, backend, first, obs0, obs, o_obs0, o_obs, stacked, bep_o
+    torch.cuda.empty_cache()
+
+    # -- the E sweep: reset + one vector step at each E (E=4 is above)
+    sweep = {E: {"reset_seconds": t_reset, "step_seconds": steps[0]["seconds"],
+                 "env_steps_per_s": E / steps[0]["seconds"],
+                 "peak_mem_bytes": peak, "launches": launches,
+                 **{k: steps[0][k] for k in ("iters_max", "iters_mean")}}}
+    for e_n in E_SWEEP:
+        be = RadioBackend(device=dev, **N62)
+        env = BatchedCalibEnv(M=BATCH_M, n_envs=e_n, backend=be, seed=0,
+                              provide_hint=True, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        iters = LbfgsIters()
+        zero_counts()
+        try:
+            t0 = time.perf_counter()
+            env.reset()
+            t_r = time.perf_counter() - t0
+            n0 = len(iters.calls)
+            t0 = time.perf_counter()
+            obs, rew, _, _, info = env.step(env.hint)
+            t_s = time.perf_counter() - t0
+            its = iters.since(n0)
+        finally:
+            iters.restore()
+        check_batched(obs, rew, info, e_n, N62["npix"], BATCH_M)
+        sweep[e_n] = {"reset_seconds": t_r, "step_seconds": t_s,
+                      "env_steps_per_s": e_n / t_s,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                      "launches": read_counts(),
+                      **{k: its[k] for k in ("iters_max", "iters_mean")},
+                      "stage_seconds": dict(be.stage_seconds)}
+        del env, be, obs
+        torch.cuda.empty_cache()
+    out["e_sweep"] = {str(k): sweep[k] for k in sorted(sweep)}
+    print("  E sweep (reset + 1 vector step): " + "; ".join(
+        f"E={k}: reset {v['reset_seconds']:.3f} s, step "
+        f"{v['step_seconds']:.3f} s, {v['env_steps_per_s']:.4f} env-steps/s, "
+        f"L-BFGS iterations {v['iters_max']} slowest lane / "
+        f"{v['iters_mean']:.1f} mean, peak {v['peak_mem_bytes'] / 2**20:.0f} "
+        "MiB" for k, v in sorted(sweep.items())), flush=True)
+    return out
+
+
+def prefetch_phase(dev, zero_counts, read_counts):
+    """CalibEnv(M=10) at N=62 with prefetch=False, then True: 3 resets
+    each, timed; the observations must be equal bit for bit.  Records, per
+    prefetched reset, whether the build was done when taken (hit) or
+    waited on (stall), and whether each reset's solve began while the next
+    episode's build was still running (it must, at least once: the solve's
+    graph capture against the worker's stream)."""
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    runs = {}
+    for pf in (False, True):
+        be = RadioBackend(device=dev, **N62)
+        env = CalibEnv(M=BATCH_M, backend=be, seed=0, provide_hint=True,
+                       device=dev, prefetch=pf)
+        calibrate, pending = be.calibrate, []
+
+        def spy(*args, **kw):
+            fut = be._prefetched.get(env._pf_tag)
+            pending.append(fut is not None and not fut.done())
+            return calibrate(*args, **kw)
+
+        be.calibrate = spy
+        obs, secs, taken = [], [], []
+        zero_counts()
+        try:
+            for _ in range(3):
+                before = dict(be.prefetch_counts)
+                t0 = time.perf_counter()
+                obs.append(env.reset())
+                secs.append(time.perf_counter() - t0)
+                taken.append(next((k for k, v in be.prefetch_counts.items()
+                                   if v > before[k]), None))
+        finally:
+            env.close()
+        runs[pf] = {"reset_seconds": secs, "taken": taken,
+                    "solve_began_while_building": pending,
+                    "stage_seconds": dict(be.stage_seconds),
+                    "launches": read_counts(), "obs": obs}
+        del env, be
+    for a, b in zip(runs[False]["obs"], runs[True]["obs"]):
+        for k in a:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"prefetch changed the observation "
+                                     f"({k}, max abs diff "
+                                     f"{np.abs(a[k] - b[k]).max()})")
+    for r in runs.values():
+        del r["obs"]
+        if r["launches"]["dft_imager"] != 3 * N62["n_freqs"]:
+            raise AssertionError(f"dft_imager launched {r['launches']} times "
+                                 f"over 3 resets, expected "
+                                 f"{3 * N62['n_freqs']}")
+    if not any(runs[True]["solve_began_while_building"]):
+        raise AssertionError("no solve overlapped a prefetch build")
+    print("prefetch (CalibEnv M=10, N=62, 3 resets): without "
+          + ", ".join(f"{s:.3f}" for s in runs[False]["reset_seconds"])
+          + " s; with " + ", ".join(f"{s:.3f}" for s in
+                                    runs[True]["reset_seconds"])
+          + f" s (prefetch taken as {runs[True]['taken']}; solve began "
+          "while the next build ran "
+          f"{runs[True]['solve_began_while_building']}); observations "
+          "equal bit for bit; stage seconds without "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      runs[False]["stage_seconds"].items())
+          + "; with " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  runs[True]["stage_seconds"].items()),
+          flush=True)
+    return {"without": runs[False], "with": runs[True]}
+
+
+def batched_train_phase(dev, out_dir, zero_counts, read_counts):
+    """train/calib_sac.py --batch-envs 4 at N=62 (3 vector episodes of 4
+    steps: 48 transitions, one learn per vector step from the 32nd), counts
+    zeroed just before and read just after; checks the 12 scores, then
+    the saved agent (learn_counter 5, ring 48) through
+    :func:`agent_checks`."""
+    import pickle
+
+    from smartcal_tpu_torch.train import calib_sac
+    prefix = os.path.join(out_dir, "calib_sac_b4_")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    scores = calib_sac.main(BATCH_TRAIN_ARGS + ["--prefix", prefix])
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    with open(prefix + "_scores.pkl", "rb") as fh:
+        saved = pickle.load(fh)
+    if (len(scores) != 12 or saved != scores
+            or not np.all(np.isfinite(scores))):
+        raise AssertionError(f"batched trainer scores {scores} / {saved}")
+    if any(launches.values()):
+        raise AssertionError(f"the batched trainer launched {launches}")
+    out = {"args": BATCH_TRAIN_ARGS, "scores": [float(s) for s in scores],
+           "train_seconds": train_s, "env_steps": 48,
+           "env_steps_per_s": 48 / train_s, "peak_mem_bytes": peak,
+           "launches": launches}
+    print(f"batched trainer (calib_sac {' '.join(BATCH_TRAIN_ARGS)}): "
+          f"{train_s:.3f} s, {out['env_steps_per_s']:.4f} env-steps/s; "
+          "scores " + ", ".join(f"{s:.4f}" for s in scores)
+          + f"; peak device memory {peak / 2**20:.0f} MiB", flush=True)
+    out.update(agent_checks(dev, prefix, learn_counter=5, ring_cntr=48))
+    return out
+
 
 IEEE_REDUCE = """__device__ __forceinline__ float reduce_2pi(float x) {
   return x - kTwoPi * rintf(x / kTwoPi);
@@ -1611,8 +2103,13 @@ def main():
     t0 = time.perf_counter()
     backend.calibrate(env.ep, rho, mask=mask)
     solve_wall = time.perf_counter() - t0
-    solve_wall_prof, solve_busy, _ = device_busy_seconds(
-        lambda: backend.calibrate(env.ep, rho, mask=mask))
+    iters = LbfgsIters()
+    try:
+        solve_wall_prof, solve_busy, solve_kernels = device_busy_seconds(
+            lambda: backend.calibrate(env.ep, rho, mask=mask))
+    finally:
+        iters.restore()
+    solve_iters = iters.since(0)
     step_wall = float(np.mean([s["seconds"] for s in steps]))
     report["n62"]["idle"] = {
         "step_wall_s": step_wall, "step_wall_profiled_s": step_wall_prof,
@@ -1622,7 +2119,15 @@ def main():
         "step_idle_share": idle_share("N=62 step", step_wall, step_busy,
                                       step_wall_prof),
         "solve_idle_share": idle_share("N=62 solve", solve_wall, solve_busy,
-                                       solve_wall_prof)}
+                                       solve_wall_prof),
+        "solve_kernels": solve_kernels, **solve_iters,
+        "solve_kernels_per_iter": solve_kernels
+        / max(solve_iters["iters_max"], 1)}
+    print(f"N=62 solve profiled: {solve_kernels} kernels and copies over "
+          f"{solve_iters['iters_max']} L-BFGS iterations (slowest lane; "
+          f"lane mean {solve_iters['iters_mean']:.1f}) = "
+          f"{report['n62']['idle']['solve_kernels_per_iter']:.0f} per "
+          "iteration", flush=True)
 
     # -- imager kernel at the N=62 path's shapes, and ragged cases ---------
     ep = env.ep
@@ -1658,7 +2163,7 @@ def main():
           + ", ".join(f"{k} {v}" for k, v in dft_bounds.items()), flush=True)
     del env, backend, ep, uvw, visc, uv, lm
 
-    # -- train path: train/calib_sac.py on the N=62 backend, 9 episodes ----
+    # -- train path: train/calib_sac.py on the N=62 backend, 2 episodes ----
     report["train"] = train_path(dev, args.out, zero_counts, read_counts)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -1678,6 +2183,18 @@ def main():
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     report["calib_td3_ddpg"] = calib_td3_ddpg_phase(dev, args.out,
                                                     zero_counts, read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- the batched slice at N=62: BatchedCalibEnv (E=4) and its oracle,
+    # the E sweep, prefetch, the batched trainer ---------------------------
+    n62_step_s = float(np.mean([s["seconds"] for s in report["n62"]["steps"]]))
+    report["batched"] = batched_env_phase(
+        dev, zero_counts, read_counts, n62_step_s,
+        report["n62"]["idle"]["solve_kernels_per_iter"])
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    report["prefetch"] = prefetch_phase(dev, zero_counts, read_counts)
+    report["batched_train"] = batched_train_phase(dev, args.out, zero_counts,
+                                                  read_counts)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
@@ -1896,6 +2413,20 @@ def main():
                                    "blocked tier", block_baselines=4,
                                    imager_block_r=256)
 
+    def new_paths(name):
+        """The kernel's launches on the batched slice's paths."""
+        return {"launches_batched_path":
+                report["batched"]["launches"][name],
+                "launches_batched_oracle":
+                report["batched"]["oracle"]["launches"][name],
+                "launches_e_sweep": sum(
+                    v["launches"][name] for k, v in
+                    report["batched"]["e_sweep"].items() if k != "4"),
+                "launches_prefetch_path":
+                report["prefetch"]["with"]["launches"][name],
+                "launches_batched_train_path":
+                report["batched_train"]["launches"][name]}
+
     kernels_line = [
         {"name": "dft_imager", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/dft_imager.cu",
@@ -1918,7 +2449,8 @@ def main():
          "ska_ms": s_ms, "ska_bound_ms": s_bounds["bound_ms"],
          "ska_bound_fp32_ms": s_bounds["bound_fp32_ms"],
          "ska_bound_direct_ms": s_bounds["bound_direct_ms"],
-         "ska_shapes": f"P={s_P} R={s_R}", "ska_max_abs_err_subset": s_err},
+         "ska_shapes": f"P={s_P} R={s_R}", "ska_max_abs_err_subset": s_err,
+         **new_paths("dft_imager")},
         {"name": "hessian_blocks", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/hessian_blocks.cu",
          "replaces": "smartcal_tpu/ops/pallas_hessian.py:60",
@@ -1926,7 +2458,8 @@ def main():
          "max_abs_err": max(h_err), "ms": h_ms, "device_ms": h_dev_ms,
          "plain_ms": h_plain_ms, "bound_ms": h_bound, "bound_by": h_bound_by,
          "device_ms_one_launch": h_dev_one, "library_ms": None,
-         "shapes": h_lab, "bit_identical": True},
+         "shapes": h_lab, "bit_identical": True,
+         **new_paths("hessian_blocks")},
         {"name": "factored_imager", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/factored_imager.cu",
          "engine": "smartcal_tpu_torch/csrc/separable_imager.cuh",
@@ -1934,7 +2467,7 @@ def main():
          "launches": ska_launches["factored_imager"],
          "max_abs_err": max(f_err), "ms": f_ms, "plain_ms": f_plain_ms,
          **f_bounds, "library_ms": f_lib_ms,
-         "shapes": f"npix={npix} R={f_R}"}]
+         "shapes": f"npix={npix} R={f_R}", **new_paths("factored_imager")}]
     report.update(kernels=kernels_line, card=card, tiny_rel=tiny_rel,
                   tiny_blocked_rel=tiny_blk_rel,
                   kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],

@@ -5,8 +5,9 @@ The layout mirrors the JAX package module for module
 ``smartcal_tpu/cal/solver.py``):
 
 * ``cal/``, ``envs/``: the calibration episode (simulate, consensus ADMM,
-  influence map, images, reward), ``CalibEnv`` and the elastic-net
-  ``EnetEnv``;
+  influence map, images, reward), ``CalibEnv`` (with episode prefetch),
+  ``BatchedCalibEnv`` (E episodes as one batched pass) and the
+  elastic-net ``EnetEnv``;
 * ``ops/``: the hand-written CUDA kernels of the JAX package's three TPU
   kernels, built from ``csrc/`` on first use: the direct-DFT imager
   (``csrc/dft_imager.cu``) and the rank-factored imager

@@ -15,6 +15,7 @@ Two formulations, as in the JAX package:
   plain version ``dirty_image_factored_blocked_sr`` on a CPU tensor.
 """
 
+import numpy as np
 import torch
 
 from smartcal_tpu_torch.cal import precision as prec
@@ -44,18 +45,24 @@ def dirty_image_sr(uvw, vis, freq, cell, npix=128):
 
 
 def _factored_planes(uvw, vis, freq, cell, npix):
-    """(p1, p2, cb, sb) planes of the factored imager, f32 trig."""
-    scale = float(dft_imager.uv_scale(freq))
-    u = uvw[:, 0] * scale
-    v = uvw[:, 1] * scale
-    idx = factored_imager.axis_grid(npix, cell, uvw.device)
-    a = idx[:, None] * u[None, :]                          # (npix, R) l u
-    b = idx[:, None] * v[None, :]                          # (npix, R) m v
+    """(p1, p2, cb, sb) planes of the factored imager, f32 trig.  uvw
+    (..., R, 3) and vis (..., R, 2) may carry leading lane axes; ``freq``
+    and ``cell`` are then host arrays that broadcast against them (a
+    scalar is one value for all).  Planes (..., npix, R)."""
+    dev = uvw.device
+    scale = torch.as_tensor(dft_imager.uv_scale(np.asarray(freq)),
+                            device=dev)[..., None]
+    u = uvw[..., 0] * scale
+    v = uvw[..., 1] * scale
+    cell = torch.as_tensor(np.asarray(cell, np.float32), device=dev)
+    idx = factored_imager.axis_grid(npix, 1.0, dev) * cell[..., None]
+    a = idx[..., :, None] * u[..., None, :]                # (npix, R) l u
+    b = idx[..., :, None] * v[..., None, :]                # (npix, R) m v
     ca, sa = torch.cos(a), torch.sin(a)
     cb, sb = torch.cos(b), torch.sin(b)
-    vr, vi = vis[:, 0], vis[:, 1]
-    p1 = ca * vr[None, :] + sa * vi[None, :]
-    p2 = ca * vi[None, :] - sa * vr[None, :]
+    vr, vi = vis[..., None, :, 0], vis[..., None, :, 1]
+    p1 = ca * vr + sa * vi
+    p2 = ca * vi - sa * vr
     return p1, p2, cb, sb
 
 
@@ -65,9 +72,11 @@ def dirty_image_factored_sr(uvw, vis, freq, cell, npix=128):
     is img = [(cos a Vr + sin a Vi) @ cos(b)^T
               + (cos a Vi - sin a Vr) @ sin(b)^T] / R,  a = l u, b = m v.
     Same math as the direct DFT to float round-off; the matmuls run in
-    full f32 (TF32 is off)."""
+    full f32 (TF32 is off).  Leading lane axes as in
+    :func:`_factored_planes`: (..., npix, npix), batched matmuls."""
     p1, p2, cb, sb = _factored_planes(uvw, vis, freq, cell, npix)
-    return (p1 @ cb.T + p2 @ sb.T) / vis.shape[0]
+    return (p1 @ cb.transpose(-1, -2) + p2 @ sb.transpose(-1, -2)) \
+        / vis.shape[-2]
 
 
 def dirty_image_factored_blocked_sr(uvw, vis, freq, cell, npix=1024,
@@ -106,9 +115,10 @@ def dirty_image_factored_large_sr(uvw, vis, freq, cell, npix=1024,
 
 
 def stokes_i_vis(V):
-    """(T, B, 2, 2, 2) full-pol solver visibilities -> (T*B, 2) Stokes I."""
+    """(..., T, B, 2, 2, 2) full-pol solver visibilities -> (..., T*B, 2)
+    Stokes I."""
     sI = 0.5 * (V[..., 0, 0, :] + V[..., 1, 1, :])
-    return sI.reshape(-1, 2)
+    return sI.reshape(sI.shape[:-3] + (-1, 2))
 
 
 def image_observation_sr(uvw, V, freq, cell, npix=128):

@@ -16,6 +16,7 @@ ported.
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from smartcal_tpu_torch.cal import consensus, creal, imager, kernels
@@ -62,9 +63,12 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
     C5 (K, Td, B, 2, 2, 2); Jp/Jq (K, B, 2, 2, 2); lhs (K, B, 2, 2, 2);
     hadd (K,).  Returns ((B, 4, 2) Stokes-I-only vis, (K,) llr).
 
-    ``block_baselines`` > 0 selects the blocked Hessian: the CUDA kernel
-    for tensors on the card, the blocked plain core for CPU tensors."""
-    Td = C5.shape[1]
+    Unblocked, every operand may carry the same leading lane axes (the
+    intervals of a band, the bands and episodes of a batch): one pass of
+    the plain chain for all of them.  ``block_baselines`` > 0 selects the
+    blocked Hessian on ONE interval: the CUDA kernel for tensors on the
+    card, the blocked plain core for CPU tensors."""
+    Td = C5.shape[-5]
     if not block_baselines:
         H = kernels._hessian_res_core_sr(R3, C5, Jp, Jq, n_stations)
     elif C5.device.type == "cpu":
@@ -72,12 +76,12 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
                                                  block_baselines)
     else:
         H = hessian_blocks.hessian_res_core_sr(R3, C5, Jp, Jq, n_stations)
-    N4 = H.shape[1]
+    N4 = H.shape[-2]
     diag = torch.arange(N4, device=H.device)
-    H[:, diag, diag, 0] += hadd[:, None]
+    H[..., diag, diag, 0] += hadd[..., None]
     pol_means = kernels._colmeans_adjoint_core_sr(lhs, H, n_stations, Td)
-    vis = torch.sum(pol_means, dim=0).transpose(0, 1).clone()  # (B, 4, 2)
-    vis[:, 1:3, :] = 0.0                # fullpol=False: XY, YX dropped
+    vis = torch.sum(pol_means, dim=-4).transpose(-3, -2).clone()  # (B,4,2)
+    vis[..., 1:3, :] = 0.0              # fullpol=False: XY, YX dropped
     return vis, kernels._llr_core_sr(R3, C5, Jp, Jq)
 
 
@@ -87,26 +91,40 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
 
     R : (2*B*T, 2, 2) kernel-convention residuals of one sub-band
     C : (K, T*B, 4, 2) coherencies;  J : (Ts, K, 2N, 2, 2);  hadd : (K,)
-    ``block_baselines`` > 0 runs the blocked Hessian (SKA tier).
-    Returns vis (T*B, 4, 2) scaled by 8*B*Tdelta, and llr (Ts, K)."""
+    All four may carry the same leading lane axes (bands, episodes).
+    Unblocked, the intervals of every lane go through the chain in one
+    pass; ``block_baselines`` > 0 runs the blocked Hessian (SKA tier)
+    interval by interval, lane by lane: its CUDA kernel takes one.
+    Returns vis (T*B, 4, 2) scaled by 8*B*Tdelta, and llr (Ts, K), under
+    the lane axes."""
     B = n_stations * (n_stations - 1) // 2
-    K = C.shape[0]
-    T = C.shape[1] // B
+    lead, K = C.shape[:-4], C.shape[-4]
+    T = C.shape[-3] // B
     Td = T // n_chunks
-    R3 = R.reshape(n_chunks, Td, B, 2, 2, 2)
-    C5 = C.reshape(K, n_chunks, Td, B, 2, 2, 2).transpose(-3, -2) \
-        .movedim(1, 0).contiguous()                      # (Ts, K, Td, B, ..)
+    R3 = R.reshape(lead + (n_chunks, Td, B, 2, 2, 2))
+    C5 = C.reshape(lead + (K, n_chunks, Td, B, 2, 2, 2)).transpose(-3, -2) \
+        .movedim(-6, -7).contiguous()                    # (.., Ts, K, Td, B..)
     p_idx, q_idx = kernels.baseline_indices(n_stations, R.device)
-    J4 = J.reshape(n_chunks, K, n_stations, 2, 2, 2)
-    Jp, Jq = J4[:, :, p_idx], J4[:, :, q_idx]            # (Ts, K, B, ...)
-    Csum = torch.sum(C5, dim=2)                          # (Ts, K, B, ...)
-    lhs = creal.einsum("skbuv,skbwv->skbuw", Jq, creal.conj(Csum))
-    outs = [_chunk_influence_opt(R3[s], C5[s], Jp[s], Jq[s], lhs[s], hadd,
-                                 n_stations, block_baselines)
-            for s in range(n_chunks)]
-    vis_b = torch.stack([o[0] for o in outs])            # (Ts, B, 4, 2)
-    llr = torch.stack([o[1] for o in outs])
-    vis = vis_b[:, None].expand(n_chunks, Td, B, 4, 2).reshape(T * B, 4, 2)
+    J4 = J.reshape(lead + (n_chunks, K, n_stations, 2, 2, 2))
+    Jp = J4[..., p_idx, :, :, :]                         # (.., Ts, K, B, ..)
+    Jq = J4[..., q_idx, :, :, :]
+    Csum = torch.sum(C5, dim=-5)                         # (.., Ts, K, B, ..)
+    lhs = creal.einsum("...skbuv,...skbwv->...skbuw", Jq, creal.conj(Csum))
+    hadd_s = hadd[..., None, :].expand(lead + (n_chunks, K))
+    if block_baselines:
+        ops = [t.reshape((-1,) + tuple(t.shape[len(lead) + 1:]))
+               for t in (R3, C5, Jp, Jq, lhs, hadd_s)]
+        outs = [_chunk_influence_opt(*(t[g] for t in ops), n_stations,
+                                     block_baselines)
+                for g in range(ops[0].shape[0])]
+        vis_b = torch.stack([o[0] for o in outs]).reshape(
+            lead + (n_chunks, B, 4, 2))
+        llr = torch.stack([o[1] for o in outs]).reshape(lead + (n_chunks, K))
+    else:
+        vis_b, llr = _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd_s,
+                                          n_stations)
+    vis = vis_b.unsqueeze(-4).expand(lead + (n_chunks, Td, B, 4, 2)) \
+        .reshape(lead + (T * B, 4, 2))
     return InfluenceResult(vis=vis * (8.0 * B * Td), llr=llr)
 
 
@@ -121,16 +139,40 @@ def influence_image_single_sr(residual_f, C_f, J_f, hadd_f, freq, uvw,
     """One sub-band's Stokes-I influence dirty image: the optimized
     influence chain, then the rank-factored imager.  residual_f
     (T, B, 2, 2, 2), C_f (K, T*B, 4, 2), J_f (Ts, K, 2N, 2, 2), hadd_f
-    (K,), uvw (T*B, 3) meters.  The SKA-tier statics select the blocked
-    Hessian (``block_baselines``) and the large-tier factored imager
-    (``imager_block_r``)."""
-    from smartcal_tpu_torch.cal import solver
+    (K,), uvw (T*B, 3) meters: :func:`influence_images_lanes` without lane
+    axes."""
+    return influence_images_lanes(
+        residual_f, C_f, J_f, hadd_f, freq, uvw, cell, n_stations, n_chunks,
+        npix, block_baselines=block_baselines, imager_block_r=imager_block_r)
 
-    Rk = solver.residual_to_kernel(residual_f)
-    inf = influence_visibilities(Rk, C_f, J_f, hadd_f, n_stations, n_chunks,
+
+def influence_images_lanes(residual, C, J, hadd, freqs, uvw, cell,
+                           n_stations, n_chunks, npix, block_baselines=0,
+                           imager_block_r=0):
+    """Stokes-I influence dirty images of many (episode, band) lanes: the
+    body of the JAX package's ``influence_images_multi`` (optimized chain)
+    under its batched route's ``vmap``.
+
+    residual (..., T, B, 2, 2, 2); C (..., K, T*B, 4, 2); J (..., Ts, K,
+    2N, 2, 2); hadd (..., K); ``freqs`` a host array of the lane axes;
+    uvw (..., T*B, 3) meters and host ``cell`` broadcast against them.
+    Returns (..., npix, npix).  The lanes go through the plain chain and
+    the factored imager's matmuls together; the SKA-tier statics
+    (``block_baselines``, ``imager_block_r``) run the blocked Hessian and
+    the large-tier imager lane by lane, as their CUDA kernels take one."""
+    lead = residual.shape[:-5]
+    T, B = residual.shape[-5], residual.shape[-4]
+    Rk = residual.reshape(lead + (2 * T * B, 2, 2))
+    inf = influence_visibilities(Rk, C, J, hadd, n_stations, n_chunks,
                                  block_baselines=block_baselines)
-    ivis = stokes_i_influence(inf.vis)
-    if imager_block_r:
-        return imager.dirty_image_factored_large_sr(
-            uvw, ivis, freq, cell, npix=npix, block_r=imager_block_r)
-    return imager.dirty_image_factored_sr(uvw, ivis, freq, cell, npix=npix)
+    ivis = stokes_i_influence(inf.vis)                   # (..., T*B, 2)
+    if not imager_block_r:
+        return imager.dirty_image_factored_sr(uvw, ivis, freqs, cell,
+                                              npix=npix)
+    uvw = uvw.expand(lead + tuple(uvw.shape[-2:]))
+    freqs = np.broadcast_to(np.asarray(freqs), lead)
+    cell = np.broadcast_to(np.asarray(cell), lead)
+    imgs = [imager.dirty_image_factored_large_sr(
+        uvw[i], ivis[i], float(freqs[i]), float(cell[i]), npix=npix,
+        block_r=imager_block_r) for i in np.ndindex(lead)]
+    return torch.stack(imgs).reshape(lead + (npix, npix))

@@ -76,51 +76,53 @@ def _hessian_block_sums(R3, C5, Jp, Jq, p_idx, q_idx, n_stations):
     """Off-diagonal blocks + station-summed diagonal contributions of ONE
     baseline subset: R3 (T, nb, 2, 2, 2); C5 (K, T, nb, 2, 2, 2); Jp/Jq
     (K, nb, 2, 2, 2); p_idx/q_idx (nb,) station indices (N = pad slot).
-    Returns (off (K, nb, 4, 4, 2), Dsum (K, N, 2, 2, 2)), unnormalized."""
-    K, nb = C5.shape[0], C5.shape[2]
-    off = -creal.einsum("ktbij,tbuv->kbiujv", creal.conj(C5), R3)
-    off = off.reshape(K, nb, 4, 4, 2)
+    Returns (off (K, nb, 4, 4, 2), Dsum (K, N, 2, 2, 2)), unnormalized.
+    Every operand may carry the same leading lane axes."""
+    K, nb = C5.shape[-6], C5.shape[-4]
+    off = -creal.einsum("...ktbij,...tbuv->...kbiujv", creal.conj(C5), R3)
+    off = off.reshape(off.shape[:-7] + (K, nb, 4, 4, 2))
 
-    A1 = creal.einsum("ktbuv,kbwv->ktbuw", C5, creal.conj(Jq))
-    Sp = creal.einsum("ktbuw,ktbvw->kbuv", A1, creal.conj(A1))
-    A2 = creal.einsum("kbuv,ktbvw->ktbuw", Jp, C5)
-    Sq = creal.einsum("ktbuv,ktbuw->kbvw", creal.conj(A2), A2)
+    A1 = creal.einsum("...ktbuv,...kbwv->...ktbuw", C5, creal.conj(Jq))
+    Sp = creal.einsum("...ktbuw,...ktbvw->...kbuv", A1, creal.conj(A1))
+    A2 = creal.einsum("...kbuv,...ktbvw->...ktbuw", Jp, C5)
+    Sq = creal.einsum("...ktbuv,...ktbuw->...kbvw", creal.conj(A2), A2)
 
     ohp = _block_onehot(p_idx, n_stations, R3.dtype)
     ohq = _block_onehot(q_idx, n_stations, R3.dtype)
-    Dsum = (torch.einsum("nb,kbuvz->knuvz", ohp, Sp)
-            + torch.einsum("nb,kbuvz->knuvz", ohq, Sq))
+    Dsum = (torch.einsum("nb,...kbuvz->...knuvz", ohp, Sp)
+            + torch.einsum("nb,...kbuvz->...knuvz", ohq, Sq))
     return off, Dsum
 
 
 def _hessian_assemble(off, Dsum, n_stations, B, T):
     """Placement of the off-diagonal table (gather of the zero-padded
     table, each (p, q) slot holds one baseline) and the diagonal krons.
-    Returns (K, 4N, 4N, 2) normalized by B*T."""
-    K = off.shape[0]
+    Returns (K, 4N, 4N, 2) normalized by B*T, under any leading lane axes
+    of ``off``/``Dsum``."""
+    lead = off.shape[:-4]
     dev = off.device
     eye2 = torch.eye(2, dtype=off.dtype, device=dev)
-    diag_blocks = torch.einsum("knjiz,uv->kniujvz", Dsum, eye2).reshape(
-        K, n_stations, 4, 4, 2)
+    diag_blocks = torch.einsum("...knjiz,uv->...kniujvz", Dsum,
+                               eye2).reshape(lead + (n_stations, 4, 4, 2))
 
     idx = _offdiag_index(n_stations, dev)
     off_pad = torch.cat(
-        [off, torch.zeros((K, 1, 4, 4, 2), dtype=off.dtype, device=dev)],
-        dim=1)
+        [off, off.new_zeros(lead + (1, 4, 4, 2))], dim=-4)
     herm_pad = creal.conj(off_pad.transpose(-3, -2))
-    Hup = off_pad[:, idx]
-    Hlow = herm_pad[:, idx.T]
+    Hup = off_pad[..., idx, :, :, :]
+    Hlow = herm_pad[..., idx.T, :, :, :]
     eyeN = torch.eye(n_stations, dtype=off.dtype, device=dev)
-    Hd = torch.einsum("nm,knijz->knmijz", eyeN, diag_blocks)
-    H = (Hup + Hlow + Hd).transpose(2, 3)
+    Hd = torch.einsum("nm,...knijz->...knmijz", eyeN, diag_blocks)
+    H = (Hup + Hlow + Hd).transpose(-4, -3)
     N4 = 4 * n_stations
-    return H.reshape(K, N4, N4, 2) / (B * T)
+    return H.reshape(lead + (N4, N4, 2)) / (B * T)
 
 
 def _hessian_res_core_sr(R3, C5, Jp, Jq, n_stations):
     """Scatter-free residual Hessian (K, 4N, 4N, 2), averaged over
-    baselines*time (reference Hessianres, calibration_tools.py:590-631)."""
-    T, B = C5.shape[1], C5.shape[2]
+    baselines*time (reference Hessianres, calibration_tools.py:590-631),
+    under any leading lane axes of the operands."""
+    T, B = C5.shape[-5], C5.shape[-4]
     p_idx, q_idx = baseline_indices(n_stations, R3.device)
     off, Dsum = _hessian_block_sums(R3, C5, Jp, Jq, p_idx, q_idx, n_stations)
     return _hessian_assemble(off, Dsum, n_stations, B, T)
@@ -170,27 +172,30 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T):
     direction, batched over directions) instead of the 8B-column forward
     solve, and contracts y against the closed form of AdV (see the JAX twin
     for the derivation).  The influence chain's ``addself=False`` form: the
-    identity term of dR is not added.
+    identity term of dR is not added.  Both operands may carry the same
+    leading lane axes (then so does the result).
     """
     N = n_stations
-    K, B = lhs.shape[0], lhs.shape[1]
+    lead, K, B = lhs.shape[:-5], lhs.shape[-5], lhs.shape[-4]
     dev, dt = lhs.device, lhs.dtype
     onehot_p = baseline_onehots(N, dt, dev)[0]
     # G[k, n, i, j] = sum over baselines with p(b) = n of -conj(lhs)
-    G = torch.einsum("nb,kbijz->knijz", onehot_p, -creal.conj(lhs))
+    G = torch.einsum("nb,...kbijz->...knijz", onehot_p, -creal.conj(lhs))
     eye2 = torch.eye(2, dtype=dt, device=dev)
-    W = torch.einsum("knijz,vu->kjnviuz", G, eye2).reshape(K, 4 * N, 4, 2)
+    W = torch.einsum("...knijz,vu->...kjnviuz", G, eye2).reshape(
+        lead + (K, 4 * N, 4, 2))
     A = Dgs.clone()
     A[..., 0] += EPS_SINGULAR * torch.eye(4 * N, dtype=dt, device=dev)
-    Y = creal.solve(A.transpose(1, 2), W)                # A^T y = w
+    Y = creal.solve(A.transpose(-3, -2), W)              # A^T y = w
 
     # gather y at each baseline's p station, contract against lhs
     bbt = float(B) * B * T      # float: the int product overflows at N>=256
     p_idx = baseline_indices(N, dev)[0]
-    Y6 = Y.reshape(K, 2, N, 2, 4, 2)                     # (k,j,n,u',c,2)
-    Yr = Y6[:, :, p_idx][:, :, :, torch.as_tensor(_V_OF_R, device=dev)]
-    Lr = lhs[:, :, torch.as_tensor(_J_OF_R, device=dev)]  # (k,b,r,j,2)
-    out = creal.einsum("kjbrc,kbrj->rcb", Yr, Lr)        # (8, 4, B, 2)
+    Y6 = Y.reshape(lead + (K, 2, N, 2, 4, 2))            # (k,j,n,u',c,2)
+    Yr = Y6[..., p_idx, :, :, :][
+        ..., torch.as_tensor(_V_OF_R, device=dev), :, :]
+    Lr = lhs[..., torch.as_tensor(_J_OF_R, device=dev), :, :]  # (k,b,r,j,2)
+    out = creal.einsum("...kjbrc,...kbrj->...rcb", Yr, Lr)  # (8, 4, B, 2)
     odd = torch.as_tensor(_ODD_R, device=dev)[:, None, None, None]
     return torch.where(odd, creal.mul_i(out), out) / bbt
 
@@ -198,11 +203,13 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T):
 def _llr_core_sr(R3, C5, Jp, Jq):
     """Per-direction log-likelihood ratio (K,): (||r+mu||^2 - ||r||^2) /
     sigma^2 with mu = Jp C Jq^H per sample and sigma^2 from Stokes V of
-    the residual (reference calibration_tools.py:1181-1223)."""
-    tmp = creal.einsum("kbuv,ktbvw->ktbuw", Jp, C5)
-    mu = creal.einsum("ktbuw,kbxw->ktbux", tmp, creal.conj(Jq))
+    the residual (reference calibration_tools.py:1181-1223).  The operands
+    may carry the same leading lane axes (then (..., K))."""
+    tmp = creal.einsum("...kbuv,...ktbvw->...ktbuw", Jp, C5)
+    mu = creal.einsum("...ktbuw,...kbxw->...ktbux", tmp, creal.conj(Jq))
     sV = 0.5 * (R3[..., 0, 1, :] - R3[..., 1, 0, :])
-    sigma2 = torch.sum(creal.abs2(sV))
-    rn2 = torch.sum(creal.abs2(R3))
-    rpmu2 = torch.sum(creal.abs2(R3[None] + mu), dim=(1, 2, 3, 4))
+    sigma2 = torch.sum(creal.abs2(sV), dim=(-2, -1))[..., None]
+    rn2 = torch.sum(creal.abs2(R3), dim=(-4, -3, -2, -1))[..., None]
+    rpmu2 = torch.sum(creal.abs2(R3.unsqueeze(-6) + mu),
+                      dim=(-4, -3, -2, -1))
     return (rpmu2 - rn2) / (sigma2 + EPS_DIV)

@@ -5,7 +5,9 @@ One solve route: the fused math of ``solve_admm``.  The (Nf, Ts)
 independent inner L-BFGS solves are ONE batched ``lbfgs_solve`` over a lane
 axis of size L = Nf*Ts (the JAX package's ``vmap(vmap(...))``), the ADMM
 loop is a Python loop, and the consensus polynomial update is a small
-reduction over frequency.  The JAX package's host-segmented solve
+reduction over frequency.  ``solve_admm_batched`` is the JAX package's
+``vmap(solve_admm)`` over E episodes: E*Nf*Ts lanes of one ``lbfgs_solve``
+per inner solve, everything else per episode.  The host-segmented solve
 (``solve_admm_host``) computes the same thing in bounded dispatches for
 TPU watchdogs; it is not needed on one GPU and is still to be ported, as
 are the sharded routes and solver telemetry.
@@ -16,6 +18,7 @@ baselines enumerate p < q row-major.
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from smartcal_tpu_torch.cal import consensus, creal
@@ -218,7 +221,10 @@ class _QuarticLineSearch:
                 self._search(self.coeffs)
             torch.cuda.current_stream(self.device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            # thread-local: the episode-prefetch thread may allocate and
+            # launch on its own stream while this thread captures
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
                 self.step = self._search(self.coeffs)
         self.coeffs.copy_(coeffs)
         self.graph.replay()
@@ -233,6 +239,29 @@ def _eval_operands(V6, C7):
     Cp = C7.permute(0, 1, 2, 5, 6, 7, 3, 4)
     return (Vp.reshape((-1,) + tuple(Vp.shape[2:])).contiguous(),
             Cp.reshape((-1,) + tuple(Cp.shape[2:])).contiguous())
+
+
+def _inner_solver(Vp, Cp, cfg: SolverConfig):
+    """``inner_solve(x0, prior, half_rho, iters)``: one lane-batched
+    ``lbfgs_solve`` of the per-lane cost on the lanes of ``Vp``/``Cp``, the
+    quartic line search captured for that lane count.  ``half_rho`` is (K,)
+    or per lane (L, K)."""
+    onehots = baseline_onehots(cfg.n_stations, Vp.dtype, Vp.device)
+    search = _QuarticLineSearch(Vp.shape[0], Vp.dtype, Vp.device)
+
+    def inner_solve(x0, prior, half_rho, iters):
+        def cost(x):
+            return _cost_fn_onehot(x, Vp, Cp, onehots, prior, half_rho, cfg)
+
+        def line_search(x, d):
+            return search(_quartic_coeffs(x, d, Vp, Cp, onehots, prior,
+                                          half_rho, cfg))
+
+        return lbfgs.lbfgs_solve(lane_value_and_grad(cost), x0,
+                                 max_iters=iters,
+                                 line_search=line_search)
+
+    return inner_solve
 
 
 def _prep(V, C, freqs, f0, rho, cfg: SolverConfig, Ts):
@@ -303,23 +332,10 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
     J = eye.expand(Nf, Ts, K, N, 2, 2, 2).reshape(Nf, Ts, K, 2 * N, 2, 2)
 
     Vp, Cp = _eval_operands(V6, C7)
-    onehots = baseline_onehots(N, V.dtype, dev)
     L = Nf * Ts
     x_shape = (L, K * 2 * N * 2 * 2)
     p_shape = (L, K, 2 * N, 2, 2)
-    search = _QuarticLineSearch(L, V.dtype, dev)
-
-    def inner_solve(x0, prior, half_rho, iters):
-        def cost(x):
-            return _cost_fn_onehot(x, Vp, Cp, onehots, prior, half_rho, cfg)
-
-        def line_search(x, d):
-            return search(_quartic_coeffs(x, d, Vp, Cp, onehots, prior,
-                                          half_rho, cfg))
-
-        return lbfgs.lbfgs_solve(lane_value_and_grad(cost), x0,
-                                 max_iters=iters,
-                                 line_search=line_search)
+    inner_solve = _inner_solver(Vp, Cp, cfg)
 
     if cfg.init_iters > 0:
         # chi2-only initialization at the per-subband data optimum
@@ -345,6 +361,102 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
         J, V6, C7, data_scale, cost, cfg, T)
     return SolveResult(J=J, Z=Z, residual=residual, sigma_res=sigma_res,
                        sigma_data=sigma_data, final_cost=fcost)
+
+
+def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
+                       n_chunks: int = 1, admm_iters=None) -> SolveResult:
+    """:func:`solve_admm` of E episodes at once: the JAX package's
+    ``vmap(solve_admm)`` (smartcal_tpu/envs/radio.py batched_solve_callable).
+
+    V (E, Nf, T, B, 2, 2, 2); C (E, Nf, K, T*B, 4, 2); freqs (E, Nf);
+    f0 (E,); rho (E, K); ``admm_iters`` None (the config's), an int, or
+    (E,) per-episode counts.  Every inner solve is ONE ``lbfgs_solve`` over
+    E*Nf*Ts lanes, ordered (episode, band, interval), and runs until its
+    slowest lane stops.  Data scale, rho, the consensus cores, Z, Y and the
+    statistics are per episode.  The ADMM loop runs to the largest count;
+    an episode past its own count keeps its J, Y, Z and cost, as a lane of
+    the vmapped ``fori_loop`` does.  Returns a :class:`SolveResult` whose
+    fields carry a leading episode axis."""
+    dev, dt = V.device, V.dtype
+    E, Nf, T = V.shape[0], V.shape[1], V.shape[2]
+    K, N = cfg.n_dirs, cfg.n_stations
+    Ts = n_chunks
+    if admm_iters is None:
+        admm_iters = cfg.admm_iters
+    iters = np.broadcast_to(np.asarray(admm_iters, np.int64).reshape(-1),
+                            (E,))
+    rho = torch.as_tensor(rho, dtype=dt, device=dev).reshape(E, K)
+    freqs = torch.as_tensor(freqs, dtype=dt, device=dev).reshape(E, Nf)
+    f0 = np.asarray(f0, np.float64).reshape(E)
+    # per-episode preparation, exactly the single solve's
+    preps = [_prep(V[e], C[e], freqs[e], float(f0[e]), rho[e], cfg, Ts)
+             for e in range(E)]
+    V6, C7, rho, data_scale, bfull, Bi = (torch.stack(t) for t in
+                                          zip(*preps))
+    del preps
+    eye = torch.zeros((2, 2, 2), dtype=dt, device=dev)
+    eye[:, :, 0] = torch.eye(2, dtype=dt, device=dev)
+    J = eye.expand(E, Nf, Ts, K, N, 2, 2, 2).reshape(E, Nf, Ts, K, 2 * N,
+                                                     2, 2)
+    Vp, Cp = _eval_operands(V6.flatten(0, 1), C7.flatten(0, 1))
+    L = E * Nf * Ts
+    x_shape = (L, K * 2 * N * 2 * 2)
+    p_shape = (L, K, 2 * N, 2, 2)
+    inner_solve = _inner_solver(Vp, Cp, cfg)
+
+    if cfg.init_iters > 0:
+        res = inner_solve(J.reshape(x_shape), J.reshape(p_shape),
+                          torch.zeros((L, K), dtype=dt, device=dev),
+                          cfg.init_iters)
+        J = res.x.reshape(J.shape)
+
+    half_rho = (0.5 * rho).repeat_interleave(Nf * Ts, dim=0)   # (L, K)
+    rho7 = rho[:, None, None, :, None, None, None]
+
+    def bz(Z):
+        return torch.einsum("xfe,xtkenij->xftknij", bfull, Z)
+
+    def z_update(J, Y):
+        S = torch.einsum("xfe,xftknij->xtkenij", bfull, rho7 * J + Y)
+        return torch.einsum("xkem,xtkmnij->xtkenij", Bi, S)
+
+    Y = torch.zeros_like(J)
+    Z = z_update(J, Y)
+    cost = torch.zeros((E, Nf, Ts), dtype=dt, device=dev)
+    for i in range(int(iters.max(initial=0))):
+        prior = bz(Z) - Y / rho7
+        res = inner_solve(J.reshape(x_shape), prior.reshape(p_shape),
+                          half_rho, cfg.lbfgs_iters)
+        J_new = res.x.reshape(J.shape)
+        cost_new = res.loss.reshape(E, Nf, Ts)
+        Z_new = z_update(J_new, Y)
+        Y_new = Y + rho7 * (J_new - bz(Z_new))
+        live = iters > i
+        if live.all():
+            J, Y, Z, cost = J_new, Y_new, Z_new, cost_new
+            continue
+        on = torch.as_tensor(live, device=dev)
+
+        def keep(new, old):
+            return torch.where(on.reshape((E,) + (1,) * (new.dim() - 1)),
+                               new, old)
+
+        J, Y, Z, cost = (keep(J_new, J), keep(Y_new, Y), keep(Z_new, Z),
+                         keep(cost_new, cost))
+
+    # residual and statistics in DATA units, per episode
+    B = V6.shape[4]
+    ds = data_scale.reshape(E, 1, 1, 1, 1, 1, 1)
+    r = V6 - predict_vis_sr(J, C7, N)
+    residual = r.reshape(E, Nf, T, B, 2, 2, 2) * ds
+    count = float(residual[0].numel())
+    n_res = torch.sum(residual * residual, dim=(1, 2, 3, 4, 5, 6))
+    n_dat = (torch.sum(V6 * V6, dim=(1, 2, 3, 4, 5, 6, 7)) * data_scale
+             * data_scale)
+    ds3 = data_scale[:, None, None]
+    return SolveResult(
+        J=J, Z=Z, residual=residual, sigma_res=torch.sqrt(n_res / count),
+        sigma_data=torch.sqrt(n_dat / count), final_cost=cost * ds3 * ds3)
 
 
 def result_finite(res: SolveResult) -> bool:

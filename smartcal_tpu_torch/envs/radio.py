@@ -19,12 +19,41 @@ each, with the same math:
 * ``data_image`` / ``residual_image`` -> ``imager.multifreq_image_sr``,
   one direct-DFT kernel launch per sub-band.
 
+Batched episodes (:class:`BatchedEpisode`, the batched envs' operands).
+The JAX backend routes a batch by device count and size: a plain
+``vmap``, a ``shard_map`` over a lane mesh (``_batch_shard_size``), or a
+composed lane x baseline mesh (``_compose_sizes``, ``_mesh2``), for the
+solve and the influence chain alike (smartcal_tpu/envs/radio.py:1082-1109,
+1134-1152, 1269-1285).  On one GPU every arm collapses to the ``vmap``
+route:
+
+* ``calibrate_batched``        -> ``solver.solve_admm_batched``: the
+  E*Nf*Ts inner solves as lanes of one L-BFGS, the rest per episode.  Like
+  the JAX route it has no rho-boost retry;
+* ``influence_images_batched`` -> ``influence.influence_images_lanes``:
+  the episodes' bands as leading lane axes of the plain chain and of the
+  factored imager's matmuls; the SKA-tier CUDA kernels, which take one
+  lane per launch, in a loop over lanes (the JAX package vmaps the
+  ``pallas_call``);
+* ``image_sigmas_batched``     -> the factored imager over all lanes, as in
+  the JAX package (not the DFT kernel: the fused reward differs from the
+  sequential env's by round-off only).
+
+Prefetch: ``prefetch_episode`` / ``take_prefetched`` and ``run_pipelined``
+build episodes on one worker thread; on the card it works on a stream of
+its own, and the caller's stream waits on an event recorded at the end of
+the build.
+
 ``stage_seconds`` accumulates host-clock seconds per stage (simulate,
-solve, influence, images), each ended by a device synchronize.
+solve, influence, images, sigmas), each ended by a synchronize of the
+calling thread's stream (a prefetch build's simulate seconds overlap the
+caller's stages).
 """
 
+import threading
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import NamedTuple
 
@@ -56,6 +85,39 @@ class Episode(NamedTuple):
     f0: float
     n_dirs: int
     snr: float
+
+
+class BatchedEpisode(NamedTuple):
+    """E stacked episodes (the JAX package's ``BatchedEpisode``): the lane
+    form of :class:`Episode` that the batched calibrate -> influence ->
+    reward chain takes.  Construction stays per lane, so stacking is the
+    batching boundary.  ``V``, ``Ccal`` and ``uvw`` live on the device (a
+    masked reset copies a lane in place); the small per-lane values stay
+    host numpy."""
+
+    V: torch.Tensor         # (E, Nf, T, B, 2, 2, 2)
+    Ccal: torch.Tensor      # (E, Nf, K, T*B, 4, 2)
+    freqs: np.ndarray       # (E, Nf) Hz
+    f0: np.ndarray          # (E,) float32
+    uvw: torch.Tensor       # (E, T*B, 3) meters
+    cell: np.ndarray        # (E,) float32 imaging pixel size (rad)
+    n_dirs: int             # K = M, equal across lanes
+
+    @property
+    def n_envs(self) -> int:
+        return self.V.shape[0]
+
+
+def _tensors(x):
+    """The tensors inside nested tuples, lists and dicts."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
 
 
 class RadioBackend:
@@ -91,6 +153,12 @@ class RadioBackend:
         self.block_baselines = block_baselines
         self.imager_block_r = imager_block_r
         self.stage_seconds = defaultdict(float)
+        self._stage_lock = threading.Lock()
+        self._prefetched = {}
+        self._prefetch_lock = threading.Lock()
+        self._prefetch_ex = None
+        self._prefetch_stream = None
+        self.prefetch_counts = {"hit": 0, "stall": 0, "miss": 0}
 
     @contextmanager
     def _stage(self, name):
@@ -99,8 +167,12 @@ class RadioBackend:
             yield
         finally:
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.stage_seconds[name] += time.perf_counter() - t0
+                # this thread's stream only: a device-wide synchronize from
+                # the prefetch thread would break the caller's graph capture
+                torch.cuda.current_stream(self.device).synchronize()
+            dt = time.perf_counter() - t0
+            with self._stage_lock:
+                self.stage_seconds[name] += dt
 
     @property
     def n_baselines(self):
@@ -240,3 +312,211 @@ class RadioBackend:
         """sqrt(mean_f std(Stokes I)^2) over sub-bands."""
         stds = torch.stack([solver.stokes_i_std(v) for v in V])
         return torch.sqrt(torch.mean(stds ** 2))
+
+    # -- episode prefetch ----------------------------------------------------
+
+    def _worker(self):
+        with self._prefetch_lock:
+            if self._prefetch_ex is None:
+                self._prefetch_ex = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="smartcal-episode")
+            return self._prefetch_ex
+
+    def _submit(self, build, *args):
+        """``build(*args)`` on the worker thread.  On the card it runs on
+        the worker's own stream and returns an event recorded at its end
+        beside the result (None elsewhere)."""
+        dev = self.device
+
+        def run():
+            if dev.type != "cuda":
+                return build(*args), None
+            if self._prefetch_stream is None:
+                self._prefetch_stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(self._prefetch_stream):
+                out = build(*args)
+                done = torch.cuda.Event()
+                done.record()
+            return out, done
+
+        return self._worker().submit(run)
+
+    def _collect(self, fut):
+        """The result of a :meth:`_submit` future, handed to the caller's
+        stream: the stream waits on the build's event, and every device
+        tensor of the result is marked as used there, so the allocator
+        does not give its memory back to the worker's stream while the
+        caller's kernels may still read it.  Raises what the build
+        raised."""
+        out, done = fut.result()
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in _tensors(out):
+                if t.device.type == "cuda":
+                    t.record_stream(cur)
+        return out
+
+    def prefetch_episode(self, tag, build):
+        """Schedule ``build()`` (an episode constructor) on the backend's
+        worker thread, keyed by ``tag``.  Every draw is keyed, so the
+        construction overlaps the caller's device work without changing any
+        result.  Callers sharing one backend namespace their tags (the envs
+        prefix theirs with the env instance)."""
+        self._prefetched[tag] = self._submit(build)
+
+    def take_prefetched(self, tag):
+        """Collect a prefetched episode (None if none was scheduled under
+        ``tag``); waits for the build, and raises what it raised.
+        ``prefetch_counts`` counts misses, builds done when taken (hits)
+        and builds waited on (stalls), the JAX package's counters."""
+        fut = self._prefetched.pop(tag, None)
+        if fut is None:
+            self.prefetch_counts["miss"] += 1
+            return None
+        self.prefetch_counts["hit" if fut.done() else "stall"] += 1
+        return self._collect(fut)
+
+    def discard_prefetched(self, tag):
+        """Drop a pending prefetch without taking it (env close)."""
+        fut = self._prefetched.pop(tag, None)
+        if fut is not None:
+            fut.cancel()
+
+    def run_pipelined(self, keys, make_episode, process):
+        """Double-buffered episode pipeline: yields ``process(ep, mdl)`` per
+        key while the next key's ``make_episode(key)`` runs on the worker
+        thread.  The outputs are a function of the keys alone."""
+        keys = list(keys)
+        if not keys:
+            return
+        fut = self._submit(make_episode, keys[0])
+        for i in range(len(keys)):
+            ep, mdl = self._collect(fut)
+            if i + 1 < len(keys):
+                fut = self._submit(make_episode, keys[i + 1])
+            yield process(ep, mdl)
+
+    # -- batched episodes ----------------------------------------------------
+
+    def stack_episodes(self, eps) -> BatchedEpisode:
+        """Stack per-lane :class:`Episode`s into a :class:`BatchedEpisode`."""
+        n_dirs = eps[0].n_dirs
+        if any(e.n_dirs != n_dirs for e in eps):
+            raise ValueError("batched lanes must share a (padded) direction "
+                             "count")
+        freqs = np.stack([e.obs.freqs.cpu().numpy() for e in eps])
+        return BatchedEpisode(
+            V=torch.stack([e.V for e in eps]),
+            Ccal=torch.stack([e.Ccal for e in eps]),
+            freqs=freqs,
+            f0=np.asarray([e.f0 for e in eps], np.float32),
+            uvw=torch.stack([e.obs.uvw.reshape(-1, 3) for e in eps]),
+            cell=np.asarray([imager.default_cell(e.obs.uvw,
+                                                 float(freqs[i][-1]))
+                             for i, e in enumerate(eps)], np.float32),
+            n_dirs=n_dirs)
+
+    def splice_episode(self, bep: BatchedEpisode, lane: int,
+                       ep: Episode) -> BatchedEpisode:
+        """Replace lane ``lane`` of ``bep`` with a fresh episode (masked
+        reset): the device fields are copied into the lane's slot in place
+        (``bep``'s tensors change), the host fields are copied."""
+        if ep.n_dirs != bep.n_dirs:
+            raise ValueError(f"episode has {ep.n_dirs} directions, the "
+                             f"batch {bep.n_dirs}")
+        freqs = ep.obs.freqs.cpu().numpy()
+        bep.V[lane].copy_(ep.V)
+        bep.Ccal[lane].copy_(ep.Ccal)
+        bep.uvw[lane].copy_(ep.obs.uvw.reshape(-1, 3))
+        f0, freqs_b, cell = bep.f0.copy(), bep.freqs.copy(), bep.cell.copy()
+        f0[lane] = ep.f0
+        freqs_b[lane] = freqs
+        cell[lane] = imager.default_cell(ep.obs.uvw, float(freqs[-1]))
+        return bep._replace(freqs=freqs_b, f0=f0, cell=cell)
+
+    def batched_solve_operands(self, bep: BatchedEpisode, rho, mask=None,
+                               admm_iters=None) -> tuple:
+        """The operands of the batched solve: (V, masked Ccal, freqs (E, Nf),
+        f0 (E,), rho (E, K), per-lane ADMM counts (E,) on the host).
+        ``admm_iters`` is None (the constructor's), a scalar or (E,)."""
+        E, K, dev = bep.n_envs, bep.n_dirs, self.device
+        rho = torch.as_tensor(np.asarray(rho, np.float32).reshape(E, K),
+                              device=dev)
+        C = bep.Ccal
+        if mask is not None:
+            m = torch.as_tensor(np.asarray(mask, np.float32).reshape(E, K),
+                                device=dev)
+            C = C * m[:, None, :, None, None, None]
+        iters = np.broadcast_to(np.asarray(
+            self.admm_iters if admm_iters is None else admm_iters,
+            np.int64).reshape(-1), (E,))
+        return (bep.V, C, torch.as_tensor(bep.freqs, device=dev), bep.f0,
+                rho, iters)
+
+    def calibrate_batched(self, bep: BatchedEpisode, rho, mask=None,
+                          admm_iters=None) -> solver.SolveResult:
+        """Batched :meth:`calibrate`: the E masked ADMM solves as one
+        (``solver.solve_admm_batched``).  ``rho`` and ``mask`` are (E, K);
+        ``admm_iters`` a scalar, (E,) per-lane counts, or None.  No
+        rho-boost retry, as on the JAX package's batched route."""
+        with self._stage("solve"):
+            V, C, freqs, f0, rho, iters = self.batched_solve_operands(
+                bep, rho, mask, admm_iters)
+            return solver.solve_admm_batched(
+                V, C, freqs, f0, rho, self._solver_cfg(bep.n_dirs),
+                n_chunks=self.n_chunks, admm_iters=iters)
+
+    def batched_influence_operands(self, bep: BatchedEpisode,
+                                   result: solver.SolveResult, rho,
+                                   rho_spatial) -> tuple:
+        """(residual, Ccal, J, hadd (E, Nf, K)): the per-episode consensus
+        scalars beside the solve's outputs."""
+        E, K = bep.n_envs, bep.n_dirs
+        rho = np.asarray(rho, np.float32).reshape(E, K)
+        alpha = np.asarray(rho_spatial, np.float32).reshape(E, K)
+        freqs = torch.as_tensor(bep.freqs, device=self.device)
+        hadd = torch.stack([influence.consensus_hadd_all(
+            rho[e], alpha[e], freqs[e], float(bep.f0[e]),
+            n_poly=self.n_poly, polytype=self.polytype) for e in range(E)])
+        return result.residual, bep.Ccal, result.J, hadd
+
+    def influence_images_batched(self, bep: BatchedEpisode,
+                                 result: solver.SolveResult, rho,
+                                 rho_spatial, npix=None):
+        """Batched :meth:`influence_image`: (E, npix, npix) mean influence
+        images; ``rho``/``rho_spatial`` are (E, K).  The SKA-tier statics
+        are those of the single-episode route."""
+        npix = npix or self.npix
+        statics = self._influence_statics(npix)
+        with self._stage("influence"):
+            residual, C, J, hadd = self.batched_influence_operands(
+                bep, result, rho, rho_spatial)
+            imgs = influence.influence_images_lanes(
+                residual, C, J, hadd, bep.freqs, bep.uvw[:, None],
+                bep.cell[:, None], n_stations=self.n_stations,
+                n_chunks=self.n_chunks, npix=npix, **statics)
+            return torch.mean(imgs, dim=1)
+
+    def image_sigmas_batched(self, bep: BatchedEpisode,
+                             result: solver.SolveResult, npix=None):
+        """Per-lane (sigma_data_img, sigma_res_img), each (E,): the std of
+        the band-mean data and residual dirty images (the reward inputs),
+        through the factored imager's matmuls over all lanes."""
+        npix = npix or self.npix
+
+        def img_std(V):
+            imgs = imager.dirty_image_factored_sr(
+                bep.uvw[:, None], imager.stokes_i_vis(V), bep.freqs,
+                bep.cell[:, None], npix=npix)
+            return torch.std(torch.mean(imgs, dim=1), dim=(-2, -1),
+                             correction=0)
+
+        with self._stage("sigmas"):
+            return img_std(bep.V), img_std(result.residual)
+
+    def noise_std_batched(self, V):
+        """Per-lane :meth:`noise_std` of an (E, Nf, T, B, 2, 2, 2) batch."""
+        sI = 0.5 * (V[..., 0, 0, :] + V[..., 1, 1, :])
+        stds = torch.std(sI, dim=(-3, -2, -1), correction=0)
+        return torch.sqrt(torch.mean(stds ** 2, dim=-1))

@@ -1,10 +1,10 @@
 """Carry state from the JAX package into the port.
 
-The JAX package's ``Episode``, ``SolveResult``, ``SACState``,
-``TD3State`` and ``DDPGState`` (any
-objects with the same field names, holding arrays that ``numpy.asarray``
-accepts) and flax parameter trees become the port's types, so one episode
-or one agent can be fed to both packages.  Nothing here imports the JAX
+The JAX package's ``Episode``, ``BatchedEpisode``, ``SolveResult``,
+``SACState``, ``TD3State`` and ``DDPGState`` (any objects with the same
+field names, holding arrays that ``numpy.asarray`` accepts) and flax
+parameter trees become the port's types, so one episode or one agent can
+be fed to both packages.  Nothing here imports the JAX
 package: the fields are read by name.
 """
 
@@ -31,6 +31,17 @@ def episode_from_numpy(ep, device="cpu") -> radio.Episode:
     return radio.Episode(obs=obs, V=_t(ep.V, device), Ccal=_t(ep.Ccal, device),
                          f0=float(ep.f0), n_dirs=int(ep.n_dirs),
                          snr=float(ep.snr))
+
+
+def batched_episode_from_numpy(bep, device="cpu") -> radio.BatchedEpisode:
+    """The port's :class:`~smartcal_tpu_torch.envs.radio.BatchedEpisode` of
+    a JAX ``BatchedEpisode``: V, Ccal and uvw copied to ``device``, the
+    per-lane host values copied as numpy."""
+    return radio.BatchedEpisode(
+        V=_t(bep.V, device), Ccal=_t(bep.Ccal, device),
+        freqs=np.array(bep.freqs, np.float32),
+        f0=np.array(bep.f0, np.float32), uvw=_t(bep.uvw, device),
+        cell=np.array(bep.cell, np.float32), n_dirs=int(bep.n_dirs))
 
 
 def solve_result_from_numpy(res, device="cpu") -> solver.SolveResult:

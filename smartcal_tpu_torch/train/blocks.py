@@ -9,7 +9,8 @@ each such flag instead of ignoring it.  :class:`TrainObs` is the run
 handle with neither a metrics stream nor a trace: the per-episode echo on
 stderr and no-op span, diagnostics and replay-health hooks.
 :class:`TrainRuntime` is the fault-tolerance handle with no checkpoint
-flag set: restore and checkpoint are no-ops.
+flag set: restore and checkpoint are no-ops.  :func:`run_batched_agent_loop`
+is the vector-episode loop of ``--batch-envs`` > 1.
 """
 
 import contextlib
@@ -76,8 +77,9 @@ def add_ere_arg(p):
 def add_batched_args(p):
     """The batched-env flag shared by the radio trainers."""
     p.add_argument("--batch-envs", dest="batch_envs", type=int, default=1,
-                   help="run N env lanes as one batched program "
-                        "(1 = the sequential reference loop)")
+                   help="run N env lanes as one batched pass (1 = the "
+                        "sequential reference loop).  Each vector step "
+                        "stores N transitions and runs ONE learn")
     return p
 
 
@@ -110,10 +112,6 @@ def reject_unported(args) -> None:
         if getattr(args, attr, None):
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP queue 1 item {item}")
-    if getattr(args, "batch_envs", 1) > 1:
-        raise NotImplementedError(
-            "--batch-envs > 1 (BatchedCalibEnv) is not ported yet: ROADMAP "
-            "queue 1 item 8")
 
 
 class TrainObs:
@@ -167,3 +165,63 @@ class TrainRuntime:
 
     def maybe_checkpoint(self, step, build_payload) -> bool:
         return False
+
+
+def run_batched_agent_loop(env, agent, args, tob, rt, scale_reward,
+                           use_hint=False):
+    """Vector-episode loop of the batched radio envs (the JAX package's
+    ``run_batched_agent_loop`` without checkpoint restore, watchdog or
+    warm-up, which are not ported): each vector episode resets all E
+    lanes; each vector step advances them in one batched pass, stores the
+    E transitions and runs ONE learn (the 1:E learn:env-step regime).
+    ``scores`` keeps the sequential drivers' format: E per-lane
+    mean-step-reward entries per vector episode, ceil(episodes / E)
+    vector episodes."""
+    import numpy as np
+
+    from smartcal_tpu_torch.rl.networks import flatten_obs_batch
+    from smartcal_tpu_torch.runtime.atomic import atomic_pickle
+
+    E = env.n_envs
+    n_vec = -(-args.episodes // E)
+    scores = []
+    rt.restore()
+    try:
+        for i in range(n_vec):
+            with tob.span("episode", episode=i, lanes=E):
+                flat = flatten_obs_batch(env.reset())
+                score = np.zeros(E, np.float64)
+                loop, done = 0, False
+                while not done and loop < args.steps:
+                    actions = np.asarray(
+                        agent.choose_action(flat)).reshape(E, -1)
+                    out = env.step(actions)
+                    if use_hint:
+                        ob2, rewards, dones, hints, _ = out
+                    else:
+                        ob2, rewards, dones, _ = out
+                        hints = np.zeros((E, agent.cfg.n_actions),
+                                         np.float32)
+                    flat2 = flatten_obs_batch(ob2)
+                    for e in range(E):
+                        agent.store_transition(
+                            flat[e], actions[e],
+                            scale_reward(float(rewards[e])), flat2[e],
+                            bool(dones[e]), hints[e])
+                    agent.learn()          # one learn per vector step
+                    if tob.record_diag(agent.last_diag, episode=i):
+                        done = True
+                    score += np.asarray(rewards, np.float64)
+                    flat = flat2
+                    loop += 1
+            per_lane = score / max(loop, 1)
+            scores.extend(float(s) for s in per_lane)
+            tob.log_replay_health(agent.buffer, episode=i)
+            tob.episode(i, float(per_lane.mean()), scores,
+                        seed=getattr(args, "seed", None), lanes=E)
+            agent.save_models()
+            atomic_pickle(scores, f"{args.prefix}_scores.pkl")
+            rt.maybe_checkpoint(i + 1, lambda: None)
+    finally:
+        tob.close()
+    return scores

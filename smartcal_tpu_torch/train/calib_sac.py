@@ -5,10 +5,13 @@ Mirrors ``calibration/main_sac.py``: M=10 max directions, 2M actions,
 episodes of up to 4 steps, rewards > 1 scaled by 10, per-episode model
 checkpointing, score moving average.  The env runs on the port's radio
 backend; env, agent and replay ring live on ``--device`` (default cuda).
+``--batch-envs E`` > 1 trains on a ``BatchedCalibEnv`` of E lanes, one
+learn per vector step, E per-lane scores per vector episode.
 
 Usage:
     python -m smartcal_tpu_torch.train.calib_sac --episodes 50 --seed 0
-        [--use_hint] [--stations 14] [--small] [--device cpu]
+        [--use_hint] [--stations 14] [--small] [--batch-envs E]
+        [--device cpu]
 """
 
 import argparse
@@ -16,7 +19,7 @@ import argparse
 import numpy as np
 
 from smartcal_tpu_torch import resolve_device
-from smartcal_tpu_torch.envs.calib import CalibEnv
+from smartcal_tpu_torch.envs.calib import BatchedCalibEnv, CalibEnv
 from smartcal_tpu_torch.envs.radio import RadioBackend
 from smartcal_tpu_torch.rl import sac
 from smartcal_tpu_torch.rl.networks import flatten_obs
@@ -25,6 +28,7 @@ from smartcal_tpu_torch.train.blocks import (TrainRuntime, add_batched_args,
                                              add_ere_arg, add_obs_args,
                                              add_runtime_args,
                                              reject_unported,
+                                             run_batched_agent_loop,
                                              train_obs_from_args)
 
 
@@ -88,9 +92,17 @@ def main(argv=None):
     else:
         backend = RadioBackend(n_stations=args.stations, npix=args.npix,
                                device=dev)
-    env = CalibEnv(M=args.M, provide_hint=args.use_hint, backend=backend,
-                   seed=args.seed, fixed_K=args.fixed_K,
-                   baseline_reward=args.baseline_reward, device=dev)
+    batched = args.batch_envs > 1
+    if batched:
+        env = BatchedCalibEnv(M=args.M, n_envs=args.batch_envs,
+                              provide_hint=args.use_hint, backend=backend,
+                              seed=args.seed, fixed_K=args.fixed_K,
+                              baseline_reward=args.baseline_reward,
+                              device=dev)
+    else:
+        env = CalibEnv(M=args.M, provide_hint=args.use_hint,
+                       backend=backend, seed=args.seed, fixed_K=args.fixed_K,
+                       baseline_reward=args.baseline_reward, device=dev)
     agent_cfg = agent_config(backend.npix, args.M, args.use_hint,
                              args.ere_eta)
     agent = sac.SACAgent(agent_cfg, seed=args.seed, name_prefix=args.prefix,
@@ -101,6 +113,12 @@ def main(argv=None):
     scores = []
     tob = train_obs_from_args(args, "calib_sac")
     rt = TrainRuntime(args.prefix)
+    if batched:
+        # rewards keep the main_sac.py > 1 x10 scaling
+        return run_batched_agent_loop(
+            env, agent, args, tob, rt,
+            scale_reward=lambda r: r * 10 if r > 1 else r,
+            use_hint=args.use_hint)
     rt.restore()
     try:
         for i in range(args.episodes):

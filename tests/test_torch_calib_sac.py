@@ -175,13 +175,34 @@ def test_trainer_trains_and_resumes_on_the_cpu(tmp_path):
         np.testing.assert_array_equal(dict(_leaves(state2))[k], v, k)
 
 
+def test_batched_trainer_trains_on_the_cpu(tmp_path):
+    """--batch-envs 2: one vector episode of 2 lanes, 2 steps each, one
+    learn per vector step, 2 per-lane scores."""
+    prefix = str(tmp_path / "cb_")
+    scores = calib_sac.main(["--small", "--batch-envs", "2", "--episodes",
+                             "2", "--steps", "2", "--device", "cpu",
+                             "--quiet", "--prefix", prefix])
+    assert len(scores) == 2 and np.all(np.isfinite(scores))
+    _, ring = _saved(prefix)
+    assert ring["cntr"] == 4               # 2 lanes x 2 steps
+    with open(f"{prefix}_scores.pkl", "rb") as fh:
+        assert pickle.load(fh) == scores
+
+
+def test_batched_trainer_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        calib_sac.main(["--small", "--batch-envs", "2", "--episodes", "2"])
+
+
 @pytest.mark.parametrize("flag, item", [
     (["--metrics", "m.jsonl"], "item 12"), (["--trace", "t"], "item 12"),
     (["--diag"], "item 12"), (["--watchdog"], "item 12"),
     (["--compile-cache", "c"], "item 12"), (["--resume"], "item 12"),
     (["--ckpt-every", "2"], "item 12"), (["--max-recoveries", "1"],
                                          "item 12"),
-    (["--batch-envs", "2"], "item 8"), (["--light"], "item 10"),
+    (["--batch-envs", "2", "--resume"], "item 12"), (["--light"], "item 10"),
     (["--medium"], "item 10")])
 def test_trainer_names_the_roadmap_item_of_an_unported_flag(flag, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -279,3 +279,38 @@ def test_full_width_td3_learn_step_matches_cpu():
                 np.testing.assert_allclose(g[name], w[name], rtol=1e-4,
                                            atol=1e-5,
                                            err_msg=f"{part} {field} {name}")
+
+
+@pytest.mark.cuda
+def test_batched_env_reset_and_step_on_gpu():
+    """BatchedCalibEnv on the card, reset + one step of 3 lanes, against
+    its fused=False oracle on the card (the JAX package's batched
+    tolerances), and a prefetching CalibEnv against a plain one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the batched route runs the CUDA "
+                    "kernels and graphs")
+    from smartcal_tpu_torch.envs.calib import BatchedCalibEnv, CalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    tiny = dict(n_stations=6, n_freqs=2, n_times=4, tdelta=2, admm_iters=2,
+                lbfgs_iters=3, init_iters=5, npix=32, device="cuda")
+    acts = np.linspace(-0.5, 0.5, 18).reshape(3, 6).astype(np.float32)
+    outs = []
+    for fused in (True, False):
+        env = BatchedCalibEnv(M=3, n_envs=3, backend=RadioBackend(**tiny),
+                              seed=11, fused=fused, device="cuda")
+        outs.append((env.reset(), env.step(acts)))
+    (fo, (fo2, fr, _, finfo)), (oo, (oo2, orw, _, oinfo)) = outs
+    for a, b in ((fo["img"], oo["img"]), (fo2["img"], oo2["img"])):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-5)
+    np.testing.assert_allclose(fr, orw, rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(finfo["sigma_res"], oinfo["sigma_res"],
+                               rtol=1e-3)
+    assert (finfo["sigma_res"] < finfo["sigma_data"]).all()
+    plain, pre = (CalibEnv(M=3, backend=RadioBackend(**tiny), seed=3,
+                           device="cuda", prefetch=p) for p in (False, True))
+    for _ in range(3):
+        a, b = plain.reset(), pre.reset()
+        np.testing.assert_array_equal(a["img"], b["img"])
+        np.testing.assert_array_equal(a["sky"], b["sky"])
+    pre.close()
