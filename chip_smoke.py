@@ -5,6 +5,30 @@
 1. checks for a GPU and prints its name and power limit;
 2. builds every CUDA kernel of smartcal_tpu_torch from csrc/ (one nvcc per
    source, all started together);
+2b. drives the demixing slice, before the first torch.profiler session of
+   the process (after it launches run slower): a diffuse calibration
+   episode (the shapelet sky) at N=62, calibrated, imaged and its
+   influence mapped, with kernel 1's launches counted, the shapelet add
+   held against its plain CPU computation on the same uvw and kernel 1
+   against the direct DFT on the episode's data; DemixingEnv(K=6, hint,
+   influence map) on the demixing trainers' default backend (N=14, Nf=3,
+   T=20, admm_iters=30, npix=128), reset and two steps with fixed actions
+   and the hint, stage seconds, L-BFGS iterations and peak memory, the
+   hint's shape and range, and the sweep of all 32 selections one mask at
+   a time, 8 and 32 at a time, held at rtol 1e-3 at 4 L-BFGS iterations
+   (and printed beside the 1-ulp spread at admm_iters=2: chaotic there);
+   BatchedDemixingEnv(E=4) fused and through its fused=False oracle,
+   reset and one step, its stages held on the oracle's own solves and the
+   end-to-end differences printed beside a 1-ulp spread; FuzzyDemixingEnv
+   reset and one step, its priorities on the card against the CPU
+   (atol 1e-3); the five trainers demix_sac (hint, influence), demix_sac
+   --batch-envs 4, demix_td3, demix_fuzzy_sac (hint) and calib_sac
+   --light, each 1 episode (one vector episode) of 2 steps, their saved
+   agent, ring and scores checked and their env-steps/s printed; counts
+   zeroed just before and read just after each path (no kernel on the
+   demixing paths: their images are 128² at N=14 and their reward is no
+   image); the demixing step is profiled at the end (kernels per L-BFGS
+   iteration, idle share);
 3. drives the reference-scale path: CalibEnv(M=10) on RadioBackend (N=62
    stations, Nf=3, T=20, tdelta=10, npix=128), reset and two steps with the
    analytic hint, random sky from seed 0, with the kernel launch counts
@@ -84,7 +108,8 @@
    shares);
 9. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
    blocked tier forced) and compares them;
-10. prints the kernel table as one JSON line, the card line, and last
+10. prints the kernel table as one JSON line (with each kernel's launches
+   on the diffuse and the demixing paths), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -1655,6 +1680,526 @@ def batched_train_phase(dev, out_dir, zero_counts, read_counts):
     return out
 
 
+# -- the demixing slice: the diffuse calibration episode at N=62, the
+# demixing env, its batched form, the fuzzy env and the five trainers.  They
+# run before the first torch.profiler session of the process (which slows
+# later launches, ROADMAP lever h); the demixing step's profile is taken
+# last, by :func:`demix_profile` ------------------------------------------
+
+DIFFUSE_K = 5
+# the demixing trainers' default backend (demix_sac.make_backend):
+# N=14, Nf=3, T=20, tdelta=10, admm_iters=30, npix=128, hint_batch=8
+DEMIX_TIER = argparse.Namespace(small=False, light=False, medium=False,
+                                stations=14, npix=128)
+DEMIX_K, DEMIX_E = 6, 4
+# the sweeps held against one mask at a time: a few L-BFGS iterations,
+# where the solve is not chaotic in float32; the backend's own at
+# admm_iters=2 are printed beside the 1-ulp spread
+SWEEP_HELD = {"init_iters": 2, "lbfgs_iters": 2, "admm_iters": 1}
+SWEEP_ITERS, SWEEP_RTOL = 2, 1e-3
+FUZZY_ATOL = 1e-3                       # tests/test_torch_fuzzy.py
+SHAPELET_RTOL, SHAPELET_ATOL = 1e-4, 1e-6   # tests/test_torch_shapelets.py
+DEMIX_COMMON = ["--seed", "0", "--quiet"]
+DEMIX_DRIVERS = (
+    ("demix_sac", ["--iteration", "1", "--steps", "2", "--warmup", "0",
+                   "--use_hint", "--provide_influence"]),
+    ("demix_sac_b4", ["--batch-envs", "4", "--iteration", "4", "--steps",
+                      "2"]),
+    ("demix_td3", ["--iteration", "1", "--steps", "2"]),
+    ("demix_fuzzy_sac", ["--iteration", "1", "--steps", "2", "--use_hint"]),
+    ("calib_sac_light", ["--light", "--episodes", "1", "--steps", "2"]),
+)
+
+
+def _demix_actions(E, K):
+    """Fixed actions: alternating selections, maxiter 5 (lane 0) to 10."""
+    a = np.tile(np.where(np.arange(K) % 2 == 0, 0.9, -0.9), (E, 1))
+    a[:, -1] = np.linspace(-1.0, -0.6, E)
+    return a.astype(np.float32)
+
+
+def diffuse_phase(dev, zero_counts, read_counts):
+    """A diffuse calibration episode (the shapelet sky) at N=62: build,
+    calibrate, influence, data and residual images, counts zeroed just
+    before and read just after; finite, sigma_res < sigma_data, the
+    card's shapelet add against its plain CPU computation on the same
+    uvw, kernel 1 held against the direct DFT on the episode's data."""
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.cal import imager
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.ops import dft_imager
+    backend = RadioBackend(device=dev, **N62)
+    key = prng.split(prng.PRNGKey(0))[1]
+    M = BATCH_M
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t = {}
+    t0 = time.perf_counter()
+    ep, mdl = backend.new_calib_episode(key, DIFFUSE_K, M, diffuse=True)
+    torch.cuda.synchronize(dev)
+    t["simulate"] = time.perf_counter() - t0
+    rho = np.ones(M, np.float32)
+    rho[:DIFFUSE_K] = mdl.rho
+    mask = (np.arange(M) < DIFFUSE_K).astype(np.float32)
+    alpha = np.zeros(M, np.float32)
+    alpha[:DIFFUSE_K] = mdl.rho_spatial
+    t0 = time.perf_counter()
+    res = backend.calibrate(ep, rho, mask=mask)
+    torch.cuda.synchronize(dev)
+    t["solve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inf = backend.influence_image(ep, res, rho, alpha).cpu().numpy()
+    t["influence"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = backend.data_image(ep).cpu().numpy()
+    resid = backend.residual_image(ep, res).cpu().numpy()
+    t["images"] = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    sig_res, sig_data = float(res.sigma_res), float(res.sigma_data)
+    if not all(np.isfinite(x).all() for x in (inf, data, resid)):
+        raise AssertionError("diffuse episode: non-finite image")
+    if not sig_res < sig_data or not np.std(resid) < np.std(data):
+        raise AssertionError(f"diffuse episode: sigma_res {sig_res} against "
+                             f"sigma_data {sig_data}")
+    want = 2 * N62["n_freqs"]               # data + residual image per band
+    if launches["dft_imager"] != want:
+        raise AssertionError(f"diffuse path launched dft_imager "
+                             f"{launches['dft_imager']} times, expected "
+                             f"{want}")
+    # the shapelet add on the card against its plain CPU computation, on
+    # the path's uvw and on it scaled by 1e-3: the component (beta ~0.1
+    # rad) is resolved out on every baseline of the array, so it is seen
+    # only at a few wavelengths
+    shp = mdl.shapelet
+    zeros = torch.zeros_like(ep.Ccal)
+    cpu_backend = RadioBackend(device="cpu", **N62)
+    shp_err, shp_max = [], []
+    for scale in (1.0, 1e-3):
+        obs = ep.obs._replace(uvw=ep.obs.uvw * scale)
+        got = backend._add_shapelet(obs, zeros, shp.coeff, shp.beta,
+                                    shp.flux)
+        want_add = cpu_backend._add_shapelet(
+            obs._replace(uvw=obs.uvw.cpu(), freqs=obs.freqs.cpu()),
+            zeros.cpu(), shp.coeff, shp.beta, shp.flux)
+        shp_max.append(float(want_add.abs().max()))
+        shp_err.append(check_close(
+            "shapelet add", f"diffuse path uvw x {scale} n0="
+            f"{shp.coeff.shape[0]} R={ep.Ccal.shape[2]}", got.cpu(),
+            want_add, SHAPELET_RTOL, SHAPELET_ATOL, shp_max[-1]))
+    if not shp_max[1] > 1.0:
+        raise AssertionError("the shapelet add vanished at a few "
+                             "wavelengths too")
+    # kernel 1 on the diffuse episode's band-0 data, against the direct DFT
+    uvw = ep.obs.uvw.reshape(-1, 3)
+    cell = imager.default_cell(ep.obs.uvw, float(ep.obs.freqs[-1]))
+    visc = imager.stokes_i_vis(ep.V[0]).contiguous()
+    dft_err = check_imager(dft_imager, scaled_uv(dft_imager, uvw,
+                                                 float(ep.obs.freqs[0])),
+                           visc, N62["npix"], cell, "diffuse path")
+    out = {"K": DIFFUSE_K, "M": M, "n0": int(shp.coeff.shape[0]),
+           "seconds": t, "sigma_res": sig_res, "sigma_data": sig_data,
+           "sigma_res_img": float(np.std(resid)),
+           "sigma_data_img": float(np.std(data)), "launches": launches,
+           "peak_mem_bytes": peak, "shapelet_max_abs_err": shp_err,
+           "shapelet_max_abs": shp_max,
+           "dft_max_abs_err": dft_err}
+    print(f"diffuse episode (N=62, K={DIFFUSE_K}, M={M}, shapelet n0="
+          f"{out['n0']}): " + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
+          + f"; sigma_res {sig_res:.5f} < sigma_data {sig_data:.5f}; image "
+          f"std residual {out['sigma_res_img']:.5f} data "
+          f"{out['sigma_data_img']:.5f}; peak {peak / 2**20:.0f} MiB; "
+          "launches " + ", ".join(f"{k} {v}" for k, v in launches.items()),
+          flush=True)
+    return out
+
+
+def demix_env_phase(dev, zero_counts, read_counts):
+    """DemixingEnv(K=6, provide_hint=True, provide_influence=True) on the
+    demixing trainers' default backend: reset and 2 steps with fixed
+    actions (the first step computes the hint), counts zeroed just before
+    and read just after; stage seconds, L-BFGS iterations per call, peak
+    memory; the hint's shape and range; the sweep of every selection at
+    admm_iters=2 one mask at a time, 8 and 32 at a time (rtol 1e-3).
+    Returns (report, env) for :func:`demix_profile`."""
+    from smartcal_tpu_torch.envs.demixing import DemixingEnv
+    from smartcal_tpu_torch.train import demix_sac
+    backend = demix_sac.make_backend(DEMIX_TIER, dev)
+    env = DemixingEnv(K=DEMIX_K, provide_hint=True, provide_influence=True,
+                      backend=backend, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    iters = LbfgsIters()
+    zero_counts()
+    steps = []
+    try:
+        t0 = time.perf_counter()
+        obs0 = env.reset()
+        t_reset = time.perf_counter() - t0
+        reset_stages, reset_iters = dict(backend.stage_seconds), \
+            iters.since(0)
+        for a in _demix_actions(2, DEMIX_K):
+            before, n0 = dict(backend.stage_seconds), len(iters.calls)
+            t0 = time.perf_counter()
+            obs, reward, done, hint, info = env.step(a)
+            sec = time.perf_counter() - t0
+            steps.append({"seconds": sec, "maxiter": env.maxiter,
+                          "reward": float(reward),
+                          "sigma_res": info["sigma_res"],
+                          "stage_seconds": {
+                              k: v - before.get(k, 0.0) for k, v in
+                              backend.stage_seconds.items()},
+                          **iters.since(n0)})
+            if not (np.isfinite(reward) and all(np.isfinite(v).all()
+                                                for v in obs.values())):
+                raise AssertionError("demixing env: non-finite step")
+            if not info["sigma_res"] < env.std_data:
+                raise AssertionError("demixing env: calibration did not "
+                                     "reduce the residual")
+    finally:
+        iters.restore()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(v).all() for v in obs0.values()):
+        raise AssertionError("demixing env: non-finite reset")
+    if obs0["infmap"].shape != (DEMIX_TIER.npix,) * 2 \
+            or obs0["metadata"].shape != (3 * DEMIX_K + 2,):
+        raise AssertionError("demixing env: observation shapes")
+    want_iter = (steps[0]["maxiter"] - 17.5) * (2 / 25)
+    if hint.shape != (DEMIX_K,) or not np.isfinite(hint).all() \
+            or np.abs(hint).max() > 1.0 \
+            or not math.isclose(hint[-1], want_iter, abs_tol=1e-6):
+        raise AssertionError(f"demixing hint {hint}")
+    # the sweep of every selection, one mask at a time and batched.  Held
+    # (rtol 1e-3) at a few L-BFGS iterations (SWEEP_HELD: 2 init + 1 ADMM
+    # x 2), where round-off stays round-off: the card's reductions change
+    # order with the lane count, and at the backend's 30 init iterations
+    # the solve is chaotic even at admm_iters=2 (ROADMAP queue 3).  At
+    # admm_iters=2 on the backend itself the widths' differences are
+    # printed beside the 1-ulp spread of V, not held.
+    masks, valid = env.hint_masks()
+    held_backend = demix_sac.make_backend(DEMIX_TIER, dev)
+    for k, v in SWEEP_HELD.items():
+        setattr(held_backend, k, v)
+    sweep, sweep_s, free = {}, {}, {}
+    for b in (1, 8, 32):
+        t0 = time.perf_counter()
+        sweep[b] = held_backend.hint_sweep(env.ep, env.rho, masks,
+                                           batch=b).cpu().numpy()
+        sweep_s[b] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        free[b] = backend.hint_sweep(env.ep, env.rho, masks,
+                                     admm_iters=SWEEP_ITERS,
+                                     batch=b).cpu().numpy()
+        sweep_s[f"{b}_admm{SWEEP_ITERS}"] = time.perf_counter() - t0
+    ulp = backend.hint_sweep(env.ep._replace(V=env.ep.V * (1 + 2 ** -23)),
+                             env.rho, masks, admm_iters=SWEEP_ITERS,
+                             batch=8).cpu().numpy()
+    ratios = {f"batch{b}_vs_batch1": tol_ratio(sweep[b], sweep[1],
+                                               SWEEP_RTOL, 0.0)
+              for b in (8, 32)}
+    ratios["batch32_vs_batch8"] = tol_ratio(sweep[32], sweep[8], SWEEP_RTOL,
+                                            0.0)
+    free_rel = {f"batch{b}_vs_batch1": float(np.max(np.abs(
+        free[b] - free[1]) / free[1])) for b in (8, 32)}
+    free_rel["batch8_under_1ulp_of_V"] = float(np.max(np.abs(
+        ulp - free[8]) / free[8]))
+    if launches != read_counts() or any(launches.values()):
+        raise AssertionError(f"the demixing env launched {launches}: its "
+                             "influence map (N=14, npix=128) reaches no "
+                             "kernel threshold and its reward is no image")
+    out = {"K": DEMIX_K, "reset_seconds": t_reset,
+           "reset_stage_seconds": reset_stages, "reset_iters": reset_iters,
+           "steps": steps, "hint": hint.tolist(),
+           "hint_seconds": steps[0]["stage_seconds"].get("hint", 0.0),
+           "stage_seconds": dict(backend.stage_seconds),
+           "launches": launches, "peak_mem_bytes": peak,
+           "sweep_held_config": SWEEP_HELD, "sweep_seconds": sweep_s,
+           "sweep_masks": int(masks.shape[0]),
+           "sweep_valid": int(valid.sum()),
+           "sweep_ratios": ratios, "sweep_rtol": SWEEP_RTOL,
+           "sweep_admm_iters": SWEEP_ITERS,
+           "sweep_free_max_rel": free_rel}
+    print(f"demixing env (N={backend.n_stations}, Nf={backend.n_freqs}, "
+          f"T={backend.n_times}, K={DEMIX_K}): reset {t_reset:.3f} s "
+          f"(L-BFGS iterations {reset_iters['iters_max']}); steps "
+          + "; ".join(f"{s['seconds']:.3f} s at maxiter {s['maxiter']} ("
+                      + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  s["stage_seconds"].items())
+                      + f"; L-BFGS iterations {s['iters_max']} over "
+                      f"{s.get('inner_solves', 0)} inner solves)"
+                      for s in steps)
+          + f"; hint {out['hint_seconds']:.3f} s "
+          + str(np.round(hint, 4).tolist())
+          + "; stage seconds " + ", ".join(
+              f"{k} {v:.3f}" for k, v in backend.stage_seconds.items())
+          + f"; peak {peak / 2**20:.0f} MiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    print(f"  hint sweep of {masks.shape[0]} selections ({int(valid.sum())} "
+          "valid): " + ", ".join(f"batch {b} {s:.3f} s" for b, s in
+                                 sweep_s.items())
+          + f"; held at {SWEEP_HELD}, largest difference over rtol 1e-3: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+          + f"; at admm_iters={SWEEP_ITERS} on the backend (not held) "
+          "largest relative difference " + ", ".join(
+              f"{k} {v:.2e}" for k, v in free_rel.items()), flush=True)
+    if max(ratios.values()) > 1.0:
+        raise AssertionError("the hint sweep depends on its batch width")
+    return out, env
+
+
+def demix_batched_phase(dev, zero_counts, read_counts):
+    """BatchedDemixingEnv(K=6, E=4, provide_influence=True), fused, reset
+    and one step with fixed actions, then the same lanes through the
+    fused=False oracle.  Held on the oracle's own step solves: the fused
+    noise statistic, influence images and rewards (rtol 1e-4 on sigma and
+    reward, the image tolerance of tests/test_batched_radio.py).  The
+    end-to-end differences are printed beside lane 0's 1-ulp spread and
+    not held (the solve is chaotic in float32, ROADMAP queue 3)."""
+    from smartcal_tpu_torch.cal import solver
+    from smartcal_tpu_torch.envs.demixing import BatchedDemixingEnv
+    from smartcal_tpu_torch.train import demix_sac
+    E, K = DEMIX_E, DEMIX_K
+    acts = _demix_actions(E, K)
+    out = {"E": E}
+    runs = {}
+    for fused in (True, False):
+        b = demix_sac.make_backend(DEMIX_TIER, dev)
+        env = BatchedDemixingEnv(K=K, n_envs=E, provide_influence=True,
+                                 backend=b, seed=0, fused=fused, device=dev)
+        solves = []
+        if not fused:
+            cal = b.calibrate
+
+            def keep(*args, **kw):
+                solves.append(cal(*args, **kw))
+                return solves[-1]
+
+            b.calibrate = keep
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        obs0 = env.reset()
+        t_reset = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obs, rew, dones, info = env.step(acts)
+        t_step = time.perf_counter() - t0
+        launches = read_counts()
+        if any(launches.values()):
+            raise AssertionError(f"batched demixing launched {launches}")
+        if not (np.isfinite(rew).all() and all(
+                np.isfinite(v).all() for o in (obs0, obs)
+                for v in o.values())):
+            raise AssertionError("batched demixing: non-finite output")
+        runs[fused] = (env, obs, rew, info, solves)
+        out["fused" if fused else "oracle"] = {
+            "reset_seconds": t_reset, "step_seconds": t_step,
+            "env_steps_per_s": E / t_step, "maxiter": env.maxiter.tolist(),
+            "stage_seconds": dict(b.stage_seconds), "launches": launches,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    env, obs, rew, info, _ = runs[True]
+    oenv, oobs, orew, oinfo, solves = runs[False]
+    step_solves = solves[E:]
+    b = env.backend
+    stacked = solver.SolveResult(*(torch.stack([getattr(r, f) for r in
+                                                step_solves])
+                                   for f in solver.SolveResult._fields))
+    masks = oenv._masks([np.where(s > 0.5)[0].tolist()
+                         for s in acts[:, :K - 1] * 0.5 + 0.5])
+    sig = b.noise_std_batched(stacked.residual).cpu().numpy()
+    rho_eff = oenv.rho * masks + (1 - masks)
+    imgs = b.influence_images_batched(oenv.bep, stacked, rho_eff,
+                                      np.zeros_like(rho_eff)).cpu().numpy()
+    saved = oenv.std_residual
+    oenv.std_residual = sig
+    f_rew = oenv.calculate_rewards(masks.sum(1)) - oenv.reward0
+    oenv.std_residual = saved
+    stages = {"sigma_res": tol_ratio(sig, oinfo["sigma_res"], 1e-4, 0.0),
+              "influence": tol_ratio(imgs * 1e-3, oobs["infmap"],
+                                     *ORACLE_TOL["img"]),
+              "reward": tol_ratio(f_rew, orew, 1e-4, 1e-6)}
+    end_to_end = {
+        "sigma_res_rel": (np.abs(info["sigma_res"] - oinfo["sigma_res"])
+                          / oinfo["sigma_res"]).tolist(),
+        "reward_abs": np.abs(rew - orew).tolist(),
+        "infmap_rel": float(np.linalg.norm(obs["infmap"] - oobs["infmap"])
+                            / np.linalg.norm(oobs["infmap"]))}
+    ep0 = oenv.eps[0]
+    r_ulp = b.calibrate(ep0._replace(V=ep0.V * (1 + 2 ** -23)), oenv.rho[0],
+                        mask=masks[0], admm_iters=int(oenv.maxiter[0]))
+    ulp_rel = float(abs(float(b.noise_std(r_ulp.residual))
+                        - float(oinfo["sigma_res"][0]))
+                    / float(oinfo["sigma_res"][0]))
+    meta_equal = np.array_equal(obs["metadata"], oobs["metadata"])
+    out.update(stage_ratios=stages, end_to_end=end_to_end,
+               lane0_sigma_res_rel_under_1ulp_of_V=ulp_rel,
+               metadata_equal=meta_equal)
+    print(f"batched demixing (E={E}, K={K}): fused reset "
+          f"{out['fused']['reset_seconds']:.3f} s, step "
+          f"{out['fused']['step_seconds']:.3f} s "
+          f"({out['fused']['env_steps_per_s']:.4f} env-steps/s, maxiter "
+          f"{out['fused']['maxiter']}); oracle reset "
+          f"{out['oracle']['reset_seconds']:.3f} s, step "
+          f"{out['oracle']['step_seconds']:.3f} s; on the oracle's step "
+          "solves over tolerance " + ", ".join(
+              f"{k} {v:.4f}" for k, v in stages.items())
+          + "; end to end (not held): sigma_res rel " + ", ".join(
+              f"{v:.2e}" for v in end_to_end["sigma_res_rel"])
+          + f", infmap rel {end_to_end['infmap_rel']:.2e} (lane 0 moves "
+          f"{ulp_rel:.2e} under a 1-ulp change of V); metadata equal "
+          f"{meta_equal}", flush=True)
+    if max(stages.values()) > 1.0 or not meta_equal:
+        raise AssertionError("batched demixing disagrees with its oracle on "
+                             "the same solves")
+    return out
+
+
+def demix_fuzzy_phase(dev, zero_counts, read_counts):
+    """FuzzyDemixingEnv(K=6) reset and one step on the default controller;
+    the priorities of 4 random actions and the hint on the card against
+    the CPU (atol 1e-3 on 0-100)."""
+    from smartcal_tpu_torch.envs.demixing_fuzzy import FuzzyDemixingEnv
+    from smartcal_tpu_torch.models.fuzzy import DemixController
+    from smartcal_tpu_torch.train import demix_sac
+    env = FuzzyDemixingEnv(K=DEMIX_K, provide_hint=True,
+                           backend=demix_sac.make_backend(DEMIX_TIER, dev),
+                           seed=0, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    env.reset()
+    t_reset = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    obs, r, _, hint, info = env.step(env.hint)
+    t_step = time.perf_counter() - t0
+    launches = read_counts()
+    if not np.isfinite(r) or any(launches.values()):
+        raise AssertionError(f"fuzzy env: reward {r}, launches {launches}")
+    rng = np.random.default_rng(0)
+    acts = [rng.uniform(-1, 1, env.n_actions).astype(np.float32)
+            for _ in range(4)] + [hint]
+    gpu = [env.priorities(a)[0] for a in acts]
+    env.ctrl = DemixController(device="cpu")
+    cpu = [env.priorities(a)[0] for a in acts]
+    err = float(np.max(np.abs(np.asarray(gpu) - np.asarray(cpu))))
+    print(f"fuzzy env (K={DEMIX_K}): reset {t_reset:.3f} s, step "
+          f"{t_step:.3f} s (selected {info['selected']}, priorities "
+          + ", ".join(f"{p:.3f}" for p in info["priority"])
+          + f"); priorities GPU vs CPU over 5 actions max abs err "
+          f"{err:.3e} (atol {FUZZY_ATOL})", flush=True)
+    if not err <= FUZZY_ATOL:
+        raise AssertionError("fuzzy priorities: GPU and CPU disagree")
+    return {"reset_seconds": t_reset, "step_seconds": t_step,
+            "priority": list(info["priority"]),
+            "selected": info["selected"], "priority_max_abs_err": err,
+            "launches": launches}
+
+
+def demix_drivers_phase(dev, out_dir, zero_counts, read_counts):
+    """The five trainers of the slice, each with counts zeroed just before
+    and read just after: scores finite, agent, ring and scores saved (the
+    pickles are deleted once read: the CNN agent is ~100 MB), env-steps/s
+    over the trainer's seconds."""
+    import pickle
+
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.envs.demixing import (BatchedDemixingEnv,
+                                                  DemixingEnv)
+    from smartcal_tpu_torch.envs.demixing_fuzzy import FuzzyDemixingEnv
+    from smartcal_tpu_torch.train import (calib_sac, demix_fuzzy_sac,
+                                          demix_sac, demix_td3)
+    mains = {"demix_sac": demix_sac.main, "demix_sac_b4": demix_sac.main,
+             "demix_td3": demix_td3.main,
+             "demix_fuzzy_sac": demix_fuzzy_sac.main,
+             "calib_sac_light": calib_sac.main}
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for name, args in DEMIX_DRIVERS:
+        args = args + DEMIX_COMMON
+        prefix = os.path.join(out_dir, name + "_")
+        env_cls = (CalibEnv if name.startswith("calib") else
+                   FuzzyDemixingEnv if "fuzzy" in name else
+                   BatchedDemixingEnv if "--batch-envs" in args else
+                   DemixingEnv)
+        timer = StepTimer(env_cls)
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            scores = mains[name](args + ["--prefix", prefix])
+        finally:
+            timer.restore()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        lanes = 4 if "--batch-envs" in args else 1
+        n_steps = lanes * len(timer.seconds)
+        kind = "td3" if "td3" in name else "sac"
+        files = [prefix + f"{kind}_state.pkl",
+                 prefix + f"replaymem_{kind}.pkl", prefix + "_scores.pkl"]
+        missing = [f for f in files if not os.path.exists(f)]
+        cntr = None
+        if not missing:
+            with open(files[1], "rb") as fh:
+                cntr = pickle.load(fh)["cntr"]
+            for f in files[:2]:
+                os.remove(f)
+        n_scores = len(scores)
+        if missing or not np.all(np.isfinite(scores)) or cntr != n_steps \
+                or n_scores != lanes:
+            raise AssertionError(f"{name}: scores {scores}, missing "
+                                 f"{missing}, ring {cntr} of {n_steps}")
+        env = timer.env
+        n_freqs = env.backend.n_freqs
+        if name.startswith("calib"):
+            want = n_freqs * (1 + len(timer.seconds))
+            if launches["dft_imager"] < want:
+                raise AssertionError(f"{name}: dft_imager launched "
+                                     f"{launches['dft_imager']} < {want}")
+        elif any(launches.values()):
+            raise AssertionError(f"{name} launched {launches}")
+        out[name] = {"args": args, "scores": [float(s) for s in scores],
+                     "seconds": seconds, "env_steps": n_steps,
+                     "env_steps_per_s": n_steps / seconds,
+                     "env_step_seconds": timer.seconds,
+                     "stage_seconds": dict(env.backend.stage_seconds),
+                     "launches": launches}
+        print(f"{name} ({' '.join(args)}): {seconds:.3f} s, "
+              f"{out[name]['env_steps_per_s']:.4f} env-steps/s ({n_steps} "
+              "env steps; calls " + ", ".join(f"{s:.3f}" for s in
+                                              timer.seconds)
+              + " s); stage seconds " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in env.backend.stage_seconds.items())
+              + "; launches " + ", ".join(f"{k} {v}" for k, v in
+                                          launches.items()), flush=True)
+    return out
+
+
+def demix_profile(env):
+    """The demixing env's step profiled (after every timed phase): CUDA
+    kernels per L-BFGS iteration of its solve, and its idle share against
+    the same step unprofiled."""
+    a = _demix_actions(2, DEMIX_K)[1]
+    t0 = time.perf_counter()
+    env.step(a)
+    wall = time.perf_counter() - t0
+    iters = LbfgsIters()
+    try:
+        wall_prof, busy, kernels = device_busy_seconds(lambda: env.step(a))
+    finally:
+        iters.restore()
+    its = iters.since(0)
+    out = {"step_wall_s": wall, "step_wall_profiled_s": wall_prof,
+           "step_device_busy_s": busy, "kernels": kernels, **its,
+           "kernels_per_iter": kernels / max(its["iters_max"], 1),
+           "step_idle_share": idle_share("demixing step", wall, busy,
+                                         wall_prof)}
+    print(f"demixing step profiled: {kernels} kernels and copies over "
+          f"{its['iters_max']} L-BFGS iterations = "
+          f"{out['kernels_per_iter']:.0f} per iteration", flush=True)
+    return out
+
+
 IEEE_REDUCE = """__device__ __forceinline__ float reduce_2pi(float x) {
   return x - kTwoPi * rintf(x / kTwoPi);
 }"""
@@ -2068,6 +2613,17 @@ def main():
     if missing:
         raise AssertionError(f"no CUDA source for {sorted(missing)}")
 
+    # -- the demixing slice, before the first profiler session --------------
+    report["diffuse"] = diffuse_phase(dev, zero_counts, read_counts)
+    report["demix_env"], demix_env = demix_env_phase(dev, zero_counts,
+                                                     read_counts)
+    report["demix_batched"] = demix_batched_phase(dev, zero_counts,
+                                                  read_counts)
+    report["demix_fuzzy"] = demix_fuzzy_phase(dev, zero_counts, read_counts)
+    report["demix_drivers"] = demix_drivers_phase(dev, args.out, zero_counts,
+                                                  read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # -- reference-scale path: CalibEnv(M=10) at N=62, reset + 2 steps ------
     backend = RadioBackend(n_stations=62, n_freqs=3, n_times=20, tdelta=10,
                            n_poly=2, admm_iters=10, lbfgs_iters=8,
@@ -2413,9 +2969,24 @@ def main():
                                    "blocked tier", block_baselines=4,
                                    imager_block_r=256)
 
+    report["demix_env"]["profile"] = demix_profile(demix_env)
+    del demix_env
+
     def new_paths(name):
-        """The kernel's launches on the batched slice's paths."""
-        return {"launches_batched_path":
+        """The kernel's launches on the batched and demixing slices'
+        paths."""
+        demix = [report["demix_env"]["launches"],
+                 report["demix_fuzzy"]["launches"]] + [
+            report["demix_batched"][k]["launches"] for k in ("fused",
+                                                             "oracle")] + [
+            v["launches"] for k, v in report["demix_drivers"].items()
+            if k.startswith("demix")]
+        return {"launches_diffuse_path":
+                report["diffuse"]["launches"][name],
+                "launches_demix_paths": sum(d[name] for d in demix),
+                "launches_calib_sac_light_path":
+                report["demix_drivers"]["calib_sac_light"]["launches"][name],
+                "launches_batched_path":
                 report["batched"]["launches"][name],
                 "launches_batched_oracle":
                 report["batched"]["oracle"]["launches"][name],
@@ -2443,7 +3014,8 @@ def main():
          "launches_enet_paths": sum(
              report[k]["launches"]["dft_imager"] for k in ("enet_step",
                                                            "enet_sac")),
-         "max_abs_err": max(dft_err), "ms": dft_ms,
+         "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"]]),
+         "ms": dft_ms,
          "plain_ms": dft_plain_ms, **dft_bounds, "library_ms": None,
          "shapes": f"P={P} R={R}", "yardstick_factored_ms": factored_ms,
          "ska_ms": s_ms, "ska_bound_ms": s_bounds["bound_ms"],

@@ -6,8 +6,11 @@ The layout mirrors the JAX package module for module
 
 * ``cal/``, ``envs/``: the calibration episode (simulate, consensus ADMM,
   influence map, images, reward), ``CalibEnv`` (with episode prefetch),
-  ``BatchedCalibEnv`` (E episodes as one batched pass) and the
-  elastic-net ``EnetEnv``;
+  ``BatchedCalibEnv`` (E episodes as one batched pass), the demixing
+  envs (``DemixingEnv`` with its exhaustive hint sweep,
+  ``BatchedDemixingEnv``, ``FuzzyDemixingEnv``; the A-team and shapelet
+  skies) and the elastic-net ``EnetEnv``;
+* ``models/``: the demixing fuzzy controller;
 * ``ops/``: the hand-written CUDA kernels of the JAX package's three TPU
   kernels, built from ``csrc/`` on first use: the direct-DFT imager
   (``csrc/dft_imager.cu``) and the rank-factored imager
@@ -17,8 +20,9 @@ The layout mirrors the JAX package module for module
   ``torch.func`` autodiff tools;
 * ``rl/``: the SAC, TD3 and DDPG agents, their networks and the device
   replay ring;
-* ``train/``: the calibration SAC/TD3/DDPG trainers, the elastic-net
-  SAC/TD3/DDPG trainers and evaluation, and the plumbing they need;
+* ``train/``: the calibration SAC/TD3/DDPG trainers, the demixing
+  SAC/TD3/fuzzy-SAC trainers, the elastic-net SAC/TD3/DDPG trainers and
+  evaluation, and the plumbing they need;
 * ``runtime/``: crash-safe saves.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``

@@ -29,6 +29,17 @@ OMEGA_EARTH = 7.2921159e-5  # rad/s (sidereal)
 LBA_LOW, LBA_HIGH = 30.0, 70.0
 HBA_LOW, HBA_HIGH = 110.0, 180.0
 
+# approximate A-team J2000 coordinates (rad): CasA, CygA, HerA, TauA, VirA
+ATEAM_DIRS = np.asarray([
+    (6.123273, 1.026748),   # CasA
+    (5.233838, 0.710912),   # CygA
+    (4.412048, 0.087195),   # HerA
+    (1.459697, 0.383912),   # TauA
+    (3.276019, 0.216299),   # VirA
+])
+# approximate 150 MHz integrated fluxes (Jy)
+ATEAM_FLUX = np.asarray([10690.0, 8247.0, 377.0, 1420.0, 1060.0])
+
 F32 = torch.float32
 
 
@@ -118,14 +129,21 @@ def baseline_uvw(station_uvw, n_stations: int):
     return station_uvw[:, p, :] - station_uvw[:, q, :]
 
 
-def find_valid_target(key, low_el_deg: float = 3.0):
-    """Draw (ra0, dec0, t0) with the target above ``low_el_deg`` (uniform
-    sky strategy, the one the calibration episodes use)."""
+def find_valid_target(key, low_el_deg: float = 3.0, strategy: int = 0):
+    """Draw (ra0, dec0, t0) with the target above ``low_el_deg``.
+    Strategies: 0/2 uniform sky, 1 near a random A-team source.  t0 is
+    seconds within a sidereal day, doubling as the LST seed."""
     rng = host_rng(key, salt=11)
     low_el = np.deg2rad(low_el_deg)
     while True:
-        ra0 = float(rng.random() * 2 * np.pi)
-        dec0 = float(rng.random() * np.pi / 2)
+        if strategy == 1:
+            i = rng.integers(len(ATEAM_DIRS))
+            dmax = np.deg2rad(0.5 + 30 * rng.random())
+            ra0 = float(ATEAM_DIRS[i, 0] + rng.random() * dmax)
+            dec0 = float(ATEAM_DIRS[i, 1] + rng.random() * dmax)
+        else:
+            ra0 = float(rng.random() * 2 * np.pi)
+            dec0 = float(rng.random() * np.pi / 2)
         if dec0 > np.pi / 2:
             continue
         t0 = float(rng.random() * 24 * 3600.0)
@@ -137,14 +155,44 @@ def find_valid_target(key, low_el_deg: float = 3.0):
 
 def make_observation(key, n_stations: int = 14, n_freqs: int = 3,
                      n_times: int = 20, t_int: float = 1.0,
-                     hba: bool = True, device="cuda") -> Observation:
-    """Full synthetic observation with a drawn pointing and epoch: flow
-    uniform in the lower half-band, fhigh in the upper, Nf channels
-    linspaced between.  The JAX version's caller-fixed pointing options
-    serve the demixing episodes and are not ported in this slice."""
+                     hba: bool = True, ra0: float = None, dec0: float = None,
+                     t0: float = None, device="cuda") -> Observation:
+    """Full synthetic observation: flow uniform in the lower half-band,
+    fhigh in the upper, Nf channels linspaced between.
+
+    The pointing and epoch are drawn (``find_valid_target``) unless the
+    caller fixes them.  A caller who fixes only part of (ra0, dec0, t0)
+    voids the drawn triple's above-horizon guarantee, so the epoch is
+    redrawn until the final combination is above 3 degrees; a caller who
+    fixes both ra0 and dec0 owns the elevation, and only a missing t0 is
+    drawn."""
     dev = resolve_device(device)
     rng = host_rng(key, salt=12)
-    ra0, dec0, t0 = find_valid_target(key)
+    if ra0 is None or dec0 is None:
+        drawn = find_valid_target(key)
+        caller_fixed = ra0 is not None or dec0 is not None or t0 is not None
+        ra0 = drawn[0] if ra0 is None else ra0
+        dec0 = drawn[1] if dec0 is None else dec0
+        t0 = drawn[2] if t0 is None else t0
+        if caller_fixed:
+            low_el = np.deg2rad(3.0)
+            el_max = np.pi / 2 - abs(LOFAR_LAT - dec0)
+            if el_max <= low_el:
+                raise ValueError(
+                    f"dec0={dec0:.4f} rad never rises above 3 deg at the "
+                    "LOFAR latitude; supply both ra0 and dec0 (or neither)")
+            for _ in range(1000):
+                lst0 = OMEGA_EARTH * t0 % (2 * np.pi)
+                _, el = coords.azel_from_radec(ra0, dec0, lst0, LOFAR_LAT)
+                if float(el) > low_el:
+                    break
+                t0 = float(rng.random() * 24 * 3600.0)
+            else:
+                raise ValueError(
+                    "could not find an epoch with the target above the "
+                    f"horizon for ra0={ra0:.4f} dec0={dec0:.4f}")
+    elif t0 is None:
+        t0 = float(rng.random() * 24 * 3600.0)
     lo, hi = (HBA_LOW, HBA_HIGH) if hba else (LBA_LOW, LBA_HIGH)
     flow_mhz = lo + rng.random() * (hi - lo) / 2
     fhigh_mhz = lo + (hi - lo) / 2 + rng.random() * (hi - lo) / 2

@@ -1,11 +1,15 @@
-"""Synthetic sky models + systematic-error Jones solutions (the part of
-smartcal_tpu/cal/simulate.py that calibration episodes use).
+"""Synthetic sky models + systematic-error Jones solutions (counterpart of
+smartcal_tpu/cal/simulate.py): the calibration sky (with its optional
+diffuse shapelet component) and the demixing sky (A-team outliers, the
+target field, a weak background).
 
 All draws are host numpy from Generators seeded like the JAX package's
 (``observation.host_rng`` with the same salts), so the same key gives
-bit-identical skies and solutions.  The noise is drawn on the host too;
-its scaling and the add run on the device.  The demixing sky and the
-diffuse shapelet option are still to be ported.
+bit-identical skies and solutions.  The coordinate math of the demixing
+sky is float32 (``cal/coords``), as in the JAX package.  The noise is
+drawn on the host too; its scaling and the add run on the device.  The
+DP3 parset writer and the host-numpy ``add_noise`` are not ported: no
+path of the port calls them.
 """
 
 import math
@@ -14,8 +18,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from smartcal_tpu_torch.cal import coords
 from smartcal_tpu_torch.cal import observation as obs_mod
 from smartcal_tpu_torch.cal.coherency import SkyArrays
+from smartcal_tpu_torch.cal.shapelets import random_shapelet
+
+TWO_PI = 2.0 * math.pi
 
 
 def _rng_of(key, salt=0):
@@ -77,6 +85,8 @@ class CalibModels(NamedTuple):
     rho_spatial : (K,) spatial ADMM rho
     lm_dirs   : (K, 2) cluster-center direction cosines
     f0        : reference frequency (Hz)
+    shapelet  : the diffuse component of cluster 0 (a
+                ``shapelets.ShapeletModel``), or None
     """
 
     sky_sim: SkyArrays
@@ -86,13 +96,17 @@ class CalibModels(NamedTuple):
     rho_spatial: np.ndarray
     lm_dirs: np.ndarray
     f0: float
+    shapelet: object = None
 
 
 def simulate_models(key, K=4, f0=150e6, Kc=80, M_weak=350, M_gauss=120,
-                    M2=40) -> CalibModels:
+                    M2=40, diffuse=False) -> CalibModels:
     """Random calibration sky: Kc-source center cluster, K-1 compact outlier
     clusters of M2 sources, M_weak point + M_gauss Gaussian background
-    sources (reference calibration/simulate.py:61-379)."""
+    sources (reference calibration/simulate.py:61-379).  ``diffuse=True``
+    draws a random shapelet component for the phase centre last: its exact
+    modes enter the simulated data, its perturbed twin the calibration
+    model (``RadioBackend._add_shapelet``)."""
     rng = _rng_of(key, salt=1)
     sim, cal = SkyDraw(), SkyDraw()
     table, lm_dirs = [], []
@@ -149,6 +163,125 @@ def simulate_models(key, K=4, f0=150e6, Kc=80, M_weak=350, M_gauss=120,
         sky_table=np.asarray(table, np.float32),
         rho=np.asarray(rho, np.float32),
         rho_spatial=np.full(K, 0.1, np.float32),
+        lm_dirs=np.asarray(lm_dirs, np.float32), f0=float(f0),
+        shapelet=random_shapelet(rng) if diffuse else None)
+
+
+class DemixModels(NamedTuple):
+    """Output of :func:`simulate_demixing_sky`.  Cluster order: 0..K-2 the
+    A-team outliers, K-1 the target; the sim-only weak and Gaussian
+    background is cluster K.
+
+    separations / azimuth / elevation: per calibrated cluster, in degrees
+    (float32 math, as in the JAX package)
+    fluxes: apparent flux sum per calibrated cluster
+    """
+
+    sky_sim: SkyArrays
+    sky_cal: SkyArrays
+    rho: np.ndarray
+    separations: np.ndarray
+    azimuth: np.ndarray
+    elevation: np.ndarray
+    fluxes: np.ndarray
+    lm_dirs: np.ndarray
+    f0: float
+
+
+def ateam_components(key, ra0, dec0, f0, n_comp=30):
+    """Synthetic A-team clusters: for each of the 5 sources, ``n_comp``
+    components scattered within ~0.3 deg of the true position, total flux
+    at the catalog scale (a stand-in for the reference's checked-in
+    base.sky/base.cluster models)."""
+    rng = _rng_of(key, salt=2)
+    comp = SkyDraw()
+    for i, (ra, dec) in enumerate(obs_mod.ATEAM_DIRS):
+        l, m, _ = coords.radectolm(ra, dec, ra0, dec0)
+        l, m = float(l), float(m)
+        dl = (rng.random(n_comp) - 0.5) * 0.01
+        dm = (rng.random(n_comp) - 0.5) * 0.01
+        w = rng.random(n_comp)
+        flux = w / w.sum() * obs_mod.ATEAM_FLUX[i]
+        sp = np.full(n_comp, -0.7) + 0.1 * rng.standard_normal(n_comp)
+        comp.add(l + dl, m + dm, flux, sp, i)
+    return comp
+
+
+def simulate_demixing_sky(key, ra0, dec0, t0, f0, K=6, Kc=40, M_weak=350,
+                          M_gauss=120) -> DemixModels:
+    """Target field + A-team sky of the demixing episodes (reference
+    generate_data.py:1004-1140): Kc target sources (power-law fluxes in
+    [0.1, 200]), a weak + Gaussian background in a 25.5-deg FOV, and the
+    A-team clusters.  The A-team apparent fluxes (sim and cal skies, and
+    the analytic rho) are scaled by a smooth function of elevation, the
+    role of the reference's beam.  (The JAX function's ``beam_atten=False``
+    arm, catalog fluxes, has no caller and is not ported.)"""
+    rng = _rng_of(key, salt=3)
+    n_ateam = K - 1
+    lst0 = obs_mod.OMEGA_EARTH * t0 % TWO_PI
+
+    # A-team outlier clusters 0..K-2
+    at = ateam_components(key, ra0, dec0, f0)
+    sim, cal = SkyDraw(), SkyDraw()
+    sep, azl, ell, fluxes, lm_dirs = [], [], [], [], []
+    atten = []
+    for i in range(n_ateam):
+        ra, dec = obs_mod.ATEAM_DIRS[i]
+        s = float(coords.angular_separation(ra0, dec0, ra, dec))
+        az, el = coords.azel_from_radec(ra, dec, lst0, obs_mod.LOFAR_LAT)
+        sep.append(math.degrees(s))
+        azl.append(math.degrees(float(az)))
+        ell.append(math.degrees(float(el)))
+        # sources below the horizon are strongly suppressed
+        a = 0.05 + 0.95 * max(0.0, math.sin(max(float(el), 0.0))) ** 2
+        atten.append(a)
+        l_i, m_i = at.l[i], at.m[i]
+        f_i = at.flux[i] * a
+        sim.add(l_i, m_i, f_i, at.sp[i], i)
+        cal.add(l_i, m_i, f_i, at.sp[i], i)
+        fluxes.append(float(np.sum(f_i)))
+        lm_dirs.append([float(np.mean(l_i)), float(np.mean(m_i))])
+
+    # target cluster K-1 at the phase centre
+    l = (rng.random(Kc) - 0.5) * 0.2
+    m = (rng.random(Kc) - 0.5) * 0.2
+    sI = _powerlaw_flux(rng, Kc, 0.1, 200.0)
+    sP = rng.standard_normal(Kc)
+    sim.add(l, m, sI, sP, K - 1)
+    cal.add(l, m, sI, sP, K - 1)
+    az0, el0 = coords.azel_from_radec(ra0, dec0, lst0, obs_mod.LOFAR_LAT)
+    sep.append(0.0)
+    azl.append(math.degrees(float(az0)))
+    ell.append(math.degrees(float(el0)))
+    fluxes.append(float(sI.sum()))
+    lm_dirs.append([float(l.mean()), float(m.mean())])
+
+    # weak + Gaussian background (sim only, cluster K), 25.5-deg FOV
+    sII = _powerlaw_flux(rng, M_weak, 0.01, 0.5)
+    l0 = (rng.random(M_weak) - 0.5) * 25.5 * math.pi / 180
+    m0 = (rng.random(M_weak) - 0.5) * 25.5 * math.pi / 180
+    sim.add(l0, m0, sII, 0.0, K)
+    sI1 = _powerlaw_flux(rng, M_gauss, 0.01, 0.5)
+    l1 = (rng.random(M_gauss) - 0.5) * 25.5 * math.pi / 180
+    m1 = (rng.random(M_gauss) - 0.5) * 25.5 * math.pi / 180
+    for i in range(M_gauss):
+        g = np.asarray([(rng.random() - 0.5) * 0.5 * math.pi / 180,
+                        (rng.random() - 0.5) * 0.5 * math.pi / 180,
+                        (rng.random() - 0.5) * math.pi])
+        sim.add(l1[i], m1[i], sI1[i], 0.0, K, gauss=g)
+
+    # analytic rho: A-team at catalog scale x attenuation, target
+    # sum(sI)*10/Kc (generate_data.py:1077)
+    rho = np.asarray(
+        [obs_mod.ATEAM_FLUX[i] * atten[i] * 0.1 for i in range(n_ateam)]
+        + [sI.sum() * 10.0 / Kc], np.float32)
+
+    return DemixModels(
+        sky_sim=sim.build(K + 1, f0), sky_cal=cal.build(K, f0),
+        rho=rho, separations=np.asarray(sep, np.float32),
+        azimuth=np.asarray(azl, np.float32),
+        elevation=np.asarray(ell, np.float32),
+        fluxes=np.asarray(fluxes, np.float32),
         lm_dirs=np.asarray(lm_dirs, np.float32), f0=float(f0))
 
 

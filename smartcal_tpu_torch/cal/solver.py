@@ -502,8 +502,3 @@ def residual_to_kernel(residual):
     T, B = residual.shape[0], residual.shape[1]
     return residual.reshape(2 * T * B, 2, 2)
 
-
-def stokes_i_std(V):
-    """std of Stokes I = (XX + YY)/2 real/imag planes (population std)."""
-    sI = 0.5 * (V[..., 0, 0, :] + V[..., 1, 1, :])
-    return torch.std(sI, correction=0)

@@ -17,7 +17,15 @@ each, with the same math:
   Hessian from B >= 8128 (N >= 128) and the large-tier factored imager
   from npix >= 512, each a hand-written CUDA kernel on the card;
 * ``data_image`` / ``residual_image`` -> ``imager.multifreq_image_sr``,
-  one direct-DFT kernel launch per sub-band.
+  one direct-DFT kernel launch per sub-band;
+* ``hint_sweep`` (the demixing env's exhaustive hint) ->
+  ``solver.solve_admm_batched`` with one lane-episode per mask, ``batch``
+  masks per solve (the JAX package vmaps the masks, ``lax.map`` over
+  batches).
+
+Episodes: ``new_calib_episode`` (with the optional diffuse shapelet
+component of cluster 0, ``_add_shapelet``) and ``new_demixing_episode``
+(A-team outliers and the target field, ``simulate.simulate_demixing_sky``).
 
 Batched episodes (:class:`BatchedEpisode`, the batched envs' operands).
 The JAX backend routes a batch by device count and size: a plain
@@ -45,7 +53,7 @@ its own, and the caller's stream waits on an event recorded at the end of
 the build.
 
 ``stage_seconds`` accumulates host-clock seconds per stage (simulate,
-solve, influence, images, sigmas), each ended by a synchronize of the
+solve, hint, influence, images, sigmas), each ended by a synchronize of the
 calling thread's stream (a prefetch build's simulate seconds overlap the
 caller's stages).
 """
@@ -62,7 +70,7 @@ import torch
 
 from smartcal_tpu_torch import resolve_device
 from smartcal_tpu_torch.cal import (coherency, imager, influence, observation,
-                                    simulate, solver)
+                                    shapelets, simulate, solver)
 
 # SKA-tier thresholds (the JAX backend's, smartcal_tpu/envs/radio.py:69-72):
 # from _BLOCK_MIN_B baselines (N=128 -> B=8128) the influence chain's
@@ -125,14 +133,15 @@ class RadioBackend:
 
     n_times = Ts * tdelta integration slots; every ``tdelta`` slots share
     one solution interval.  ``device`` defaults to "cuda" and raises when
-    no GPU is present.  ``block_baselines`` / ``imager_block_r`` override
-    the SKA-tier block sizes: None picks them by threshold, 0 forces the
-    unblocked path."""
+    no GPU is present.  ``hint_batch`` is the number of masks per solve of
+    the hint sweep (1: one mask at a time).  ``block_baselines`` /
+    ``imager_block_r`` override the SKA-tier block sizes: None picks them
+    by threshold, 0 forces the unblocked path."""
 
     def __init__(self, n_stations=14, n_freqs=3, n_times=20, tdelta=10,
                  n_poly=2, admm_iters=10, lbfgs_iters=8, init_iters=30,
-                 polytype=0, npix=128, device="cuda", block_baselines=None,
-                 imager_block_r=None):
+                 polytype=0, npix=128, hint_batch=8, device="cuda",
+                 block_baselines=None, imager_block_r=None):
         if n_times <= 0 or n_times % tdelta != 0:
             raise ValueError(
                 f"n_times={n_times} must be a positive multiple of "
@@ -150,6 +159,7 @@ class RadioBackend:
         self.init_iters = init_iters
         self.polytype = polytype
         self.npix = npix
+        self.hint_batch = hint_batch
         self.block_baselines = block_baselines
         self.imager_block_r = imager_block_r
         self.stage_seconds = defaultdict(float)
@@ -204,27 +214,70 @@ class RadioBackend:
         Vn, _ = simulate.add_noise_device(key, V, snr=snr)
         return Vn
 
+    def _add_shapelet(self, obs, C, coeff, beta, flux):
+        """C with a diffuse shapelet component added to cluster 0, all
+        sub-bands in one expression (cal/shapelets.py)."""
+        uvw = obs.uvw.reshape(-1, 3)
+        add = shapelets.shapelet_coherency_multi_sr(
+            coeff, uvw[:, 0], uvw[:, 1], obs.freqs, beta, flux=flux)
+        C = C.clone()
+        C[:, 0] += add
+        return C
+
     def new_calib_episode(self, key, K, M, diffuse=False):
         """CalibEnv episode: K drawn clusters padded to M directions.
-        Returns (episode, models).  ``diffuse=True`` (the shapelet sky) is
-        still to be ported."""
-        if diffuse:
-            raise NotImplementedError("diffuse (shapelet) skies are not "
-                                      "ported yet")
+        Returns (episode, models).  ``diffuse=True`` adds the random
+        shapelet component to cluster 0: exact modes to the data, the
+        perturbed twin to the calibration model."""
         with self._stage("simulate"):
             obs = observation.make_observation(
                 key, n_stations=self.n_stations, n_freqs=self.n_freqs,
                 n_times=self.n_times, device=self.device)
             f0 = float(obs.freqs.cpu().numpy().mean())
-            mdl = simulate.simulate_models(key, K=K, f0=f0)
+            mdl = simulate.simulate_models(key, K=K, f0=f0, diffuse=diffuse)
+            shp = mdl.shapelet
             Csim = self._coherencies(obs, mdl.sky_sim)
+            if shp is not None:
+                Csim = self._add_shapelet(obs, Csim, shp.coeff, shp.beta,
+                                          shp.flux)
             V = self._corrupt_and_noise(key, obs, Csim, J_extra_dirs=1,
                                         snr=0.05, amp=1.0, spatial_term=True,
                                         lm_dirs=mdl.lm_dirs)
             Ck = self._coherencies(obs, mdl.sky_cal)
+            if shp is not None:
+                Ck = self._add_shapelet(obs, Ck, shp.coeff_cal, shp.beta_cal,
+                                        shp.flux)
             Ccal = torch.nn.functional.pad(Ck, (0, 0, 0, 0, 0, 0, 0, M - K))
         return Episode(obs=obs, V=V, Ccal=Ccal, f0=mdl.f0, n_dirs=M,
                        snr=0.05), mdl
+
+    def new_demixing_episode(self, key, K):
+        """DemixingEnv episode: K-1 A-team outliers + the target (cluster
+        K-1), Ccal not padded (``n_dirs=K``).  The host draws follow the
+        JAX order: strategy (salt 20), target (11), band, observation (12,
+        10), sky (2, 3), then the snr, the systematics (4) and the noise
+        (5).  Returns (episode, models)."""
+        with self._stage("simulate"):
+            rng = observation.host_rng(key, salt=20)
+            strategy = int(rng.integers(0, 3))
+            ra0, dec0, t0 = observation.find_valid_target(
+                key, strategy=1 if strategy == 1 else 0)
+            hba = bool(rng.integers(0, 2))
+            obs = observation.make_observation(
+                key, n_stations=self.n_stations, n_freqs=self.n_freqs,
+                n_times=self.n_times, hba=hba, ra0=ra0, dec0=dec0, t0=t0,
+                device=self.device)
+            f0 = float(obs.freqs.cpu().numpy().mean())
+            mdl = simulate.simulate_demixing_sky(key, ra0, dec0, t0, f0, K=K)
+            Csim = self._coherencies(obs, mdl.sky_sim)
+            snr = float(0.05 + rng.random() * 0.45)
+            V = self._corrupt_and_noise(key, obs, Csim, J_extra_dirs=1,
+                                        snr=snr, amp=0.01,
+                                        spatial_term=False,
+                                        lm_dirs=mdl.lm_dirs)
+            Ccal = self._coherencies(obs, mdl.sky_cal)
+        return Episode(obs=obs, V=V, Ccal=Ccal, f0=f0, n_dirs=K,
+                       snr=snr), mdl
 
     # -- calibration + influence --------------------------------------------
 
@@ -254,6 +307,38 @@ class RadioBackend:
 
             res, _ = solver.solve_admm_safe(solve, rho_t)
             return res
+
+    def hint_sweep(self, ep: Episode, rho, masks, admm_iters=None,
+                   batch=None):
+        """Masked calibrations of one episode (the demixing env's exhaustive
+        AIC hint): the (n, K) ``masks`` run ``batch`` at a time (default
+        ``hint_batch``) as the lane-episodes of one batched solve (the same
+        V, C·mask per lane), the last batch with the masks left over;
+        ``batch=1`` solves one mask at a time.  No rho-boost retry, as in
+        the JAX sweep.  Returns (n,) the Stokes-I residual statistic
+        sqrt(mean_f std_f²) per mask, the quantity of the env's reward."""
+        masks = torch.as_tensor(np.asarray(masks, np.float32),
+                                device=self.device)
+        n, K = masks.shape
+        batch = max(1, min(self.hint_batch if batch is None else batch, n))
+        iters = self.admm_iters if admm_iters is None else int(admm_iters)
+        rho_t = torch.as_tensor(np.asarray(rho, np.float32),
+                                device=self.device)
+        freqs = ep.obs.freqs
+        out = []
+        with self._stage("hint"):
+            for i in range(0, n, batch):
+                m = masks[i:i + batch]
+                E = m.shape[0]
+                res = solver.solve_admm_batched(
+                    ep.V.expand((E,) + tuple(ep.V.shape)),
+                    ep.Ccal[None] * m[:, None, :, None, None, None],
+                    freqs.expand(E, -1), np.full(E, ep.f0), rho_t.expand(E, K),
+                    self._solver_cfg(K), n_chunks=self.n_chunks,
+                    admm_iters=iters)
+                out.append(self.noise_std_batched(res.residual))
+                del res
+            return torch.cat(out)
 
     def _cell(self, ep):
         return imager.default_cell(ep.obs.uvw, float(ep.obs.freqs[-1]))
@@ -309,9 +394,10 @@ class RadioBackend:
                                              npix=npix or self.npix)
 
     def noise_std(self, V):
-        """sqrt(mean_f std(Stokes I)^2) over sub-bands."""
-        stds = torch.stack([solver.stokes_i_std(v) for v in V])
-        return torch.sqrt(torch.mean(stds ** 2))
+        """sqrt(mean_f std(Stokes I)^2) over sub-bands: the one-lane form of
+        :meth:`noise_std_batched`, so a batched lane and a single episode
+        give the same bits."""
+        return self.noise_std_batched(V[None])[0]
 
     # -- episode prefetch ----------------------------------------------------
 

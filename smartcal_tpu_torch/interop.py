@@ -1,17 +1,20 @@
 """Carry state from the JAX package into the port.
 
 The JAX package's ``Episode``, ``BatchedEpisode``, ``SolveResult``,
-``SACState``, ``TD3State`` and ``DDPGState`` (any objects with the same
-field names, holding arrays that ``numpy.asarray`` accepts) and flax
-parameter trees become the port's types, so one episode or one agent can
-be fed to both packages.  Nothing here imports the JAX
+``DemixModels``, ``SACState``, ``TD3State`` and ``DDPGState`` (any objects
+with the same field names, holding arrays that ``numpy.asarray`` accepts),
+a fuzzy controller's limits and flax parameter trees become the port's
+types, so one episode, sky, controller or agent can be fed to both
+packages.  Nothing here imports the JAX
 package: the fields are read by name.
 """
 
 import numpy as np
 import torch
 
-from smartcal_tpu_torch.cal import observation, solver
+import copy
+
+from smartcal_tpu_torch.cal import coherency, observation, simulate, solver
 from smartcal_tpu_torch.envs import radio
 from smartcal_tpu_torch.rl import ddpg, sac, td3
 
@@ -42,6 +45,36 @@ def batched_episode_from_numpy(bep, device="cpu") -> radio.BatchedEpisode:
         freqs=np.array(bep.freqs, np.float32),
         f0=np.array(bep.f0, np.float32), uvw=_t(bep.uvw, device),
         cell=np.array(bep.cell, np.float32), n_dirs=int(bep.n_dirs))
+
+
+def sky_from_numpy(sky) -> coherency.SkyArrays:
+    """The port's ``SkyArrays`` of a JAX sky (host numpy copies)."""
+    return coherency.SkyArrays(
+        *(np.array(getattr(sky, f)) for f in (
+            "lmn", "flux_coef", "f0", "gauss", "is_gauss", "cluster")),
+        n_clusters=int(sky.n_clusters))
+
+
+def demix_models_from_numpy(mdl) -> simulate.DemixModels:
+    """The port's :class:`~smartcal_tpu_torch.cal.simulate.DemixModels` of
+    a JAX ``DemixModels``: skies, rho, separations, azimuths, elevations,
+    fluxes and cluster centres copied as numpy."""
+    out = {}
+    for f in simulate.DemixModels._fields:
+        v = getattr(mdl, f)
+        if f.startswith("sky_"):
+            out[f] = sky_from_numpy(v)
+        elif f == "f0":
+            out[f] = float(v)
+        else:
+            out[f] = np.array(v)
+    return simulate.DemixModels(**out)
+
+
+def fuzzy_config_from_jax(ctrl) -> dict:
+    """A copy of a JAX ``DemixController``'s membership limits, the form
+    the port's controller keeps in ``config``."""
+    return copy.deepcopy(ctrl.config)
 
 
 def solve_result_from_numpy(res, device="cpu") -> solver.SolveResult:

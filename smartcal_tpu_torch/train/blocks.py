@@ -10,7 +10,8 @@ handle with neither a metrics stream nor a trace: the per-episode echo on
 stderr and no-op span, diagnostics and replay-health hooks.
 :class:`TrainRuntime` is the fault-tolerance handle with no checkpoint
 flag set: restore and checkpoint are no-ops.  :func:`run_batched_agent_loop`
-is the vector-episode loop of ``--batch-envs`` > 1.
+is the vector-episode loop of ``--batch-envs`` > 1 (with the demixing
+trainers' warm-up).
 """
 
 import contextlib
@@ -168,33 +169,46 @@ class TrainRuntime:
 
 
 def run_batched_agent_loop(env, agent, args, tob, rt, scale_reward,
-                           use_hint=False):
+                           use_hint=False, warmup=0, warmup_rng=None,
+                           episodes=None, to_flat=None, scores=None):
     """Vector-episode loop of the batched radio envs (the JAX package's
-    ``run_batched_agent_loop`` without checkpoint restore, watchdog or
-    warm-up, which are not ported): each vector episode resets all E
-    lanes; each vector step advances them in one batched pass, stores the
-    E transitions and runs ONE learn (the 1:E learn:env-step regime).
-    ``scores`` keeps the sequential drivers' format: E per-lane
-    mean-step-reward entries per vector episode, ceil(episodes / E)
-    vector episodes."""
+    ``run_batched_agent_loop`` without checkpoint restore and watchdog,
+    which are not ported): each vector episode resets all E lanes; each
+    vector step advances them in one batched pass, stores the E
+    transitions and runs ONE learn (the 1:E learn:env-step regime).  The
+    first ``warmup`` vector episodes act randomly through ``warmup_rng``
+    (the demixing trainers' warm-up).  ``episodes`` defaults to
+    ``args.episodes``, ``to_flat`` to ``flatten_obs_batch``; ``scores`` (a
+    ``--load``ed history) is extended.  ``scores`` keeps the sequential drivers'
+    format: E per-lane mean-step-reward entries per vector episode,
+    ceil(episodes / E) vector episodes."""
     import numpy as np
 
     from smartcal_tpu_torch.rl.networks import flatten_obs_batch
     from smartcal_tpu_torch.runtime.atomic import atomic_pickle
 
+    if to_flat is None:
+        to_flat = flatten_obs_batch
+    if episodes is None:
+        episodes = args.episodes
     E = env.n_envs
-    n_vec = -(-args.episodes // E)
-    scores = []
+    n_vec = -(-episodes // E)
+    scores = list(scores) if scores else []
     rt.restore()
     try:
         for i in range(n_vec):
             with tob.span("episode", episode=i, lanes=E):
-                flat = flatten_obs_batch(env.reset())
+                flat = to_flat(env.reset())
                 score = np.zeros(E, np.float64)
                 loop, done = 0, False
                 while not done and loop < args.steps:
-                    actions = np.asarray(
-                        agent.choose_action(flat)).reshape(E, -1)
+                    if i < warmup and warmup_rng is not None:
+                        actions = warmup_rng.uniform(
+                            -1.0, 1.0, (E, agent.cfg.n_actions)).astype(
+                                np.float32)
+                    else:
+                        actions = np.asarray(
+                            agent.choose_action(flat)).reshape(E, -1)
                     out = env.step(actions)
                     if use_hint:
                         ob2, rewards, dones, hints, _ = out
@@ -202,7 +216,7 @@ def run_batched_agent_loop(env, agent, args, tob, rt, scale_reward,
                         ob2, rewards, dones, _ = out
                         hints = np.zeros((E, agent.cfg.n_actions),
                                          np.float32)
-                    flat2 = flatten_obs_batch(ob2)
+                    flat2 = to_flat(ob2)
                     for e in range(E):
                         agent.store_transition(
                             flat[e], actions[e],

@@ -10,7 +10,8 @@ learn per vector step, E per-lane scores per vector episode.
 
 Usage:
     python -m smartcal_tpu_torch.train.calib_sac --episodes 50 --seed 0
-        [--use_hint] [--stations 14] [--small] [--batch-envs E]
+        [--use_hint] [--stations 14] [--small | --light | --medium]
+        [--batch-envs E]
         [--device cpu]
 """
 
@@ -24,6 +25,7 @@ from smartcal_tpu_torch.envs.radio import RadioBackend
 from smartcal_tpu_torch.rl import sac
 from smartcal_tpu_torch.rl.networks import flatten_obs
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
+from smartcal_tpu_torch.train import demix_sac
 from smartcal_tpu_torch.train.blocks import (TrainRuntime, add_batched_args,
                                              add_ere_arg, add_obs_args,
                                              add_runtime_args,
@@ -56,11 +58,11 @@ def main(argv=None):
     p.add_argument("--small", action="store_true",
                    help="tiny shapes for smoke runs")
     p.add_argument("--medium", action="store_true",
-                   help="the demixing sweep's thinner backend (not ported "
-                        "yet: ROADMAP queue 1 item 10)")
+                   help="the demixing trainers' thinner backend "
+                        "(demix_sac.make_backend)")
     p.add_argument("--light", action="store_true",
-                   help="the demixing sweep's lightest backend (not ported "
-                        "yet: ROADMAP queue 1 item 10)")
+                   help="the demixing trainers' lightest backend "
+                        "(demix_sac.make_backend)")
     p.add_argument("--load", action="store_true")
     p.add_argument("--prefix", type=str, default="calib_sac")
     p.add_argument("--fixed_K", type=int, default=None,
@@ -78,17 +80,16 @@ def main(argv=None):
     add_ere_arg(p)
     args = p.parse_args(argv)
     reject_unported(args)
-    if args.light or args.medium:
-        raise NotImplementedError(
-            "--light/--medium take the demixing sweep's backend "
-            "(demix_sac.make_backend, with RadioBackend.hint_sweep): not "
-            "ported yet, ROADMAP queue 1 item 10")
     dev = resolve_device(args.device)
 
     if args.small:
         backend = RadioBackend(n_stations=6, n_freqs=2, n_times=4, tdelta=2,
                                admm_iters=2, lbfgs_iters=3, init_iters=5,
                                npix=32, device=dev)
+    elif args.light or args.medium:
+        # the demixing trainers' CPU-tractable tiers (the two envs share the
+        # backend)
+        backend = demix_sac.make_backend(args, dev)
     else:
         backend = RadioBackend(n_stations=args.stations, npix=args.npix,
                                device=dev)

@@ -202,8 +202,7 @@ def test_batched_trainer_defaults_to_cuda():
     (["--compile-cache", "c"], "item 12"), (["--resume"], "item 12"),
     (["--ckpt-every", "2"], "item 12"), (["--max-recoveries", "1"],
                                          "item 12"),
-    (["--batch-envs", "2", "--resume"], "item 12"), (["--light"], "item 10"),
-    (["--medium"], "item 10")])
+    (["--batch-envs", "2", "--resume"], "item 12")])
 def test_trainer_names_the_roadmap_item_of_an_unported_flag(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         calib_sac.main(["--small", "--device", "cpu"] + flag)

@@ -314,3 +314,52 @@ def test_batched_env_reset_and_step_on_gpu():
         np.testing.assert_array_equal(a["img"], b["img"])
         np.testing.assert_array_equal(a["sky"], b["sky"])
     pre.close()
+
+
+@pytest.mark.cuda
+def test_demixing_on_gpu_matches_cpu():
+    """The demixing slice on the GPU at the --small tier (K=3): the episode
+    (the same host draws, V within 5e-4 of the CPU's), the hint sweep with
+    every selection at admm_iters=2 one mask at a time and as one batch
+    (rtol 1e-3, and against the CPU's), the fuzzy priorities against the
+    CPU's (atol 1e-3 on 0-100), and the diffuse episode's shapelet add
+    against the CPU's on the same uvw (rtol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.envs.demixing import DemixingEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.models.fuzzy import DemixController
+    small = dict(n_stations=6, n_freqs=2, n_times=4, tdelta=2,
+                 admm_iters=30, lbfgs_iters=3, init_iters=5, npix=32)
+    envs = {d: DemixingEnv(K=3, backend=RadioBackend(device=d, **small),
+                           seed=0, device=d) for d in ("cuda", "cpu")}
+    for env in envs.values():
+        env.reset()
+    g, c = envs["cuda"], envs["cpu"]
+    V = g.ep.V.cpu().numpy()
+    assert np.linalg.norm(V - c.ep.V.numpy()) < 5e-4 * np.linalg.norm(V)
+    masks, _ = g.hint_masks()
+    sig = {b: g.backend.hint_sweep(g.ep, g.rho, masks, admm_iters=2,
+                                   batch=b).cpu().numpy() for b in (1, 4)}
+    np.testing.assert_allclose(sig[4], sig[1], rtol=1e-3)
+    np.testing.assert_allclose(sig[4], c.backend.hint_sweep(
+        c.ep, c.rho, masks, admm_iters=2).numpy(), rtol=1e-3)
+    rng = np.random.default_rng(0)
+    mf = np.sort(rng.uniform(-90, 90, (8, 7, 3, 4)), -1)
+    pmf = np.sort(rng.uniform(0, 100, (8, 3, 4)), -1)
+    x = rng.uniform(-90, 90, (8, 7))
+    np.testing.assert_allclose(
+        DemixController(device="cuda").evaluate_batch(mf, pmf, x),
+        DemixController(device="cpu").evaluate_batch(mf, pmf, x), atol=1e-3)
+    key = prng.split(prng.PRNGKey(3))[1]
+    b = RadioBackend(device="cuda", **small)
+    ep, mdl = b.new_calib_episode(key, 2, 3, diffuse=True)
+    shp = mdl.shapelet
+    C = torch.zeros_like(ep.Ccal)
+    got = b._add_shapelet(ep.obs, C, shp.coeff, shp.beta, shp.flux)
+    cpu_obs = ep.obs._replace(uvw=ep.obs.uvw.cpu(), freqs=ep.obs.freqs.cpu())
+    want = RadioBackend(device="cpu", **small)._add_shapelet(
+        cpu_obs, C.cpu(), shp.coeff, shp.beta, shp.flux)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-6 * float(want.abs().max()))

@@ -45,7 +45,9 @@ def test_port_has_modules():
                 "runtime/atomic", "ops/autodiff", "envs/enet", "rl/td3",
                 "rl/ddpg", "train/enet_sac", "train/enet_td3",
                 "train/enet_ddpg", "train/enet_eval", "train/calib_td3",
-                "train/calib_ddpg"):
+                "train/calib_ddpg", "cal/shapelets", "envs/demixing",
+                "envs/demixing_fuzzy", "models/fuzzy", "train/demix_sac",
+                "train/demix_td3", "train/demix_fuzzy_sac"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
 
