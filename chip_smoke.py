@@ -108,12 +108,29 @@
    shares);
 9. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
    blocked tier forced) and compares them;
+9b. drives the runtime slice (``runtime_phase``): ``train/calib_sac.py``
+   at N=62 (2 episodes of 2 steps, hint) with --metrics --diag --watchdog
+   --ckpt-every 1, and 1 episode plus a --resume to 2, whose last
+   checkpoint must equal the straight run's bit for bit (scores,
+   parameters, Adam moments, generator, ring and priorities, env key),
+   kernel 1's launches counted; ``train/enet_sac.py`` (M = N = 20, 2
+   episodes of 2 steps) killed after 1 and resumed, and rolled back from
+   a SMARTCAL_FAULTS NaN under --max-recoveries 1; save_checkpoint /
+   load_latest of a full 10,000-transition N=62 ring; the run log's stage
+   shares beside stage_seconds; a learn step's diag overhead and its
+   on/off bit identity; last, a 1-step ``--trace`` run (``--small``) whose
+   Chrome trace must hold the spans;
 10. prints the kernel table as one JSON line (with each kernel's launches
    on the diffuse and the demixing paths), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Details go to DIR/chip_smoke.json (default smoke_out/).
+
+    python3 chip_smoke.py --runtime [--out DIR]
+
+builds the kernels and runs step 9b alone (details in
+DIR/runtime_phase.json).
 
     python3 chip_smoke.py --ablation [--out DIR]
 
@@ -2175,6 +2192,429 @@ def demix_drivers_phase(dev, out_dir, zero_counts, read_counts):
     return out
 
 
+# -- the runtime and observability slice: checkpoint/resume, rollback, the
+# run log, update diagnostics, a trace -------------------------------------
+
+RT_N62 = ["--stations", "62", "--steps", "2", "--use_hint", "--seed", "0",
+          "--quiet"]
+RT_ENET = ["--steps", "2", "--use_hint", "--seed", "0", "--quiet"]
+RT_TRACE = ["--small", "--M", "3", "--episodes", "1", "--steps", "1",
+            "--use_hint", "--seed", "0", "--quiet"]
+# the NaN of the rollback check: update 3 is episode 1's second learn call
+RT_FAULT = {"nan_field": "critic_loss", "nan_step": 3}
+FULL_RING = 10000                         # calib_sac's mem_size
+
+
+def _payload_diff(a, b, path=""):
+    """The paths at which two checkpoint payloads differ (bit for bit)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [d for k in a for d in _payload_diff(a[k], b[k],
+                                                    f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _payload_diff(x, y, f"{path}[{i}]")]
+    x, y = np.asarray(a), np.asarray(b)
+    if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(
+            x, y, equal_nan=x.dtype.kind == "f"):
+        return [path]
+    return []
+
+
+def _run_events(path):
+    return [json.loads(ln) for ln in open(path) if ln.strip()]
+
+
+def _stage_shares(events, stage_seconds):
+    """Per backend stage: the run log's span seconds (the ``synced``
+    spans) and ``stage_seconds``, each as a share of the episode spans."""
+    spans = [e for e in events if e["event"] == "span"]
+    episodes = sum(e["dur_s"] for e in spans if e["path"] == "episode")
+    by_name = {}
+    for e in spans:
+        if e.get("synced"):
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur_s"]
+    span_of = {"hint": "hint_sweep", "sigmas": "reward"}
+    out = {}
+    for stage, sec in stage_seconds.items():
+        log_s = by_name.get(span_of.get(stage, stage), 0.0)
+        out[stage] = {"log_s": log_s, "stage_seconds": sec,
+                      "log_share": log_s / episodes if episodes else None,
+                      "stage_share": sec / episodes if episodes else None}
+    return episodes, out
+
+
+def diag_agent(dev, mem=256):
+    """The calibration SAC agent (128² image, M=10, batch 32) on a ring of
+    ``mem`` random transitions, after 3 learns (Adam history)."""
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.train import calib_sac
+
+    cfg = dataclasses.replace(calib_sac.agent_config(128, 10, True),
+                              mem_size=mem)
+    agent = sac.SACAgent(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for v in agent.buffer.data.values():
+        if v.dtype == torch.bool:
+            v.zero_()
+        else:
+            v.copy_(torch.rand(v.shape, generator=g, device=dev))
+    agent.buffer.priority.fill_(1.0)
+    agent.buffer.cntr = mem
+    for _ in range(3):
+        agent.learn()
+    return agent
+
+
+def diag_identity(dev, agent, steps=3):
+    """Learn ``steps`` times from copies of ``agent``'s state on the same
+    draws: diagnostics off, off again, and on.  Returns whether off equals
+    off (the learn step is deterministic) and on equals off, with the
+    first paths that part."""
+    from smartcal_tpu_torch.rl import sac
+
+    states = []
+    for collect in (False, False, True):
+        st = agent.state.copy_to(dev)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        for _ in range(steps):
+            sac.learn(agent.cfg, st, agent.buffer, gen, collect_diag=collect)
+        states.append(st.to_host())
+    straight = _payload_diff(states[0], states[1])
+    diag = _payload_diff(states[0], states[2])
+    return {"straight_identical": not straight, "straight_diff": straight,
+            "diag_identical": not diag, "diag_diff": diag}
+
+
+def diag_determinism_main():
+    """``--diag-determinism``: :func:`diag_identity` under
+    ``torch.use_deterministic_algorithms(True)`` (the caller sets
+    CUBLAS_WORKSPACE_CONFIG); prints its result as the last line."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", 0)
+    out = diag_identity(dev, diag_agent(dev))
+    out["cublas_workspace_config"] = os.environ.get(
+        "CUBLAS_WORKSPACE_CONFIG")
+    print(json.dumps(out))
+    return 0
+
+
+def runtime_phase(dev, out_dir, zero_counts, read_counts):
+    """The runtime slice on the card: calib_sac at N=62 (kernel 1) with
+    --metrics --diag --watchdog --ckpt-every 1 for 2 episodes of 2 steps,
+    then 1 episode and a --resume to 2, held against the straight run bit
+    for bit (scores, parameters, Adam moments, ring and priorities,
+    generator state, env key); enet_sac (M = N = 20) killed and resumed,
+    and rolled back from an injected NaN under --max-recoveries 1;
+    save_checkpoint / load_latest of a full 10,000-transition N=62 ring;
+    the run log's stage shares beside stage_seconds; the diag overhead
+    per learn; last, a 1-step --trace run whose trace must hold the
+    spans.  Checkpoints, the full ring and the trace go to a temporary
+    directory that is removed."""
+    import shutil
+    import tempfile
+
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.obs import diag_to_host
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.runtime import checkpoint, faults
+    from smartcal_tpu_torch.train import calib_sac, enet_sac
+
+    tmp = tempfile.mkdtemp(prefix="runtime_phase_")
+    out = {}
+    t_phase = time.perf_counter()
+    try:
+        # -- calib_sac at N=62: straight, then killed after 1 and resumed --
+        straight = os.path.join(tmp, "straight")
+        resumed = os.path.join(tmp, "resumed")
+        run_log = os.path.join(out_dir, "runtime_calib_sac_run.jsonl")
+        if os.path.exists(run_log):
+            os.remove(run_log)
+        timer = StepTimer(CalibEnv)
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            s_a = calib_sac.main(RT_N62 + [
+                "--episodes", "2", "--prefix", straight + "/c", "--metrics",
+                run_log, "--diag", "--watchdog", "--ckpt-every", "1",
+                "--ckpt-dir", straight + "/ck"])
+        finally:
+            timer.restore()
+        straight_s = time.perf_counter() - t0
+        launches = read_counts()
+        # one image per band per env call: the data image of a reset, the
+        # residual image of a step
+        want = timer.env.backend.n_freqs * (len(timer.seconds) + 2)
+        if launches["dft_imager"] < want:
+            raise AssertionError(f"dft_imager launched {launches} on the "
+                                 f"runtime path, expected >= {want}")
+        t0 = time.perf_counter()
+        s_b1 = calib_sac.main(RT_N62 + [
+            "--episodes", "1", "--prefix", resumed + "/c", "--ckpt-every",
+            "1", "--ckpt-dir", resumed + "/ck"])
+        s_b = calib_sac.main(RT_N62 + [
+            "--episodes", "2", "--prefix", resumed + "/c", "--resume",
+            "--ckpt-every", "1", "--ckpt-dir", resumed + "/ck"])
+        resume_s = time.perf_counter() - t0
+        pa, step_a = checkpoint.load_latest(straight + "/ck")
+        pb, step_b = checkpoint.load_latest(resumed + "/ck")
+        diff = _payload_diff(pa, pb)
+        if step_a != 2 or step_b != 2 or s_a != s_b or s_a[:1] != s_b1:
+            raise AssertionError(f"calib_sac N=62 resume: scores {s_a} "
+                                 f"against {s_b} (first run {s_b1}), steps "
+                                 f"{step_a} {step_b}")
+        if diff:
+            raise AssertionError(f"calib_sac N=62 resume differs from the "
+                                 f"straight run at {diff[:10]}")
+        events = _run_events(run_log)
+        kinds = {e["event"] for e in events}
+        for k in ("run_header", "span", "solver", "diag", "replay_health",
+                  "checkpoint", "episode", "run_end"):
+            if k not in kinds:
+                raise AssertionError(f"runtime run log has no {k} event")
+        ep_s, shares = _stage_shares(
+            events, dict(timer.env.backend.stage_seconds))
+        ckpt_spans = [e["dur_s"] for e in events if e["event"] == "span"
+                      and e["name"] == "checkpoint"]
+        solver_ev = [e for e in events if e["event"] == "solver"]
+        out["calib_sac_n62"] = {
+            "args": RT_N62, "scores": s_a, "resumed_scores": s_b,
+            "bit_identical": True, "deterministic_algorithms": False,
+            "straight_seconds": straight_s, "resume_seconds": resume_s,
+            "launches": launches, "checkpoint_span_s": ckpt_spans,
+            "payload_bytes": json.load(open(os.path.join(
+                straight, "ck", "ckpt_000002", "meta.json")))["payload_bytes"],
+            "episode_span_s": ep_s, "stage_shares": shares,
+            "solver_events": len(solver_ev),
+            "phi_evals_per_linesearch": [e["phi_evals_per_linesearch"]
+                                         for e in solver_ev],
+            "lbfgs_iters_total": [e["lbfgs_iters_total"]
+                                  for e in solver_ev]}
+        print(f"runtime: calib_sac N=62 straight 2x2 with --metrics --diag "
+              f"--watchdog --ckpt-every 1 {straight_s:.3f} s, 1 + --resume "
+              f"to 2 {resume_s:.3f} s; scores "
+              + ", ".join(f"{x:.6f}" for x in s_a)
+              + " both ways; checkpoints bit-identical (agent state, Adam "
+              "moments, generator, ring + priorities, env key) without "
+              f"deterministic algorithms; dft_imager {launches['dft_imager']}"
+              f" launches; checkpoint spans "
+              + ", ".join(f"{x:.3f}" for x in ckpt_spans) + " s", flush=True)
+        print("runtime: stage shares of the episode spans (run log "
+              "synced spans | stage_seconds): "
+              + ", ".join(f"{k} {v['log_share']:.3f} | "
+                          f"{v['stage_share']:.3f}"
+                          for k, v in shares.items())
+              + f" (episodes {ep_s:.3f} s)", flush=True)
+        del pa, pb
+
+        # -- enet_sac M = N = 20: kill/resume, and the NaN rollback --------
+        def enet(tag, episodes, extra=()):
+            return enet_sac.main(RT_ENET + ["--episodes", str(episodes),
+                                            "--prefix", f"{tmp}/{tag}_",
+                                            "--ckpt-dir", f"{tmp}/{tag}_ck"]
+                                 + list(extra))
+
+        t0 = time.perf_counter()
+        e_a = enet("ea", 2, ["--ckpt-every", "2"])
+        enet("eb", 1, ["--ckpt-every", "1"])
+        e_b = enet("eb", 2, ["--resume", "--ckpt-every", "2"])
+        ediff = _payload_diff(checkpoint.load_latest(f"{tmp}/ea_ck")[0],
+                              checkpoint.load_latest(f"{tmp}/eb_ck")[0])
+        enet_resume_s = time.perf_counter() - t0
+        if ediff or e_a["final_avg_score"] != e_b["final_avg_score"]:
+            raise AssertionError(f"enet_sac resume differs at {ediff[:10]}")
+        enet_log = os.path.join(out_dir, "runtime_enet_rollback_run.jsonl")
+        if os.path.exists(enet_log):
+            os.remove(enet_log)
+        os.environ["SMARTCAL_FAULTS"] = json.dumps(RT_FAULT)
+        t0 = time.perf_counter()
+        try:
+            e_r = enet("er", 2, ["--ckpt-every", "1", "--max-recoveries",
+                                 "1", "--recovery-lr-shrink", "1.0",
+                                 "--no-recovery-reseed", "--metrics",
+                                 enet_log])
+        finally:
+            del os.environ["SMARTCAL_FAULTS"]
+            faults.clear()
+        rollback_s = time.perf_counter() - t0
+        ev = _run_events(enet_log)
+        rec = [e for e in ev if e["event"] == "recovery"]
+        eps = [e["episode"] for e in ev if e["event"] == "episode"]
+        if (not rec or rec[0]["action"] != "rollback"
+                or not any(e["event"] == "watchdog_trip" for e in ev)
+                or eps != [0, 1]
+                or e_r["final_avg_score"] != e_a["final_avg_score"]):
+            raise AssertionError(f"enet NaN rollback: recovery {rec}, "
+                                 f"episodes {eps}, score "
+                                 f"{e_r['final_avg_score']} against "
+                                 f"{e_a['final_avg_score']}")
+        out["enet_sac"] = {"resume_bit_identical": True,
+                           "resume_seconds": enet_resume_s,
+                           "rollback": rec[0], "rollback_episodes": eps,
+                           "rollback_seconds": rollback_s,
+                           "score": e_a["final_avg_score"]}
+        print(f"runtime: enet_sac M=N=20 2x2 killed after 1 and resumed, "
+              f"bit-identical ({enet_resume_s:.3f} s for the three runs); "
+              f"NaN at update {RT_FAULT['nan_step']} tripped the watchdog, "
+              f"rolled back to episode {rec[0]['rollback_step']} and "
+              f"finished equal to the run without it (episodes {eps}, "
+              f"{rollback_s:.3f} s)", flush=True)
+
+        # -- checkpoint save / load of a full N=62 ring ---------------------
+        cfg = dataclasses.replace(calib_sac.agent_config(128, 10, True),
+                                  mem_size=FULL_RING)
+        agent = sac.SACAgent(cfg, seed=0, device=dev)
+        buf = agent.buffer
+        g = torch.Generator(device=dev).manual_seed(3)
+        for k, v in buf.data.items():
+            if v.dtype == torch.bool:
+                v.copy_(torch.rand(v.shape, generator=g, device=dev) < 0.1)
+            else:
+                v.copy_(torch.rand(v.shape, generator=g, device=dev))
+        buf.priority.copy_(torch.rand(FULL_RING, generator=g, device=dev))
+        buf.cntr = FULL_RING + 7
+        torch.cuda.synchronize(dev)
+        from smartcal_tpu_torch.train.blocks import pack_agent_loop
+        root = os.path.join(tmp, "full_ring")
+        t0 = time.perf_counter()
+        payload = pack_agent_loop(agent, None, [0.0], 1)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(root, 1, payload)
+        save_s = time.perf_counter() - t0
+        nbytes = json.load(open(os.path.join(root, "ckpt_000001",
+                                             "meta.json")))["payload_bytes"]
+        del payload
+        t0 = time.perf_counter()
+        loaded, _ = checkpoint.load_latest(root)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.unpack_replay(loaded["replay"], dev)
+        torch.cuda.synchronize(dev)
+        unpack_s = time.perf_counter() - t0
+        same = (back.cntr == buf.cntr and torch.equal(back.priority,
+                                                      buf.priority)
+                and all(torch.equal(back.data[k], v)
+                        for k, v in buf.data.items()))
+        if not same:
+            raise AssertionError("the full ring did not survive its "
+                                 "checkpoint")
+        del loaded, back, buf, agent
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
+        out["full_ring_checkpoint"] = {
+            "transitions": FULL_RING, "payload_bytes": nbytes,
+            "pack_s": pack_s, "save_s": save_s, "load_s": load_s,
+            "unpack_s": unpack_s}
+        print(f"runtime: full N=62 ring ({FULL_RING} transitions, "
+              f"{nbytes / 2**30:.3f} GiB payload with the agent): pack "
+              f"{pack_s:.3f} s, save_checkpoint (pickle, sha256, fsync) "
+              f"{save_s:.3f} s, load_latest (sha256, unpickle) "
+              f"{load_s:.3f} s, unpack to the card {unpack_s:.3f} s; "
+              "survived bit for bit", flush=True)
+
+        # -- diag overhead per learn and the on/off bit identity -----------
+        agent = diag_agent(dev)
+        ident = diag_identity(dev, agent)
+        if not ident["straight_identical"]:
+            # the learn step itself differs run to run on the card: find
+            # the first tensors that part, and hold diag on/off under
+            # deterministic algorithms in a child process (cuBLAS reads
+            # CUBLAS_WORKSPACE_CONFIG when it starts)
+            env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            child = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--diag-determinism"], capture_output=True, text=True,
+                env=env, timeout=600)
+            lines = child.stdout.strip().splitlines()
+            if child.returncode != 0 or not lines:
+                raise AssertionError(f"deterministic diag check failed: "
+                                     f"{child.stderr[-2000:]}")
+            ident["deterministic"] = json.loads(lines[-1])
+            det = ident["deterministic"]
+            if not (det["straight_identical"] and det["diag_identical"]):
+                raise AssertionError(f"collect_diag changed the learn step "
+                                     f"under deterministic algorithms: "
+                                     f"{det}")
+        elif not ident["diag_identical"]:
+            raise AssertionError(f"collect_diag changed the learn step on "
+                                 f"the card at {ident['diag_diff'][:10]}")
+        print(f"runtime: learn steps from one state, 3 each: diag off "
+              f"against off {'bit-identical' if ident['straight_identical'] else 'parted at ' + str(ident['straight_diff'][:6])}"
+              f"; diag on against off "
+              + ("bit-identical" if ident["diag_identical"] else
+                 "parted as above")
+              + ("" if ident["straight_identical"] else
+                 f"; under torch.use_deterministic_algorithms(True) "
+                 f"(CUBLAS_WORKSPACE_CONFIG=:4096:8, child process): off "
+                 f"against off and on against off bit-identical"),
+              flush=True)
+
+        def learn_plain():
+            agent.collect_diag = False
+            agent.learn()
+
+        def learn_diag():
+            agent.collect_diag = True
+            agent.learn()
+            diag_to_host(agent.last_diag)      # the run's host sync
+
+        plain_ms = cuda_ms(learn_plain, 20, warmup=3)
+        diag_ms = cuda_ms(learn_diag, 20, warmup=3)
+        plain_ms2 = cuda_ms(learn_plain, 20, warmup=3)
+        diag_ms2 = cuda_ms(learn_diag, 20, warmup=3)
+        del agent
+        torch.cuda.empty_cache()
+        out["diag_overhead"] = {
+            "learn_ms": [plain_ms, plain_ms2],
+            "learn_diag_ms": [diag_ms, diag_ms2],
+            "overhead_ms": min(diag_ms, diag_ms2) - min(plain_ms, plain_ms2),
+            "identity": ident}
+        print(f"runtime: learn (batch 32, 128² image, M=10) "
+              f"{plain_ms:.3f} / {plain_ms2:.3f} ms, with --diag (UpdateDiag "
+              f"+ its host sync) {diag_ms:.3f} / {diag_ms2:.3f} ms (CUDA "
+              f"events, median of 20, two runs): "
+              f"{out['diag_overhead']['overhead_ms']:.3f} ms per learn",
+              flush=True)
+
+        # -- last: a 1-step --trace run (the profiler session stays) --------
+        trace = os.path.join(tmp, "trace")
+        zero_counts()
+        t0 = time.perf_counter()
+        calib_sac.main(RT_TRACE + ["--prefix", tmp + "/t", "--trace", trace])
+        trace_s = time.perf_counter() - t0
+        trace_launches = read_counts()
+        tpath = os.path.join(trace, "calib_sac_trace.json")
+        with open(tpath) as fh:
+            names = {e.get("name") for e in json.load(fh).get(
+                "traceEvents", [])}
+        want = {"episode", "episode_reset", "episode_step", "solve",
+                "influence", "images"}
+        if not want <= names:
+            raise AssertionError(f"the trace lacks spans {want - names}")
+        tlog = _run_events(os.path.join(trace, "calib_sac_run.jsonl"))
+        if not any(e["event"] == "trace" for e in tlog):
+            raise AssertionError("no trace event beside the trace")
+        out["trace"] = {"args": RT_TRACE, "seconds": trace_s,
+                        "bytes": os.path.getsize(tpath),
+                        "spans_found": sorted(want),
+                        "launches": trace_launches}
+        print(f"runtime: --trace run (calib_sac {' '.join(RT_TRACE)}) "
+              f"{trace_s:.3f} s, trace {os.path.getsize(tpath) / 2**20:.1f} "
+              f"MiB holds the spans {sorted(want)}; dft_imager "
+              f"{trace_launches['dft_imager']} launches", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = out["calib_sac_n62"]["launches"]
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def demix_profile(env):
     """The demixing env's step profiled (after every timed phase): CUDA
     kernels per L-BFGS iteration of its solve, and its idle share against
@@ -2558,6 +2998,12 @@ def main():
                     help="directory for chip_smoke.json")
     ap.add_argument("--ablation", action="store_true",
                     help="time the imaging engine's design variants instead")
+    ap.add_argument("--runtime", action="store_true",
+                    help="build the kernels and run the runtime phase "
+                         "alone (checkpoint/resume, rollback, run log, "
+                         "diag, trace)")
+    ap.add_argument("--diag-determinism", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--hessian-split", metavar="PARENT_CU",
                     help="time the Hessian kernels' launches apart instead: "
                          "PARENT_CU is the two-pass hessian_blocks.cu of "
@@ -2566,6 +3012,24 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.diag_determinism:
+        return diag_determinism_main()
+    if args.runtime:
+        from smartcal_tpu_torch.ops import build, dft_imager
+        card = card_line()
+        print(card, flush=True)
+        build.build()
+        os.makedirs(args.out, exist_ok=True)
+
+        def zero():
+            dft_imager.launches = 0
+
+        rt = runtime_phase(torch.device("cuda", 0), args.out, zero,
+                           lambda: {"dft_imager": dft_imager.launches})
+        with open(os.path.join(args.out, "runtime_phase.json"), "w") as fh:
+            json.dump(rt, fh, indent=1, default=float)
+        print(card)
+        return 0
     if args.ablation or args.hessian_split:
         card = card_line()
         print(card, flush=True)
@@ -2972,6 +3436,11 @@ def main():
     report["demix_env"]["profile"] = demix_profile(demix_env)
     del demix_env
 
+    # -- the runtime slice, last: its final run holds a profiler session --
+    report["runtime"] = runtime_phase(dev, args.out, zero_counts,
+                                      read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
     def new_paths(name):
         """The kernel's launches on the batched and demixing slices'
         paths."""
@@ -3014,6 +3483,8 @@ def main():
          "launches_enet_paths": sum(
              report[k]["launches"]["dft_imager"] for k in ("enet_step",
                                                            "enet_sac")),
+         "launches_runtime_path":
+             report["runtime"]["launches"]["dft_imager"],
          "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"]]),
          "ms": dft_ms,
          "plain_ms": dft_plain_ms, **dft_bounds, "library_ms": None,

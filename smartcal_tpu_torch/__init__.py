@@ -22,8 +22,12 @@ The layout mirrors the JAX package module for module
   replay ring;
 * ``train/``: the calibration SAC/TD3/DDPG trainers, the demixing
   SAC/TD3/fuzzy-SAC trainers, the elastic-net SAC/TD3/DDPG trainers and
-  evaluation, and the plumbing they need;
-* ``runtime/``: crash-safe saves.
+  evaluation, and the plumbing they need (run log, checkpoints, resume,
+  the watchdog's rollback);
+* ``obs/``, ``utils/metrics.py``: the run log, spans, counters, update
+  diagnostics and the divergence watchdog;
+* ``runtime/``: crash-safe saves, the checkpoint store, fault injection
+  and the recovery policy.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``
 and raises when no GPU is present; the CPU runs the same code only when

@@ -10,17 +10,20 @@ reduction over frequency.  ``solve_admm_batched`` is the JAX package's
 per inner solve, everything else per episode.  The host-segmented solve
 (``solve_admm_host``) computes the same thing in bounded dispatches for
 TPU watchdogs; it is not needed on one GPU and is still to be ported, as
-are the sharded routes and solver telemetry.
+are the sharded routes.  ``collect_stats=True`` returns the solver's
+telemetry (:class:`SolverStats`) beside the result.
 
 All math is split-real float32; samples are time-major ck = t*B + b and
 baselines enumerate p < q row-major.
 """
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from smartcal_tpu_torch import obs
 from smartcal_tpu_torch.cal import consensus, creal
 from smartcal_tpu_torch.cal.kernels import baseline_indices, baseline_onehots
 from smartcal_tpu_torch.ops import lbfgs
@@ -49,6 +52,23 @@ class SolveResult(NamedTuple):
     sigma_data: torch.Tensor # () std of data
     final_cost: torch.Tensor # (Nf, Ts) inner cost at the last ADMM
                              # iteration, in DATA units
+
+
+class SolverStats(NamedTuple):
+    """Telemetry of one solve (``collect_stats=True``; the JAX package's
+    ``SolverStats`` plus the line search's own counts).  Additional
+    outputs only: the solution is the same bits with or without them.
+    Tensors on the solve's device; ``solve_admm_batched`` gives each a
+    leading episode axis (the JAX package's vmapped solve)."""
+
+    admm_iters: torch.Tensor    # () int32 outer iterations run
+    primal_resid: torch.Tensor  # (admm_iters,) consensus RMS ||J - BZ||
+    inner_iters: torch.Tensor   # (admm_iters,) int32 L-BFGS iterations
+                                # per outer iteration, summed over lanes
+    init_iters: torch.Tensor    # () int32 chi2-only init iterations, summed
+    n_segments: torch.Tensor    # () int32 solve dispatches (1: one solve)
+    phi_evals: int              # quartic evaluations of every line search
+    linesearches: int           # line searches run (each over all lanes)
 
 
 class SolverDegradedError(RuntimeError):
@@ -205,15 +225,29 @@ class _QuarticLineSearch:
     def __init__(self, n_lanes, dtype, device):
         self.n_lanes, self.dtype, self.device = n_lanes, dtype, device
         self.graph = None
+        # telemetry: searches run and quartic evaluations they made (a
+        # graph replay makes the evaluations of its capture: every branch)
+        self.calls = self.phi_evals = self._evals = 0
 
     def _search(self, coeffs):
-        return lbfgs.strong_wolfe_cubic(_quartic_phi(coeffs), self.n_lanes,
+        phi = _quartic_phi(coeffs)
+
+        def counted(a):
+            self._evals += 1
+            return phi(a)
+
+        self._evals = 0
+        return lbfgs.strong_wolfe_cubic(counted, self.n_lanes,
                                         dtype=self.dtype, device=self.device)
 
     def __call__(self, coeffs):
+        self.calls += 1
         if self.device.type != "cuda":
-            return self._search(coeffs)
+            out = self._search(coeffs)
+            self.phi_evals += self._evals
+            return out
         if self.graph is None:
+            t0 = time.perf_counter()
             self.coeffs = coeffs.clone()
             side = torch.cuda.Stream(self.device)     # warm-up, then capture
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -226,6 +260,10 @@ class _QuarticLineSearch:
             with torch.cuda.graph(self.graph,
                                   capture_error_mode="thread_local"):
                 self.step = self._search(self.coeffs)
+            self._graph_evals = self._evals
+            obs.record_compile("cuda_graph:quartic_line_search",
+                               time.perf_counter() - t0, lanes=self.n_lanes)
+        self.phi_evals += self._graph_evals
         self.coeffs.copy_(coeffs)
         self.graph.replay()
         return self.step.clone()
@@ -245,7 +283,8 @@ def _inner_solver(Vp, Cp, cfg: SolverConfig):
     """``inner_solve(x0, prior, half_rho, iters)``: one lane-batched
     ``lbfgs_solve`` of the per-lane cost on the lanes of ``Vp``/``Cp``, the
     quartic line search captured for that lane count.  ``half_rho`` is (K,)
-    or per lane (L, K)."""
+    or per lane (L, K).  ``inner_solve.search`` is the line search (its
+    counts are the solver telemetry's)."""
     onehots = baseline_onehots(cfg.n_stations, Vp.dtype, Vp.device)
     search = _QuarticLineSearch(Vp.shape[0], Vp.dtype, Vp.device)
 
@@ -261,7 +300,28 @@ def _inner_solver(Vp, Cp, cfg: SolverConfig):
                                  max_iters=iters,
                                  line_search=line_search)
 
+    inner_solve.search = search
     return inner_solve
+
+
+def _stats(admm_iters, resid, inner, init_iters, search, lead=()):
+    """:class:`SolverStats` of a solve from its per-iteration tensors (lists
+    of ``lead``-shaped tensors)."""
+    dev = search.device
+
+    def hist(xs, dtype):
+        if not xs:
+            return torch.zeros(lead + (0,), dtype=dtype, device=dev)
+        return torch.stack(xs, dim=-1).to(dtype)
+
+    return SolverStats(
+        admm_iters=torch.as_tensor(admm_iters, dtype=torch.int32,
+                                   device=dev),
+        primal_resid=hist(resid, torch.float32),
+        inner_iters=hist(inner, torch.int32),
+        init_iters=torch.as_tensor(init_iters, device=dev).to(torch.int32),
+        n_segments=torch.ones(lead, dtype=torch.int32, device=dev),
+        phi_evals=search.phi_evals, linesearches=search.calls)
 
 
 def _prep(V, C, freqs, f0, rho, cfg: SolverConfig, Ts):
@@ -309,7 +369,8 @@ def _finalize(J, V6, C7, data_scale, cost, cfg: SolverConfig, T):
 
 
 def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
-               admm_iters: Optional[int] = None) -> SolveResult:
+               admm_iters: Optional[int] = None,
+               collect_stats: bool = False) -> SolveResult:
     """Consensus-ADMM calibration over frequency sub-bands, cold start.
 
     V     : (Nf, T, B, 2, 2, 2) observed visibilities (split-real 2x2)
@@ -318,6 +379,10 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
     rho   : (K,) per-direction ADMM regularization
     n_chunks : solution intervals Ts; the chi2-only init phase runs first
     admm_iters : optional override of ``cfg.admm_iters``
+    collect_stats : return ``(result, SolverStats)``: per outer iteration
+            the consensus RMS and the L-BFGS iterations of all lanes, the
+            init iterations and the line search's counts (no extra sync;
+            the same result bits)
     """
     dev = V.device
     Nf, T = V.shape[0], V.shape[1]
@@ -337,17 +402,21 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
     p_shape = (L, K, 2 * N, 2, 2)
     inner_solve = _inner_solver(Vp, Cp, cfg)
 
+    init_iters = 0
     if cfg.init_iters > 0:
         # chi2-only initialization at the per-subband data optimum
         res = inner_solve(J.reshape(x_shape), J.reshape(p_shape),
                           torch.zeros_like(rho), cfg.init_iters)
         J = res.x.reshape(J.shape)
+        if collect_stats:
+            init_iters = res.n_iters.sum()
 
     half_rho = 0.5 * rho
     rho6 = rho[None, None, :, None, None, None]
     Y = torch.zeros_like(J)
     Z = _z_update(bfull, Bi, rho, J, Y)
     cost = torch.zeros((Nf, Ts), dtype=V.dtype, device=dev)
+    resid, inner = [], []
     for _ in range(niter):
         prior = _bz(bfull, Z) - Y / rho6
         res = inner_solve(J.reshape(x_shape), prior.reshape(p_shape),
@@ -355,16 +424,25 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
         J = res.x.reshape(J.shape)
         cost = res.loss.reshape(Nf, Ts)
         Z = _z_update(bfull, Bi, rho, J, Y)
-        Y = Y + rho6 * (J - _bz(bfull, Z))
+        r = J - _bz(bfull, Z)
+        Y = Y + rho6 * r
+        if collect_stats:
+            resid.append(torch.sqrt(torch.sum(r * r) / r.numel()))
+            inner.append(res.n_iters.sum())
 
     residual, sigma_res, sigma_data, fcost = _finalize(
         J, V6, C7, data_scale, cost, cfg, T)
-    return SolveResult(J=J, Z=Z, residual=residual, sigma_res=sigma_res,
-                       sigma_data=sigma_data, final_cost=fcost)
+    result = SolveResult(J=J, Z=Z, residual=residual, sigma_res=sigma_res,
+                         sigma_data=sigma_data, final_cost=fcost)
+    if collect_stats:
+        return result, _stats(niter, resid, inner, init_iters,
+                              inner_solve.search)
+    return result
 
 
 def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
-                       n_chunks: int = 1, admm_iters=None) -> SolveResult:
+                       n_chunks: int = 1, admm_iters=None,
+                       collect_stats: bool = False) -> SolveResult:
     """:func:`solve_admm` of E episodes at once: the JAX package's
     ``vmap(solve_admm)`` (smartcal_tpu/envs/radio.py batched_solve_callable).
 
@@ -376,7 +454,10 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
     statistics are per episode.  The ADMM loop runs to the largest count;
     an episode past its own count keeps its J, Y, Z and cost, as a lane of
     the vmapped ``fori_loop`` does.  Returns a :class:`SolveResult` whose
-    fields carry a leading episode axis."""
+    fields carry a leading episode axis; ``collect_stats`` returns
+    ``(result, SolverStats)`` with a leading episode axis on the tensors
+    (an episode past its own count records 0 there, as the JAX package's
+    fixed-size histories do)."""
     dev, dt = V.device, V.dtype
     E, Nf, T = V.shape[0], V.shape[1], V.shape[2]
     K, N = cfg.n_dirs, cfg.n_stations
@@ -404,11 +485,14 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
     p_shape = (L, K, 2 * N, 2, 2)
     inner_solve = _inner_solver(Vp, Cp, cfg)
 
+    init_iters = torch.zeros(E, dtype=torch.int32, device=dev)
     if cfg.init_iters > 0:
         res = inner_solve(J.reshape(x_shape), J.reshape(p_shape),
                           torch.zeros((L, K), dtype=dt, device=dev),
                           cfg.init_iters)
         J = res.x.reshape(J.shape)
+        if collect_stats:
+            init_iters = res.n_iters.reshape(E, -1).sum(dim=1)
 
     half_rho = (0.5 * rho).repeat_interleave(Nf * Ts, dim=0)   # (L, K)
     rho7 = rho[:, None, None, :, None, None, None]
@@ -423,6 +507,7 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
     Y = torch.zeros_like(J)
     Z = z_update(J, Y)
     cost = torch.zeros((E, Nf, Ts), dtype=dt, device=dev)
+    resid, inner = [], []
     for i in range(int(iters.max(initial=0))):
         prior = bz(Z) - Y / rho7
         res = inner_solve(J.reshape(x_shape), prior.reshape(p_shape),
@@ -430,8 +515,16 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
         J_new = res.x.reshape(J.shape)
         cost_new = res.loss.reshape(E, Nf, Ts)
         Z_new = z_update(J_new, Y)
-        Y_new = Y + rho7 * (J_new - bz(Z_new))
+        r = J_new - bz(Z_new)
+        Y_new = Y + rho7 * r
         live = iters > i
+        if collect_stats:
+            on_t = torch.as_tensor(live, device=dev)
+            rr = torch.sqrt(torch.sum(r * r, dim=tuple(range(1, r.dim())))
+                            / r[0].numel())
+            resid.append(torch.where(on_t, rr, 0.0))
+            inner.append(torch.where(
+                on_t, res.n_iters.reshape(E, -1).sum(dim=1), 0))
         if live.all():
             J, Y, Z, cost = J_new, Y_new, Z_new, cost_new
             continue
@@ -454,9 +547,13 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
     n_dat = (torch.sum(V6 * V6, dim=(1, 2, 3, 4, 5, 6, 7)) * data_scale
              * data_scale)
     ds3 = data_scale[:, None, None]
-    return SolveResult(
+    result = SolveResult(
         J=J, Z=Z, residual=residual, sigma_res=torch.sqrt(n_res / count),
         sigma_data=torch.sqrt(n_dat / count), final_cost=cost * ds3 * ds3)
+    if collect_stats:
+        return result, _stats(torch.as_tensor(np.array(iters)), resid, inner,
+                              init_iters, inner_solve.search, lead=(E,))
+    return result
 
 
 def result_finite(res: SolveResult) -> bool:

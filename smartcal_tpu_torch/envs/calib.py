@@ -19,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-from smartcal_tpu_torch import prng, resolve_device
+from smartcal_tpu_torch import obs, prng, resolve_device
 from smartcal_tpu_torch.cal import observation
 from smartcal_tpu_torch.envs import radio
 
@@ -122,11 +122,13 @@ class CalibEnv:
                     arr[ci] = HIGH
                     penalty += -0.1
 
-        res, img = self._run_calibration()
-        sigma1 = _std(self.backend.residual_image(self.ep, res))
-        reward = (self._sigma_data_img / max(sigma1, 1e-12)
-                  + 1e-4 / (float(img.std()) + EPS) + penalty
-                  - self._reward0)
+        with obs.span("episode_step", env="calib"):
+            res, img = self._run_calibration()
+            with obs.span("reward"):
+                sigma1 = _std(self.backend.residual_image(self.ep, res))
+                reward = (self._sigma_data_img / max(sigma1, 1e-12)
+                          + 1e-4 / (float(img.std()) + EPS) + penalty
+                          - self._reward0)
         observation_ = self._observation(img)
         info = {"sigma_res": float(res.sigma_res),
                 "sigma_data": float(res.sigma_data)}
@@ -148,6 +150,10 @@ class CalibEnv:
         return f"{type(self).__name__}-{id(self)}-{key.tobytes().hex()}"
 
     def reset(self):
+        with obs.span("episode_reset", env="calib"):
+            return self._reset()
+
+    def _reset(self):
         key = self._next_key()
         got = (self.backend.take_prefetched(self._prefetch_tag(key))
                if self.prefetch else None)
@@ -300,6 +306,11 @@ class BatchedCalibEnv:
         into the batch, and run the batched reset-time calibration; live
         lanes keep their observation and baselines."""
         done = np.asarray(done, bool)
+        with obs.span("episode_reset", env="calib_batched",
+                      lanes=int(done.sum())):
+            return self._reset_lanes(done)
+
+    def _reset_lanes(self, done):
         for i in np.where(done)[0]:
             key = self._next_lane_key(i)
             self.K[i], self.eps[i], self.mdls[i] = self._build_episode(key)
@@ -361,7 +372,10 @@ class BatchedCalibEnv:
             penalty += -0.1 * np.sum(sel & (arr > HIGH), axis=1)
             np.clip(arr, LOW, HIGH, out=arr)
 
-        imgs, _, sig_res_img, sigma_res, sigma_data = self._run_calibration()
+        with obs.span("episode_step", env="calib_batched",
+                      lanes=self.n_envs):
+            imgs, _, sig_res_img, sigma_res, sigma_data = \
+                self._run_calibration()
         rewards = (self._sigma_data_img / np.maximum(sig_res_img, 1e-12)
                    + 1e-4 / (imgs.std(axis=(1, 2)) + EPS) + penalty
                    - self._reward0).astype(np.float32)

@@ -22,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-from smartcal_tpu_torch import prng, resolve_device
+from smartcal_tpu_torch import obs, prng, resolve_device
 from smartcal_tpu_torch.envs import radio
 
 LOW, HIGH = 0.0, 1.0
@@ -145,9 +145,12 @@ class DemixingEnv:
         clus_sel, self.maxiter = self._selection(action)
         mask = self._mask(clus_sel)
         Kselected = int(mask.sum())
-        res = self._calibrate(mask)
-        self.std_residual = float(self.backend.noise_std(res.residual))
-        infdata = self._influence_map(res, mask)
+        with obs.span("episode_step", env="demix"):
+            res = self._calibrate(mask)
+            with obs.span("reward"):
+                self.std_residual = float(
+                    self.backend.noise_std(res.residual))
+            infdata = self._influence_map(res, mask)
 
         md = self.metadata.copy()
         md[np.where(mask > 0)[0]] = 0.0     # separations of calibrated dirs
@@ -166,6 +169,10 @@ class DemixingEnv:
         return f"{type(self).__name__}-{id(self)}-{key.tobytes().hex()}"
 
     def reset(self):
+        with obs.span("episode_reset", env="demix"):
+            return self._reset()
+
+    def _reset(self):
         key = self._next_key()
         got = (self.backend.take_prefetched(self._prefetch_tag(key))
                if self.prefetch else None)
@@ -352,6 +359,11 @@ class BatchedDemixingEnv:
         into the batch, and run the batched target-only calibration; live
         lanes keep their observation and baselines."""
         done = np.asarray(done, bool)
+        with obs.span("episode_reset", env="demix_batched",
+                      lanes=int(done.sum())):
+            return self._reset_lanes(done)
+
+    def _reset_lanes(self, done):
         for i in np.where(done)[0]:
             key = self._next_lane_key(i)
             self.eps[i], self.mdls[i] = \
@@ -398,8 +410,10 @@ class BatchedDemixingEnv:
                         + (HIGH_ITER + LOW_ITER) / 2).astype(np.int32)
         masks = self._masks([np.where(s > 0.5)[0].tolist() for s in sel])
         Kselected = masks.sum(axis=1)
-        res, self.std_residual = self._calibrate(masks)
-        infmaps = self._influence_maps(res, masks)
+        with obs.span("episode_step", env="demix_batched",
+                      lanes=self.n_envs):
+            res, self.std_residual = self._calibrate(masks)
+            infmaps = self._influence_maps(res, masks)
         self.lane_step += 1
         md = self.metadata.copy()
         md[:, :self.K][masks > 0] = 0.0   # separations of calibrated dirs

@@ -19,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 
+from smartcal_tpu_torch import obs as smartcal_obs
 from smartcal_tpu_torch.envs import radio
 from smartcal_tpu_torch.envs.demixing import DemixingEnv
 from smartcal_tpu_torch.models.fuzzy import N_ACTION, DemixController
@@ -103,9 +104,12 @@ class FuzzyDemixingEnv(DemixingEnv):
         mask = self._mask(clus_sel)
         Kselected = int(mask.sum())
         self.maxiter = 15
-        res = self._calibrate(mask)
-        self.std_residual = float(self.backend.noise_std(res.residual))
-        infdata = self._influence_map(res, mask)
+        with smartcal_obs.span("episode_step", env="demix_fuzzy"):
+            res = self._calibrate(mask)
+            with smartcal_obs.span("reward"):
+                self.std_residual = float(
+                    self.backend.noise_std(res.residual))
+            infdata = self._influence_map(res, mask)
 
         flags = np.zeros(self.K, np.float32)
         flags[np.where(mask > 0)[0]] = 1.0

@@ -55,7 +55,14 @@ the build.
 ``stage_seconds`` accumulates host-clock seconds per stage (simulate,
 solve, hint, influence, images, sigmas), each ended by a synchronize of the
 calling thread's stream (a prefetch build's simulate seconds overlap the
-caller's stages).
+caller's stages).  While a RunLog is active each stage is also an obs
+span, under the JAX package's span names (the hint stage is
+``hint_sweep``, the sigmas stage ``reward``; ``images`` has no JAX twin)
+and tagged ``synced=True``: its duration includes the device's time.
+``calibrate`` then also collects the solver's telemetry and logs it as a
+``solver`` event, as the JAX backend does.  The prefetch records the JAX
+package's ``prefetch_hit`` / ``prefetch_stall`` / ``prefetch_miss``
+counters, the ``prefetch_pending`` gauge and ``prefetch_wait`` spans.
 """
 
 import threading
@@ -68,7 +75,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch import obs, resolve_device
 from smartcal_tpu_torch.cal import (coherency, imager, influence, observation,
                                     shapelets, simulate, solver)
 
@@ -171,18 +178,24 @@ class RadioBackend:
         self.prefetch_counts = {"hit": 0, "stall": 0, "miss": 0}
 
     @contextmanager
-    def _stage(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                # this thread's stream only: a device-wide synchronize from
-                # the prefetch thread would break the caller's graph capture
-                torch.cuda.current_stream(self.device).synchronize()
-            dt = time.perf_counter() - t0
-            with self._stage_lock:
-                self.stage_seconds[name] += dt
+    def _stage(self, name, span=None, **tags):
+        """Time stage ``name`` into ``stage_seconds``, ended by a
+        synchronize of this thread's stream; while a RunLog is active also
+        an obs span ``span`` (default ``name``), tagged ``synced=True``.
+        Yields the span (its ``tag`` adds tags)."""
+        with obs.span(span or name, synced=True, **tags) as sp:
+            t0 = time.perf_counter()
+            try:
+                yield sp
+            finally:
+                if self.device.type == "cuda":
+                    # this thread's stream only: a device-wide synchronize
+                    # from the prefetch thread would break the caller's
+                    # graph capture
+                    torch.cuda.current_stream(self.device).synchronize()
+                dt = time.perf_counter() - t0
+                with self._stage_lock:
+                    self.stage_seconds[name] += dt
 
     @property
     def n_baselines(self):
@@ -229,7 +242,7 @@ class RadioBackend:
         Returns (episode, models).  ``diffuse=True`` adds the random
         shapelet component to cluster 0: exact modes to the data, the
         perturbed twin to the calibration model."""
-        with self._stage("simulate"):
+        with self._stage("simulate", kind="calib", K=K):
             obs = observation.make_observation(
                 key, n_stations=self.n_stations, n_freqs=self.n_freqs,
                 n_times=self.n_times, device=self.device)
@@ -257,7 +270,7 @@ class RadioBackend:
         JAX order: strategy (salt 20), target (11), band, observation (12,
         10), sky (2, 3), then the snr, the systematics (4) and the noise
         (5).  Returns (episode, models)."""
-        with self._stage("simulate"):
+        with self._stage("simulate", kind="demix", K=K):
             rng = observation.host_rng(key, salt=20)
             strategy = int(rng.integers(0, 3))
             ra0, dec0, t0 = observation.find_valid_target(
@@ -289,8 +302,13 @@ class RadioBackend:
 
     def calibrate(self, ep: Episode, rho, mask=None, admm_iters=None):
         """Solve with per-direction rho; ``mask`` (K,) in {0, 1} excludes
-        directions by zeroing their model (one solver for every subset)."""
-        with self._stage("solve"):
+        directions by zeroing their model (one solver for every subset).
+        While a RunLog is active the solve collects its telemetry and logs
+        a ``solver`` event (JAX radio.py:498-499, 601-606); the result is
+        the same bits either way."""
+        collect = obs.active() is not None
+        stats = []
+        with self._stage("solve", route="fused"):
             C = ep.Ccal
             if mask is not None:
                 m = torch.as_tensor(np.asarray(mask, np.float32),
@@ -301,12 +319,27 @@ class RadioBackend:
             cfg = self._solver_cfg(ep.n_dirs)
 
             def solve(r):
-                return solver.solve_admm(ep.V, C, ep.obs.freqs, ep.f0, r, cfg,
-                                         n_chunks=self.n_chunks,
-                                         admm_iters=admm_iters)
+                out = solver.solve_admm(ep.V, C, ep.obs.freqs, ep.f0, r, cfg,
+                                        n_chunks=self.n_chunks,
+                                        admm_iters=admm_iters,
+                                        collect_stats=collect)
+                if collect:
+                    out, st = out
+                    stats.append(st)
+                return out
 
-            res, _ = solver.solve_admm_safe(solve, rho_t)
-            return res
+            res, info = solver.solve_admm_safe(solve, rho_t)
+        if info["degraded"]:
+            rl = obs.active()
+            if rl is not None:
+                rl.log("solver_degraded", primary_route="fused",
+                       route="retry_rho", **info)
+            obs.echo(f"solver degraded (fused): {info}", event=None)
+        if collect:
+            obs.log_solver_stats(stats[-1], route="fused",
+                                 n_freqs=self.n_freqs,
+                                 n_stations=self.n_stations)
+        return res
 
     def hint_sweep(self, ep: Episode, rho, masks, admm_iters=None,
                    batch=None):
@@ -326,7 +359,7 @@ class RadioBackend:
                                 device=self.device)
         freqs = ep.obs.freqs
         out = []
-        with self._stage("hint"):
+        with self._stage("hint", span="hint_sweep", n_masks=n):
             for i in range(0, n, batch):
                 m = masks[i:i + batch]
                 E = m.shape[0]
@@ -362,7 +395,7 @@ class RadioBackend:
         """Mean Stokes-I influence dirty image over sub-bands."""
         npix = npix or self.npix
         statics = self._influence_statics(npix)
-        with self._stage("influence"):
+        with self._stage("influence", route="per_band", bands=self.n_freqs):
             uvw = ep.obs.uvw.reshape(-1, 3)
             cell = self._cell(ep)
             hadd_all = influence.consensus_hadd_all(
@@ -450,6 +483,7 @@ class RadioBackend:
         result.  Callers sharing one backend namespace their tags (the envs
         prefix theirs with the env instance)."""
         self._prefetched[tag] = self._submit(build)
+        obs.gauge_set("prefetch_pending", len(self._prefetched))
 
     def take_prefetched(self, tag):
         """Collect a prefetched episode (None if none was scheduled under
@@ -459,9 +493,14 @@ class RadioBackend:
         fut = self._prefetched.pop(tag, None)
         if fut is None:
             self.prefetch_counts["miss"] += 1
+            obs.counter_add("prefetch_miss")
             return None
-        self.prefetch_counts["hit" if fut.done() else "stall"] += 1
-        return self._collect(fut)
+        ready = fut.done()
+        self.prefetch_counts["hit" if ready else "stall"] += 1
+        obs.counter_add("prefetch_hit" if ready else "prefetch_stall")
+        # the wait is the build time the prefetch did not hide
+        with obs.span("prefetch_wait", ready=ready):
+            return self._collect(fut)
 
     def discard_prefetched(self, tag):
         """Drop a pending prefetch without taking it (env close)."""
@@ -478,7 +517,8 @@ class RadioBackend:
             return
         fut = self._submit(make_episode, keys[0])
         for i in range(len(keys)):
-            ep, mdl = self._collect(fut)
+            with obs.span("prefetch_wait", pipelined=True):
+                ep, mdl = self._collect(fut)
             if i + 1 < len(keys):
                 fut = self._submit(make_episode, keys[i + 1])
             yield process(ep, mdl)
@@ -546,7 +586,9 @@ class RadioBackend:
         (``solver.solve_admm_batched``).  ``rho`` and ``mask`` are (E, K);
         ``admm_iters`` a scalar, (E,) per-lane counts, or None.  No
         rho-boost retry, as on the JAX package's batched route."""
-        with self._stage("solve"):
+        E = bep.n_envs
+        with self._stage("solve", route="batched_vmap", lanes=E):
+            obs.gauge_set("batched_lanes", E)
             V, C, freqs, f0, rho, iters = self.batched_solve_operands(
                 bep, rho, mask, admm_iters)
             return solver.solve_admm_batched(
@@ -575,7 +617,8 @@ class RadioBackend:
         are those of the single-episode route."""
         npix = npix or self.npix
         statics = self._influence_statics(npix)
-        with self._stage("influence"):
+        with self._stage("influence", route="batched_vmap",
+                         lanes=bep.n_envs):
             residual, C, J, hadd = self.batched_influence_operands(
                 bep, result, rho, rho_spatial)
             imgs = influence.influence_images_lanes(
@@ -598,7 +641,7 @@ class RadioBackend:
             return torch.std(torch.mean(imgs, dim=1), dim=(-2, -1),
                              correction=0)
 
-        with self._stage("sigmas"):
+        with self._stage("sigmas", span="reward", route="batched_vmap"):
             return img_std(bep.V), img_std(result.residual)
 
     def noise_std_batched(self, V):

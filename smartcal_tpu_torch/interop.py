@@ -5,8 +5,9 @@ The JAX package's ``Episode``, ``BatchedEpisode``, ``SolveResult``,
 with the same field names, holding arrays that ``numpy.asarray`` accepts),
 a fuzzy controller's limits and flax parameter trees become the port's
 types, so one episode, sky, controller or agent can be fed to both
-packages.  Nothing here imports the JAX
-package: the fields are read by name.
+packages, and a JAX trainer's checkpoint payload becomes the port's
+(:func:`agent_loop_from_jax`), so a JAX run resumes in the port.  Nothing
+here imports the JAX package: the fields are read by name.
 """
 
 import numpy as np
@@ -204,3 +205,87 @@ def ddpg_state_from_jax(st, cfg, device="cpu"):
                 critic_opt=_adam_from_optax(st.critic_opt, critic),
                 noise=np.array(st.noise.x_prev, np.float32))
     return ddpg.DDPGState.from_host(cfg, host, device)
+
+
+def seed_from_jax_key(key) -> int:
+    """The 63-bit ``torch.Generator`` seed the port takes for a JAX PRNG key:
+    the key's two uint32 words as one integer, high word first, top bit
+    cleared.  A JAX key stream has no torch counterpart, so a run resumed
+    from a JAX checkpoint draws a different (but fixed) exploration
+    stream from there on."""
+    k = np.asarray(key, np.uint32).reshape(-1)
+    return ((int(k[0]) << 32) | int(k[1])) & ((1 << 63) - 1)
+
+
+def replay_from_jax(buf) -> dict:
+    """The port's ring payload (``rl.replay.replay_to_host`` form) of a JAX
+    ``ReplayState`` (host arrays): the filled prefix of every field and of
+    the priorities, ``cntr``, ``beta`` and the ring size."""
+    size = int(np.asarray(buf.priority).shape[0])
+    cntr = int(np.asarray(buf.cntr))
+    n = min(cntr, size)
+    return {"size": size, "cntr": cntr, "beta": float(np.asarray(buf.beta)),
+            "data": {k: np.array(v)[:n] for k, v in buf.data.items()},
+            "priority": np.array(buf.priority, np.float32)[:n]}
+
+
+def _state_from_jax(st, cfg):
+    if isinstance(cfg, sac.SACConfig):
+        return sac_state_from_jax(st, cfg)
+    if isinstance(cfg, td3.TD3Config):
+        return td3_state_from_jax(st, cfg)
+    if isinstance(cfg, ddpg.DDPGConfig):
+        return ddpg_state_from_jax(st, cfg)
+    raise TypeError(f"no agent state for config {type(cfg)!r}")
+
+
+def _host(x):
+    """``x`` with every array-like leaf as a numpy array."""
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host(v) for v in x)
+    if hasattr(x, "__array__") and not isinstance(x, np.ndarray):
+        return np.array(x)
+    return x
+
+
+def agent_loop_from_jax(payload: dict, cfg, device="cpu") -> dict:
+    """The port's checkpoint payload of a JAX checkpoint payload, so a JAX
+    run resumes in the port (``train.blocks.restore_agent_loop`` /
+    ``restore_fused``):
+
+    * ``pack_agent_loop`` payloads (``kind`` "agent_loop": calib_*,
+      demix_*): the agent state through :func:`sac_state_from_jax` /
+      :func:`td3_state_from_jax` / :func:`ddpg_state_from_jax` (by the type
+      of ``cfg``, the port's config), the ring, the env's key state, the
+      scores, the episode and ``extra``;
+    * ``train_fused`` payloads (``kind`` "enet_fused"): the same for the
+      elastic-net trainers.
+
+    The JAX agent key becomes the state of a ``torch.Generator`` on
+    ``device`` seeded with :func:`seed_from_jax_key`."""
+    kind = payload.get("kind")
+    if kind not in ("agent_loop", "enet_fused"):
+        raise ValueError(f"not a JAX agent checkpoint payload: {kind!r}")
+    key = payload["agent_key" if kind == "agent_loop" else "key"]
+    gen = torch.Generator(device=device).manual_seed(seed_from_jax_key(key))
+    out = {"kind": kind, "episode": int(payload["episode"]),
+           "scores": [float(s) for s in payload["scores"]],
+           "agent_state": _state_from_jax(payload["agent_state"],
+                                          cfg).to_host(),
+           "replay": {"kind": "device_ring",
+                      "state": replay_from_jax(payload["replay"]["state"])}}
+    gen_state = gen.get_state().numpy().copy()
+    if kind == "agent_loop":
+        out["agent_generator"] = gen_state
+        if "env_state" in payload:
+            out["env_state"] = _host(dict(payload["env_state"]))
+        if payload.get("extra"):
+            out["extra"] = _host(dict(payload["extra"]))
+    else:
+        out.update(generator=gen_state, entry=payload.get("entry"),
+                   seed=payload.get("seed"),
+                   saved_marker=int(payload.get("saved_marker", 0)))
+    out["generator_device"] = torch.device(device).type
+    return out

@@ -5,7 +5,11 @@ for ``sm_90a`` into ``smartcal_tpu_torch/_build/lib<name>-<hash>.so`` on
 first use, then loaded with ``ctypes``.  The file name carries a hash of
 the source, of the shared headers ``csrc/*.cuh`` it may include and of the
 flags, so an edited source or header is rebuilt, never reused stale.
-:func:`build` starts one ``nvcc`` per source, all at once.
+:func:`build` starts one ``nvcc`` per source, all at once, and reports each
+build as a ``compile`` event while a RunLog records
+(``obs.record_compile``).  The build directory is the port's persistent
+compile cache: :func:`set_build_dir` (the trainers' ``--compile-cache
+DIR``) moves it, so repeat runs load the libraries built before.
 """
 
 import ctypes
@@ -17,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+from smartcal_tpu_torch import obs
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -25,6 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded = {}
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the kernels' libraries under ``path`` from now on
+    (created if missing); returns it."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
 
 
 def sources():
@@ -80,6 +95,7 @@ def build(names=None) -> dict:
             continue
         os.replace(tmp, out)
         report[n] = (time.perf_counter() - t0, log)
+        obs.record_compile(f"nvcc:{n}", report[n][0], library=out.name)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch.obs import diagnostics as dg
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, _host, _params,
                                        adam_init, adam_update, soft_update)
@@ -113,9 +114,11 @@ def choose_action(cfg: DDPGConfig, st: DDPGState, obs, noise):
     return st.actor(obs) + n
 
 
-def learn_from_batch(cfg: DDPGConfig, st: DDPGState, batch: dict) -> dict:
+def learn_from_batch(cfg: DDPGConfig, st: DDPGState, batch: dict,
+                     collect_diag: bool = False) -> dict:
     """The DDPG learn step on an already-sampled ``batch``; updates ``st``
-    in place and returns the losses on the device."""
+    in place and returns the losses on the device (``collect_diag`` adds
+    ``diag``, see ``rl/sac.learn_from_batch``)."""
     s, a, r, s2 = (batch[k] for k in ("state", "action", "reward",
                                       "new_state"))
     done = batch["done"].to(torch.float32)
@@ -124,29 +127,53 @@ def learn_from_batch(cfg: DDPGConfig, st: DDPGState, batch: dict) -> dict:
         y = (r + cfg.gamma * qt * (1.0 - done))[:, None]
 
     pc = _params(st.critic)
-    closs = torch.sum((st.critic(s, a) - y) ** 2)
-    adam_update(st.critic_opt, pc, _grads(closs, pc), cfg.lr_c)
+    q = st.critic(s, a)
+    closs = torch.sum((q - y) ** 2)
+    gc = _grads(closs, pc)
+    if collect_diag:
+        c_norm = dg.tree_norm(pc)
+    uc = adam_update(st.critic_opt, pc, gc, cfg.lr_c)
 
     pa = _params(st.actor)
     aloss = -torch.mean(st.critic(s, st.actor(s)))
-    adam_update(st.actor_opt, pa, _grads(aloss, pa), cfg.lr_a)
+    ga = _grads(aloss, pa)
+    if collect_diag:
+        a_norm = dg.tree_norm(pa)
+    ua = adam_update(st.actor_opt, pa, ga, cfg.lr_a)
 
     soft_update(st.t_actor, st.actor, cfg.tau)
     soft_update(st.t_critic, st.critic, cfg.tau)
-    return {"critic_loss": closs.detach(), "actor_loss": aloss.detach()}
+    out = {"critic_loss": closs.detach(), "actor_loss": aloss.detach()}
+    if collect_diag:
+        qd = q.detach()
+        out["diag"] = dg.make_diag(
+            critic_loss=closs, actor_loss=aloss,
+            critic_grad_norm=dg.tree_norm(gc),
+            actor_grad_norm=dg.tree_norm(ga),
+            critic_update_ratio=cfg.lr_c * dg.tree_norm(uc) / (c_norm
+                                                               + 1e-12),
+            actor_update_ratio=cfg.lr_a * dg.tree_norm(ua) / (a_norm + 1e-12),
+            q_mean=torch.mean(qd), q_min=torch.min(qd), q_max=torch.max(qd),
+            target_drift=dg.target_drift(st.critic, st.t_critic))
+    return out
 
 
 def learn(cfg: DDPGConfig, st: DDPGState, buf: rp.ReplayState,
-          generator=None, sample_noise=None) -> dict:
+          generator=None, sample_noise=None,
+          collect_diag: bool = False) -> dict:
     """One DDPG learn step (enet_ddpg.py:251-302) on a uniform sample
     (``sample_noise``: its Gumbel noise, default from ``generator``); a
-    no-op while the ring holds fewer than ``batch_size`` transitions."""
+    no-op while the ring holds fewer than ``batch_size`` transitions (with
+    ``collect_diag``, a zero ``diag`` then)."""
     if buf.cntr < cfg.batch_size:
         zero = torch.zeros((), device=buf.device)
-        return {"critic_loss": zero, "actor_loss": zero}
+        out = {"critic_loss": zero, "actor_loss": zero}
+        if collect_diag:
+            out["diag"] = dg.zero_diag(buf.device)
+        return out
     batch, _ = rp.replay_sample_uniform(buf, cfg.batch_size, generator,
                                         gumbel_noise=sample_noise)
-    return learn_from_batch(cfg, st, batch)
+    return learn_from_batch(cfg, st, batch, collect_diag=collect_diag)
 
 
 class DDPGAgent:
@@ -155,7 +182,7 @@ class DDPGAgent:
     GPU)."""
 
     def __init__(self, cfg: DDPGConfig, seed: int = 0, name_prefix: str = "",
-                 device="cuda"):
+                 device="cuda", collect_diag: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -164,8 +191,9 @@ class DDPGAgent:
             cfg.mem_size, rp.transition_spec(cfg.obs_dim, cfg.n_actions),
             self.device)
         self.name_prefix = name_prefix
+        self.collect_diag = collect_diag
         self.last_metrics = {}
-        self.last_diag = None      # update diagnostics: ROADMAP item 12
+        self.last_diag = None
 
     def choose_action(self, observation, noise=None):
         """An action as a numpy array; ``noise`` (the OU step's unit normal
@@ -189,7 +217,9 @@ class DDPGAgent:
 
     def learn(self, sample_noise=None):
         self.last_metrics = learn(self.cfg, self.state, self.buffer,
-                                  self.generator, sample_noise)
+                                  self.generator, sample_noise,
+                                  collect_diag=self.collect_diag)
+        self.last_diag = self.last_metrics.pop("diag", None)
 
     def save_models(self, prefix: Optional[str] = None):
         prefix = prefix if prefix is not None else self.name_prefix

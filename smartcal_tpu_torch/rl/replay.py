@@ -275,17 +275,21 @@ def replay_health(buf: ReplayState, n_age_bins: int = 4) -> dict:
     return out
 
 
-def save_replay(buf: ReplayState, path: str) -> None:
-    """Checkpoint the filled prefix of the ring with ``cntr``, ``beta`` and
-    the ring size (atomic write).  A 10,000-slot ring of 128² observations
-    holds 1.3 GB; after an episode of a fresh run the prefix is a few
+def replay_to_host(buf: ReplayState) -> dict:
+    """The filled prefix of the ring as numpy arrays, with ``cntr``,
+    ``beta`` and the ring size (the slots past the prefix were never
+    written and are zero).  A 10,000-slot ring of 128² observations holds
+    1.3 GB; after an episode of a fresh run the prefix is a few
     transitions."""
     n = buf.filled
-    atomic_pickle({"size": buf.size, "cntr": buf.cntr,
-                   "beta": float(buf.beta),
-                   "data": {k: v[:n].cpu().numpy()
-                            for k, v in buf.data.items()},
-                   "priority": buf.priority[:n].cpu().numpy()}, path)
+    return {"size": buf.size, "cntr": buf.cntr, "beta": float(buf.beta),
+            "data": {k: v[:n].cpu().numpy() for k, v in buf.data.items()},
+            "priority": buf.priority[:n].cpu().numpy()}
+
+
+def save_replay(buf: ReplayState, path: str) -> None:
+    """Save :func:`replay_to_host` of the ring (atomic write)."""
+    atomic_pickle(replay_to_host(buf), path)
 
 
 def replay_from_host(payload: dict, device="cuda") -> ReplayState:

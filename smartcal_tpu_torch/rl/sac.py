@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch.obs import diagnostics as dg
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl.networks import (MLPActor, MLPCritic,
                                             SplitImageMetaActor,
@@ -118,11 +119,13 @@ def adam_init(params: dict) -> AdamState:
 
 
 @torch.no_grad()
-def adam_update(opt: AdamState, params: dict, grads, lr: float) -> None:
+def adam_update(opt: AdamState, params: dict, grads, lr: float) -> list:
     """One ``optax.adam(lr)`` step applied in place: ``p -= lr * mu_hat /
     (sqrt(nu_hat) + eps)`` with bias-corrected moments; ``grads`` in the
     order of ``params``, None for a parameter the loss does not reach (a
-    zero gradient, as optax sees it)."""
+    zero gradient, as optax sees it).  Returns the step tensors
+    ``mu_hat / (sqrt(nu_hat) + eps)`` (the update is ``-lr`` times them),
+    which the update diagnostics read."""
     opt.count += 1
     names = list(params)
     p = [params[k] for k in names]
@@ -140,6 +143,7 @@ def adam_update(opt: AdamState, params: dict, grads, lr: float) -> None:
     step = torch._foreach_div(mu, 1.0 - ADAM_B1 ** opt.count)
     torch._foreach_div_(step, den)
     torch._foreach_add_(p, step, alpha=-lr)
+    return step
 
 
 def soft_update(target, source, tau: float) -> None:
@@ -328,12 +332,18 @@ def _hint_gap(cfg: SACConfig, actions, hints):
 
 
 def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
-                     noise) -> dict:
+                     noise, collect_diag: bool = False) -> dict:
     """The SAC learn step on an already-sampled ``batch`` (field -> (B, ...)
     tensors), with PER importance weights ``is_w`` (B,) and the unit normal
     draws ``noise = (n_next, n_pi, n_dual)``, each (B, n_actions).  Updates
     ``st`` in place; returns the losses, alpha, rho and ``td`` = |Q1 - y|
-    per transition (the PER priority signal), all on the device."""
+    per transition (the PER priority signal), all on the device.
+
+    ``collect_diag`` adds ``diag``, an :class:`~smartcal_tpu_torch.obs.
+    diagnostics.UpdateDiag` read from tensors the step holds (gradients
+    and Adam steps, the Q batch, the policy's log-probabilities), the
+    parameter norms taken before each optimizer step; the update itself
+    is the same computation either way."""
     n_next, n_pi, n_dual = noise
     s, a, s2, hint = (batch[k] for k in ("state", "action", "new_state",
                                           "hint"))
@@ -355,8 +365,10 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     else:
         closs = torch.mean((q1 - y) ** 2) + torch.mean((q2 - y) ** 2)
     g = torch.autograd.grad(closs, list(p1.values()) + list(p2.values()))
-    adam_update(st.c1_opt, p1, g[:len(p1)], cfg.lr_c)
-    adam_update(st.c2_opt, p2, g[len(p1):], cfg.lr_c)
+    if collect_diag:
+        c_norm = dg.tree_norm([p1, p2])
+    u1 = adam_update(st.c1_opt, p1, g[:len(p1)], cfg.lr_c)
+    u2 = adam_update(st.c2_opt, p2, g[len(p1):], cfg.lr_c)
 
     # -- actor update with the hint ADMM penalty (enet_sac.py:589-605),
     # against the updated critics
@@ -367,9 +379,10 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     if cfg.use_hint:
         gap = _hint_gap(cfg, acts, hint)
         aloss = aloss + 0.5 * cfg.admm_rho * gap * gap + rho * gap
-    adam_update(st.actor_opt, pa, torch.autograd.grad(aloss,
-                                                      list(pa.values())),
-                cfg.lr_a)
+    ga = torch.autograd.grad(aloss, list(pa.values()))
+    if collect_diag:
+        a_norm = dg.tree_norm(pa)
+    ua = adam_update(st.actor_opt, pa, ga, cfg.lr_a)
 
     # -- dual/temperature updates every 10 learn calls
     # (enet_sac.py:608-617), on the updated actor
@@ -395,9 +408,23 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     soft_update(st.t1, st.c1, cfg.tau)
     soft_update(st.t2, st.c2, cfg.tau)
     st.learn_counter += 1
-    return {"critic_loss": closs.detach(), "actor_loss": aloss.detach(),
-            "alpha": st.alpha, "rho": st.rho,
-            "td": (q1 - y).abs().squeeze(-1).detach()}
+    out = {"critic_loss": closs.detach(), "actor_loss": aloss.detach(),
+           "alpha": st.alpha, "rho": st.rho,
+           "td": (q1 - y).abs().squeeze(-1).detach()}
+    if collect_diag:
+        q = q1.detach()
+        out["diag"] = dg.make_diag(
+            critic_loss=closs, actor_loss=aloss,
+            critic_grad_norm=dg.tree_norm(g), actor_grad_norm=dg.tree_norm(ga),
+            critic_update_ratio=cfg.lr_c * dg.tree_norm([u1, u2])
+            / (c_norm + 1e-12),
+            actor_update_ratio=cfg.lr_a * dg.tree_norm(ua) / (a_norm + 1e-12),
+            q_mean=torch.mean(q), q_min=torch.min(q), q_max=torch.max(q),
+            target_drift=dg.target_drift(st.c1, st.t1), alpha=st.alpha,
+            entropy=-torch.mean(lp.detach()),
+            hint_residual=(torch.mean((acts.detach() - hint) ** 2)
+                           if cfg.use_hint else 0.0))
+    return out
 
 
 def sample_batch(cfg: SACConfig, buf: rp.ReplayState, generator=None,
@@ -420,24 +447,29 @@ def sample_batch(cfg: SACConfig, buf: rp.ReplayState, generator=None,
 
 
 def learn(cfg: SACConfig, st: SACState, buf: rp.ReplayState, generator=None,
-          sample_noise=None, noise=None) -> dict:
+          sample_noise=None, noise=None, collect_diag: bool = False) -> dict:
     """One learn step: sample from ``buf``, :func:`learn_from_batch`, and
     re-prioritise the sampled slots under PER.  A no-op while the buffer
     holds fewer than ``batch_size`` transitions (decided on the host
     counter).  ``sample_noise`` (Gumbel noise for uniform sampling,
     uniforms for PER/ERE) and ``noise`` default to draws from
     ``generator``.  Updates ``st`` and ``buf`` in place; returns the
-    metrics without ``td``."""
+    metrics without ``td`` (with ``collect_diag``, ``diag``: a zero one
+    when no learn happened, as in the JAX package)."""
     if buf.cntr < cfg.batch_size:
         zero = torch.zeros((), device=st.alpha.device)
-        return {"critic_loss": zero, "actor_loss": zero, "alpha": st.alpha,
-                "rho": st.rho}
+        out = {"critic_loss": zero, "actor_loss": zero, "alpha": st.alpha,
+               "rho": st.rho}
+        if collect_diag:
+            out["diag"] = dg.zero_diag(st.alpha.device)
+        return out
     batch, idx, is_w = sample_batch(cfg, buf, generator, sample_noise)
     if noise is None:
         noise = tuple(torch.randn((cfg.batch_size, cfg.n_actions),
                                   generator=generator, device=buf.device)
                       for _ in range(3))
-    m = learn_from_batch(cfg, st, batch, is_w, noise)
+    m = learn_from_batch(cfg, st, batch, is_w, noise,
+                         collect_diag=collect_diag)
     td = m.pop("td")
     if cfg.prioritized:
         rp.replay_update_priorities(buf, idx, td, cfg.error_clip)
@@ -451,7 +483,7 @@ class SACAgent:
     ``device`` (default "cuda": raises without a GPU)."""
 
     def __init__(self, cfg: SACConfig, seed: int = 0, name_prefix: str = "",
-                 device="cuda"):
+                 device="cuda", collect_diag: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -460,8 +492,9 @@ class SACAgent:
             cfg.mem_size, rp.transition_spec(cfg.obs_dim, cfg.n_actions),
             self.device)
         self.name_prefix = name_prefix
+        self.collect_diag = collect_diag
         self.last_metrics = {}
-        self.last_diag = None      # update diagnostics: ROADMAP item 12
+        self.last_diag = None
 
     def choose_action(self, observation, noise=None):
         """A sampled action as a numpy array; ``noise`` (the unit normal
@@ -487,7 +520,9 @@ class SACAgent:
         """One learn step (a no-op below ``batch_size`` transitions); the
         replay draws and the normal draws default to the generator's."""
         self.last_metrics = learn(self.cfg, self.state, self.buffer,
-                                  self.generator, sample_noise, noise)
+                                  self.generator, sample_noise, noise,
+                                  collect_diag=self.collect_diag)
+        self.last_diag = self.last_metrics.pop("diag", None)
 
     def save_models(self, prefix: Optional[str] = None):
         prefix = prefix if prefix is not None else self.name_prefix

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch.obs import diagnostics as dg
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl.networks import (MLPCritic, MLPDeterministicActor,
                                             SplitImageMetaCritic,
@@ -168,12 +169,13 @@ def _grads(loss, params: dict):
                                allow_unused=True)
 
 
-def _actor_admm_update(cfg: TD3Config, st: TD3State, s, hint, is_w) -> None:
+def _actor_admm_update(cfg: TD3Config, st: TD3State, s, hint, is_w):
     """Hint-constrained actor update: ``n_admm`` actor Adam steps on the
     augmented Lagrangian, dual ascent, and the adaptive-rho rule at
     iteration 3 (enet_td3.py:310-361).  At iteration 0 the rule's anchors
     y0 and a0 are both set to the flat ACTIONS (the reference's quirk, kept
-    by the JAX package)."""
+    by the JAX package).  Returns the last iteration's (loss, gradients,
+    actions), the update diagnostics' inputs."""
     pa = _params(st.actor)
     B = s.shape[0]
     numel = float(B * cfg.n_actions)
@@ -192,8 +194,9 @@ def _actor_admm_update(cfg: TD3Config, st: TD3State, s, hint, is_w) -> None:
             (actions - hint) ** 2)
         if cfg.prioritized:
             lagr = torch.mean(lagr * is_w)
-        adam_update(st.actor_opt, pa, _grads(aloss + lagr / numel, pa),
-                    cfg.lr_a)
+        loss = aloss + lagr / numel
+        g = _grads(loss, pa)
+        adam_update(st.actor_opt, pa, g, cfg.lr_a)
         diff = diff.detach()
         y_new = y + rho * diff
         if cfg.adaptive_admm:
@@ -216,15 +219,21 @@ def _actor_admm_update(cfg: TD3Config, st: TD3State, s, hint, is_w) -> None:
                       & (alpha_hat > 0.1 * cfg.admm_rho))
                 y0, a0, rho = y1, a_flat, torch.where(ok, alpha_hat, rho)
         y = y_new
+    return loss.detach(), g, actions.detach()
 
 
 def learn_from_batch(cfg: TD3Config, st: TD3State, batch: dict, is_w,
-                     smooth_noise) -> dict:
+                     smooth_noise, collect_diag: bool = False) -> dict:
     """The TD3 learn step on an already-sampled ``batch`` with importance
     weights ``is_w`` (B,) and the scalar unit normal ``smooth_noise``.
     Updates ``st`` in place; returns the critic loss and, under PER,
     ``td``: the mean twin TD error of the critics BEFORE their step (the
-    new priority signal, enet_td3.py:263-269), all on the device."""
+    new priority signal, enet_td3.py:263-269), all on the device.
+
+    ``collect_diag`` adds ``diag`` (see ``rl/sac.learn_from_batch``): the
+    actor fields are those of the hint ADMM's last iteration, or of the
+    single plain step, and 0 on the delayed skip steps; the actor's update
+    ratio is ||new - old|| / ||old|| over the whole update."""
     s, a, r, s2, done, hint = (batch[k] for k in (
         "state", "action", "reward", "new_state", "done", "hint"))
     with torch.no_grad():
@@ -245,22 +254,44 @@ def learn_from_batch(cfg: TD3Config, st: TD3State, batch: dict, is_w,
     else:
         closs = torch.mean((q1 - y) ** 2) + torch.mean((q2 - y) ** 2)
     g = torch.autograd.grad(closs, list(p1.values()) + list(p2.values()))
-    adam_update(st.c1_opt, p1, g[:len(p1)], cfg.lr_c)
-    adam_update(st.c2_opt, p2, g[len(p1):], cfg.lr_c)
+    if collect_diag:
+        c_norm = dg.tree_norm([p1, p2])
+    u1 = adam_update(st.c1_opt, p1, g[:len(p1)], cfg.lr_c)
+    u2 = adam_update(st.c2_opt, p2, g[len(p1):], cfg.lr_c)
 
     st.learn_counter += 1
+    actor_diag = {}
     if st.learn_counter % cfg.update_actor_interval == 0:
+        if collect_diag:
+            old = [p.detach().clone() for p in st.actor.parameters()]
         if cfg.use_hint:
-            _actor_admm_update(cfg, st, s, hint, is_w)
+            aloss, ga, acts = _actor_admm_update(cfg, st, s, hint, is_w)
+            hres = torch.mean((acts - hint) ** 2)
         else:
             pa = _params(st.actor)
-            q1 = st.c1(s, st.actor(s))
-            aloss = (-torch.mean(q1 * is_w[:, None]) if cfg.prioritized
-                     else -torch.mean(q1))
-            adam_update(st.actor_opt, pa, _grads(aloss, pa), cfg.lr_a)
+            q1a = st.c1(s, st.actor(s))
+            aloss = (-torch.mean(q1a * is_w[:, None]) if cfg.prioritized
+                     else -torch.mean(q1a))
+            ga = _grads(aloss, pa)
+            adam_update(st.actor_opt, pa, ga, cfg.lr_a)
+            hres = 0.0
+        if collect_diag:
+            actor_diag = dict(
+                actor_loss=aloss, actor_grad_norm=dg.tree_norm(ga),
+                actor_update_ratio=dg.update_ratio(torch._foreach_sub(
+                    [p.detach() for p in st.actor.parameters()], old), old),
+                hint_residual=hres)
         for t, o in ((st.t_actor, st.actor), (st.t1, st.c1), (st.t2, st.c2)):
             soft_update(t, o, cfg.tau)
     out["critic_loss"] = closs.detach()
+    if collect_diag:
+        q = q1.detach()
+        out["diag"] = dg.make_diag(
+            critic_loss=closs, critic_grad_norm=dg.tree_norm(g),
+            critic_update_ratio=cfg.lr_c * dg.tree_norm([u1, u2])
+            / (c_norm + 1e-12),
+            q_mean=torch.mean(q), q_min=torch.min(q), q_max=torch.max(q),
+            target_drift=dg.target_drift(st.c1, st.t1), **actor_diag)
     return out
 
 
@@ -283,19 +314,25 @@ def sample_batch(cfg: TD3Config, buf: rp.ReplayState, generator=None,
 
 
 def learn(cfg: TD3Config, st: TD3State, buf: rp.ReplayState, generator=None,
-          sample_noise=None, smooth_noise=None) -> dict:
+          sample_noise=None, smooth_noise=None,
+          collect_diag: bool = False) -> dict:
     """One TD3 learn step (enet_td3.py:222-364): a no-op while the ring
     holds fewer than ``batch_size`` transitions (decided on the host
     counter).  ``sample_noise`` (Gumbel noise, or uniforms for PER/ERE) and
     the scalar ``smooth_noise`` default to draws from ``generator``.
-    Updates ``st`` and ``buf`` in place; returns the metrics."""
+    Updates ``st`` and ``buf`` in place; returns the metrics (with
+    ``collect_diag``, ``diag``: a zero one when no learn happened)."""
     if buf.cntr < cfg.batch_size:
-        return {"critic_loss": torch.zeros((), device=buf.device)}
+        out = {"critic_loss": torch.zeros((), device=buf.device)}
+        if collect_diag:
+            out["diag"] = dg.zero_diag(buf.device)
+        return out
     batch, idx, is_w = sample_batch(cfg, buf, generator, sample_noise)
     if smooth_noise is None:
         smooth_noise = torch.randn((), generator=generator,
                                    device=buf.device)
-    m = learn_from_batch(cfg, st, batch, is_w, smooth_noise)
+    m = learn_from_batch(cfg, st, batch, is_w, smooth_noise,
+                         collect_diag=collect_diag)
     if cfg.prioritized:
         rp.replay_update_priorities(buf, idx, m.pop("td"), cfg.error_clip)
     return m
@@ -307,7 +344,7 @@ class TD3Agent:
     GPU)."""
 
     def __init__(self, cfg: TD3Config, seed: int = 0, name_prefix: str = "",
-                 device="cuda"):
+                 device="cuda", collect_diag: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -316,8 +353,9 @@ class TD3Agent:
             cfg.mem_size, rp.transition_spec(cfg.obs_dim, cfg.n_actions),
             self.device)
         self.name_prefix = name_prefix
+        self.collect_diag = collect_diag
         self.last_metrics = {}
-        self.last_diag = None      # update diagnostics: ROADMAP item 12
+        self.last_diag = None
 
     def choose_action(self, observation, noise=None):
         """An action as a numpy array; ``noise`` (the two unit normal
@@ -341,7 +379,9 @@ class TD3Agent:
 
     def learn(self, sample_noise=None, smooth_noise=None):
         self.last_metrics = learn(self.cfg, self.state, self.buffer,
-                                  self.generator, sample_noise, smooth_noise)
+                                  self.generator, sample_noise, smooth_noise,
+                                  collect_diag=self.collect_diag)
+        self.last_diag = self.last_metrics.pop("diag", None)
 
     def save_models(self, prefix: Optional[str] = None):
         prefix = prefix if prefix is not None else self.name_prefix

@@ -12,6 +12,7 @@ smartcal_tpu/runtime/atomic.py, kept as the port's own copy).
 Standard library only.
 """
 
+import hashlib
 import os
 import pickle
 import sys
@@ -59,11 +60,27 @@ def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> None:
         raise
 
 
+def atomic_write_text(path: str, text: str, fsync: bool = True) -> None:
+    atomic_write_bytes(path, text.encode("utf-8"), fsync=fsync)
+
+
 def atomic_pickle(obj: Any, path: str, fsync: bool = True) -> int:
     """Atomically pickle ``obj`` at ``path``; returns the byte count."""
     data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
     atomic_write_bytes(path, data, fsync=fsync)
     return len(data)
+
+
+def sha256_file(path: str, chunk: int = 1 << 20) -> str:
+    """Hex sha256 of the file at ``path``."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(chunk)
+            if not b:
+                break
+            h.update(b)
+    return h.hexdigest()
 
 
 class CorruptStateError(RuntimeError):

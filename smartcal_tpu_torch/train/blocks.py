@@ -1,22 +1,40 @@
-"""Training-loop plumbing the calibration SAC trainer needs (counterpart of
-part of smartcal_tpu/train/blocks.py).
+"""Shared trainer plumbing: the flags, the observability and
+fault-tolerance handles, checkpoint payloads and the vector-episode loop
+(counterpart of smartcal_tpu/train/blocks.py).
 
 The flag sets are the JAX trainers' own (``add_obs_args``,
 ``add_runtime_args``, ``add_batched_args``, ``add_ere_arg``), so a command
-line of the JAX trainer parses here too.  What stands behind some of them is
-not ported yet; :func:`reject_unported` names the ROADMAP item that brings
-each such flag instead of ignoring it.  :class:`TrainObs` is the run
-handle with neither a metrics stream nor a trace: the per-episode echo on
-stderr and no-op span, diagnostics and replay-health hooks.
-:class:`TrainRuntime` is the fault-tolerance handle with no checkpoint
-flag set: restore and checkpoint are no-ops.  :func:`run_batched_agent_loop`
-is the vector-episode loop of ``--batch-envs`` > 1 (with the demixing
-trainers' warm-up).
+line of a JAX trainer parses here too, and every flag acts:
+
+* :class:`TrainObs` owns the run's RunLog (activated for the process, so
+  the env, backend and solver record into it), the compile listener, the
+  ``--trace`` profiler session (``torch.profiler``; the run log goes beside
+  the trace), the update-diagnostics stream and the divergence watchdog,
+  and the per-episode "episode N score ..." echo on stderr;
+* :class:`TrainRuntime` owns the checkpoint cadence, the ``--resume``
+  restore and the watchdog's rollback-and-retry;
+* :func:`pack_agent_loop` / :func:`restore_agent_loop` /
+  :func:`apply_agent_recovery` are the checkpoint payload of the
+  host-driven agent loops (calib_*, demix_*), :func:`rollback_fused` the
+  elastic-net trainers' rollback.
+
+A payload holds host data only (numpy arrays, Python values): the agent
+state's ``to_host``, the ring's filled prefix, the env's key and the
+agent's ``torch.Generator`` state (a CPU ``ByteTensor`` also for a CUDA
+generator, kept as a numpy uint8 array), so a checkpoint written on the
+card resumes on the CPU.  With none of the flags set every hook is a
+no-op and the hot loop is unchanged.
 """
 
-import contextlib
+import dataclasses
 import os
-import sys
+import time
+
+import numpy as np
+import torch
+
+from smartcal_tpu_torch import obs
+from smartcal_tpu_torch.runtime import faults as rt_faults
 
 
 def add_runtime_args(p):
@@ -26,42 +44,58 @@ def add_runtime_args(p):
                    help="restore the run from the newest valid checkpoint "
                         "in --ckpt-dir and continue bit-continuably")
     p.add_argument("--ckpt-dir", dest="ckpt_dir", type=str, default=None,
-                   help="checkpoint root (default <entry>_ckpt)")
+                   help="checkpoint root (versioned ckpt_<episode>/ dirs + "
+                        "LATEST pointer; default <entry>_ckpt)")
     p.add_argument("--ckpt-every", dest="ckpt_every", type=int, default=0,
-                   help="checkpoint every N episodes (0 = none)")
+                   help="checkpoint every N episodes (0 = none, except "
+                        "--max-recoveries arms a default cadence of "
+                        "10 so recovery has something to roll back to)")
     p.add_argument("--keep-ckpts", dest="keep_ckpts", type=int, default=3,
                    help="retained checkpoints (older ones are pruned)")
     p.add_argument("--max-recoveries", dest="max_recoveries", type=int,
                    default=0,
                    help="on a watchdog trip, roll back to the last good "
-                        "checkpoint and retry up to N times")
+                        "checkpoint and retry up to N times before the "
+                        "graceful halt (implies --watchdog)")
     p.add_argument("--recovery-lr-shrink", dest="recovery_lr_shrink",
                    type=float, default=0.5,
-                   help="learning-rate multiplier applied per recovery")
+                   help="learning-rate multiplier applied per recovery "
+                        "attempt (1.0 disables the LR mitigation)")
     p.add_argument("--no-recovery-reseed", dest="recovery_reseed",
                    action="store_false", default=True,
-                   help="do NOT fold a fresh offset into the exploration "
-                        "key stream on recovery")
+                   help="do NOT reseed the exploration generator on "
+                        "recovery")
     return p
 
 
 def add_obs_args(p):
     """The shared observability flags."""
     p.add_argument("--metrics", type=str, default=None,
-                   help="obs run JSONL path")
+                   help="obs run JSONL path (header + episode/span/solver "
+                        "events; aggregate with tools/obs_report.py)")
     p.add_argument("--run_id", type=str, default=None,
-                   help="run id recorded in the JSONL header")
+                   help="run id recorded in the JSONL header "
+                        "(default: generated)")
     p.add_argument("--trace", type=str, default=None,
-                   help="profiler trace dir")
+                   help="torch.profiler trace dir (a Chrome trace; the "
+                        "spans appear as record_function ranges, and the "
+                        "run log goes beside it)")
     p.add_argument("--quiet", action="store_true",
                    help="suppress the per-episode stderr echo")
     p.add_argument("--diag", action="store_true",
-                   help="collect per-update agent diagnostics")
+                   help="collect per-update agent diagnostics (UpdateDiag "
+                        "grad norms/Q stats/entropy) and replay health "
+                        "into the metrics stream")
     p.add_argument("--watchdog", action="store_true",
-                   help="arm the divergence watchdog (implies --diag)")
+                   help="arm the divergence watchdog on the diagnostics "
+                        "stream (implies --diag): on NaN losses, exploding "
+                        "grad norms or Q blowup, emit watchdog_trip and "
+                        "halt the run gracefully")
     p.add_argument("--compile-cache", dest="compile_cache", type=str,
                    default=os.environ.get("SMARTCAL_COMPILE_CACHE") or None,
-                   help="persistent compilation cache dir")
+                   help="directory of the built CUDA kernel libraries (env "
+                        "SMARTCAL_COMPILE_CACHE): repeat runs load them "
+                        "instead of running nvcc again")
     return p
 
 
@@ -85,8 +119,9 @@ def add_batched_args(p):
 
 
 def diag_from_args(args) -> bool:
-    """True when the run would consume update diagnostics: ``--diag`` or
-    ``--watchdog`` with a sink (metrics, trace, or the watchdog)."""
+    """True when the run will consume update diagnostics: ``--diag`` or
+    ``--watchdog`` with a sink (metrics, trace, or the watchdog itself);
+    the trainers pass it as the agents' ``collect_diag``."""
     wd = bool(getattr(args, "watchdog", False)
               or getattr(args, "max_recoveries", 0))
     want = bool(getattr(args, "diag", False) or wd)
@@ -95,108 +130,458 @@ def diag_from_args(args) -> bool:
     return want and sink
 
 
-# flag (attribute, command-line name) -> the ROADMAP queue 1 item that
-# ports what stands behind it
-UNPORTED = (
-    ("metrics", "--metrics", 12), ("trace", "--trace", 12),
-    ("diag", "--diag", 12), ("watchdog", "--watchdog", 12),
-    ("compile_cache", "--compile-cache", 12), ("resume", "--resume", 12),
-    ("ckpt_every", "--ckpt-every", 12),
-    ("max_recoveries", "--max-recoveries", 12),
-)
-
-
-def reject_unported(args) -> None:
-    """Raise for a flag whose machinery the port does not have yet, naming
-    the ROADMAP queue 1 item that brings it."""
-    for attr, flag, item in UNPORTED:
-        if getattr(args, attr, None):
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP queue 1 item {item}")
-
-
 class TrainObs:
-    """Per-run observability handle without a sink: the classic "episode N
-    score ..." echo on stderr (``--quiet`` silences it); span, diagnostics
-    and replay-health hooks do nothing."""
+    """Per-run observability handle of a trainer (see the module doc).
+    With neither ``metrics`` nor ``trace`` set, the hooks are no-ops."""
 
-    def __init__(self, entry, quiet=False):
+    MEM_EVERY = 10          # episodes between device-memory gauge samples
+    DIAG_LOG_EVERY = 1      # update-diag events logged every N updates
+
+    def __init__(self, entry, metrics=None, run_id=None, trace=None,
+                 quiet=False, diag=False, watchdog=False,
+                 watchdog_cfg=None, compile_cache=None, **meta):
         self.entry = entry
         self.quiet = quiet
+        if compile_cache:
+            from smartcal_tpu_torch.ops import build
+            build.set_build_dir(compile_cache)
+        self._t0 = time.time()
+        self._episodes = 0
+        self._updates = 0
+        self._trace_dir = trace
+        self._profiler = None
+        self.diag = bool(diag or watchdog)
+        self.watchdog = obs.Watchdog(watchdog_cfg) if watchdog else None
+        # a SMARTCAL_FAULTS plan (deterministic injection for the recovery
+        # paths; no-op without the variable)
+        rt_faults.install_from_env()
+        path = metrics
+        if path is None and trace:
+            path = os.path.join(trace, f"{entry}_run.jsonl")
+        self.runlog = None
+        if path:
+            self.runlog = obs.RunLog(path, run_id=run_id,
+                                     meta={"entry": entry, **meta})
+            obs.activate(self.runlog)
+            obs.install_compile_listener()
+        if self.diag and self.runlog is None and self.watchdog is None:
+            self.diag = False
+            self.echo("--diag has no effect without --metrics or "
+                      "--watchdog; diagnostics disabled")
+        if trace:
+            from smartcal_tpu_torch.utils.metrics import start_trace
+            self._profiler = start_trace(trace)
+
+    @property
+    def collect_diag(self) -> bool:
+        """Should the trainer's agents return update diagnostics?"""
+        return self.diag
+
+    @property
+    def tripped(self) -> bool:
+        return self.watchdog is not None and self.watchdog.tripped
 
     def span(self, name, **tags):
-        return contextlib.nullcontext()
+        return obs.span(name, **tags)
 
     def record_diag(self, diag, **tags) -> bool:
+        """Feed one (possibly step-stacked) UpdateDiag, or a host dict, into
+        the diag stream and the watchdog; the update index is the handle's
+        running counter.  Returns True when the watchdog has tripped (the
+        trainer leaves its loop).  ``diag=None`` reports the trip state."""
+        if self.tripped:
+            return True
+        if diag is None or not self.diag:
+            return self.tripped
+        host = diag if isinstance(diag, dict) else obs.diag_to_host(diag)
+        for stepd in obs.diag_steps(host):
+            i = self._updates
+            self._updates += 1
+            # deterministic fault injection: identity unless a plan
+            # targets exactly this update index
+            stepd = rt_faults.mutate_diag(stepd, i)
+            if self.runlog is not None and i % self.DIAG_LOG_EVERY == 0:
+                self.runlog.log("diag", step=i, **stepd, **tags)
+            if self.watchdog is not None \
+                    and self.watchdog.observe(stepd, step=i, **tags):
+                self.echo(f"watchdog tripped at update {i}: "
+                          f"{self.watchdog.trip_reason} — halting run")
+                return True
         return False
 
     def log_replay_health(self, buf, **tags) -> bool:
-        return False
+        """One ``replay_health`` event for ``buf`` (a device ring); feeds the
+        watchdog.  No-op unless diagnostics are on.  Returns the trip
+        state."""
+        if not self.diag:
+            return self.tripped
+        from smartcal_tpu_torch.rl import replay as rp
+        health = rp.replay_health(buf)
+        if self.runlog is not None:
+            self.runlog.log("replay_health", **health, **tags)
+        if self.watchdog is not None \
+                and self.watchdog.observe_replay(health, **tags):
+            self.echo(f"watchdog tripped on replay health: "
+                      f"{self.watchdog.trip_reason} — halting run")
+        return self.tripped
 
-    def episode(self, i, score, scores=None, **fields):
-        if scores:
-            tail = scores[-100:]
-            avg = sum(float(s) for s in tail) / len(tail)
-        else:
-            avg = float(score)
-        self.echo(f"episode {i} score {float(score):.2f} "
-                  f"average score {avg:.2f}")
+    def episode(self, i, score, scores=None, echo=True, **fields):
+        """One ``episode`` event and the classic stderr echo."""
+        if self.runlog is not None:
+            self.runlog.log("episode", episode=i, score=score, **fields)
+            self._episodes += 1
+            if self._episodes % self.MEM_EVERY == 0:
+                obs.log_memory_gauges()
+        if echo and not self.quiet:
+            if scores:
+                tail = scores[-100:]
+                avg = sum(float(s) for s in tail) / len(tail)
+            else:
+                avg = float(score)
+            obs.echo(f"episode {i} score {float(score):.2f} "
+                     f"average score {avg:.2f}", event=None)
 
     def echo(self, msg, **fields):
-        if not self.quiet:
-            sys.stderr.write(msg + "\n")
+        obs.echo(msg, quiet=self.quiet, **fields)
 
     def close(self):
-        pass
+        if self._profiler is not None:
+            from smartcal_tpu_torch.utils.metrics import stop_trace
+            path = stop_trace(self._profiler, self._trace_dir,
+                              f"{self.entry}_trace.json")
+            self._profiler = None
+            if self.runlog is not None:
+                self.runlog.log("trace", path=path)
+        if self.runlog is not None:
+            obs.log_memory_gauges()
+            # reset: a later run in the same process starts from zero
+            obs.flush_counters(reset=True)
+            self.runlog.log("run_end", episodes=self._episodes,
+                            updates=self._updates,
+                            watchdog_tripped=self.tripped,
+                            wall_s=round(time.time() - self._t0, 3))
+            obs.deactivate(self.runlog)
+            self.runlog.close()
+            self.runlog = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
-def train_obs_from_args(args, entry) -> TrainObs:
-    return TrainObs(entry, quiet=getattr(args, "quiet", False))
+def train_obs(entry, metrics=None, run_id=None, trace=None, quiet=False,
+              diag=False, watchdog=False, **meta) -> TrainObs:
+    return TrainObs(entry, metrics=metrics, run_id=run_id, trace=trace,
+                    quiet=quiet, diag=diag, watchdog=watchdog, **meta)
+
+
+def train_obs_from_args(args, entry, **meta) -> TrainObs:
+    """The run handle of the ``add_obs_args`` flags (getattr-safe)."""
+    return TrainObs(entry,
+                    metrics=getattr(args, "metrics", None),
+                    run_id=getattr(args, "run_id", None),
+                    trace=getattr(args, "trace", None),
+                    quiet=getattr(args, "quiet", False),
+                    diag=getattr(args, "diag", False),
+                    # --max-recoveries implies the watchdog
+                    watchdog=(getattr(args, "watchdog", False)
+                              or getattr(args, "max_recoveries", 0) > 0),
+                    compile_cache=getattr(args, "compile_cache", None),
+                    seed=getattr(args, "seed", None), **meta)
+
+
+# salt of the recovery reseed (offset by the attempt, so successive
+# recoveries explore differently)
+RESEED_SALT = 0x5EED0
+
+
+def generator_state(gen: torch.Generator) -> np.ndarray:
+    """A ``torch.Generator``'s state as a host uint8 array (its
+    ``get_state()`` is a CPU ``ByteTensor`` on every device)."""
+    return gen.get_state().numpy().copy()
+
+
+def set_generator_state(gen: torch.Generator, state, device_type=None):
+    """Load a :func:`generator_state` into ``gen``.  A state saved from a
+    generator of another device type (a card's checkpoint resumed on the
+    CPU) cannot be loaded, and the two draw different streams anyway:
+    ``gen`` is then seeded from the state's sha256 (first 63 bits), a fixed
+    function of the checkpoint, and the run continues on its own stream."""
+    state = np.array(state, np.uint8)
+    if device_type is None or device_type == gen.device.type:
+        gen.set_state(torch.from_numpy(state))
+        return
+    import hashlib
+    digest = hashlib.sha256(state.tobytes()).digest()
+    gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+    obs.echo(f"generator state saved on {device_type}, resumed on "
+             f"{gen.device.type}: reseeded from its sha256")
+
+
+def reseed_generator(gen: torch.Generator, attempt: int) -> None:
+    """The recovery's exploration reseed: draw a fresh 62-bit seed from
+    ``gen`` and reseed it with that draw XOR ``RESEED_SALT + attempt`` (the
+    JAX package folds the same salt into its key)."""
+    draw = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+    gen.manual_seed(draw ^ (RESEED_SALT + int(attempt)))
 
 
 class TrainRuntime:
-    """Fault-tolerance handle with no checkpoint flag set (the others raise
-    in :func:`reject_unported`): nothing to restore, nothing to save."""
+    """Per-run fault-tolerance handle: the checkpoint cadence, the
+    ``--resume`` restore and the watchdog's rollback-and-retry (built from
+    the ``add_runtime_args`` flags).  With none set every method is a
+    no-op or None."""
 
-    def __init__(self, entry):
+    DEFAULT_RECOVERY_CKPT_EVERY = 10
+
+    def __init__(self, entry, ckpt_dir=None, ckpt_every=0, keep=3,
+                 resume=False, max_recoveries=0, lr_shrink=0.5,
+                 reseed=True, tob=None):
+        from smartcal_tpu_torch.runtime import (Checkpointer,
+                                                RecoveryManager,
+                                                RecoveryPolicy)
+
         self.entry = entry
+        self.tob = tob
+        self.resume = bool(resume)
+        if max_recoveries > 0 and ckpt_every <= 0:
+            ckpt_every = self.DEFAULT_RECOVERY_CKPT_EVERY
+            self._echo(f"--max-recoveries without --ckpt-every: "
+                       f"checkpointing every {ckpt_every} episodes")
+        enabled = bool(resume or ckpt_every or max_recoveries)
+        self.ckpt = None
+        if enabled:
+            self.ckpt = Checkpointer(ckpt_dir or f"{entry}_ckpt",
+                                     keep=keep, every=ckpt_every)
+        self.recovery = RecoveryManager(
+            RecoveryPolicy(max_recoveries=max_recoveries,
+                           lr_shrink=lr_shrink, reseed=reseed), self.ckpt)
+
+    @classmethod
+    def from_args(cls, args, entry, tob=None) -> "TrainRuntime":
+        return cls(entry,
+                   ckpt_dir=getattr(args, "ckpt_dir", None),
+                   ckpt_every=getattr(args, "ckpt_every", 0),
+                   keep=getattr(args, "keep_ckpts", 3),
+                   resume=getattr(args, "resume", False),
+                   max_recoveries=getattr(args, "max_recoveries", 0),
+                   lr_shrink=getattr(args, "recovery_lr_shrink", 0.5),
+                   reseed=getattr(args, "recovery_reseed", True), tob=tob)
+
+    @property
+    def enabled(self) -> bool:
+        return self.ckpt is not None
+
+    def _echo(self, msg):
+        if self.tob is not None:
+            self.tob.echo(msg)
+        else:
+            obs.echo(msg)
 
     def restore(self):
-        return None
+        """The ``--resume`` payload (newest valid checkpoint), or None."""
+        if self.ckpt is None or not self.resume:
+            return None
+        loaded = self.ckpt.load_latest()
+        if loaded is None:
+            self._echo(f"--resume: no valid checkpoint under "
+                       f"{self.ckpt.root!r}; starting fresh")
+            return None
+        payload, step = loaded
+        rl = obs.active()
+        if rl is not None:
+            rl.log("resume", step=step, root=self.ckpt.root)
+        self._echo(f"resumed from checkpoint step {step} "
+                   f"({self.ckpt.root})")
+        return payload
 
     def maybe_checkpoint(self, step, build_payload) -> bool:
-        return False
+        """Save when the cadence says so; ``build_payload()`` (the host
+        payload dict) runs only then."""
+        if self.ckpt is None or not self.ckpt.due(step):
+            return False
+        with obs.span("checkpoint", step=step):
+            self.ckpt.save(step, build_payload())
+        return True
+
+    def on_trip(self):
+        """Watchdog-trip escalation: a RecoveryAction to apply, or None
+        (graceful halt).  Un-latches the watchdog when a rollback is
+        granted."""
+        reason = None
+        if self.tob is not None and self.tob.watchdog is not None:
+            reason = self.tob.watchdog.trip_reason
+        act = self.recovery.on_trip(reason=reason)
+        if act is None:
+            return None
+        if self.tob is not None and self.tob.watchdog is not None:
+            self.tob.watchdog.reset()
+        self._echo(f"watchdog recovery {act.attempt}/"
+                   f"{self.recovery.policy.max_recoveries}: rolled back to "
+                   f"episode {act.step} (lr x{act.lr_scale:g}, "
+                   f"reseed={act.reseed})")
+        return act
 
 
-def run_batched_agent_loop(env, agent, args, tob, rt, scale_reward,
-                           use_hint=False, warmup=0, warmup_rng=None,
-                           episodes=None, to_flat=None, scores=None):
-    """Vector-episode loop of the batched radio envs (the JAX package's
-    ``run_batched_agent_loop`` without checkpoint restore and watchdog,
-    which are not ported): each vector episode resets all E lanes; each
-    vector step advances them in one batched pass, stores the E
-    transitions and runs ONE learn (the 1:E learn:env-step regime).  The
-    first ``warmup`` vector episodes act randomly through ``warmup_rng``
-    (the demixing trainers' warm-up).  ``episodes`` defaults to
-    ``args.episodes``, ``to_flat`` to ``flatten_obs_batch``; ``scores`` (a
-    ``--load``ed history) is extended.  ``scores`` keeps the sequential drivers'
-    format: E per-lane mean-step-reward entries per vector episode,
-    ceil(episodes / E) vector episodes."""
-    import numpy as np
+def scaled_config(cfg, lr_scale):
+    """``cfg`` with both learning rates times ``lr_scale``."""
+    if lr_scale == 1.0:
+        return cfg
+    return dataclasses.replace(cfg, lr_a=cfg.lr_a * lr_scale,
+                               lr_c=cfg.lr_c * lr_scale)
 
+
+def fused_payload(entry, seed, episode, scores, agent_state, buf, generator,
+                  **extra) -> dict:
+    """The elastic-net trainers' checkpoint payload: agent state (host
+    arrays), the ring's filled prefix, the one generator of the run's
+    draws, scores and the episode counter."""
+    from smartcal_tpu_torch.runtime import pack_replay
+
+    return {"kind": "enet_fused", "entry": entry, "seed": seed,
+            "episode": int(episode), "scores": list(scores),
+            "agent_state": agent_state.to_host(),
+            "replay": pack_replay(buf),
+            "generator": generator_state(generator),
+            "generator_device": generator.device.type, **extra}
+
+
+def restore_fused(payload, state_cls, cfg, generator, device):
+    """(agent state, ring, scores, episode) of a :func:`fused_payload`; the
+    generator's state is set in place."""
+    from smartcal_tpu_torch.runtime import unpack_replay
+
+    agent_state = state_cls.from_host(cfg, payload["agent_state"], device)
+    buf = unpack_replay(payload["replay"], device)
+    set_generator_state(generator, payload["generator"],
+                        payload.get("generator_device"))
+    return agent_state, buf, list(payload["scores"]), int(payload["episode"])
+
+
+def rollback_fused(act, state_cls, cfg, generator, device, rebuild=None):
+    """Restore an elastic-net trainer's checkpoint and apply the recovery
+    mitigation, shared by the enet SAC/TD3/DDPG trainers: the reseed
+    (:func:`reseed_generator`) and, through ``rebuild(lr_scale)``, the
+    LR shrink.  Returns ``(agent_state, buf, scores, episode)``."""
+    out = restore_fused(act.payload, state_cls, cfg, generator, device)
+    if act.reseed:
+        reseed_generator(generator, act.attempt)
+    if act.lr_scale != 1.0 and rebuild is not None:
+        rebuild(act.lr_scale)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint payloads of the host-driven agent loops (SACAgent / TD3Agent /
+# DDPGAgent trainers: calib_*, demix_*)
+# ---------------------------------------------------------------------------
+
+def pack_agent_loop(agent, env, scores, episode, extra=None) -> dict:
+    """Host payload of everything a host-driven agent loop needs to restart
+    bit-continuably: the agent state (networks, targets, Adam states,
+    alpha/rho, counters, DDPG's OU noise), the agent's generator state,
+    the ring (filled prefix, PER priorities, ``cntr``, ``beta``), the env's
+    episode RNG state (the single key chain of a sequential env, the
+    per-lane keys and counters of a batched one), scores and the episode
+    counter."""
+    from smartcal_tpu_torch.runtime import pack_env_state, pack_replay
+
+    payload = {
+        "kind": "agent_loop",
+        "episode": int(episode),
+        "scores": list(scores),
+        "agent_state": agent.state.to_host(),
+        "agent_generator": generator_state(agent.generator),
+        "generator_device": agent.generator.device.type,
+        "replay": pack_replay(agent.buffer),
+    }
+    if env is not None:
+        env_state = pack_env_state(env)
+        if env_state is not None:
+            payload["env_state"] = env_state
+    if extra:
+        payload["extra"] = dict(extra)
+    return payload
+
+
+def restore_agent_loop(agent, env, payload):
+    """Inverse of :func:`pack_agent_loop`: load the payload into ``agent``
+    and ``env`` in place (on the agent's device); returns (scores, episode,
+    extra)."""
+    from smartcal_tpu_torch.runtime import restore_env_state, unpack_replay
+
+    agent.state = type(agent.state).from_host(agent.cfg,
+                                              payload["agent_state"],
+                                              agent.device)
+    set_generator_state(agent.generator, payload["agent_generator"],
+                        payload.get("generator_device"))
+    agent.buffer = unpack_replay(payload["replay"], agent.device)
+    if env is not None and "env_state" in payload:
+        restore_env_state(env, payload["env_state"])
+    return list(payload["scores"]), int(payload["episode"]), \
+        payload.get("extra") or {}
+
+
+def apply_agent_recovery(agent, base_cfg, act):
+    """Apply a RecoveryAction's mitigation to an agent: the reseed of its
+    generator, and the LR shrink as the CUMULATIVE scale on ``base_cfg``
+    (the trainer's original config).  The port's learn steps read the
+    rates from ``agent.cfg``, so nothing is rebuilt.  Returns the agent."""
+    if act.reseed:
+        reseed_generator(agent.generator, act.attempt)
+    if act.lr_scale != 1.0:
+        agent.cfg = scaled_config(base_cfg, act.lr_scale)
+    return agent
+
+
+def run_batched_agent_loop(env, agent, agent_cfg, args, tob, rt,
+                           scale_reward, use_hint=False, warmup=0,
+                           warmup_rng=None, episodes=None, to_flat=None,
+                           scores=None):
+    """Vector-episode loop of the batched radio envs: each vector episode
+    resets all E lanes; each vector step advances them in one batched
+    pass, stores the E transitions and runs ONE learn (the 1:E
+    learn:env-step regime).  The first ``warmup`` vector episodes act
+    randomly through ``warmup_rng`` (the demixing trainers' warm-up).
+    ``episodes`` defaults to ``args.episodes`` (``args.iteration`` for the
+    demixing trainers), ``to_flat`` to ``flatten_obs_batch``; ``scores`` (a
+    ``--load``ed history) is extended.  ``scores`` keeps the sequential
+    trainers' format: E per-lane mean-step-reward entries per vector
+    episode, ceil(episodes / E) vector episodes.  Checkpoint, resume and
+    the watchdog's rollback ride :class:`TrainRuntime`; the payload holds
+    the per-lane keys and counters and the warm-up generator's state, so
+    ``--resume`` continues bit for bit."""
     from smartcal_tpu_torch.rl.networks import flatten_obs_batch
     from smartcal_tpu_torch.runtime.atomic import atomic_pickle
 
     if to_flat is None:
         to_flat = flatten_obs_batch
     if episodes is None:
-        episodes = args.episodes
+        episodes = getattr(args, "episodes", None)
+        if episodes is None:
+            episodes = args.iteration
     E = env.n_envs
     n_vec = -(-episodes // E)
     scores = list(scores) if scores else []
-    rt.restore()
+    i = 0
+    restored = rt.restore()
+    if restored is not None:
+        scores, i, extra = restore_agent_loop(agent, env, restored)
+        if warmup_rng is not None and "np_rng" in extra:
+            warmup_rng.bit_generator.state = extra["np_rng"]
+
+    def ckpt_payload():
+        # the warm-up generator rides along: a resume inside the warm-up
+        # must replay the same random actions
+        extra = ({"np_rng": warmup_rng.bit_generator.state}
+                 if warmup_rng is not None else None)
+        return pack_agent_loop(agent, env, scores, i, extra=extra)
+
     try:
-        for i in range(n_vec):
+        while i < n_vec:
             with tob.span("episode", episode=i, lanes=E):
                 flat = to_flat(env.reset())
                 score = np.zeros(E, np.float64)
@@ -228,6 +613,13 @@ def run_batched_agent_loop(env, agent, args, tob, rt, scale_reward,
                     score += np.asarray(rewards, np.float64)
                     flat = flat2
                     loop += 1
+            if tob.tripped:
+                act = rt.on_trip()
+                if act is not None:
+                    scores, i, _ = restore_agent_loop(agent, env,
+                                                      act.payload)
+                    agent = apply_agent_recovery(agent, agent_cfg, act)
+                    continue
             per_lane = score / max(loop, 1)
             scores.extend(float(s) for s in per_lane)
             tob.log_replay_health(agent.buffer, episode=i)
@@ -235,7 +627,10 @@ def run_batched_agent_loop(env, agent, args, tob, rt, scale_reward,
                         seed=getattr(args, "seed", None), lanes=E)
             agent.save_models()
             atomic_pickle(scores, f"{args.prefix}_scores.pkl")
-            rt.maybe_checkpoint(i + 1, lambda: None)
+            if tob.tripped:
+                break
+            i += 1
+            rt.maybe_checkpoint(i, ckpt_payload)
     finally:
         tob.close()
     return scores

@@ -12,7 +12,8 @@ Usage:
 """
 
 from smartcal_tpu_torch.rl import ddpg
-from smartcal_tpu_torch.train.blocks import train_obs_from_args
+from smartcal_tpu_torch.train.blocks import (diag_from_args,
+                                             train_obs_from_args)
 from smartcal_tpu_torch.train.calib_td3 import run, setup
 
 
@@ -29,11 +30,11 @@ def main(argv=None):
     args, env, dev = setup(argv, "calib_ddpg", __doc__)
     agent = ddpg.DDPGAgent(agent_config(env.backend.npix, args.M),
                            seed=args.seed, name_prefix=args.prefix,
-                           device=dev)
+                           device=dev, collect_diag=diag_from_args(args))
     if args.load:
         agent.load_models()
     return run(env, agent, args.episodes, args.steps, args.use_hint,
-               args.prefix, train_obs_from_args(args, "calib_ddpg"))
+               args.prefix, train_obs_from_args(args, "calib_ddpg"), args)
 
 
 if __name__ == "__main__":

@@ -6,12 +6,17 @@ episodes of up to 4 steps, rewards > 1 scaled by 10, per-episode model
 checkpointing, score moving average.  The env runs on the port's radio
 backend; env, agent and replay ring live on ``--device`` (default cuda).
 ``--batch-envs E`` > 1 trains on a ``BatchedCalibEnv`` of E lanes, one
-learn per vector step, E per-lane scores per vector episode.
+learn per vector step, E per-lane scores per vector episode.  The obs and
+runtime flags act as in the JAX trainer: ``--metrics`` writes the run log
+(``tools/obs_report.py`` reads it), ``--ckpt-every N`` checkpoints into
+``--ckpt-dir`` (default ``<prefix>_ckpt``) and ``--resume`` continues from
+the newest checkpoint bit for bit.
 
 Usage:
     python -m smartcal_tpu_torch.train.calib_sac --episodes 50 --seed 0
         [--use_hint] [--stations 14] [--small | --light | --medium]
-        [--batch-envs E]
+        [--batch-envs E] [--metrics run.jsonl] [--diag] [--watchdog]
+        [--ckpt-every 1] [--resume] [--max-recoveries 1]
         [--device cpu]
 """
 
@@ -26,10 +31,12 @@ from smartcal_tpu_torch.rl import sac
 from smartcal_tpu_torch.rl.networks import flatten_obs
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
 from smartcal_tpu_torch.train import demix_sac
-from smartcal_tpu_torch.train.blocks import (TrainRuntime, add_batched_args,
-                                             add_ere_arg, add_obs_args,
-                                             add_runtime_args,
-                                             reject_unported,
+from smartcal_tpu_torch.train.blocks import (TrainRuntime,
+                                             add_batched_args, add_ere_arg,
+                                             add_obs_args, add_runtime_args,
+                                             apply_agent_recovery,
+                                             diag_from_args, pack_agent_loop,
+                                             restore_agent_loop,
                                              run_batched_agent_loop,
                                              train_obs_from_args)
 
@@ -79,7 +86,6 @@ def main(argv=None):
     add_batched_args(p)
     add_ere_arg(p)
     args = p.parse_args(argv)
-    reject_unported(args)
     dev = resolve_device(args.device)
 
     if args.small:
@@ -107,22 +113,29 @@ def main(argv=None):
     agent_cfg = agent_config(backend.npix, args.M, args.use_hint,
                              args.ere_eta)
     agent = sac.SACAgent(agent_cfg, seed=args.seed, name_prefix=args.prefix,
-                         device=dev)
+                         device=dev, collect_diag=diag_from_args(args))
     if args.load:
         agent.load_models()
 
     scores = []
     tob = train_obs_from_args(args, "calib_sac")
-    rt = TrainRuntime(args.prefix)
+    rt = TrainRuntime.from_args(args, args.prefix, tob=tob)
     if batched:
         # rewards keep the main_sac.py > 1 x10 scaling
         return run_batched_agent_loop(
-            env, agent, args, tob, rt,
+            env, agent, agent_cfg, args, tob, rt,
             scale_reward=lambda r: r * 10 if r > 1 else r,
             use_hint=args.use_hint)
-    rt.restore()
+    i = 0
+    restored = rt.restore()
+    if restored is not None:
+        scores, i, _ = restore_agent_loop(agent, env, restored)
+
+    def ckpt_payload():
+        return pack_agent_loop(agent, env, scores, i)
+
     try:
-        for i in range(args.episodes):
+        while i < args.episodes:
             with tob.span("episode", episode=i):
                 flat = flatten_obs(env.reset())
                 score, loop, done = 0.0, 0, False
@@ -145,13 +158,23 @@ def main(argv=None):
                     score += reward
                     flat = flat2
                     loop += 1
+            if tob.tripped:
+                act = rt.on_trip()
+                if act is not None:
+                    scores, i, _ = restore_agent_loop(agent, env,
+                                                      act.payload)
+                    agent = apply_agent_recovery(agent, agent_cfg, act)
+                    continue
             scores.append(score / max(loop, 1))
             tob.log_replay_health(agent.buffer, episode=i)
             tob.episode(i, scores[-1], scores, seed=args.seed,
                         use_hint=args.use_hint)
             agent.save_models()
             atomic_pickle(scores, f"{args.prefix}_scores.pkl")
-            rt.maybe_checkpoint(i + 1, lambda: None)
+            if tob.tripped:
+                break
+            i += 1
+            rt.maybe_checkpoint(i, ckpt_payload)
     finally:
         tob.close()
     return scores

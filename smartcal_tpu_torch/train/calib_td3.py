@@ -25,19 +25,31 @@ from smartcal_tpu_torch.rl.networks import flatten_obs
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
 from smartcal_tpu_torch.train.blocks import (TrainRuntime, add_obs_args,
                                              add_runtime_args,
-                                             reject_unported,
+                                             apply_agent_recovery,
+                                             diag_from_args, pack_agent_loop,
+                                             restore_agent_loop,
                                              train_obs_from_args)
 
 
-def run(env, agent, episodes, steps, use_hint, prefix, tob):
+def run(env, agent, episodes, steps, use_hint, prefix, tob, args=None):
     """The episode loop of the radio TD3/DDPG trainers (main_td3.py:23-48 /
     main_ddpg.py): unscaled rewards, a learn call per step, the agent
-    saved after every episode."""
+    saved after every episode.  ``args`` (the parsed flags) arms
+    checkpoint, resume and the watchdog's rollback."""
     scores = []
-    rt = TrainRuntime(prefix)
-    rt.restore()
+    rt = (TrainRuntime.from_args(args, prefix, tob=tob) if args is not None
+          else TrainRuntime(prefix, tob=tob))
+    base_cfg = agent.cfg
+    i = 0
+    restored = rt.restore()
+    if restored is not None:
+        scores, i, _ = restore_agent_loop(agent, env, restored)
+
+    def ckpt_payload():
+        return pack_agent_loop(agent, env, scores, i)
+
     try:
-        for i in range(episodes):
+        while i < episodes:
             with tob.span("episode", episode=i):
                 flat = flatten_obs(env.reset())
                 score, loop, done = 0.0, 0, False
@@ -53,15 +65,27 @@ def run(env, agent, episodes, steps, use_hint, prefix, tob):
                     agent.store_transition(flat, action, reward, flat2,
                                            done, hint)
                     agent.learn()
+                    if tob.record_diag(agent.last_diag, episode=i):
+                        done = True
                     score += reward
                     flat = flat2
                     loop += 1
+            if tob.tripped:
+                act = rt.on_trip()
+                if act is not None:
+                    scores, i, _ = restore_agent_loop(agent, env,
+                                                      act.payload)
+                    agent = apply_agent_recovery(agent, base_cfg, act)
+                    continue
             scores.append(score / max(loop, 1))
             tob.log_replay_health(agent.buffer, episode=i)
             tob.episode(i, scores[-1], scores, use_hint=use_hint)
             agent.save_models()
             atomic_pickle(scores, f"{prefix}_scores.pkl")
-            rt.maybe_checkpoint(i + 1, lambda: None)
+            if tob.tripped:
+                break
+            i += 1
+            rt.maybe_checkpoint(i, ckpt_payload)
     finally:
         tob.close()
     return scores
@@ -100,7 +124,6 @@ def setup(argv, entry, description):
     add_common_args(p)
     p.add_argument("--prefix", type=str, default=entry)
     args = p.parse_args(argv)
-    reject_unported(args)
     dev = resolve_device(args.device)
     env = CalibEnv(M=args.M, provide_hint=args.use_hint,
                    backend=build_backend(args, dev), seed=args.seed,
@@ -122,11 +145,12 @@ def main(argv=None):
     args, env, dev = setup(argv, "calib_td3", __doc__)
     agent = td3.TD3Agent(agent_config(env.backend.npix, args.M,
                                       args.use_hint),
-                         seed=args.seed, name_prefix=args.prefix, device=dev)
+                         seed=args.seed, name_prefix=args.prefix, device=dev,
+                         collect_diag=diag_from_args(args))
     if args.load:
         agent.load_models()
     return run(env, agent, args.episodes, args.steps, args.use_hint,
-               args.prefix, train_obs_from_args(args, "calib_td3"))
+               args.prefix, train_obs_from_args(args, "calib_td3"), args)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ from smartcal_tpu_torch.envs.demixing_fuzzy import FuzzyDemixingEnv
 from smartcal_tpu_torch.rl import sac
 from smartcal_tpu_torch.runtime.atomic import safe_pickle_load
 from smartcal_tpu_torch.train.blocks import (add_obs_args, add_runtime_args,
-                                             reject_unported)
+                                             diag_from_args)
 from smartcal_tpu_torch.train.calib_td3 import build_backend
 from smartcal_tpu_torch.train.demix_sac import (add_device_arg, flattener,
                                                 obs_shape, run_warmup_loop)
@@ -53,7 +53,6 @@ def main(argv=None):
     add_obs_args(p)
     add_runtime_args(p)
     args = p.parse_args(argv)
-    reject_unported(args)
     dev = resolve_device(args.device)
 
     rng = np.random.default_rng(args.seed)
@@ -71,7 +70,7 @@ def main(argv=None):
         use_hint=args.use_hint, hint_distance="kld", img_shape=img_shape,
         use_image=args.use_influence)
     agent = sac.SACAgent(agent_cfg, seed=args.seed, name_prefix=args.prefix,
-                         device=dev)
+                         device=dev, collect_diag=diag_from_args(args))
     scores = []
     if args.load:
         agent.load_models()

@@ -24,10 +24,12 @@ from smartcal_tpu_torch.envs.radio import RadioBackend
 from smartcal_tpu_torch.rl import sac
 from smartcal_tpu_torch.rl.networks import flatten_obs, flatten_obs_batch
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
-from smartcal_tpu_torch.train.blocks import (TrainRuntime, add_batched_args,
-                                             add_ere_arg, add_obs_args,
-                                             add_runtime_args,
-                                             reject_unported,
+from smartcal_tpu_torch.train.blocks import (TrainRuntime,
+                                             add_batched_args, add_ere_arg,
+                                             add_obs_args, add_runtime_args,
+                                             apply_agent_recovery,
+                                             diag_from_args, pack_agent_loop,
+                                             restore_agent_loop,
                                              run_batched_agent_loop,
                                              train_obs_from_args)
 
@@ -78,16 +80,39 @@ def run_warmup_loop(env, agent, args, scores, to_flat, n_actions,
     (demixing_rl/main_sac.py:54-98, demixing_fuzzy/main_sac.py:70-99):
     random actions from ``rng`` for the first ``args.warmup`` episodes'
     steps, then the agent's; one learn per step; the agent and the scores
-    saved after every episode.  The JAX package's periodic
-    ``jax.clear_caches()`` has no counterpart: there is no
+    saved after every episode.  ``--ckpt-every`` checkpoints the agent,
+    ring, generators, env key, the warm-up numpy generator and the step
+    count; ``--resume`` continues from it bit for bit; a watchdog trip
+    with ``--max-recoveries`` rolls back and retries.  The JAX package's
+    periodic ``jax.clear_caches()`` has no counterpart: there is no
     compiled-executable cache to bound."""
     tob = tob or train_obs_from_args(args, args.prefix)
-    rt = TrainRuntime(args.prefix)
-    rt.restore()
+    rt = TrainRuntime.from_args(args, args.prefix, tob=tob)
+    base_cfg = agent.cfg
     total_steps = 0
     warmup_steps = args.warmup * args.steps
+    i = 0
+
+    def restore(payload):
+        nonlocal i, total_steps
+        scores_r, i, extra = restore_agent_loop(agent, env, payload)
+        scores[:] = scores_r
+        total_steps = int(extra.get("total_steps", 0))
+        if "np_rng" in extra:
+            rng.bit_generator.state = extra["np_rng"]
+
+    restored = rt.restore()
+    if restored is not None:
+        restore(restored)
+
+    def ckpt_payload():
+        return pack_agent_loop(
+            agent, env, scores, i,
+            extra={"total_steps": total_steps,
+                   "np_rng": rng.bit_generator.state})
+
     try:
-        for i in range(args.iteration):
+        while i < args.iteration:
             with tob.span("episode", episode=i):
                 flat = to_flat(env.reset())
                 score, loop, done = 0.0, 0, False
@@ -115,6 +140,13 @@ def run_warmup_loop(env, agent, args, scores, to_flat, n_actions,
                     flat = flat2
                     loop += 1
                     total_steps += 1
+            if tob.tripped:
+                act = rt.on_trip()
+                if act is not None:
+                    # discard the poisoned episodes, restore, mitigate
+                    restore(act.payload)
+                    agent = apply_agent_recovery(agent, base_cfg, act)
+                    continue
             scores.append(score / max(loop, 1))
             tob.log_replay_health(agent.buffer, episode=i)
             tob.episode(i, scores[-1], scores, seed=args.seed,
@@ -122,7 +154,10 @@ def run_warmup_loop(env, agent, args, scores, to_flat, n_actions,
                         warmup=total_steps <= warmup_steps)
             agent.save_models()
             atomic_pickle(scores, f"{args.prefix}_scores.pkl")
-            rt.maybe_checkpoint(i + 1, lambda: None)
+            if tob.tripped:
+                break
+            i += 1
+            rt.maybe_checkpoint(i, ckpt_payload)
     finally:
         tob.close()
     return scores
@@ -162,7 +197,6 @@ def main(argv=None):
     add_batched_args(p)
     add_ere_arg(p)
     args = p.parse_args(argv)
-    reject_unported(args)
     dev = resolve_device(args.device)
 
     rng = np.random.default_rng(args.seed)
@@ -188,7 +222,7 @@ def main(argv=None):
         hint_threshold=0.01, admm_rho=1.0, use_hint=args.use_hint,
         hint_distance="kld", img_shape=img_shape, ere_eta=args.ere_eta)
     agent = sac.SACAgent(agent_cfg, seed=args.seed, name_prefix=args.prefix,
-                         device=dev)
+                         device=dev, collect_diag=diag_from_args(args))
     scores = []
     if args.load:
         agent.load_models()
@@ -200,8 +234,9 @@ def main(argv=None):
 
     if batched:
         tob = train_obs_from_args(args, args.prefix)
+        rt = TrainRuntime.from_args(args, args.prefix, tob=tob)
         return run_batched_agent_loop(
-            env, agent, args, tob, TrainRuntime(args.prefix), scale_reward,
+            env, agent, agent_cfg, args, tob, rt, scale_reward,
             warmup=-(-args.warmup // args.batch_envs), warmup_rng=rng,
             episodes=args.iteration,
             to_flat=flattener(args.provide_influence, batched=True),

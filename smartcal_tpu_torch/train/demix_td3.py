@@ -25,7 +25,7 @@ from smartcal_tpu_torch.envs.demixing import DemixingEnv
 from smartcal_tpu_torch.rl import td3
 from smartcal_tpu_torch.runtime.atomic import safe_pickle_load
 from smartcal_tpu_torch.train.blocks import (add_obs_args, add_runtime_args,
-                                             reject_unported)
+                                             diag_from_args)
 from smartcal_tpu_torch.train.demix_sac import (add_device_arg, flattener,
                                                 make_backend, obs_shape,
                                                 run_warmup_loop)
@@ -57,7 +57,6 @@ def main(argv=None):
     add_obs_args(p)
     add_runtime_args(p)
     args = p.parse_args(argv)
-    reject_unported(args)
     dev = resolve_device(args.device)
 
     rng = np.random.default_rng(args.seed)
@@ -74,7 +73,7 @@ def main(argv=None):
         noise=0.1, use_hint=args.use_hint, admm_rho=0.1, prioritized=True,
         error_clip=100.0, img_shape=img_shape)
     agent = td3.TD3Agent(agent_cfg, seed=args.seed, name_prefix=args.prefix,
-                         device=dev)
+                         device=dev, collect_diag=diag_from_args(args))
     scores = []
     if args.load:
         agent.load_models()

@@ -18,20 +18,23 @@ from smartcal_tpu_torch import resolve_device
 from smartcal_tpu_torch.envs import enet
 from smartcal_tpu_torch.rl import ddpg
 from smartcal_tpu_torch.rl import replay as rp
+from smartcal_tpu_torch.obs import stack_diags
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
-from smartcal_tpu_torch.train.blocks import (add_obs_args, add_runtime_args,
-                                             reject_unported,
-                                             train_obs_from_args)
-from smartcal_tpu_torch.train.enet_sac import Draws, run_episodes, summary
+from smartcal_tpu_torch.train.blocks import add_obs_args, add_runtime_args
+from smartcal_tpu_torch.train.enet_sac import (Draws, add_size_args,
+                                               fused_handles, fused_loop,
+                                               runtime_kwargs, summary)
 
 
 def run_episode(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
-                st: ddpg.DDPGState, buf: rp.ReplayState, draws, steps: int):
+                st: ddpg.DDPGState, buf: rp.ReplayState, draws, steps: int,
+                collect_diag: bool = False):
     """One fused episode; updates ``st`` and ``buf`` in place and returns
-    the mean reward (a device scalar)."""
+    the mean reward (a device scalar), with ``collect_diag`` also the
+    episode's step-stacked UpdateDiag."""
     env_state, obs = enet.reset(env_cfg, *draws.reset(env_cfg))
     hint = torch.zeros(cfg.n_actions, device=obs.device)
-    rewards = []
+    rewards, diags = [], []
     for _ in range(steps):
         action = ddpg.choose_action(cfg, st, obs,
                                     draws.normal((cfg.n_actions,)))
@@ -40,10 +43,14 @@ def run_episode(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
         rp.replay_add(buf, {"state": obs, "action": action,
                             "reward": reward, "new_state": obs2,
                             "done": done, "hint": hint}, priority=1.0)
-        ddpg.learn(cfg, st, buf, **draws.learn())
+        m = ddpg.learn(cfg, st, buf, **draws.learn(),
+                       collect_diag=collect_diag)
+        if collect_diag:
+            diags.append(m["diag"])
         rewards.append(reward)
         obs = obs2
-    return torch.stack(rewards).mean()
+    score = torch.stack(rewards).mean()
+    return (score, stack_diags(diags)) if collect_diag else score
 
 
 def agent_config(env_cfg: enet.EnetConfig) -> ddpg.DDPGConfig:
@@ -52,9 +59,14 @@ def agent_config(env_cfg: enet.EnetConfig) -> ddpg.DDPGConfig:
                            batch_size=64, mem_size=1024)
 
 
-def train_fused(seed=0, episodes=1000, steps=5, M=20, N=20, prefix="",
-                tob=None, device="cuda"):
-    """Fused episodes on ``device``; saves the scores at the end.  Returns
+def train_fused(seed=0, episodes=1000, steps=5, M=20, N=20, log_every=1,
+                prefix="", quiet=False, metrics_path=None, run_id=None,
+                trace=None, diag=False, watchdog=False, ckpt_dir=None,
+                ckpt_every=0, keep_ckpts=3, resume=False, max_recoveries=0,
+                recovery_lr_shrink=0.5, recovery_reseed=True,
+                compile_cache=None, tob=None, device="cuda"):
+    """Fused episodes on ``device`` with the obs and runtime arguments of
+    ``enet_sac.train_fused``; saves the scores at the end.  Returns
     (scores, wall seconds, agent state, ring)."""
     dev = resolve_device(device)
     env_cfg = enet.EnetConfig(M=M, N=N)
@@ -64,12 +76,16 @@ def train_fused(seed=0, episodes=1000, steps=5, M=20, N=20, prefix="",
     buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
                                                           cfg.n_actions), dev)
     draws = Draws(generator, dev)
-    scores, wall = run_episodes(
-        episodes, lambda: run_episode(env_cfg, cfg, agent_state, buf, draws,
-                                      steps),
-        lambda sc: atomic_pickle(sc, f"{prefix}scores_ddpg.pkl"), tob=tob,
-        seed=seed)
-    return scores, wall, agent_state, buf
+    tob, rt = fused_handles(
+        "enet_ddpg", tob, seed, quiet, metrics_path, run_id, trace, diag,
+        watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
+        recovery_lr_shrink, recovery_reseed, compile_cache)
+    return fused_loop(
+        "enet_ddpg", seed, episodes, cfg, agent_state, buf, generator, dev,
+        lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,
+                                              steps, collect),
+        lambda st, b, sc: atomic_pickle(sc, f"{prefix}scores_ddpg.pkl"), 0,
+        tob, rt, log_every)
 
 
 def main(argv=None):
@@ -82,17 +98,14 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of env, agent and replay (cuda, or "
                         "cpu when asked for)")
+    add_size_args(p)
     add_obs_args(p)
     add_runtime_args(p)
     args = p.parse_args(argv)
-    reject_unported(args)
-    tob = train_obs_from_args(args, "enet_ddpg")
-    try:
-        scores, wall, _, _ = train_fused(
-            seed=args.seed, episodes=args.episodes, steps=args.steps,
-            prefix=args.prefix, tob=tob, device=args.device)
-    finally:
-        tob.close()
+    scores, wall, _, _ = train_fused(
+        seed=args.seed, episodes=args.episodes, steps=args.steps, M=args.M,
+        N=args.N, prefix=args.prefix, device=args.device,
+        **runtime_kwargs(args))
     out = summary(args.episodes, args.steps, wall, scores)
     sys.stdout.write(json.dumps(out) + "\n")
     return out

@@ -12,9 +12,14 @@ average of scores) in two modes:
 * ``--mode loop``: the reference's host loop through ``EnetEnv`` and
   ``SACAgent``.
 
+The fused mode takes the JAX trainer's obs and runtime flags
+(:func:`fused_loop`): ``--metrics``, ``--diag``, ``--watchdog``,
+``--ckpt-every``, ``--resume`` (bit for bit), ``--max-recoveries``.
+
 Usage:
     python -m smartcal_tpu_torch.train.enet_sac --episodes 1000 --steps 5
         [--seed 0] [--use_hint] [--mode fused|loop] [--device cuda|cpu]
+        [--metrics run.jsonl] [--ckpt-every 10] [--resume]
 """
 
 import argparse
@@ -27,11 +32,11 @@ import torch
 
 from smartcal_tpu_torch import resolve_device
 from smartcal_tpu_torch.envs import enet
+from smartcal_tpu_torch.obs import stack_diags
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl import sac
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
 from smartcal_tpu_torch.train.blocks import (add_obs_args, add_runtime_args,
-                                             reject_unported,
                                              train_obs_from_args)
 
 
@@ -70,12 +75,13 @@ def start_episode(env_cfg: enet.EnetConfig, n_actions, draws, use_hint):
 
 def run_episode(env_cfg: enet.EnetConfig, cfg: sac.SACConfig,
                 st: sac.SACState, buf: rp.ReplayState, draws, steps: int,
-                use_hint: bool):
+                use_hint: bool, collect_diag: bool = False):
     """One fused episode; updates ``st`` and ``buf`` in place and returns
-    the mean reward (a device scalar)."""
+    the mean reward (a device scalar), with ``collect_diag`` also the
+    episode's step-stacked UpdateDiag."""
     env_state, obs, hint = start_episode(env_cfg, cfg.n_actions, draws,
                                          use_hint)
-    rewards = []
+    rewards, diags = [], []
     for i in range(steps):
         action = sac.choose_action(cfg, st, obs,
                                    draws.normal((cfg.n_actions,)))
@@ -86,10 +92,14 @@ def run_episode(env_cfg: enet.EnetConfig, cfg: sac.SACConfig,
                             "reward": reward, "new_state": obs2,
                             "done": done, "hint": hint},
                       priority=None if cfg.prioritized else 1.0)
-        sac.learn(cfg, st, buf, **draws.learn())
+        m = sac.learn(cfg, st, buf, **draws.learn(),
+                      collect_diag=collect_diag)
+        if collect_diag:
+            diags.append(m["diag"])
         rewards.append(reward)
         obs = obs2
-    return torch.stack(rewards).mean()
+    score = torch.stack(rewards).mean()
+    return (score, stack_diags(diags)) if collect_diag else score
 
 
 def agent_config(env_cfg: enet.EnetConfig, use_hint) -> sac.SACConfig:
@@ -101,21 +111,123 @@ def agent_config(env_cfg: enet.EnetConfig, use_hint) -> sac.SACConfig:
         reward_scale=float(env_cfg.N), alpha=0.03, use_hint=use_hint)
 
 
-def run_episodes(episodes, run, save, save_every=0, tob=None, **tags):
-    """``episodes`` calls of ``run()`` (one episode's mean reward), echoed
-    through ``tob``; ``save(scores)`` every ``save_every`` episodes and at
-    the end.  Returns (scores, wall seconds of the episodes)."""
+def fused_loop(entry, seed, episodes, cfg, state, buf, generator, device,
+               run, save, save_every, tob, rt, log_every=1, **tags):
+    """The episode loop of the fused elastic-net trainers (the JAX
+    trainers' ``train_fused`` loop): ``run(cfg, state, buf, collect_diag)``
+    plays one episode in place and returns its mean reward (and its
+    step-stacked UpdateDiag when diagnostics are on).  ``--resume``
+    restores ``state``, ``buf``, the generator, scores and the episode from
+    the newest checkpoint; the cadence checkpoints after episodes; a
+    watchdog trip rolls back and retries (the LR shrink replaces ``cfg``
+    for the episodes that follow).  ``save(state, buf, scores)`` runs every
+    ``save_every`` episodes and at the end.  Returns (scores, wall
+    seconds, agent state, ring)."""
+    from smartcal_tpu_torch.train.blocks import (fused_payload,
+                                                 restore_fused,
+                                                 rollback_fused,
+                                                 scaled_config)
+
+    state_cls = type(state)
+    run_cfg = cfg
+    collect = tob.collect_diag
     scores = []
+    i, saved_marker = 0, 0
+    restored = rt.restore()
+    if restored is not None:
+        state, buf, scores, i = restore_fused(restored, state_cls, cfg,
+                                              generator, device)
+        saved_marker = int(restored.get("saved_marker", 0))
+
+    def payload():
+        return fused_payload(entry, seed, i, scores, state, buf, generator,
+                             saved_marker=saved_marker)
+
+    def log_one(score):
+        scores.append(float(score))
+        tob.episode(i, scores[-1], scores, echo=(i % log_every == 0),
+                    seed=seed, **tags)
+
+    def rebuild(lr_scale):
+        nonlocal run_cfg
+        run_cfg = scaled_config(cfg, lr_scale)
+
     t0 = time.time()
-    for i in range(episodes):
-        scores.append(float(run()))
-        if tob is not None:
-            tob.episode(i, scores[-1], scores, **tags)
-        if save_every and i + 1 < episodes and (i + 1) % save_every == 0:
-            save(scores)
-    wall = time.time() - t0
-    save(scores)
-    return scores, wall
+    try:
+        while i < episodes:
+            with tob.span("episode", episode=i):
+                out = run(run_cfg, state, buf, collect)
+            if collect:
+                score, ep_diag = out
+                halted = tob.record_diag(ep_diag, episode=i)
+                tob.log_replay_health(buf, episode=i)
+                if halted or tob.tripped:
+                    act = rt.on_trip()
+                    if act is None:
+                        log_one(score)
+                        i += 1
+                        break
+                    # rollback-and-retry: the poisoned episodes since the
+                    # checkpoint are discarded (not logged)
+                    state, buf, scores, i = rollback_fused(
+                        act, state_cls, cfg, generator, device, rebuild)
+                    saved_marker = int(act.payload.get("saved_marker", 0))
+                    continue
+            else:
+                score = out
+            log_one(score)
+            i += 1
+            rt.maybe_checkpoint(i, payload)
+            if save_every and i < episodes and i // save_every > saved_marker:
+                save(state, buf, scores)
+                saved_marker = i // save_every
+        wall = time.time() - t0
+    finally:
+        tob.close()
+    save(state, buf, scores)
+    return scores, wall, state, buf
+
+
+def fused_handles(entry, tob, seed, quiet, metrics_path, run_id, trace, diag,
+                  watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume,
+                  max_recoveries, recovery_lr_shrink, recovery_reseed,
+                  compile_cache=None, **meta):
+    """(TrainObs, TrainRuntime) of a fused trainer's keyword arguments (the
+    JAX ``train_fused`` signature); ``tob`` given is used as it is."""
+    from smartcal_tpu_torch.train.blocks import TrainObs, TrainRuntime
+
+    if tob is None:
+        tob = TrainObs(entry, metrics=metrics_path, run_id=run_id,
+                       trace=trace, quiet=quiet, diag=diag,
+                       watchdog=watchdog or max_recoveries > 0,
+                       compile_cache=compile_cache, seed=seed, **meta)
+    rt = TrainRuntime(entry, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                      keep=keep_ckpts, resume=resume,
+                      max_recoveries=max_recoveries,
+                      lr_shrink=recovery_lr_shrink, reseed=recovery_reseed,
+                      tob=tob)
+    return tob, rt
+
+
+def runtime_kwargs(args) -> dict:
+    """The ``train_fused`` keyword arguments of the obs and runtime
+    flags."""
+    return dict(quiet=args.quiet, metrics_path=args.metrics,
+                run_id=args.run_id, trace=args.trace, diag=args.diag,
+                watchdog=args.watchdog, ckpt_dir=args.ckpt_dir,
+                ckpt_every=args.ckpt_every, keep_ckpts=args.keep_ckpts,
+                resume=args.resume, max_recoveries=args.max_recoveries,
+                recovery_lr_shrink=args.recovery_lr_shrink,
+                recovery_reseed=args.recovery_reseed,
+                compile_cache=args.compile_cache)
+
+
+def add_size_args(p):
+    """The elastic-net problem size (the reference's M = N = 20)."""
+    p.add_argument("--M", type=int, default=20,
+                   help="rows of the regression problem")
+    p.add_argument("--N", type=int, default=20,
+                   help="columns (parameters) of the regression problem")
 
 
 def save(agent_state, buf, scores, prefix):
@@ -125,9 +237,17 @@ def save(agent_state, buf, scores, prefix):
 
 
 def train_fused(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
-                save_every=500, prefix="", tob=None, device="cuda"):
-    """Fused episodes on ``device``; saves every ``save_every`` episodes
-    and at the end.  Returns (scores, wall seconds, agent state, ring)."""
+                log_every=1, save_every=500, prefix="", quiet=False,
+                metrics_path=None, block=1, run_id=None, trace=None,
+                diag=False, watchdog=False, ckpt_dir=None, ckpt_every=0,
+                keep_ckpts=3, resume=False, max_recoveries=0,
+                recovery_lr_shrink=0.5, recovery_reseed=True,
+                compile_cache=None, tob=None, device="cuda"):
+    """Fused episodes on ``device`` with the JAX ``train_fused``'s
+    observability and fault-tolerance arguments (``block`` episodes run
+    one after another: the same dynamics); saves every ``save_every``
+    episodes and at the end.  Returns (scores, wall seconds, agent state,
+    ring)."""
     dev = resolve_device(device)
     env_cfg = enet.EnetConfig(M=M, N=N)
     cfg = agent_config(env_cfg, use_hint)
@@ -136,20 +256,26 @@ def train_fused(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
     buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
                                                           cfg.n_actions), dev)
     draws = Draws(generator, dev)
-    scores, wall = run_episodes(
-        episodes, lambda: run_episode(env_cfg, cfg, agent_state, buf, draws,
-                                      steps, use_hint),
-        lambda sc: save(agent_state, buf, sc, prefix), save_every, tob,
-        seed=seed, use_hint=use_hint)
-    return scores, wall, agent_state, buf
+    tob, rt = fused_handles(
+        "enet_sac", tob, seed, quiet, metrics_path, run_id, trace, diag,
+        watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
+        recovery_lr_shrink, recovery_reseed, compile_cache, block=block)
+    return fused_loop(
+        "enet_sac", seed, episodes, cfg, agent_state, buf, generator, dev,
+        lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,
+                                              steps, use_hint, collect),
+        lambda st, b, sc: save(st, b, sc, prefix), save_every, tob, rt,
+        log_every, use_hint=use_hint)
 
 
 def train_loop(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
                tob=None, device="cuda"):
-    """Reference-style host loop (main_sac.py:47-76)."""
+    """Reference-style host loop (main_sac.py:47-76); ``tob``'s diagnostics
+    and watchdog act here too."""
     env = enet.EnetEnv(M, N, provide_hint=use_hint, seed=seed, device=device)
     agent = sac.SACAgent(agent_config(env.cfg, use_hint), seed=seed,
-                         device=device)
+                         device=device,
+                         collect_diag=tob is not None and tob.collect_diag)
     scores = []
     for i in range(episodes):
         obs = env.reset()
@@ -164,12 +290,27 @@ def train_loop(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
             agent.store_transition(obs, action, reward, obs2, done, hint)
             score += reward
             agent.learn()
+            if tob is not None and tob.record_diag(agent.last_diag,
+                                                   episode=i):
+                done = True
             obs = obs2
             loop += 1
         scores.append(score / loop)
         if tob is not None:
             tob.episode(i, scores[-1], scores, seed=seed, use_hint=use_hint)
+            if tob.tripped:
+                break
     return scores
+
+
+def reject_loop_runtime(args):
+    """``--mode loop`` is the reference's plain host loop, as in the JAX
+    trainer: the checkpoint flags act in ``--mode fused`` only, and are
+    refused here rather than ignored."""
+    for attr, flag in (("resume", "--resume"), ("ckpt_every", "--ckpt-every"),
+                       ("max_recoveries", "--max-recoveries")):
+        if getattr(args, attr):
+            raise SystemExit(f"{flag} acts in --mode fused only")
 
 
 def summary(episodes, steps, wall, scores) -> dict:
@@ -198,22 +339,24 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of env, agent and replay (cuda, or "
                         "cpu when asked for)")
+    add_size_args(p)
     add_obs_args(p)
     add_runtime_args(p)
     args = p.parse_args(argv)
-    reject_unported(args)
-    tob = train_obs_from_args(args, "enet_sac")
-    try:
-        if args.mode == "loop":
+    if args.mode == "loop":
+        reject_loop_runtime(args)
+        tob = train_obs_from_args(args, "enet_sac")
+        try:
             return train_loop(seed=args.seed, episodes=args.episodes,
                               steps=args.steps, use_hint=args.use_hint,
-                              tob=tob, device=args.device)
-        scores, wall, _, _ = train_fused(
-            seed=args.seed, episodes=args.episodes, steps=args.steps,
-            use_hint=args.use_hint, prefix=args.prefix, tob=tob,
-            device=args.device)
-    finally:
-        tob.close()
+                              M=args.M, N=args.N, tob=tob,
+                              device=args.device)
+        finally:
+            tob.close()
+    scores, wall, _, _ = train_fused(
+        seed=args.seed, episodes=args.episodes, steps=args.steps,
+        use_hint=args.use_hint, M=args.M, N=args.N, prefix=args.prefix,
+        block=args.block, device=args.device, **runtime_kwargs(args))
     out = summary(args.episodes, args.steps, wall, scores)
     sys.stdout.write(json.dumps(out) + "\n")
     return out

@@ -19,22 +19,24 @@ from smartcal_tpu_torch import resolve_device
 from smartcal_tpu_torch.envs import enet
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl import td3
+from smartcal_tpu_torch.obs import stack_diags
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
-from smartcal_tpu_torch.train.blocks import (add_obs_args, add_runtime_args,
-                                             reject_unported,
-                                             train_obs_from_args)
-from smartcal_tpu_torch.train.enet_sac import (Draws, run_episodes,
-                                               start_episode, summary)
+from smartcal_tpu_torch.train.blocks import add_obs_args, add_runtime_args
+from smartcal_tpu_torch.train.enet_sac import (Draws, add_size_args,
+                                               fused_handles, fused_loop,
+                                               runtime_kwargs, start_episode,
+                                               summary)
 
 
 def run_episode(env_cfg: enet.EnetConfig, cfg: td3.TD3Config,
                 st: td3.TD3State, buf: rp.ReplayState, draws, steps: int,
-                use_hint: bool):
+                use_hint: bool, collect_diag: bool = False):
     """One fused episode; updates ``st`` and ``buf`` in place and returns
-    the mean reward (a device scalar)."""
+    the mean reward (a device scalar), with ``collect_diag`` also the
+    episode's step-stacked UpdateDiag."""
     env_state, obs, hint = start_episode(env_cfg, cfg.n_actions, draws,
                                          use_hint)
-    rewards = []
+    rewards, diags = [], []
     for i in range(steps):
         noise = (draws.normal((cfg.n_actions,)),
                  draws.normal((cfg.n_actions,)))
@@ -47,10 +49,14 @@ def run_episode(env_cfg: enet.EnetConfig, cfg: td3.TD3Config,
                             "reward": reward, "new_state": obs2,
                             "done": done, "hint": hint},
                       priority=1.0 if pri is None else pri)
-        td3.learn(cfg, st, buf, **draws.learn())
+        m = td3.learn(cfg, st, buf, **draws.learn(),
+                      collect_diag=collect_diag)
+        if collect_diag:
+            diags.append(m["diag"])
         rewards.append(reward)
         obs = obs2
-    return torch.stack(rewards).mean()
+    score = torch.stack(rewards).mean()
+    return (score, stack_diags(diags)) if collect_diag else score
 
 
 def agent_config(env_cfg: enet.EnetConfig, use_hint=True,
@@ -71,10 +77,15 @@ def save(agent_state, buf, scores, prefix):
 
 
 def train_fused(seed=0, episodes=1000, steps=4, use_hint=True,
-                prioritized=True, M=20, N=20, save_every=500, prefix="",
-                tob=None, device="cuda"):
-    """Fused episodes on ``device``; saves every ``save_every`` episodes
-    and at the end.  Returns (scores, wall seconds, agent state, ring)."""
+                prioritized=True, M=20, N=20, log_every=1, save_every=500,
+                prefix="", quiet=False, metrics_path=None, run_id=None,
+                trace=None, diag=False, watchdog=False, ckpt_dir=None,
+                ckpt_every=0, keep_ckpts=3, resume=False, max_recoveries=0,
+                recovery_lr_shrink=0.5, recovery_reseed=True,
+                compile_cache=None, tob=None, device="cuda"):
+    """Fused episodes on ``device`` with the obs and runtime arguments of
+    ``enet_sac.train_fused``; saves every ``save_every`` episodes and at
+    the end.  Returns (scores, wall seconds, agent state, ring)."""
     dev = resolve_device(device)
     env_cfg = enet.EnetConfig(M=M, N=N)
     cfg = agent_config(env_cfg, use_hint, prioritized)
@@ -83,12 +94,16 @@ def train_fused(seed=0, episodes=1000, steps=4, use_hint=True,
     buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
                                                           cfg.n_actions), dev)
     draws = Draws(generator, dev)
-    scores, wall = run_episodes(
-        episodes, lambda: run_episode(env_cfg, cfg, agent_state, buf, draws,
-                                      steps, use_hint),
-        lambda sc: save(agent_state, buf, sc, prefix), save_every, tob,
-        seed=seed, use_hint=use_hint)
-    return scores, wall, agent_state, buf
+    tob, rt = fused_handles(
+        "enet_td3", tob, seed, quiet, metrics_path, run_id, trace, diag,
+        watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
+        recovery_lr_shrink, recovery_reseed, compile_cache)
+    return fused_loop(
+        "enet_td3", seed, episodes, cfg, agent_state, buf, generator, dev,
+        lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,
+                                              steps, use_hint, collect),
+        lambda st, b, sc: save(st, b, sc, prefix), save_every, tob, rt,
+        log_every, use_hint=use_hint)
 
 
 def main(argv=None):
@@ -104,18 +119,15 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of env, agent and replay (cuda, or "
                         "cpu when asked for)")
+    add_size_args(p)
     add_obs_args(p)
     add_runtime_args(p)
     args = p.parse_args(argv)
-    reject_unported(args)
-    tob = train_obs_from_args(args, "enet_td3")
-    try:
-        scores, wall, _, _ = train_fused(
-            seed=args.seed, episodes=args.episodes, steps=args.steps,
-            use_hint=not args.no_hint, prioritized=not args.no_per,
-            prefix=args.prefix, tob=tob, device=args.device)
-    finally:
-        tob.close()
+    scores, wall, _, _ = train_fused(
+        seed=args.seed, episodes=args.episodes, steps=args.steps,
+        use_hint=not args.no_hint, prioritized=not args.no_per, M=args.M,
+        N=args.N, prefix=args.prefix, device=args.device,
+        **runtime_kwargs(args))
     out = summary(args.episodes, args.steps, wall, scores)
     sys.stdout.write(json.dumps(out) + "\n")
     return out

@@ -14,6 +14,8 @@ every parameter and Adam moment are held at rtol 1e-4 / atol 1e-5 after
 each episode.
 """
 
+import json
+import os
 import pickle
 
 import jax
@@ -203,9 +205,44 @@ def test_batched_trainer_defaults_to_cuda():
     (["--ckpt-every", "2"], "item 12"), (["--max-recoveries", "1"],
                                          "item 12"),
     (["--batch-envs", "2", "--resume"], "item 12")])
-def test_trainer_names_the_roadmap_item_of_an_unported_flag(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        calib_sac.main(["--small", "--device", "cpu"] + flag)
+def test_trainer_names_the_roadmap_item_of_an_unported_flag(
+        flag, item, tmp_path, monkeypatch):
+    """Every obs and runtime flag of ROADMAP queue 1 ``item`` 12 now acts: the
+    trainer runs ``--small`` on the CPU with it, and the flag leaves its
+    mark (a run log, a trace, diagnostics, a checkpoint, the kernel
+    library directory); ``--resume`` continues a checkpointed run."""
+    from smartcal_tpu_torch.ops import build
+    from smartcal_tpu_torch.runtime import checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    base = ["--small", "--M", "3", "--steps", "1", "--device", "cpu",
+            "--quiet", "--prefix", "c"]
+    batch = flag[:2] if flag[0] == "--batch-envs" else []
+    first = None
+    if "--resume" in flag:           # a checkpointed first episode
+        first = calib_sac.main(base + batch + ["--episodes", str(
+            2 if batch else 1), "--ckpt-every", "1"])
+    scores = calib_sac.main(base + ["--episodes", "4" if batch else "2"]
+                            + flag)
+    assert len(scores) == (4 if batch else 2)
+    assert np.all(np.isfinite(scores))
+    if first is not None:
+        assert scores[:len(first)] == first
+    if flag[0] in ("--metrics", "--trace"):
+        log = "m.jsonl" if flag[0] == "--metrics" else "t/calib_sac_run.jsonl"
+        kinds = {json.loads(ln)["event"] for ln in open(log)}
+        assert {"run_header", "episode", "span", "solver",
+                "run_end"} <= kinds
+        if flag[0] == "--trace":
+            assert os.path.exists("t/calib_sac_trace.json")
+    elif flag[0] == "--compile-cache":
+        assert build.BUILD_DIR == (tmp_path / "c").resolve()
+        assert build.library_path("dft_imager").parent == build.BUILD_DIR
+    elif flag[0] in ("--ckpt-every", "--max-recoveries"):
+        # --max-recoveries arms the default cadence of 10 episodes
+        steps = [s for s, _ in checkpoint.list_checkpoints("c_ckpt")]
+        assert steps == ([2] if flag[0] == "--ckpt-every" else [])
 
 
 def test_trainer_defaults_to_cuda():

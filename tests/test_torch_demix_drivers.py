@@ -8,6 +8,7 @@ refusals (no GPU, --use_hint with --batch-envs, flags whose machinery is
 not ported).
 """
 
+import json
 import pickle
 
 import numpy as np
@@ -122,9 +123,21 @@ def test_calib_sac_takes_the_demixing_tiers(tmp_path, tier):
 @pytest.mark.parametrize("main", [demix_sac.main, demix_td3.main,
                                   demix_fuzzy_sac.main])
 def test_trainers_default_to_cuda_and_refuse_unported_flags(main,
-                                                            monkeypatch):
+                                                            monkeypatch,
+                                                            tmp_path):
+    """Without --device the trainers ask for cuda; the runtime flags act:
+    a checkpointed episode, then ``--resume`` to the second one, which
+    keeps the first episode's score, with a run log."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no GPU"):
         main(["--small", "--iteration", "1"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main(["--small", "--resume", "--device", "cpu"])
+    monkeypatch.chdir(tmp_path)
+    argv = ["--small", "--steps", "1", "--warmup", "0", "--prefix", "d",
+            "--ckpt-dir", "ck"] + CPU
+    first = main(argv + ["--iteration", "1", "--ckpt-every", "1"])
+    scores = main(argv + ["--iteration", "2", "--resume", "--metrics",
+                          "m.jsonl", "--watchdog"])
+    assert len(scores) == 2 and scores[0] == first[0]
+    assert np.all(np.isfinite(scores))
+    kinds = [json.loads(ln)["event"] for ln in open("m.jsonl")]
+    assert "resume" in kinds and "diag" in kinds

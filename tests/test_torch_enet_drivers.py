@@ -23,9 +23,9 @@ sums then reaches ~3e-5 on an entry near 0.1.  The stored rewards and
 episode scores are held at rtol 1e-6, the PER priorities (which the learn
 steps refresh from the critics) at rtol 1e-4.
 
-Then every trainer end to end on the CPU at small size, every unported flag
-raising with its ROADMAP item, and every entry point asking for cuda by
-default.
+Then every trainer end to end on the CPU at small size, every obs and
+runtime flag acting in every trainer, and every entry point asking for
+cuda by default.
 """
 
 import json
@@ -294,9 +294,45 @@ ENTRIES = {"enet_sac": enet_sac.main, "enet_td3": enet_td3.main,
                                   ["--ckpt-every", "2"],
                                   ["--max-recoveries", "1"],
                                   ["--compile-cache", "cc"]])
-def test_unported_flags_raise_with_their_item(entry, flag):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ENTRIES[entry](["--device", "cpu"] + flag)
+def test_unported_flags_raise_with_their_item(entry, flag, tmp_path,
+                                              monkeypatch):
+    """The obs and runtime flags of ROADMAP queue 1 item 12 act in every
+    trainer: two short episodes on the CPU run with the flag, and the flag
+    leaves its mark (run log, trace, checkpoint, kernel library
+    directory); ``--resume`` continues a checkpointed first episode."""
+    from smartcal_tpu_torch.ops import build
+    from smartcal_tpu_torch.runtime import checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    size = (["--M", "5", "--N", "5"] if entry.startswith("enet")
+            else ["--small", "--M", "3"])
+    base = ["--device", "cpu", "--steps", "1", "--quiet", "--prefix", "p_",
+            "--ckpt-dir", "ck"] + size
+    first = None
+    if flag[0] == "--resume":
+        first = ENTRIES[entry](base + ["--episodes", "1", "--ckpt-every",
+                                       "1"])
+    out = ENTRIES[entry](base + ["--episodes", "2"] + flag)
+    if entry.startswith("enet"):
+        assert out["episodes"] == 2 and np.isfinite(out["final_avg_score"])
+    else:
+        assert len(out) == 2 and np.all(np.isfinite(out))
+        if first is not None:
+            assert out[0] == first[0]
+    if flag[0] in ("--metrics", "--trace"):
+        log = "m.jsonl" if flag[0] == "--metrics" else f"tr/{entry}_run.jsonl"
+        recs = [json.loads(ln) for ln in open(log)]
+        assert recs[0]["event"] == "run_header"
+        assert recs[-1]["event"] == "run_end" and recs[-1]["episodes"] == 2
+        if flag[0] == "--trace":
+            assert (tmp_path / "tr" / f"{entry}_trace.json").exists()
+    elif flag[0] == "--ckpt-every":
+        assert [s for s, _ in checkpoint.list_checkpoints("ck")] == [2]
+    elif flag[0] == "--resume":
+        assert checkpoint.load_latest("ck")[1] == 1
+    elif flag[0] == "--compile-cache":
+        assert build.BUILD_DIR == (tmp_path / "cc").resolve()
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES) + ["enet_eval"])

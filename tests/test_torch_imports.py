@@ -47,7 +47,11 @@ def test_port_has_modules():
                 "train/enet_ddpg", "train/enet_eval", "train/calib_td3",
                 "train/calib_ddpg", "cal/shapelets", "envs/demixing",
                 "envs/demixing_fuzzy", "models/fuzzy", "train/demix_sac",
-                "train/demix_td3", "train/demix_fuzzy_sac"):
+                "train/demix_td3", "train/demix_fuzzy_sac", "obs/console",
+                "obs/tracectx", "obs/runlog", "obs/spans", "obs/registry",
+                "obs/diagnostics", "obs/watchdog", "utils/metrics",
+                "runtime/checkpoint", "runtime/recovery", "runtime/faults",
+                "runtime/backoff"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
 
