@@ -29,6 +29,19 @@
    demixing paths: their images are 128² at N=14 and their reward is no
    image); the demixing step is profiled at the end (kernels per L-BFGS
    iteration, idle share);
+2c. drives the supervised slice (``supervised_phase``), still before the
+   first profiler session: the transformer dataset (3 samples on the
+   default backend, N=14, npix=128, K=6; kernel 1 x 6 per sample, held
+   against the direct DFT at the path's P=16,384, R=1,820), one sample's
+   featurization on the card against the CPU on a shared solve, the
+   full-width transformer (input 98,352, model_dim 396, 6 heads) trained
+   200 steps on the balanced set with a falling loss and 3 Adam steps held
+   against the CPU, a demixing episode written as TABLE.sct Measurement
+   Sets and ``evaluate.recommend`` on them (kernel 1 x 6, 5 probabilities),
+   the hint dataset with the MLP and TSK regressors and their live
+   comparison, the TSK influence and the transformer influence (reduced
+   width), ``evaluate_models`` with an untrained SAC agent; counts zeroed
+   just before and read just after each path;
 3. drives the reference-scale path: CalibEnv(M=10) on RadioBackend (N=62
    stations, Nf=3, T=20, tdelta=10, npix=128), reset and two steps with the
    analytic hint, random sky from seed 0, with the kernel launch counts
@@ -52,8 +65,8 @@
    iteration and per step by torch.profiler, and per iteration with the
    line search's lane-masked form only, which must give the same x; a
    step's idle share), held
-   against the CPU stage by stage; ``train/enet_sac.py`` (7 episodes of
-   5 steps with the hint: 35 transitions, no learn at batch 64), its
+   against the CPU stage by stage; ``train/enet_sac.py`` (3 episodes of
+   5 steps with the hint: 15 transitions, no learn at batch 64), its
    saved agent and ring checked, ``enet_eval`` for one game, then the ring
    topped up with random transitions and 5 warm-up learns, learn /
    choose_action / store_transition timed, 3 learn steps held against the
@@ -121,16 +134,17 @@
    on/off bit identity; last, a 1-step ``--trace`` run (``--small``) whose
    Chrome trace must hold the spans;
 10. prints the kernel table as one JSON line (with each kernel's launches
-   on the diffuse and the demixing paths), the card line, and last
+   on the diffuse, demixing and supervised paths), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Details go to DIR/chip_smoke.json (default smoke_out/).
 
     python3 chip_smoke.py --runtime [--out DIR]
+    python3 chip_smoke.py --supervised [--out DIR]
 
-builds the kernels and runs step 9b alone (details in
-DIR/runtime_phase.json).
+build the kernels and run step 9b (2c) alone (details in
+DIR/runtime_phase.json, DIR/supervised_phase.json).
 
     python3 chip_smoke.py --ablation [--out DIR]
 
@@ -445,20 +459,25 @@ def profiler_capture(fn, name_part, reps=3):
 
 
 class FirstCall:
-    """Stands in for ``module.name`` and keeps the arguments of its first
-    call; every call goes through to the wrapped function (which counts
-    its launches itself)."""
+    """Stands in for ``module.name`` (a module's function or an object's
+    method) and keeps the arguments and the result of its first call;
+    every call goes through to the wrapped function (which counts its
+    launches itself)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.args = None
+        self.args = self.result = None
         setattr(module, name, self)
 
     def __call__(self, *args, **kw):
-        if self.args is None:
+        first = self.args is None
+        if first:
             self.args = (args, kw)
-        return self.fn(*args, **kw)
+        out = self.fn(*args, **kw)
+        if first:
+            self.result = out
+        return out
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
@@ -806,7 +825,7 @@ def agent_checks(dev, prefix, learn_counter, ring_cntr):
 
 # 35 transitions, fewer than a batch of 64: the learn checks top the ring
 # up with random transitions and warm the agent up with 5 learns
-ENET_SAC_EPISODES, ENET_SAC_STEPS = 7, 5
+ENET_SAC_EPISODES, ENET_SAC_STEPS = 3, 5
 ENET_WARMUP_LEARNS = 5
 ENET_SHORT = ["--episodes", "2", "--steps", "2", "--seed", "0", "--quiet"]
 CALIB_TD3_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "2",
@@ -2195,6 +2214,431 @@ def demix_drivers_phase(dev, out_dir, zero_counts, read_counts):
 # -- the runtime and observability slice: checkpoint/resume, rollback, the
 # run log, update diagnostics, a trace -------------------------------------
 
+# -- the supervised slice: the demixing recommender and the data edge.  It
+# runs right after the demixing phases, before the first torch.profiler
+# session of the process -------------------------------------------------
+
+SUP_K, SUP_SAMPLES, SUP_EPOCHS = 6, 3, 200
+SUP_HINT_SAMPLES, SUP_MLP_ITERS, SUP_TSK_ITERS = 2, 1000, 2000
+SUP_HINT_BATCH = 32
+# the transformer influence's reduced width: its (P, N) cross derivative
+# is ~40.0M x 98,352 floats at the default width (npix 128, model_dim 66)
+SUP_INFLUENCE = dict(npix=16, model_dim=6, warmup_epochs=5, samples=12)
+SUP_FEATURE_REL = 5e-4   # influence 1e-4 + kernel 1's 2e-4, renormalized
+SUP_SCALAR_ATOL = 1e-4   # the log-norms and log|Inf| (test_torch_supervised)
+
+
+def _features_ok(X, Y, K, npix, label):
+    """Finite features, each image block of unit norm, labels in {0, 1}."""
+    nout = npix * npix + 8
+    if X.shape[1] != K * nout or not np.all(np.isfinite(X)):
+        raise AssertionError(f"{label}: features {X.shape} not finite")
+    norms = np.linalg.norm(X.reshape(-1, K, nout)[..., :npix * npix],
+                           axis=-1)
+    if np.abs(norms - 1.0).max() > 1e-4:
+        raise AssertionError(f"{label}: image block norms {norms}")
+    if Y is not None and not np.all((Y == 0.0) | (Y == 1.0)):
+        raise AssertionError(f"{label}: labels {Y}")
+    return float(np.abs(norms - 1.0).max())
+
+
+def _perdir_on(dev, ep, mdl, res, backend):
+    """Perdir influence, summary and features of band 0 on ``dev``, from
+    one episode's shared solve."""
+    from smartcal_tpu_torch.cal import dataset, influence, solver
+    K = ep.n_dirs
+    C, J, R = (t.to(dev) for t in (ep.Ccal[0], res.J[0], res.residual[0]))
+    freqs = ep.obs.freqs.cpu().numpy()
+    hadd = influence.consensus_hadd_scalars(
+        mdl.rho, np.full(K, 0.001, np.float32), freqs, ep.f0, 0,
+        n_poly=backend.n_poly, polytype=backend.polytype).to(dev)
+    inf = influence.influence_visibilities(
+        solver.residual_to_kernel(R), C, J, hadd, backend.n_stations,
+        backend.n_chunks, perdir=True)
+    summ = influence.perdir_summary(inf.vis, inf.llr, C, J)
+    x = dataset.perdir_features(
+        R, C, J, mdl.rho, freqs, ep.f0, ep.obs.uvw.to(dev),
+        backend.n_stations, backend.n_chunks, mdl.separations, mdl.azimuth,
+        mdl.elevation, npix=backend.npix, n_poly=backend.n_poly,
+        polytype=backend.polytype)
+    return (inf.vis.cpu().numpy(), inf.llr.cpu().numpy(),
+            {f: getattr(summ, f).cpu().numpy() for f in summ._fields}, x)
+
+
+def _featurization_gpu_vs_cpu(dev, ep, mdl, res, backend):
+    """(c): the perdir visibilities and each summary field (1e-4 relative
+    norm, tests/test_torch_perdir_influence.py's) and the features (image
+    blocks SUP_FEATURE_REL relative, the scalars SUP_SCALAR_ATOL, the
+    metadata exact) of one sample on the card against the CPU, on the
+    card's solve."""
+    vg, lg, sg, xg = _perdir_on(dev, ep, mdl, res, backend)
+    vc, lc, sc, xc = _perdir_on(torch.device("cpu"), ep, mdl, res, backend)
+    out = {"vis_rel": float(np.linalg.norm(vg - vc) / np.linalg.norm(vc)),
+           "llr_rel": float(np.linalg.norm(lg - lc) / np.linalg.norm(lc)),
+           **{f"summary_{f}_rel": float(np.linalg.norm(sg[f] - sc[f])
+                                         / np.linalg.norm(sc[f]))
+              for f in sc}}
+    K, npix = ep.n_dirs, backend.npix
+    nout = npix * npix + 8
+    xg, xc = xg.reshape(K, nout), xc.reshape(K, nout)
+    img = slice(0, npix * npix)
+    out["image_block_rel"] = float(np.max(np.linalg.norm(
+        xg[:, img] - xc[:, img], axis=-1)))
+    out["scalars_max_abs"] = float(np.max(np.abs(xg[:, npix * npix:]
+                                                 - xc[:, npix * npix:])))
+    meta = [npix * npix + i for i in (0, 1, 2, 7)]
+    ok = (out["vis_rel"] <= 1e-4 and out["llr_rel"] <= 1e-4
+          and max(out[f"summary_{f}_rel"] for f in sc) <= 1e-4
+          and out["image_block_rel"] <= SUP_FEATURE_REL
+          and np.allclose(xg[:, npix * npix + 3:npix * npix + 7],
+                          xc[:, npix * npix + 3:npix * npix + 7],
+                          atol=SUP_SCALAR_ATOL,
+                          rtol=1e-4)
+          and np.array_equal(xg[:, meta], xc[:, meta]))
+    print("supervised featurization GPU vs CPU (one sample, the card's "
+          "solve): " + ", ".join(f"{k} {v:.3e}" for k, v in out.items())
+          + f" -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("featurization GPU vs CPU")
+    return out
+
+
+def _transformer_gpu_vs_cpu(dev, model, opt, buf, n_steps=3, seed=7):
+    """3 Adam steps (dropout off) of the trained model on the card and of
+    its copy on the CPU, from the training's Adam state, on the same
+    batches; raises beyond TRAIN_RTOL / TRAIN_ATOL on every parameter and
+    moment."""
+    from smartcal_tpu_torch.models.transformer import build_transformer
+    from smartcal_tpu_torch.rl.sac import AdamState
+    from smartcal_tpu_torch.train.supervised import transformer_step
+    cpu = build_transformer(model.num_heads, 0, model.model_dim
+                            // model.num_heads, input_dim=model.input_dim)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    copt = AdamState(opt.count,
+                     {k: v.cpu().clone() for k, v in opt.mu.items()},
+                     {k: v.cpu().clone() for k, v in opt.nu.items()})
+    rng = np.random.default_rng(seed)
+    n = min(buf.mem_cntr, buf.mem_size)
+    losses = []
+    for _ in range(n_steps):
+        i = rng.choice(n, min(8, n), replace=False)
+        xb, yb = torch.from_numpy(buf.x[i]), torch.from_numpy(buf.y[i])
+        lg = transformer_step(model, opt, xb.to(dev), yb.to(dev), 1e-3)
+        lc = transformer_step(cpu, copt, xb, yb, 1e-3)
+        losses.append((float(lg), float(lc)))
+
+    def host(m, o):
+        return {"params": {k: v.detach().cpu().numpy()
+                           for k, v in m.state_dict().items()},
+                "mu": {k: v.cpu().numpy() for k, v in o.mu.items()},
+                "nu": {k: v.cpu().numpy() for k, v in o.nu.items()},
+                "count": o.count}
+
+    err, ratio = state_diff(host(model, opt), host(cpu, copt))
+    loss_err = max(abs(a - b) for a, b in losses)
+    if not loss_err <= TRAIN_ATOL + TRAIN_RTOL * max(abs(b) for _, b in
+                                                     losses):
+        raise AssertionError(f"transformer steps GPU vs CPU: losses {losses}")
+    print(f"transformer Adam steps GPU vs CPU ({n_steps} steps, full width, "
+          f"from the training's Adam state): max abs err parameters and "
+          f"moments {err:.3e}, at most {ratio:.3f} of the tolerance (rtol "
+          f"{TRAIN_RTOL} / atol {TRAIN_ATOL}), losses {loss_err:.2e} "
+          "apart -> ok", flush=True)
+    return {"max_abs_err": err, "max_tolerance_share": ratio,
+            "loss_max_abs_err": loss_err}
+
+
+def supervised_phase(dev, out_dir, zero_counts, read_counts, n_sm):
+    """The supervised slice on the card (``train/supervised.py`` and the
+    data edge), at the JAX package's default width: (a) the transformer
+    dataset, SUP_SAMPLES samples on the default backend (N=14, Nf=3, T=20,
+    npix=128, K=6; kernel 1 x 6 per sample, counted); (b) kernel 1 against
+    its plain version at the path's own operands; (c) one sample's
+    featurization on the card against the CPU on the card's solve; (d)
+    class balancing, then the full-width transformer (input 98,352,
+    model_dim 396, 6 heads) trained SUP_EPOCHS steps, and 3 Adam steps
+    held against the CPU; (e) a demixing episode written as TABLE.sct
+    Measurement Sets, then ``evaluate.recommend`` with the trained model
+    (kernel 1 x 6, counted); (f) the hint dataset, the MLP and TSK
+    regressors and their live comparison; (g) the TSK influence at full
+    width and the transformer influence at a reduced width; (h)
+    ``evaluate_models.evaluate`` with an untrained SAC agent.  Counts are
+    zeroed just before and read just after each path; the model pickles
+    and the stores live in a temporary directory, deleted after."""
+    import tempfile
+
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.cal import ms_io
+    from smartcal_tpu_torch.envs.demixing import DemixingEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.models.transformer import XYBuffer
+    from smartcal_tpu_torch.ops import dft_imager
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.train import (evaluate, evaluate_models,
+                                          model_influence, supervised)
+    t_phase = time.perf_counter()
+    K = SUP_K
+    rep = {"K": K}
+
+    # (a) the transformer dataset at the default backend
+    backend = RadioBackend(device=dev)
+    npix = backend.npix
+    eps = FirstCall(backend, "new_demixing_episode")
+    cal = FirstCall(backend, "calibrate")
+    spy = FirstCall(dft_imager, "dirty_image_cuda")
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        buf = supervised.make_transformer_dataset(
+            n_iter=SUP_SAMPLES, K=K, backend=backend, seed=0, device=dev)
+    finally:
+        spy.restore()
+        eps.restore()
+        cal.restore()
+    data_s = time.perf_counter() - t0
+    launches = read_counts()
+    X, Y = buf.x[:SUP_SAMPLES], buf.y[:SUP_SAMPLES]
+    norm_err = _features_ok(X, Y, K, npix, "transformer dataset")
+    if launches["dft_imager"] != K * SUP_SAMPLES or \
+            launches["hessian_blocks"] or launches["factored_imager"]:
+        raise AssertionError(f"the transformer dataset launched {launches}, "
+                             f"expected dft_imager x {K * SUP_SAMPLES}")
+    stages = dict(backend.stage_seconds)
+    rep["dataset"] = {
+        "samples": SUP_SAMPLES, "seconds": data_s,
+        "seconds_per_sample": data_s / SUP_SAMPLES,
+        "stage_seconds_per_sample": {k: v / SUP_SAMPLES
+                                     for k, v in stages.items()},
+        "launches": launches, "feature_len": int(X.shape[1]),
+        "labels": Y.tolist(), "block_norm_max_err": norm_err}
+    print(f"supervised dataset ({SUP_SAMPLES} samples, N="
+          f"{backend.n_stations}, npix {npix}, K={K}, {X.shape[1]} features "
+          f"each): {data_s:.3f} s, per sample "
+          + ", ".join(f"{k} {v / SUP_SAMPLES:.3f}" for k, v in stages.items())
+          + f" s; labels {Y.tolist()}; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+
+    # (b) kernel 1 at the path's operands
+    (uv, vis, k_npix, cell), _ = spy.args
+    P, R = k_npix * k_npix, uv.shape[0]
+    err = check_imager(dft_imager, uv, vis, k_npix, cell, "supervised path")
+    lm = dft_imager.pixel_grid(k_npix, cell, dev)
+    k_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, vis, k_npix,
+                                                       cell), 20)
+    plain_ms = cuda_ms(lambda: dft_imager.dirty_image_reference(uv, lm, vis),
+                       5)
+    k_ms2 = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, vis, k_npix,
+                                                        cell), 20)
+    rep["kernel"] = {"P": P, "R": R, "max_abs_err": err, "ms": k_ms,
+                     "ms_repeat": k_ms2, "plain_ms": plain_ms,
+                     **separable_bounds(k_npix, R, n_sm)}
+    print(f"dft_imager at the supervised path's P={P} R={R}: kernel "
+          f"{k_ms:.4f} / {k_ms2:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{rep['kernel']['bound_ms']:.4f} ms "
+          f"({rep['kernel']['bound_by']})", flush=True)
+
+    # (c) one sample's featurization, card against CPU, on the card's solve
+    ep, mdl = eps.result
+    rep["gpu_vs_cpu"] = _featurization_gpu_vs_cpu(dev, ep, mdl, cal.result,
+                                                  backend)
+    del ep, mdl, eps, cal, spy
+
+    # (d) balance, then the full-width transformer
+    bal = supervised.balance_xy_buffer(buf, seed=0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    params, hist = supervised.train_transformer(bal, K=K, epochs=SUP_EPOCHS,
+                                                device=dev)
+    torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    model, losses = hist["model"], hist["losses"]
+    n_params = sum(p.numel() for p in params.values())
+    peak = torch.cuda.max_memory_allocated(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    xb = torch.as_tensor(bal.x[:8], device=dev)
+    yb = torch.as_tensor(bal.y[:8], device=dev)
+    step_ms = cuda_ms(lambda: supervised.transformer_step(
+        model, hist["opt"], xb, yb, 1e-3, generator=g), 10)
+    if any(read_counts().values()):
+        raise AssertionError(f"training launched {read_counts()}")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"transformer loss {first} -> {last}")
+    rep["train"] = {
+        "balanced_samples": int(bal.mem_cntr), "epochs": SUP_EPOCHS,
+        "input_dim": model.input_dim, "model_dim": model.model_dim,
+        "heads": model.num_heads, "parameters": n_params,
+        "seconds": train_s, "ms_per_step": 1e3 * train_s / SUP_EPOCHS,
+        "step_ms_cuda_events": step_ms, "peak_mem_bytes": peak,
+        "loss_first20": first, "loss_last20": last}
+    print(f"transformer (input {model.input_dim}, model_dim "
+          f"{model.model_dim}, {model.num_heads} heads, {n_params} "
+          f"parameters) on {bal.mem_cntr} balanced samples: {SUP_EPOCHS} "
+          f"steps {train_s:.3f} s ({1e3 * train_s / SUP_EPOCHS:.2f} ms per "
+          f"step with the init; {step_ms:.2f} ms per step by CUDA events); "
+          f"loss {first:.4f} -> {last:.4f}; peak {peak / 2**20:.0f} MiB",
+          flush=True)
+    rep["train"]["gpu_vs_cpu"] = _transformer_gpu_vs_cpu(
+        dev, model, hist["opt"], bal)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (e) a demixing episode as TABLE.sct stores, then recommend
+        ep, _ = backend.new_demixing_episode(prng.PRNGKey(11), K)
+        mslist = ms_io.observation_to_ms_set(tmp, ep.obs, ep.V)
+        if not all(ms_io.is_sct_ms(m) and not os.path.exists(
+                os.path.join(m, ms_io.MAIN)) for m in mslist):
+            raise AssertionError(f"the stores are not TABLE.sct: {mslist}")
+        times = ep.obs.times.cpu().numpy()
+        timesec = float(times[-1] - times[0]) + 1.0     # every slot
+        evaluate.save_model(os.path.join(tmp, "net.pkl"), params, K=K,
+                            npix=npix, model_dim=66)
+        del params, model, hist
+        torch.cuda.empty_cache()
+        stages = {}
+        torch.cuda.synchronize(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        probs = evaluate.recommend(mslist, timesec,
+                                   os.path.join(tmp, "net.pkl"), tdelta=10,
+                                   workdir=tmp, device=dev,
+                                   stage_seconds=stages)
+        rec_s = time.perf_counter() - t0
+        rec_launches = read_counts()
+    if rec_launches["dft_imager"] != K or probs.shape != (K - 1,) \
+            or not np.all((probs >= 0) & (probs <= 1)):
+        raise AssertionError(f"recommend: launches {rec_launches}, "
+                             f"probabilities {probs}")
+    rep["recommend"] = {"seconds": rec_s, "stage_seconds": stages,
+                        "launches": rec_launches,
+                        "probabilities": probs.tolist(),
+                        "stores": "TABLE.sct", "timesec": timesec}
+    print(f"recommend on {len(mslist)} TABLE.sct stores: {rec_s:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"); probabilities {np.round(probs, 4).tolist()}; launches "
+          + ", ".join(f"{k} {v}" for k, v in rec_launches.items()),
+          flush=True)
+
+    # (f) the regressors on the hint dataset.  The hint backend is the
+    # demixing env's default (admm_iters=30) with the sweep's 32 selections
+    # in one batched solve (SUP_HINT_BATCH): 4x less than 8 at a time at
+    # N=14 (PERF.md section 7), the same algorithm
+    hb = RadioBackend(admm_iters=30, hint_batch=SUP_HINT_BATCH, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    hbuf = supervised.make_hint_dataset(n_iter=SUP_HINT_SAMPLES, K=K,
+                                        backend=hb, seed=0, device=dev)
+    hint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mlp_params, mlp = supervised.train_regressor(hbuf, n_iter=SUP_MLP_ITERS,
+                                                 device=dev)
+    mlp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tsk = supervised.train_tsk_on_buffer(hbuf, n_iter=SUP_TSK_ITERS,
+                                         device=dev)
+    tsk_s = time.perf_counter() - t0
+    env = DemixingEnv(K=K, provide_hint=True, backend=hb, seed=1,
+                      device=dev)
+    t0 = time.perf_counter()
+    rewards = supervised.evaluate_tsk_msp(hbuf, mlp_params, mlp["net"],
+                                          tsk["params"], env, episodes=1)
+    msp_s = time.perf_counter() - t0
+    reg_launches = read_counts()
+    if not all(np.isfinite(v).all() for v in rewards.values()) or \
+            not np.isfinite([mlp["test_mse"], tsk["test_mse"]]).all() or \
+            any(reg_launches.values()):
+        raise AssertionError(f"regressors: rewards {rewards}, launches "
+                             f"{reg_launches}")
+    rep["regressors"] = {
+        "hint_dataset_seconds": hint_s, "hint_samples": SUP_HINT_SAMPLES,
+        "mlp_seconds": mlp_s, "mlp_iters": SUP_MLP_ITERS,
+        "mlp_test_mse": mlp["test_mse"], "tsk_seconds": tsk_s,
+        "tsk_iters": SUP_TSK_ITERS, "tsk_test_mse": tsk["test_mse"],
+        "evaluate_tsk_msp_seconds": msp_s, "rewards": rewards,
+        "launches": reg_launches}
+    print(f"regressors: hint dataset {SUP_HINT_SAMPLES} samples "
+          f"{hint_s:.3f} s; MLP {SUP_MLP_ITERS} iterations {mlp_s:.3f} s "
+          f"(test MSE {mlp['test_mse']:.4f}); TSK {SUP_TSK_ITERS} "
+          f"iterations {tsk_s:.3f} s (test MSE {tsk['test_mse']:.4f}); "
+          f"evaluate_tsk_msp 1 episode {msp_s:.3f} s, rewards "
+          + ", ".join(f"{k} {v[0]:.4f}" for k, v in rewards.items()),
+          flush=True)
+
+    # (g) the model influences
+    rng = np.random.default_rng(0)
+    M = 3 * K + 2
+    Xi = rng.standard_normal((20, M)).astype(np.float32)
+    Yi = np.tanh(Xi[:, :K - 1]).astype(np.float32)
+    zero_counts()
+    t0 = time.perf_counter()
+    tsk_if = model_influence.tsk_influence(tsk["params"], Xi, Yi, n_avg=20,
+                                           device=dev)
+    tsk_if_s = time.perf_counter() - t0
+    red = SUP_INFLUENCE
+    rnpix, nout = red["npix"], red["npix"] ** 2 + 8
+    ibuf = XYBuffer(red["samples"], (K * nout,), (K - 1,))
+    for _ in range(red["samples"]):
+        ibuf.store(rng.standard_normal(K * nout).astype(np.float32),
+                   (rng.random(K - 1) > 0.5).astype(np.float32))
+    t0 = time.perf_counter()
+    iparams, ihist = supervised.train_transformer(
+        ibuf, K=K, model_dim=red["model_dim"], epochs=30, batch_size=4,
+        device=dev)
+    If, maps = model_influence.transformer_influence(
+        iparams, ihist["model"], ibuf, K=K, npix=rnpix,
+        warmup_epochs=red["warmup_epochs"], device=dev)
+    tr_if_s = time.perf_counter() - t0
+    inf_launches = read_counts()
+    if tsk_if.shape != (K - 1, M) or not np.isfinite(tsk_if).all() or \
+            If.shape != (K - 1, K * nout) or not np.isfinite(If).all() or \
+            any(inf_launches.values()):
+        raise AssertionError(f"model influence: {tsk_if.shape} "
+                             f"{If.shape}, launches {inf_launches}")
+    rep["influence"] = {
+        "tsk_seconds": tsk_if_s, "tsk_n_avg": 20, "tsk_shape": [K - 1, M],
+        "transformer_seconds": tr_if_s,
+        "transformer_shape": [K - 1, K * nout],
+        "transformer_parameters": sum(p.numel() for p in iparams.values()),
+        "reduced": {**red, "K": K, "why": "the (P, N) cross derivative is "
+                    "~40.0M x 98,352 floats at the default width (npix 128,"
+                    " model_dim 66): neither package can hold it"},
+        "launches": inf_launches}
+    n_p = rep["influence"]["transformer_parameters"]
+    print(f"model influence: TSK (M={M}, n_avg 20) {tsk_if_s:.3f} s; "
+          f"transformer (reduced: npix {rnpix}, model_dim "
+          f"{red['model_dim']}x{K}, {n_p} parameters x {K * nout} inputs, "
+          f"{red['warmup_epochs']} warm-up epochs) {tr_if_s:.3f} s",
+          flush=True)
+    del iparams, ihist, If, maps
+
+    # (h) evaluate_models with an untrained SAC agent
+    cfg = sac.SACConfig(obs_dim=npix * npix + M, n_actions=K,
+                        batch_size=256, mem_size=4096, alpha=0.03,
+                        img_shape=(npix, npix))
+    zero_counts()
+    t0 = time.perf_counter()
+    res = evaluate_models.evaluate(env, {"untrained": sac.SACAgent(
+        cfg, device=dev)}, n_steps=2, n_games=1, quiet=True)
+    em_s = time.perf_counter() - t0
+    em_launches = read_counts()
+    if not all(np.isfinite(v).all() for v in res.values()) or \
+            any(em_launches.values()):
+        raise AssertionError(f"evaluate_models: {res}, {em_launches}")
+    rep["evaluate_models"] = {"seconds": em_s, "games": 1, "steps": 2,
+                              "results": {k: [float(x) for x in v]
+                                          for k, v in res.items()},
+                              "launches": em_launches}
+    env.close()
+    rep["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"evaluate_models (1 game x 2 steps, untrained SAC): {em_s:.3f} s, "
+          + ", ".join(f"{k} {v[0]:.4f}" for k, v in res.items())
+          + f"; supervised phase {rep['phase_seconds']:.1f} s", flush=True)
+    return rep
+
+
 RT_N62 = ["--stations", "62", "--steps", "2", "--use_hint", "--seed", "0",
           "--quiet"]
 RT_ENET = ["--steps", "2", "--use_hint", "--seed", "0", "--quiet"]
@@ -3002,6 +3446,10 @@ def main():
                     help="build the kernels and run the runtime phase "
                          "alone (checkpoint/resume, rollback, run log, "
                          "diag, trace)")
+    ap.add_argument("--supervised", action="store_true",
+                    help="build the kernels and run the supervised phase "
+                         "alone (dataset, transformer, recommend, "
+                         "regressors, model influence)")
     ap.add_argument("--diag-determinism", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--hessian-split", metavar="PARENT_CU",
@@ -3014,20 +3462,33 @@ def main():
         return 1
     if args.diag_determinism:
         return diag_determinism_main()
-    if args.runtime:
-        from smartcal_tpu_torch.ops import build, dft_imager
+    if args.runtime or args.supervised:
+        from smartcal_tpu_torch.ops import (build, dft_imager,
+                                            factored_imager, hessian_blocks)
         card = card_line()
         print(card, flush=True)
         build.build()
         os.makedirs(args.out, exist_ok=True)
+        mods = {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
+                "factored_imager": factored_imager}
 
         def zero():
-            dft_imager.launches = 0
+            for m in mods.values():
+                m.launches = 0
 
-        rt = runtime_phase(torch.device("cuda", 0), args.out, zero,
-                           lambda: {"dft_imager": dft_imager.launches})
-        with open(os.path.join(args.out, "runtime_phase.json"), "w") as fh:
-            json.dump(rt, fh, indent=1, default=float)
+        def read():
+            return {k: m.launches for k, m in mods.items()}
+
+        dev = torch.device("cuda", 0)
+        if args.runtime:
+            name, out = "runtime_phase", runtime_phase(dev, args.out, zero,
+                                                       read)
+        else:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            name, out = "supervised_phase", supervised_phase(
+                dev, args.out, zero, read, n_sm)
+        with open(os.path.join(args.out, f"{name}.json"), "w") as fh:
+            json.dump(out, fh, indent=1, default=float)
         print(card)
         return 0
     if args.ablation or args.hessian_split:
@@ -3086,6 +3547,11 @@ def main():
     report["demix_fuzzy"] = demix_fuzzy_phase(dev, zero_counts, read_counts)
     report["demix_drivers"] = demix_drivers_phase(dev, args.out, zero_counts,
                                                   read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- the supervised slice, still before the first profiler session -----
+    report["supervised"] = supervised_phase(dev, args.out, zero_counts,
+                                            read_counts, n_sm)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- reference-scale path: CalibEnv(M=10) at N=62, reset + 2 steps ------
@@ -3441,9 +3907,11 @@ def main():
                                       read_counts)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    sup = report["supervised"]
+
     def new_paths(name):
-        """The kernel's launches on the batched and demixing slices'
-        paths."""
+        """The kernel's launches on the batched, demixing and supervised
+        slices' paths."""
         demix = [report["demix_env"]["launches"],
                  report["demix_fuzzy"]["launches"]] + [
             report["demix_batched"][k]["launches"] for k in ("fused",
@@ -3465,7 +3933,13 @@ def main():
                 "launches_prefetch_path":
                 report["prefetch"]["with"]["launches"][name],
                 "launches_batched_train_path":
-                report["batched_train"]["launches"][name]}
+                report["batched_train"]["launches"][name],
+                "launches_supervised_dataset_path":
+                sup["dataset"]["launches"][name],
+                "launches_recommend_path": sup["recommend"]["launches"][name],
+                "launches_supervised_other_paths": sum(
+                    sup[k]["launches"][name] for k in (
+                        "regressors", "influence", "evaluate_models"))}
 
     kernels_line = [
         {"name": "dft_imager", "route": "cuda",
@@ -3485,7 +3959,8 @@ def main():
                                                            "enet_sac")),
          "launches_runtime_path":
              report["runtime"]["launches"]["dft_imager"],
-         "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"]]),
+         "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"],
+                                       sup["kernel"]["max_abs_err"]]),
          "ms": dft_ms,
          "plain_ms": dft_plain_ms, **dft_bounds, "library_ms": None,
          "shapes": f"P={P} R={R}", "yardstick_factored_ms": factored_ms,
@@ -3493,6 +3968,13 @@ def main():
          "ska_bound_fp32_ms": s_bounds["bound_fp32_ms"],
          "ska_bound_direct_ms": s_bounds["bound_direct_ms"],
          "ska_shapes": f"P={s_P} R={s_R}", "ska_max_abs_err_subset": s_err,
+         "supervised_shapes": f"P={sup['kernel']['P']} R="
+                              f"{sup['kernel']['R']}",
+         "supervised_ms": sup["kernel"]["ms"],
+         "supervised_plain_ms": sup["kernel"]["plain_ms"],
+         "supervised_bound_ms": sup["kernel"]["bound_ms"],
+         "supervised_bound_by": sup["kernel"]["bound_by"],
+         "supervised_max_abs_err": sup["kernel"]["max_abs_err"],
          **new_paths("dft_imager")},
         {"name": "hessian_blocks", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/hessian_blocks.cu",

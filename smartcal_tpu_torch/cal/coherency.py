@@ -112,3 +112,17 @@ def predict_coherencies_multi_sr(uu, vv, ww, sky: SkyArrays, freqs):
         us = uvw * torch.tensor(s, dtype=F32, device=dev)
         out.append(_predict(us, sky, torch.tensor(f, dtype=F32, device=dev)))
     return torch.stack(out)
+
+
+def predict_coherencies_sr(uu, vv, ww, sky: SkyArrays, freq):
+    """Split-real coherencies (K, R, 4, 2) of one band at ``freq`` (Hz),
+    on the device of ``uu``: the JAX package's single-band wrapper, whose
+    uvw scale 2 pi f / c is taken in float64 and rounded to float32 once
+    (the multi-band form rounds f first; the large A-team phases see the
+    difference)."""
+    dev = uu.device
+    scale = np.float32(2.0 * np.pi * float(freq) / C_LIGHT)
+    uvw = torch.stack([uu, vv, ww], dim=-1).to(F32)
+    us = uvw * torch.tensor(scale, dtype=F32, device=dev)
+    return _predict(us, sky.to(dev),
+                    torch.tensor(np.float32(freq), dtype=F32, device=dev))

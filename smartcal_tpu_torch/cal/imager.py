@@ -135,3 +135,20 @@ def multifreq_image_sr(uvw, V_list, freqs, cell, npix=128):
     imgs = [image_observation_sr(uvw, V_list[f], f_hz, cell, npix=npix)
             for f, f_hz in enumerate(torch.as_tensor(freqs).tolist())]
     return torch.mean(torch.stack(imgs), dim=0)
+
+
+def image_to_fits(path, img, obs, freq=None, cell=None, **kw):
+    """Write an image to a radio FITS file with the observation's WCS
+    (``cal/fits_io.write_image``).  ``freq`` defaults to the highest
+    sub-band (the one ``default_cell`` sizes pixels for), ``cell`` to
+    ``default_cell``."""
+    from smartcal_tpu_torch.cal import fits_io
+
+    freqs = np.asarray(torch.as_tensor(obs.freqs).cpu())
+    freq = float(freqs[-1]) if freq is None else float(freq)
+    cell = (float(default_cell(torch.as_tensor(obs.uvw), freq))
+            if cell is None else float(cell))
+    return fits_io.write_image(
+        path, torch.as_tensor(img).detach().cpu().numpy(),
+        ra0=float(obs.ra0), dec0=float(obs.dec0), cell_rad=cell, freq=freq,
+        **kw)

@@ -6,12 +6,13 @@ Per calibration interval (chunk of Tdelta timeslots):
   column means of dR through the adjoint 4-RHS transpose solve
   influence per baseline, replicated over the interval, scaled 8*B*Td.
 The consensus Hessian addition is a scalar per direction
-(:func:`consensus_hadd_all`).  The SKA tier's statics select the blocked
-Hessian (``block_baselines`` > 0: the CUDA kernel of
+(:func:`consensus_hadd_all`, :func:`consensus_hadd_scalars`).  ``perdir``
+keeps the K directions' influence apart (the featurization of the
+demixing recommender, with :func:`perdir_summary`).  The SKA tier's
+statics select the blocked Hessian (``block_baselines`` > 0: the CUDA kernel of
 ``ops/hessian_blocks.py`` on the card, the blocked plain core on the CPU)
 and the factored imager's large tier (``imager_block_r`` > 0).  The oracle
-chain, the per-direction variant and the sharded tiers are still to be
-ported.
+chain and the sharded tiers are still to be ported.
 """
 
 from typing import NamedTuple
@@ -52,16 +53,25 @@ def consensus_hadd_all(rho_spectral, rho_spatial, freqs, f0, n_poly=2,
     return torch.where(a > 0.0, h_spatial, h_plain)
 
 
+def consensus_hadd_scalars(rho_spectral, rho_spatial, freqs, f0, fidx,
+                           n_poly=2, polytype=1):
+    """(K,) consensus scalars of sub-band ``fidx``: row ``fidx`` of
+    :func:`consensus_hadd_all`."""
+    return consensus_hadd_all(rho_spectral, rho_spatial, freqs, f0,
+                              n_poly=n_poly, polytype=polytype)[fidx]
+
+
 class InfluenceResult(NamedTuple):
-    vis: torch.Tensor   # (T*B, 4, 2) influence visibilities [XX, XY, YX, YY]
+    vis: torch.Tensor   # (T*B, 4, 2) [XX, XY, YX, YY], (K, T*B, 4, 2) perdir
     llr: torch.Tensor   # (Ts, K) per-chunk log-likelihood ratios
 
 
 def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
-                         block_baselines=0):
+                         block_baselines=0, perdir=False):
     """One calibration interval on hoisted operands: R3 (Td, B, 2, 2, 2);
     C5 (K, Td, B, 2, 2, 2); Jp/Jq (K, B, 2, 2, 2); lhs (K, B, 2, 2, 2);
-    hadd (K,).  Returns ((B, 4, 2) Stokes-I-only vis, (K,) llr).
+    hadd (K,).  Returns ((B, 4, 2) Stokes-I-only vis, or (K, B, 4, 2)
+    with ``perdir``, and (K,) llr).
 
     Unblocked, every operand may carry the same leading lane axes (the
     intervals of a band, the bands and episodes of a batch): one pass of
@@ -79,14 +89,16 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
     N4 = H.shape[-2]
     diag = torch.arange(N4, device=H.device)
     H[..., diag, diag, 0] += hadd[..., None]
-    pol_means = kernels._colmeans_adjoint_core_sr(lhs, H, n_stations, Td)
-    vis = torch.sum(pol_means, dim=-4).transpose(-3, -2).clone()  # (B,4,2)
+    pol_means = kernels._colmeans_adjoint_core_sr(lhs, H, n_stations, Td,
+                                                  perdir=perdir)
+    vis = torch.sum(pol_means, dim=-5 if perdir else -4) \
+        .transpose(-3, -2).clone()      # ([K,] B, 4, 2)
     vis[..., 1:3, :] = 0.0              # fullpol=False: XY, YX dropped
     return vis, kernels._llr_core_sr(R3, C5, Jp, Jq)
 
 
 def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
-                           block_baselines=0):
+                           block_baselines=0, perdir=False):
     """Influence visibilities over all calibration intervals.
 
     R : (2*B*T, 2, 2) kernel-convention residuals of one sub-band
@@ -95,8 +107,8 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
     Unblocked, the intervals of every lane go through the chain in one
     pass; ``block_baselines`` > 0 runs the blocked Hessian (SKA tier)
     interval by interval, lane by lane: its CUDA kernel takes one.
-    Returns vis (T*B, 4, 2) scaled by 8*B*Tdelta, and llr (Ts, K), under
-    the lane axes."""
+    Returns vis (T*B, 4, 2), or (K, T*B, 4, 2) with ``perdir``, scaled by
+    8*B*Tdelta, and llr (Ts, K), under the lane axes."""
     B = n_stations * (n_stations - 1) // 2
     lead, K = C.shape[:-4], C.shape[-4]
     T = C.shape[-3] // B
@@ -115,17 +127,44 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
         ops = [t.reshape((-1,) + tuple(t.shape[len(lead) + 1:]))
                for t in (R3, C5, Jp, Jq, lhs, hadd_s)]
         outs = [_chunk_influence_opt(*(t[g] for t in ops), n_stations,
-                                     block_baselines)
+                                     block_baselines, perdir=perdir)
                 for g in range(ops[0].shape[0])]
         vis_b = torch.stack([o[0] for o in outs]).reshape(
-            lead + (n_chunks, B, 4, 2))
+            lead + (n_chunks,) + tuple(outs[0][0].shape))
         llr = torch.stack([o[1] for o in outs]).reshape(lead + (n_chunks, K))
     else:
         vis_b, llr = _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd_s,
-                                          n_stations)
-    vis = vis_b.unsqueeze(-4).expand(lead + (n_chunks, Td, B, 4, 2)) \
-        .reshape(lead + (T * B, 4, 2))
+                                          n_stations, perdir=perdir)
+    if perdir:         # (.., Ts, K, B, ..) -> (.., K, Ts*Td*B, ..)
+        vis = vis_b.unsqueeze(-4).expand(
+            lead + (n_chunks, K, Td, B, 4, 2)).transpose(-6, -5) \
+            .reshape(lead + (K, T * B, 4, 2))
+    else:
+        vis = vis_b.unsqueeze(-4).expand(lead + (n_chunks, Td, B, 4, 2)) \
+            .reshape(lead + (T * B, 4, 2))
     return InfluenceResult(vis=vis * (8.0 * B * Td), llr=llr)
+
+
+class PerdirSummary(NamedTuple):
+    """Per-direction scalars of the perdir influence (reference
+    analysis_uvw_perdir, influence_tools.py:346-358)."""
+
+    j_norm: torch.Tensor     # (K,)
+    c_norm: torch.Tensor     # (K,)
+    inf_mean: torch.Tensor   # (K,) |mean XX + mean YY|
+    llr_mean: torch.Tensor   # (K,)
+
+
+def perdir_summary(vis_k, llr, C, J) -> PerdirSummary:
+    """Per-direction scalars from perdir influence visibilities
+    (K, T*B, 4, 2), llr (Ts, K), C (K, T*B, 4, 2) and J (Ts, K, 2N, 2, 2)."""
+    s = (torch.mean(vis_k[:, :, 0, :], dim=1)
+         + torch.mean(vis_k[:, :, 3, :], dim=1))
+    return PerdirSummary(
+        j_norm=torch.sqrt(torch.sum(J * J, dim=(0, 2, 3, 4))),
+        c_norm=torch.sqrt(torch.sum(C * C, dim=(1, 2, 3))),
+        inf_mean=torch.sqrt(s[:, 0] ** 2 + s[:, 1] ** 2),
+        llr_mean=torch.mean(llr, dim=0))
 
 
 def stokes_i_influence(vis):

@@ -163,10 +163,11 @@ def _hessian_res_core_blocked_sr(R3, C5, Jp, Jq, n_stations,
     return _hessian_assemble(off, Dsum, n_stations, B, T)
 
 
-def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T):
+def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False):
     """Adjoint-form Dsolutions -> Dresiduals column means (8, 4, B, 2) on
     the pre-built lhs blocks ``lhs = Jq Csum^H`` (K, B, 2, 2, 2) and the
-    consensus-augmented Hessian ``Dgs`` (K, 4N, 4N, 2).
+    consensus-augmented Hessian ``Dgs`` (K, 4N, 4N, 2); ``perdir`` keeps
+    the directions apart: (8, K, 4, B, 2).
 
     Solves the transpose system A^T y_k = w_k (4 right-hand sides per
     direction, batched over directions) instead of the 8B-column forward
@@ -195,8 +196,13 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T):
     Yr = Y6[..., p_idx, :, :, :][
         ..., torch.as_tensor(_V_OF_R, device=dev), :, :]
     Lr = lhs[..., torch.as_tensor(_J_OF_R, device=dev), :, :]  # (k,b,r,j,2)
-    out = creal.einsum("...kjbrc,...kbrj->...rcb", Yr, Lr)  # (8, 4, B, 2)
     odd = torch.as_tensor(_ODD_R, device=dev)[:, None, None, None]
+    if perdir:
+        out = creal.einsum("...kjbrc,...kbrj->...krcb", Yr, Lr)
+        out = out.transpose(-5, -4)                      # (8, K, 4, B, 2)
+        odd = odd[..., None]
+    else:
+        out = creal.einsum("...kjbrc,...kbrj->...rcb", Yr, Lr)  # (8,4,B,2)
     return torch.where(odd, creal.mul_i(out), out) / bbt
 
 

@@ -1,11 +1,13 @@
 """Carry state from the JAX package into the port.
 
 The JAX package's ``Episode``, ``BatchedEpisode``, ``SolveResult``,
-``DemixModels``, ``SACState``, ``TD3State`` and ``DDPGState`` (any objects
-with the same field names, holding arrays that ``numpy.asarray`` accepts),
-a fuzzy controller's limits and flax parameter trees become the port's
-types, so one episode, sky, controller or agent can be fed to both
-packages, and a JAX trainer's checkpoint payload becomes the port's
+``DemixModels``, ``SACState``, ``TD3State``, ``DDPGState``, ``TSKParams``
+and ``XYBuffer`` (any objects with the same field names, holding arrays
+that ``numpy.asarray`` accepts), a fuzzy controller's limits, flax
+parameter trees (the agents' networks, the transformer and the MLP
+regressor) and optax Adam states become the port's types, so one
+episode, sky, controller, model or agent can be fed to both packages,
+and a JAX trainer's checkpoint payload becomes the port's
 (:func:`agent_loop_from_jax`), so a JAX run resumes in the port.  Nothing
 here imports the JAX package: the fields are read by name.
 """
@@ -17,6 +19,7 @@ import copy
 
 from smartcal_tpu_torch.cal import coherency, observation, simulate, solver
 from smartcal_tpu_torch.envs import radio
+from smartcal_tpu_torch.models import transformer, tsk
 from smartcal_tpu_torch.rl import ddpg, sac, td3
 
 
@@ -102,7 +105,8 @@ def _leaves(tree, path=()):
 
 
 def params_from_flax(tree, module: torch.nn.Module) -> dict:
-    """The ``state_dict`` of ``module`` (a network of ``rl.networks``) that
+    """The ``state_dict`` of ``module`` (a network of ``rl.networks``, or a
+    model of ``models/`` whose submodules carry flax's auto names) that
     holds the flax ``params`` ``tree`` (nested dicts of arrays): Dense
     kernels (in, out) transposed to (out, in), Conv kernels HWIO to OIHW,
     norm ``scale`` to ``weight``.  Raises unless the tree fills every
@@ -128,6 +132,58 @@ def params_from_flax(tree, module: torch.nn.Module) -> dict:
             raise ValueError(f"{k}: flax {tuple(out[k].shape)}, module "
                              f"{tuple(v.shape)}")
     return out
+
+
+def _load_flax(tree, module: torch.nn.Module) -> dict:
+    module.load_state_dict(params_from_flax(tree, module))
+    return dict(module.named_parameters())
+
+
+def transformer_params_from_flax(tree, model) -> dict:
+    """Load the JAX ``TransformerEncoder``'s flax params into the port's
+    ``models.transformer.TransformerEncoder`` of the same widths (its
+    submodules carry flax's names, ``EncoderBlock_0/HeadAttention_0/
+    Dense_0`` and so on); returns the model's {name: parameter}."""
+    return _load_flax(tree, model)
+
+
+def regressor_params_from_flax(tree, net) -> dict:
+    """Load the JAX ``RegressorNet``'s flax params into the port's
+    ``models.regressor.RegressorNet``; returns its {name: parameter}."""
+    return _load_flax(tree, net)
+
+
+def tsk_params_from_jax(params, device="cpu") -> tsk.TSKParams:
+    """The port's ``TSKParams`` of the JAX package's (arrays copied)."""
+    return tsk.TSKParams(*(_t(getattr(params, f), device).to(torch.float32)
+                           for f in tsk.TSKParams._fields))
+
+
+def xy_buffer_from_numpy(buf) -> transformer.XYBuffer:
+    """The port's ``XYBuffer`` of a JAX one (host copies)."""
+    out = transformer.XYBuffer(int(buf.mem_size), (), ())
+    out.x, out.y = np.array(buf.x), np.array(buf.y)
+    out.mem_cntr = int(buf.mem_cntr)
+    return out
+
+
+def adam_state_from_optax(opt, module=None, device="cpu", names=None):
+    """The port's ``rl.sac.AdamState`` of an ``optax.adam`` state: the
+    moments of a flax tree laid out for ``module`` (a network or model),
+    or, for a NamedTuple of arrays such as ``TSKParams``, by its field
+    ``names``."""
+    a = opt[0]
+    if module is not None:
+        mu = params_from_flax(a.mu, module)
+        nu = params_from_flax(a.nu, module)
+    else:
+        mu = {n: torch.as_tensor(np.array(getattr(a.mu, n), np.float32))
+              for n in names}
+        nu = {n: torch.as_tensor(np.array(getattr(a.nu, n), np.float32))
+              for n in names}
+    return sac.AdamState(int(a.count), {k: v.to(device) for k, v in
+                                        mu.items()},
+                         {k: v.to(device) for k, v in nu.items()})
 
 
 def _adam_from_optax(opt, module):

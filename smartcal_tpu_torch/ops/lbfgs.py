@@ -350,3 +350,123 @@ def lbfgs_solve(value_and_grad: Callable, x0, max_iters: int = 200,
     return LBFGSResult(x=x, loss=loss, grad=g, hist=hist, n_iters=it,
                        converged=stop & ~diverged, stop=stop,
                        diverged=diverged)
+
+
+# ---------------------------------------------------------------------------
+# Stochastic (batch-mode) optimizer: one lane, host control flow
+# ---------------------------------------------------------------------------
+
+def _value_and_grad(fun):
+    def vag(x):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            val = fun(xr)
+            (g,) = torch.autograd.grad(val, xr)
+        return val.detach(), g
+    return vag
+
+
+@torch.no_grad()
+def backtracking_search(fun: Callable, x, d, grad, alphabar,
+                        c1: float = 1e-4, max_halvings: int = 35):
+    """Armijo backtracking with a negative-step rescue (lbfgsnew.py:115-186;
+    the JAX package's ``backtracking_search``): halve from ``alphabar``
+    until the Armijo condition holds; if the decrease is still below
+    ``|c1 alpha g.d|``, try the mirrored negative step and keep the better
+    one.  ``x``, ``d``, ``grad`` (n,); returns the 0-d step."""
+    f_old = fun(x)
+    prodterm = c1 * torch.dot(grad, d)
+
+    def halve(alpha0):
+        alpha = torch.as_tensor(alpha0, dtype=x.dtype, device=x.device)
+        f_new = fun(x + alpha * d)
+        for _ in range(max_halvings):
+            if not bool(torch.isnan(f_new)
+                        | (f_new > f_old + alpha * prodterm)):
+                break
+            alpha = 0.5 * alpha
+            f_new = fun(x + alpha * d)
+        return alpha, f_new
+
+    alphak, f_new = halve(alphabar)
+    if bool(f_old - f_new < torch.abs(prodterm)):
+        alpha1, f_new1 = halve(-alphabar)
+        return torch.where(f_new1 < f_new, alpha1, alphak)
+    return alphak
+
+
+class LBFGSState(NamedTuple):
+    """State of the stochastic L-BFGS (reference batch mode) on one flat
+    parameter vector; ``hist`` is one lane of :class:`LBFGSHistory`."""
+
+    x: torch.Tensor
+    hist: LBFGSHistory
+    prev_grad: torch.Tensor
+    prev_d: torch.Tensor
+    prev_t: torch.Tensor
+    running_avg: torch.Tensor      # online inter-batch gradient mean
+    running_avg_sq: torch.Tensor   # online second moment accumulator
+    alphabar: torch.Tensor
+    n_total: int                   # iterations across step() calls
+    initialized: bool
+
+
+def lbfgs_init(x0, history_size: int = LBFGS_HISTORY_DEFAULT,
+               lr: float = 1.0) -> LBFGSState:
+    z = torch.zeros_like(x0)
+    return LBFGSState(
+        x=x0, hist=history_init(1, x0.shape[0], history_size, x0.dtype,
+                                x0.device),
+        prev_grad=z, prev_d=z, prev_t=torch.zeros((), dtype=x0.dtype,
+                                                  device=x0.device),
+        running_avg=z, running_avg_sq=z,
+        alphabar=torch.tensor(lr, dtype=x0.dtype, device=x0.device),
+        n_total=0, initialized=False)
+
+
+def lbfgs_step(fun: Callable, state: LBFGSState, max_iter: int = 4,
+               lm0: float = 1e-6):
+    """One stochastic ``step(closure)`` on a (new) batch: ``fun`` maps the
+    flat parameters to the scalar loss of the current batch.  As in the
+    reference batch mode (lbfgsnew.py:554-607) and the JAX
+    ``lbfgs_step``: on a batch change the curvature pair is not stored,
+    the online gradient mean and variance update ``alphabar`` (which caps
+    the backtracking search); within the batch, pairs are stored with the
+    trust-region modification ``y <- y + lm0 * s``.  Returns ``(state,
+    loss)``, the loss the PRE-step objective at the incoming iterate."""
+    vag = _value_and_grad(fun)
+    loss0, g = vag(state.x)
+    loss, st = loss0, state
+    for i in range(max_iter):
+        n_tot = st.n_total + 1
+        batch_changed = i == 0 and st.initialized
+        running_avg, running_avg_sq, alphabar = (
+            st.running_avg, st.running_avg_sq, st.alphabar)
+        if batch_changed:                    # lbfgsnew.py:592-607
+            grad_nrm = torch.linalg.norm(g)
+            g_old = g - st.running_avg
+            running_avg = st.running_avg + g_old / float(n_tot)
+            g_new = g - running_avg
+            running_avg_sq = st.running_avg_sq + g_new * g_old
+            denom = float(max(n_tot - 1, 1)) * grad_nrm
+            alphabar = 1.0 / (1.0 + torch.sum(running_avg_sq) / denom)
+
+        # memory update from the previous move
+        y = g - st.prev_grad + lm0 * st.prev_d * st.prev_t
+        s = st.prev_d * st.prev_t
+        accept = ((torch.dot(y, s) > 1e-10 * torch.dot(s, s))
+                  & (not batch_changed) & st.initialized)
+        hist = history_push(st.hist, s[None], y[None], accept.reshape(1))
+
+        d = two_loop_direction(hist, g[None])[0]
+        t = backtracking_search(fun, st.x, d, g, alphabar)
+        x_new = st.x + t * d
+        # the last inner iteration skips the re-evaluation: the next
+        # step() re-evaluates on its new batch (lbfgsnew.py:712-716)
+        loss_new, g_new = vag(x_new) if i < max_iter - 1 else (loss, g)
+        st = LBFGSState(x=x_new, hist=hist, prev_grad=g, prev_d=d, prev_t=t,
+                        running_avg=running_avg,
+                        running_avg_sq=running_avg_sq, alphabar=alphabar,
+                        n_total=n_tot, initialized=True)
+        loss, g = loss_new, g_new
+    return st, loss0

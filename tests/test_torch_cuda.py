@@ -363,3 +363,74 @@ def test_demixing_on_gpu_matches_cpu():
         cpu_obs, C.cpu(), shp.coeff, shp.beta, shp.flux)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_featurization_and_transformer_steps_on_gpu_match_cpu():
+    """The supervised slice on the GPU at a small shape (N=6, Nf=3, T=8,
+    npix=16, K=3): on one shared CPU solve, the perdir influence
+    visibilities and each summary field (1e-4 relative norm, the
+    influence tolerance) and the features (each unit-norm image block, kernel 1
+    against its plain version, within 2e-4 relative; the scalars atol
+    1e-4) against the CPU's, with one kernel-1 launch per direction; then
+    3 transformer Adam steps from the same state on the same batches
+    (rtol 1e-4 / atol 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.cal import dataset, influence, solver
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.models.transformer import build_transformer
+    from smartcal_tpu_torch.rl.sac import adam_init
+    from smartcal_tpu_torch.train.supervised import transformer_step
+    K, npix = 3, 16
+    b = RadioBackend(device="cpu", n_stations=6, n_freqs=3, n_times=8,
+                     tdelta=4, npix=npix, admm_iters=2, lbfgs_iters=3,
+                     init_iters=5)
+    ep, mdl = b.new_demixing_episode(prng.PRNGKey(2), K)
+    res = b.calibrate(ep, mdl.rho, mask=np.ones(K, np.float32))
+    freqs = ep.obs.freqs.numpy()
+    out = {}
+    for d in ("cpu", "cuda"):
+        C, J, R = (t.to(d) for t in (ep.Ccal[0], res.J[0], res.residual[0]))
+        hadd = influence.consensus_hadd_scalars(
+            mdl.rho, np.full(K, 1e-3, np.float32), freqs, ep.f0, 0,
+            polytype=0).to(d)
+        inf = influence.influence_visibilities(
+            solver.residual_to_kernel(R), C, J, hadd, 6, 2, perdir=True)
+        summ = influence.perdir_summary(inf.vis, inf.llr, C, J)
+        n0 = dft_imager.launches
+        x = dataset.perdir_features(R, C, J, mdl.rho, freqs, ep.f0,
+                                    ep.obs.uvw, 6, 2, mdl.separations,
+                                    mdl.azimuth, mdl.elevation, npix=npix)
+        out[d] = (inf.vis.cpu().numpy(), [v.cpu().numpy() for v in summ], x,
+                  dft_imager.launches - n0)
+    (vc, sc, xc, lc), (vg, sg, xg, lg) = out["cpu"], out["cuda"]
+    assert lc == 0 and lg == K
+    assert np.linalg.norm(vg - vc) < 1e-4 * np.linalg.norm(vc)
+    for a, w in zip(sg, sc):
+        assert np.linalg.norm(a - w) <= 1e-4 * np.linalg.norm(w)
+    nout = npix * npix + 8
+    for ck in range(K):
+        blk = slice(ck * nout, ck * nout + npix * npix)
+        assert np.linalg.norm(xg[blk] - xc[blk]) < 2e-4
+        np.testing.assert_allclose(xg[blk.stop:(ck + 1) * nout],
+                                   xc[blk.stop:(ck + 1) * nout], atol=1e-4)
+    rng = np.random.default_rng(0)
+    xb = torch.from_numpy(rng.standard_normal((3, 4, K * nout))
+                          .astype(np.float32))
+    yb = torch.from_numpy((rng.random((3, 4, K - 1)) > 0.5)
+                          .astype(np.float32))
+    models = {}
+    for d in ("cpu", "cuda"):
+        m = build_transformer(K, npix, 4,
+                              generator=torch.Generator().manual_seed(0),
+                              device=d)
+        opt = adam_init(dict(m.named_parameters()))
+        for i in range(3):
+            transformer_step(m, opt, xb[i].to(d), yb[i].to(d), 1e-3)
+        models[d] = m.state_dict()
+    for k, v in models["cpu"].items():
+        np.testing.assert_allclose(models["cuda"][k].cpu().numpy(),
+                                   v.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)

@@ -51,7 +51,11 @@ def test_port_has_modules():
                 "obs/tracectx", "obs/runlog", "obs/spans", "obs/registry",
                 "obs/diagnostics", "obs/watchdog", "utils/metrics",
                 "runtime/checkpoint", "runtime/recovery", "runtime/faults",
-                "runtime/backoff"):
+                "runtime/backoff", "native/__init__", "cal/skyio",
+                "cal/fits_io", "cal/ms_io", "cal/dataset",
+                "models/regressor", "models/tsk", "models/transformer",
+                "train/supervised", "train/model_influence",
+                "train/evaluate", "train/evaluate_models", "train/plots"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
 
