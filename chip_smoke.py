@@ -54,10 +54,10 @@
    at ragged npix and R that cross the engine's tile and stage edges, and
    times kernel, plain version and the plain factored-imager yardstick with
    CUDA events;
-5. drives the train path: ``train/calib_sac.py`` (2 episodes of 4 steps
+5. drives the train path: ``train/calib_sac.py`` (2 episodes of 2 steps
    with the hint, seed 0) on the same N=62 backend, counts zeroed just
    before and read just after; checks the two scores and the saved ring
-   (8 transitions, no learn: the agent's learn step is measured on the
+   (4 transitions, no learn: the agent's learn step is measured on the
    batched trainer's agent, step 6b);
 6. drives the elastic-net slice (M = N = 20, no kernel on its path):
    one EnetEnv reset, three steps and a hint, timed and broken down
@@ -65,8 +65,8 @@
    iteration and per step by torch.profiler, and per iteration with the
    line search's lane-masked form only, which must give the same x; a
    step's idle share), held
-   against the CPU stage by stage; ``train/enet_sac.py`` (3 episodes of
-   5 steps with the hint: 15 transitions, no learn at batch 64), its
+   against the CPU stage by stage; ``train/enet_sac.py`` (2 episodes of
+   5 steps with the hint: 10 transitions, no learn at batch 64), its
    saved agent and ring checked, ``enet_eval`` for one game, then the ring
    topped up with random transitions and 5 warm-up learns, learn /
    choose_action / store_transition timed, 3 learn steps held against the
@@ -106,6 +106,21 @@
    chosen by threshold), reset and one step with the hint, counts zeroed
    just before and read just after; the first call of each kernel in the
    step keeps its operands; a second step is profiled for the idle share;
+7b. drives the mixed-precision path (``bf16_phase``) on that step's own
+   episode and solve (the solve is pinned f32, so no new reset or solve):
+   ``RadioBackend(precision="bf16")`` at the SKA tier, its statics those of
+   the f32 backend plus ``precision="bf16"``, one influence call with the
+   counts zeroed just before and read just after (kernel 2's bf16 mode 3,
+   the Hessian 6, kernel 2's f32 mode 0), held to the f32 step's image
+   within the bf16 band (max |bf16 - f32| / max|f32| and the std's drift,
+   judged by the port's obs/regress) and its band-0 LLR bit for bit; the
+   f32 and the bf16 routes timed again on the same operands; kernel 2's
+   bf16 mode against its plain bf16 version (2e-3 x max|plain|) at the
+   path's operands and at the ragged cases, against the f32 mode (2e-2 x
+   max), bit for bit over two launches, and timed beside its plain
+   version and the cuBLAS BF16 GEMM of the planes; then the same influence
+   check at N=62 on the step-3 path's episode and solve (no kernel 2
+   there: the column means and the factored matmuls in bf16);
 8. holds each kernel against its plain version on the card at those
    operands (the imager against the direct DFT on a 4096-pixel subset) and
    at ragged cases, and times kernel, plain version and library yardstick
@@ -122,7 +137,7 @@
 9. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
    blocked tier forced) and compares them;
 9b. drives the runtime slice (``runtime_phase``): ``train/calib_sac.py``
-   at N=62 (2 episodes of 2 steps, hint) with --metrics --diag --watchdog
+   at N=62 (2 episodes of 1 step, hint) with --metrics --diag --watchdog
    --ckpt-every 1, and 1 episode plus a --resume to 2, whose last
    checkpoint must equal the straight run's bit for bit (scores,
    parameters, Adam moments, generator, ring and priorities, env key),
@@ -134,7 +149,8 @@
    on/off bit identity; last, a 1-step ``--trace`` run (``--small``) whose
    Chrome trace must hold the spans;
 10. prints the kernel table as one JSON line (with each kernel's launches
-   on the diffuse, demixing and supervised paths), the card line, and last
+   on the diffuse, demixing, supervised and bf16 paths; kernel 2's bf16
+   mode is an entry of its own), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -142,9 +158,11 @@ Details go to DIR/chip_smoke.json (default smoke_out/).
 
     python3 chip_smoke.py --runtime [--out DIR]
     python3 chip_smoke.py --supervised [--out DIR]
+    python3 chip_smoke.py --bf16 [--out DIR]
 
-build the kernels and run step 9b (2c) alone (details in
-DIR/runtime_phase.json, DIR/supervised_phase.json).
+build the kernels and run step 9b (2c) alone, or one N=62 reset + step,
+one SKA reset + step and step 7b on them (details in
+DIR/runtime_phase.json, DIR/supervised_phase.json, DIR/bf16_phase.json).
 
     python3 chip_smoke.py --ablation [--out DIR]
 
@@ -183,12 +201,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM data-sheet rates (HBM3 bandwidth, dense FP32, dense TF32 tensor
-# cores) and the SFU rate of sm_90 (16 sine/cosine results per clock per
-# SM) at the 1.98 GHz boost
+# H100 SXM data-sheet rates (HBM3 bandwidth, dense FP32, dense TF32 and
+# BF16 tensor cores) and the SFU rate of sm_90 (16 sine/cosine results per
+# clock per SM) at the 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 SFU_PER_CLOCK_PER_SM = 16
 BOOST_HZ = 1.98e9
 
@@ -266,7 +285,9 @@ def separable_bounds(npix, R, n_sm):
     dense TF32 tensor-core rate, against the 4 npix R sine/cosine values on
     the SFUs and the bytes; ``bound_fp32_ms``: the same flops in FP32 on the
     CUDA cores; ``bound_direct_ms``: the direct DFT, 2 npix^2 R sine/cosine
-    values and 7 FP32 flops per (pixel, sample) pair."""
+    values and 7 FP32 flops per (pixel, sample) pair; ``bound_bf16_ms``:
+    the bf16 mode of the factored imager, the flops once at the dense BF16
+    tensor-core rate, against the same sine/cosine values and bytes."""
     P = npix * npix
     n_bytes = R * 3 * 4 + R * 2 * 4 + P * 4
     flops = 4.0 * P * R
@@ -274,6 +295,8 @@ def separable_bounds(npix, R, n_sm):
     t_sfu = 4.0 * npix * R / (SFU_PER_CLOCK_PER_SM * n_sm * BOOST_HZ)
     t_ops = max(3.0 * flops / TF32_FLOPS_PER_S, t_sfu)
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_bf16_ms": 1e3 * max(t_bytes, flops / BF16_FLOPS_PER_S,
+                                       t_sfu),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "bound_fp32_ms": bound(n_bytes, flops, 4.0 * npix * R, n_sm)[0],
             "bound_direct_ms": bound(n_bytes, 7.0 * P * R, 2.0 * P * R,
@@ -483,6 +506,23 @@ class FirstCall:
         setattr(self.module, self.name, self.fn)
 
 
+def launch_counters(counters, factored_imager):
+    """(zero_counts, read_counts) over the kernel modules' ``launches``
+    counts, kernel 2's bf16 launches (``factored_imager.launches_bf16``)
+    read as ``factored_imager_bf16``."""
+    def zero_counts():
+        for m in counters.values():
+            m.launches = 0
+        factored_imager.launches_bf16 = 0
+
+    def read_counts():
+        out = {k: m.launches for k, m in counters.items()}
+        out["factored_imager_bf16"] = factored_imager.launches_bf16
+        return out
+
+    return zero_counts, read_counts
+
+
 def check_close(name, label, out, ref, rtol, atol_scale, atol_ref):
     """Raise unless |out - ref| <= atol_scale * atol_ref + rtol * |ref|
     everywhere and out is finite; returns the max abs error."""
@@ -608,7 +648,7 @@ def tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, label, **extra):
 
 TRAIN_EPISODES = 2
 TRAIN_ARGS = ["--stations", "62", "--episodes", str(TRAIN_EPISODES),
-              "--steps", "4", "--use_hint", "--seed", "0", "--quiet"]
+              "--steps", "2", "--use_hint", "--seed", "0", "--quiet"]
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5     # tests/test_torch_sac.py
 
 
@@ -698,8 +738,8 @@ def learn_gpu_vs_cpu(sac, cfg, state, buf, dev, n_steps=3):
 
 
 def train_path(dev, out_dir, zero_counts, read_counts):
-    """Drive train/calib_sac.py on the card (2 episodes of 4 steps at the
-    N=62 backend: 8 transitions, fewer than a batch of 32, so no learn),
+    """Drive train/calib_sac.py on the card (2 episodes of 2 steps at the
+    N=62 backend: 4 transitions, fewer than a batch of 32, so no learn),
     with the kernel counts zeroed just before and read just after; check
     the scores and the saved ring.  The agent's learn step is measured on
     the batched trainer's agent (:func:`batched_train_phase`).  Returns
@@ -825,7 +865,7 @@ def agent_checks(dev, prefix, learn_counter, ring_cntr):
 
 # 35 transitions, fewer than a batch of 64: the learn checks top the ring
 # up with random transitions and warm the agent up with 5 learns
-ENET_SAC_EPISODES, ENET_SAC_STEPS = 3, 5
+ENET_SAC_EPISODES, ENET_SAC_STEPS = 2, 5
 ENET_WARMUP_LEARNS = 5
 ENET_SHORT = ["--episodes", "2", "--steps", "2", "--seed", "0", "--quiet"]
 CALIB_TD3_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "2",
@@ -2639,7 +2679,7 @@ def supervised_phase(dev, out_dir, zero_counts, read_counts, n_sm):
     return rep
 
 
-RT_N62 = ["--stations", "62", "--steps", "2", "--use_hint", "--seed", "0",
+RT_N62 = ["--stations", "62", "--steps", "1", "--use_hint", "--seed", "0",
           "--quiet"]
 RT_ENET = ["--steps", "2", "--use_hint", "--seed", "0", "--quiet"]
 RT_TRACE = ["--small", "--M", "3", "--episodes", "1", "--steps", "1",
@@ -2749,7 +2789,7 @@ def diag_determinism_main():
 
 def runtime_phase(dev, out_dir, zero_counts, read_counts):
     """The runtime slice on the card: calib_sac at N=62 (kernel 1) with
-    --metrics --diag --watchdog --ckpt-every 1 for 2 episodes of 2 steps,
+    --metrics --diag --watchdog --ckpt-every 1 for 2 episodes of 1 step,
     then 1 episode and a --resume to 2, held against the straight run bit
     for bit (scores, parameters, Adam moments, ring and priorities,
     generator state, env key); enet_sac (M = N = 20) killed and resumed,
@@ -2839,7 +2879,7 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
                                          for e in solver_ev],
             "lbfgs_iters_total": [e["lbfgs_iters_total"]
                                   for e in solver_ev]}
-        print(f"runtime: calib_sac N=62 straight 2x2 with --metrics --diag "
+        print(f"runtime: calib_sac N=62 straight 2x1 with --metrics --diag "
               f"--watchdog --ckpt-every 1 {straight_s:.3f} s, 1 + --resume "
               f"to 2 {resume_s:.3f} s; scores "
               + ", ".join(f"{x:.6f}" for x in s_a)
@@ -3056,6 +3096,248 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
         shutil.rmtree(tmp, ignore_errors=True)
     out["launches"] = out["calib_sac_n62"]["launches"]
     out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the mixed-precision slice: RadioBackend(precision="bf16") on the f32
+# steps' own episodes and solves, and kernel 2's bf16 mode ----------------
+
+# the bf16 kernel against its plain bf16 version: x max|plain|, a tenth of
+# the band (both round the same f32 operands; trig ulps and sum order only)
+BF16_PLAIN_ATOL = 2e-3
+
+
+def spied_steps(env, backend, n):
+    """``run_steps(env, n)`` with ``backend.influence_image`` and
+    ``influence.influence_visibilities`` spied on: their first call in the
+    steps keeps its arguments and its f32 result (the episode and solve of
+    the first step, and band 0's visibilities and LLR)."""
+    from smartcal_tpu_torch.cal import influence
+    spies = {"influence_image": FirstCall(backend, "influence_image"),
+             "influence_visibilities": FirstCall(influence,
+                                                 "influence_visibilities")}
+    try:
+        obs, steps = run_steps(env, n)
+    finally:
+        for s in spies.values():
+            s.restore()
+    return obs, steps, spies
+
+
+def bf16_influence(dev, label, cfg, spies, zero_counts, read_counts, store,
+                   fp):
+    """One influence stage call of ``RadioBackend(precision="bf16")`` on
+    the episode and solve that an f32 step passed to its influence_image,
+    counts zeroed just before and read just after; held to that step's f32
+    image (max |bf16 - f32| / max|f32| and the relative drift of the std,
+    judged against the bf16 band by obs/regress) and its band-0 LLR to the
+    f32 one bit for bit.  Then the f32 route and the bf16 route again on
+    the same operands, timed.  Returns the record and the operands of the
+    first kernel-2 launch of the bf16 call (None without one)."""
+    from smartcal_tpu_torch.cal import influence
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.obs import baselines, regress
+    from smartcal_tpu_torch.ops import factored_imager
+    backend = RadioBackend(device=dev, precision="bf16", **cfg)
+    statics = backend._influence_statics(cfg["npix"])
+    f32_call = spies["influence_image"]
+    (args, kw), f32_img = f32_call.args, f32_call.result
+    bspies = {"factored": FirstCall(factored_imager,
+                                    "dirty_image_factored_cuda"),
+              "vis": FirstCall(influence, "influence_visibilities")}
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        img = backend.influence_image(*args, **kw)
+        torch.cuda.synchronize(dev)
+    finally:
+        for s in bspies.values():
+            s.restore()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    llr_equal = torch.equal(bspies["vis"].result.llr,
+                            spies["influence_visibilities"].result.llr)
+    t0 = time.perf_counter()
+    f32_again = f32_call.fn(*args, **kw)
+    torch.cuda.synchronize(dev)
+    f32_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img_again = backend.influence_image(*args, **kw)
+    torch.cuda.synchronize(dev)
+    seconds_again = time.perf_counter() - t0
+    scale = float(f32_img.abs().max())
+    rel_img = float((img - f32_img).abs().max()) / scale
+    std_b = float(torch.std(img, correction=0))
+    std_f = float(torch.std(f32_img, correction=0))
+    rel_std = abs(std_b - std_f) / std_f
+    findings = regress.compare(
+        store, f"influence_bf16_{label}", statics, fp,
+        {"rel_err_img": baselines.scalar_metric(rel_img),
+         "rel_err_std": baselines.scalar_metric(rel_std)})
+    verdict = regress.worst_verdict(findings)
+    print(f"bf16 influence at {label} ({statics}): {seconds:.4f} s (again "
+          f"{seconds_again:.4f} s; the f32 route on the same operands "
+          f"{f32_seconds:.4f} s); launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; max|bf16 - f32| / max|f32| {rel_img:.4e}, std {std_b:.6g} "
+          f"against {std_f:.6g} ({rel_std:.4e}); band-0 LLR bit-identical "
+          f"{llr_equal}; f32 route again bit-identical "
+          f"{torch.equal(f32_again, f32_img)}; bf16 route again "
+          f"bit-identical {torch.equal(img_again, img)}; verdict {verdict}",
+          flush=True)
+    for f in findings:
+        print("  " + f.render(), flush=True)
+    if not (bool(torch.isfinite(img).all()) and img.shape == f32_img.shape
+            and verdict != regress.FIRE and rel_img > 0 and llr_equal):
+        raise AssertionError(f"bf16 influence at {label} fails its checks")
+    rec = {"statics": statics, "seconds": seconds,
+           "seconds_again": seconds_again, "f32_seconds": f32_seconds,
+           "launches": launches, "rel_err_img": rel_img, "std_bf16": std_b,
+           "std_f32": std_f, "rel_err_std": rel_std, "verdict": verdict,
+           "findings": [f.render() for f in findings],
+           "llr_bit_identical": llr_equal,
+           "f32_again_bit_identical": torch.equal(f32_again, f32_img),
+           "bf16_again_bit_identical": torch.equal(img_again, img)}
+    return rec, bspies["factored"].args
+
+
+def bf16_kernel(dev, f_args, n_sm):
+    """Kernel 2's bf16 mode on the SKA path's operands (band 0's bf16
+    influence visibilities): against its plain bf16 version within
+    BF16_PLAIN_ATOL x max|plain| at full size and at the ragged cases,
+    against the f32 mode within the band, the same bits over two launches;
+    kernel, plain version and the cuBLAS BF16 GEMM of the planes timed with
+    CUDA events."""
+    from smartcal_tpu_torch.cal import imager
+    from smartcal_tpu_torch.obs.baselines import BF16_REL_BAND
+    from smartcal_tpu_torch.ops import factored_imager
+    (uvw, vis, freq, cell), kw = f_args
+    npix, R = kw["npix"], uvw.shape[0]
+    if kw.get("precision") != "bf16":
+        raise AssertionError(f"kernel 2 was called with {kw} on the bf16 "
+                             "path")
+
+    def kernel():
+        return factored_imager.dirty_image_factored_cuda(
+            uvw, vis, freq, cell, npix=npix, precision="bf16")
+
+    def plain():
+        return imager.dirty_image_factored_blocked_sr(
+            uvw, vis, freq, cell, npix=npix,
+            block_r=SKA_STATICS["imager_block_r"], precision="bf16")
+
+    out, again, ref = kernel(), kernel(), plain()
+    f32 = factored_imager.dirty_image_factored_cuda(uvw, vis, freq, cell,
+                                                    npix=npix)
+    torch.cuda.synchronize(dev)
+    if not torch.equal(out, again):
+        raise AssertionError("factored_imager_bf16: two launches differ")
+    lab = f"SKA path npix={npix} R={R}"
+    err = [check_close("factored_imager_bf16", lab + " vs plain bf16", out,
+                       ref, 0.0, BF16_PLAIN_ATOL, float(ref.abs().max()))]
+    err_f32 = check_close("factored_imager_bf16", lab + " vs the f32 mode",
+                          out, f32, 0.0, BF16_REL_BAND,
+                          float(f32.abs().max()))
+    del out, again, ref, f32
+    for r_n, r_npix in RAGGED:
+        ru, rv, rf = random_imager_case(r_n, r_n, dev)
+        rc = imager.default_cell(ru, rf)
+        o_k = factored_imager.dirty_image_factored_cuda(
+            ru, rv, rf, rc, npix=r_npix, precision="bf16")
+        o_r = imager.dirty_image_factored_blocked_sr(
+            ru, rv, rf, rc, npix=r_npix, block_r=4096, precision="bf16")
+        err.append(check_close("factored_imager_bf16",
+                               f"ragged npix={r_npix} R={r_n}", o_k, o_r,
+                               0.0, BF16_PLAIN_ATOL, float(o_r.abs().max())))
+    k_ms = cuda_ms(kernel, 5, warmup=1)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    # library yardstick: one cuBLAS BF16 GEMM of the precomputed planes
+    p1, p2, cb, sb = imager._factored_planes(uvw, vis, freq, cell, npix)
+    lhs = torch.cat([p1, p2], 1).to(torch.bfloat16)
+    del p1, p2
+    rhs = torch.cat([cb, sb], 1).to(torch.bfloat16).T
+    del cb, sb
+    lib_ms = cuda_ms(lambda: torch.matmul(lhs, rhs), 3, warmup=1)
+    del lhs, rhs
+    torch.cuda.empty_cache()
+    k_ms2 = cuda_ms(kernel, 5, warmup=1)
+    bounds = separable_bounds(npix, R, n_sm)
+    print(f"factored_imager_bf16 at npix={npix} R={R}: kernel {k_ms:.3f} / "
+          f"{k_ms2:.3f} ms (median of 5, two runs), plain {plain_ms:.3f} "
+          f"ms, library (cuBLAS BF16 GEMM of the planes) {lib_ms:.3f} ms, "
+          f"bound {bounds['bound_bf16_ms']:.3f} ms (operations; f32 mode's "
+          f"{bounds['bound_ms']:.3f})", flush=True)
+    return {"max_abs_err": max(err), "max_abs_err_vs_f32": err_f32,
+            "ms": k_ms, "ms_repeat": k_ms2, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bounds["bound_bf16_ms"],
+            "bound_by": "operations", "shapes": f"npix={npix} R={R}",
+            "bit_identical": True}
+
+
+def bf16_main(dev, out_dir, zero_counts, read_counts):
+    """``--bf16``: one N=62 reset + step and one SKA reset + step of
+    CalibEnv(M=10) with the hint (the default run's configurations), then
+    the bf16 phase on their operands."""
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    t0 = time.perf_counter()
+    spies = {}
+    for name, cfg in (("n62", N62), ("ska", SKA)):
+        backend = RadioBackend(device=dev, **cfg)
+        env = CalibEnv(M=10, backend=backend, seed=0, provide_hint=True,
+                       device=dev)
+        env.reset()
+        _, steps, spies[name] = spied_steps(env, backend, 1)
+        check_outputs([], steps, cfg["npix"], env.M)
+        print(f"{name} reset + step {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del env, backend
+    out = bf16_phase(dev, zero_counts, read_counts, n_sm, out_dir,
+                     spies["ska"], spies["n62"])
+    out["total_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def bf16_phase(dev, zero_counts, read_counts, n_sm, out_dir, ska_spies,
+               n62_spies):
+    """The bf16 influence path on the SKA step's and the N=62 step's own
+    episodes and solves (no new reset or solve: the solve is pinned f32,
+    so the f32 step's solve is the bf16 backend's), and kernel 2's bf16
+    mode at the SKA path's operands.  The drift is judged by obs/regress
+    against a store of this run's own (no baseline: the band applies)."""
+    from smartcal_tpu_torch.obs import baselines
+    t_phase = time.perf_counter()
+    store = baselines.BaselineStore(os.path.join(out_dir,
+                                                 "bf16_baselines.json"))
+    fp = baselines.host_fingerprint()
+    out = {"fingerprint": fp}
+    out["ska"], f_args = bf16_influence(dev, "ska", SKA, ska_spies,
+                                        zero_counts, read_counts, store, fp)
+    want = dict(SKA_STATICS, precision="bf16")
+    got = {k: out["ska"]["launches"][k] for k in (
+        "factored_imager_bf16", "factored_imager", "hessian_blocks",
+        "dft_imager")}
+    n_bands = SKA["n_freqs"]
+    if out["ska"]["statics"] != want or got != {
+            "factored_imager_bf16": n_bands, "factored_imager": 0,
+            "hessian_blocks": 2 * n_bands, "dft_imager": 0}:
+        raise AssertionError(f"bf16 SKA influence: statics "
+                             f"{out['ska']['statics']} (want {want}), "
+                             f"launches {got}")
+    out["kernel"] = bf16_kernel(dev, f_args, n_sm)
+    out["n62"], _ = bf16_influence(dev, "n62", N62, n62_spies, zero_counts,
+                                   read_counts, store, fp)
+    if any(out["n62"]["launches"][k] for k in ("factored_imager_bf16",
+                                                "factored_imager",
+                                                "hessian_blocks")) or \
+            out["n62"]["statics"] != {"block_baselines": 0,
+                                      "imager_block_r": 0,
+                                      "precision": "bf16"}:
+        raise AssertionError(f"bf16 N=62 influence: {out['n62']}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"bf16 phase: {out['phase_seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3450,6 +3732,10 @@ def main():
                     help="build the kernels and run the supervised phase "
                          "alone (dataset, transformer, recommend, "
                          "regressors, model influence)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="build the kernels and run one N=62 reset + step, "
+                         "one SKA reset + step and the bf16 phase on them "
+                         "alone")
     ap.add_argument("--diag-determinism", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--hessian-split", metavar="PARENT_CU",
@@ -3462,27 +3748,22 @@ def main():
         return 1
     if args.diag_determinism:
         return diag_determinism_main()
-    if args.runtime or args.supervised:
+    if args.runtime or args.supervised or args.bf16:
         from smartcal_tpu_torch.ops import (build, dft_imager,
                                             factored_imager, hessian_blocks)
         card = card_line()
         print(card, flush=True)
         build.build()
         os.makedirs(args.out, exist_ok=True)
-        mods = {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
-                "factored_imager": factored_imager}
-
-        def zero():
-            for m in mods.values():
-                m.launches = 0
-
-        def read():
-            return {k: m.launches for k, m in mods.items()}
-
+        zero, read = launch_counters(
+            {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
+             "factored_imager": factored_imager}, factored_imager)
         dev = torch.device("cuda", 0)
         if args.runtime:
             name, out = "runtime_phase", runtime_phase(dev, args.out, zero,
                                                        read)
+        elif args.bf16:
+            name, out = "bf16_phase", bf16_main(dev, args.out, zero, read)
         else:
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
             name, out = "supervised_phase", supervised_phase(
@@ -3509,13 +3790,7 @@ def main():
     t_start = time.perf_counter()
     counters = {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
                 "factored_imager": factored_imager}
-
-    def zero_counts():
-        for m in counters.values():
-            m.launches = 0
-
-    def read_counts():
-        return {k: m.launches for k, m in counters.items()}
+    zero_counts, read_counts = launch_counters(counters, factored_imager)
 
     report = {}
     card = card_line()
@@ -3565,7 +3840,7 @@ def main():
     t0 = time.perf_counter()
     obs0 = env.reset()
     t_reset = time.perf_counter() - t0
-    obs, steps = run_steps(env, 2)
+    obs, steps, n62_spies = spied_steps(env, backend, 2)
     n62_launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     print_path("N=62 path", env, backend, t_reset, steps, peak, n62_launches)
@@ -3686,9 +3961,9 @@ def main():
     # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
     ska_backend = RadioBackend(device=dev, **SKA)
     statics = ska_backend._influence_statics(SKA["npix"])
-    if statics != SKA_STATICS:
+    if statics != dict(SKA_STATICS, precision="f32"):
         raise AssertionError(f"SKA statics {statics}, expected "
-                             f"{SKA_STATICS}")
+                             f"{SKA_STATICS} in f32")
     ska_env = CalibEnv(M=10, backend=ska_backend, seed=0, provide_hint=True,
                        device=dev)
     torch.cuda.synchronize(dev)
@@ -3706,7 +3981,8 @@ def main():
              "_chunk_influence_opt": FirstCall(influence,
                                                "_chunk_influence_opt"),
              "influence_visibilities": FirstCall(influence,
-                                                 "influence_visibilities")}
+                                                 "influence_visibilities"),
+             "influence_image": FirstCall(ska_backend, "influence_image")}
     ska_obs, ska_steps = run_steps(ska_env, 1)
     for s in spies.values():
         s.restore()
@@ -3734,6 +4010,13 @@ def main():
         "step_wall_profiled_s": ska_step_prof, "step_device_busy_s": ska_busy,
         "step_idle_share": idle_share("SKA step", ska_steps[0]["seconds"],
                                       ska_busy, ska_step_prof)}
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- the bf16 influence path on the SKA and N=62 steps' own operands,
+    # kernel 2's bf16 mode at the SKA path's ------------------------------
+    report["bf16"] = bf16_phase(dev, zero_counts, read_counts, n_sm,
+                                args.out, spies, n62_spies)
+    del spies["influence_image"], n62_spies
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- hessian_blocks: path operands (band 0, chunk 0 of the step) -------
@@ -3908,6 +4191,15 @@ def main():
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     sup = report["supervised"]
+    bf, bfk = report["bf16"], report["bf16"]["kernel"]
+
+    def bf16_launches(name):
+        """The f32 kernel's launches on the bf16 influence paths."""
+        return {"ska": bf["ska"]["launches"][name],
+                "n62": bf["n62"]["launches"][name]}
+
+    def f32_bounds(bounds):
+        return {k: v for k, v in bounds.items() if k != "bound_bf16_ms"}
 
     def new_paths(name):
         """The kernel's launches on the batched, demixing and supervised
@@ -3959,10 +4251,12 @@ def main():
                                                            "enet_sac")),
          "launches_runtime_path":
              report["runtime"]["launches"]["dft_imager"],
+         "launches_bf16_paths": bf16_launches("dft_imager"),
          "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"],
                                        sup["kernel"]["max_abs_err"]]),
          "ms": dft_ms,
-         "plain_ms": dft_plain_ms, **dft_bounds, "library_ms": None,
+         "plain_ms": dft_plain_ms, **f32_bounds(dft_bounds),
+         "library_ms": None,
          "shapes": f"P={P} R={R}", "yardstick_factored_ms": factored_ms,
          "ska_ms": s_ms, "ska_bound_ms": s_bounds["bound_ms"],
          "ska_bound_fp32_ms": s_bounds["bound_fp32_ms"],
@@ -3980,6 +4274,7 @@ def main():
          "source": "smartcal_tpu_torch/csrc/hessian_blocks.cu",
          "replaces": "smartcal_tpu/ops/pallas_hessian.py:60",
          "launches": ska_launches["hessian_blocks"],
+         "launches_bf16_paths": bf16_launches("hessian_blocks"),
          "max_abs_err": max(h_err), "ms": h_ms, "device_ms": h_dev_ms,
          "plain_ms": h_plain_ms, "bound_ms": h_bound, "bound_by": h_bound_by,
          "device_ms_one_launch": h_dev_one, "library_ms": None,
@@ -3990,9 +4285,26 @@ def main():
          "engine": "smartcal_tpu_torch/csrc/separable_imager.cuh",
          "replaces": "smartcal_tpu/ops/pallas_imager.py:159",
          "launches": ska_launches["factored_imager"],
+         "launches_bf16_paths": bf16_launches("factored_imager"),
          "max_abs_err": max(f_err), "ms": f_ms, "plain_ms": f_plain_ms,
-         **f_bounds, "library_ms": f_lib_ms,
-         "shapes": f"npix={npix} R={f_R}", **new_paths("factored_imager")}]
+         **f32_bounds(f_bounds), "library_ms": f_lib_ms,
+         "shapes": f"npix={npix} R={f_R}", **new_paths("factored_imager")},
+        {"name": "factored_imager_bf16", "route": "cuda",
+         "source": "smartcal_tpu_torch/csrc/factored_imager.cu",
+         "entry": "factored_image_bf16_launch",
+         "replaces": "smartcal_tpu/ops/pallas_imager.py:159",
+         "mode": "precision='bf16': bf16 operands, f32 accumulation",
+         "launches": bf["ska"]["launches"]["factored_imager_bf16"],
+         "launches_n62_bf16_path":
+             bf["n62"]["launches"]["factored_imager_bf16"],
+         "launches_f32_paths": {"n62": n62_launches["factored_imager_bf16"],
+                                "ska": ska_launches["factored_imager_bf16"]},
+         "max_abs_err": bfk["max_abs_err"],
+         "max_abs_err_vs_f32": bfk["max_abs_err_vs_f32"], "ms": bfk["ms"],
+         "plain_ms": bfk["plain_ms"], "bound_ms": bfk["bound_ms"],
+         "bound_by": bfk["bound_by"], "library_ms": bfk["library_ms"],
+         "shapes": bfk["shapes"], "bit_identical": bfk["bit_identical"],
+         **new_paths("factored_imager_bf16")}]
     report.update(kernels=kernels_line, card=card, tiny_rel=tiny_rel,
                   tiny_blocked_rel=tiny_blk_rel,
                   kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],
@@ -4000,7 +4312,9 @@ def main():
                                      "hessian_blocks": [h_ms, h_ms2],
                                      "hessian_blocks_device": [h_dev_ms,
                                                                h_dev_ms2],
-                                     "factored_imager": [f_ms, f_ms2]},
+                                     "factored_imager": [f_ms, f_ms2],
+                                     "factored_imager_bf16": [
+                                         bfk["ms"], bfk["ms_repeat"]]},
                   total_seconds=time.perf_counter() - t_start)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -8,6 +8,8 @@ the operands of later kernels match the JAX ones one to one.
 
 import torch
 
+from smartcal_tpu_torch.cal import precision as prec
+
 
 def conj(a):
     return torch.stack([a[..., 0], -a[..., 1]], dim=-1)
@@ -23,11 +25,18 @@ def abs2(a):
     return a[..., 0] ** 2 + a[..., 1] ** 2
 
 
-def einsum(spec, a, b):
+def einsum(spec, a, b, compute_dtype=None):
     """Complex einsum over split operands: four real einsums.  ``spec`` is
-    a two-operand spec over the NON-pair axes."""
+    a two-operand spec over the NON-pair axes.
+
+    ``compute_dtype`` (``cal/precision``): the operands are rounded to it
+    and contracted in f32, with an f32 result (``precision.narrow``); None
+    or f32 leaves them as they are."""
     ar, ai = a[..., 0], a[..., 1]
     br, bi = b[..., 0], b[..., 1]
+    if compute_dtype is not None:
+        ar, ai, br, bi = (prec.narrow(x, compute_dtype)
+                          for x in (ar, ai, br, bi))
     rr = torch.einsum(spec, ar, br)
     ii = torch.einsum(spec, ai, bi)
     ri = torch.einsum(spec, ar, bi)

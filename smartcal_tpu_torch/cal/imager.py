@@ -13,6 +13,11 @@ Two formulations, as in the JAX package:
   ``dirty_image_factored_large_sr`` takes over: the hand-written CUDA
   kernel of ``ops/factored_imager.py`` on a CUDA tensor, the R-blocked
   plain version ``dirty_image_factored_blocked_sr`` on a CPU tensor.
+
+The factored imager takes ``precision`` (``cal/precision`` row
+``imager_matmul``): "bf16" rounds the four planes to bf16 before the
+matmuls, which accumulate in f32; the planes' trig stays f32.  The direct
+DFT has no precision argument: the data and residual images stay f32.
 """
 
 import numpy as np
@@ -66,27 +71,39 @@ def _factored_planes(uvw, vis, freq, cell, npix):
     return p1, p2, cb, sb
 
 
-def dirty_image_factored_sr(uvw, vis, freq, cell, npix=128):
+def _factored_contract(p1, p2, cb, sb, precision):
+    """The two (npix, R) @ (R, npix) matmuls, f32 accumulation.  Under
+    ``precision="bf16"`` (policy row ``imager_matmul``) the four planes are
+    first rounded to bf16 (``precision.narrow``); under "f32" they are
+    contracted as they are."""
+    dt = prec.contraction_dtype("imager_matmul", precision)
+    p1, p2, cb, sb = (prec.narrow(x, dt) for x in (p1, p2, cb, sb))
+    return p1 @ cb.transpose(-1, -2) + p2 @ sb.transpose(-1, -2)
+
+
+def dirty_image_factored_sr(uvw, vis, freq, cell, npix=128,
+                            precision="f32"):
     """Rank-factored DFT image: the pixel grid is separable, so
     cos/sin(l u + m v) expand by the angle-addition identity and the image
     is img = [(cos a Vr + sin a Vi) @ cos(b)^T
               + (cos a Vi - sin a Vr) @ sin(b)^T] / R,  a = l u, b = m v.
     Same math as the direct DFT to float round-off; the matmuls run in
-    full f32 (TF32 is off).  Leading lane axes as in
+    full f32 (TF32 is off).  ``precision="bf16"`` narrows the matmuls'
+    operands (the planes' trig stays f32).  Leading lane axes as in
     :func:`_factored_planes`: (..., npix, npix), batched matmuls."""
     p1, p2, cb, sb = _factored_planes(uvw, vis, freq, cell, npix)
-    return (p1 @ cb.transpose(-1, -2) + p2 @ sb.transpose(-1, -2)) \
-        / vis.shape[-2]
+    return _factored_contract(p1, p2, cb, sb, precision) / vis.shape[-2]
 
 
 def dirty_image_factored_blocked_sr(uvw, vis, freq, cell, npix=1024,
-                                    block_r=4096):
+                                    block_r=4096, precision="f32"):
     """R-blocked :func:`dirty_image_factored_sr` (the npix >= 512 tier): a
     loop over blocks of ``block_r`` samples accumulates the image in f32,
     so the largest live buffer is one (npix, block_r) plane.  R is
     zero-padded to the block (pad vis rows are 0 and add nothing).  Same
     math to float round-off; the plain version of the kernel in
-    ``ops/factored_imager.py``."""
+    ``ops/factored_imager.py``, of its bf16 mode with
+    ``precision="bf16"``."""
     R = uvw.shape[0]
     nblk = -(-R // block_r)
     padr = nblk * block_r - R
@@ -96,21 +113,23 @@ def dirty_image_factored_blocked_sr(uvw, vis, freq, cell, npix=1024,
     for i in range(nblk):
         s = slice(i * block_r, (i + 1) * block_r)
         p1, p2, cb, sb = _factored_planes(uvp[s], visp[s], freq, cell, npix)
-        img = img + (p1 @ cb.T + p2 @ sb.T)
+        img = img + _factored_contract(p1, p2, cb, sb, precision)
     return img / R
 
 
 def dirty_image_factored_large_sr(uvw, vis, freq, cell, npix=1024,
-                                  block_r=4096):
+                                  block_r=4096, precision="f32"):
     """The npix >= 512 factored imager: the CUDA kernel for CUDA tensors
-    (any npix and R), :func:`dirty_image_factored_blocked_sr` for CPU
-    tensors.  Any other device raises."""
+    (any npix and R; its bf16 mode with ``precision="bf16"``),
+    :func:`dirty_image_factored_blocked_sr` for CPU tensors.  Any other
+    device raises."""
     if uvw.device.type == "cuda":
-        return factored_imager.dirty_image_factored_cuda(uvw, vis, freq, cell,
-                                                         npix=npix)
+        return factored_imager.dirty_image_factored_cuda(
+            uvw, vis, freq, cell, npix=npix, precision=precision)
     if uvw.device.type == "cpu":
         return dirty_image_factored_blocked_sr(uvw, vis, freq, cell,
-                                               npix=npix, block_r=block_r)
+                                               npix=npix, block_r=block_r,
+                                               precision=precision)
     raise ValueError(f"factored_imager: unsupported device {uvw.device}")
 
 

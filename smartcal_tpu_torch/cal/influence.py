@@ -11,8 +11,11 @@ keeps the K directions' influence apart (the featurization of the
 demixing recommender, with :func:`perdir_summary`).  The SKA tier's
 statics select the blocked Hessian (``block_baselines`` > 0: the CUDA kernel of
 ``ops/hessian_blocks.py`` on the card, the blocked plain core on the CPU)
-and the factored imager's large tier (``imager_block_r`` > 0).  The oracle
-chain and the sharded tiers are still to be ported.
+and the factored imager's large tier (``imager_block_r`` > 0).
+``precision="bf16"`` (``cal/precision``) narrows the column means' final
+contraction and the imager's matmuls, with f32 accumulation; the Hessian,
+the solve and the LLR stay f32.  The oracle chain and the sharded tiers
+are still to be ported.
 """
 
 from typing import NamedTuple
@@ -67,7 +70,7 @@ class InfluenceResult(NamedTuple):
 
 
 def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
-                         block_baselines=0, perdir=False):
+                         block_baselines=0, perdir=False, precision="f32"):
     """One calibration interval on hoisted operands: R3 (Td, B, 2, 2, 2);
     C5 (K, Td, B, 2, 2, 2); Jp/Jq (K, B, 2, 2, 2); lhs (K, B, 2, 2, 2);
     hadd (K,).  Returns ((B, 4, 2) Stokes-I-only vis, or (K, B, 4, 2)
@@ -77,7 +80,9 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
     intervals of a band, the bands and episodes of a batch): one pass of
     the plain chain for all of them.  ``block_baselines`` > 0 selects the
     blocked Hessian on ONE interval: the CUDA kernel for tensors on the
-    card, the blocked plain core for CPU tensors."""
+    card, the blocked plain core for CPU tensors.  ``precision``
+    (``cal/precision``) narrows the column means' final contraction (row
+    ``colmeans_contract``); the Hessian, the solve and the LLR stay f32."""
     Td = C5.shape[-5]
     if not block_baselines:
         H = kernels._hessian_res_core_sr(R3, C5, Jp, Jq, n_stations)
@@ -89,8 +94,9 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
     N4 = H.shape[-2]
     diag = torch.arange(N4, device=H.device)
     H[..., diag, diag, 0] += hadd[..., None]
-    pol_means = kernels._colmeans_adjoint_core_sr(lhs, H, n_stations, Td,
-                                                  perdir=perdir)
+    pol_means = kernels._colmeans_adjoint_core_sr(
+        lhs, H, n_stations, Td, perdir=perdir,
+        contract_dtype=prec.contraction_dtype("colmeans_contract", precision))
     vis = torch.sum(pol_means, dim=-5 if perdir else -4) \
         .transpose(-3, -2).clone()      # ([K,] B, 4, 2)
     vis[..., 1:3, :] = 0.0              # fullpol=False: XY, YX dropped
@@ -98,7 +104,7 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
 
 
 def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
-                           block_baselines=0, perdir=False):
+                           block_baselines=0, perdir=False, precision="f32"):
     """Influence visibilities over all calibration intervals.
 
     R : (2*B*T, 2, 2) kernel-convention residuals of one sub-band
@@ -107,8 +113,9 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
     Unblocked, the intervals of every lane go through the chain in one
     pass; ``block_baselines`` > 0 runs the blocked Hessian (SKA tier)
     interval by interval, lane by lane: its CUDA kernel takes one.
-    Returns vis (T*B, 4, 2), or (K, T*B, 4, 2) with ``perdir``, scaled by
-    8*B*Tdelta, and llr (Ts, K), under the lane axes."""
+    ``precision`` as in :func:`_chunk_influence_opt`.  Returns vis
+    (T*B, 4, 2), or (K, T*B, 4, 2) with ``perdir``, scaled by 8*B*Tdelta,
+    and llr (Ts, K), under the lane axes."""
     B = n_stations * (n_stations - 1) // 2
     lead, K = C.shape[:-4], C.shape[-4]
     T = C.shape[-3] // B
@@ -127,14 +134,16 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
         ops = [t.reshape((-1,) + tuple(t.shape[len(lead) + 1:]))
                for t in (R3, C5, Jp, Jq, lhs, hadd_s)]
         outs = [_chunk_influence_opt(*(t[g] for t in ops), n_stations,
-                                     block_baselines, perdir=perdir)
+                                     block_baselines, perdir=perdir,
+                                     precision=precision)
                 for g in range(ops[0].shape[0])]
         vis_b = torch.stack([o[0] for o in outs]).reshape(
             lead + (n_chunks,) + tuple(outs[0][0].shape))
         llr = torch.stack([o[1] for o in outs]).reshape(lead + (n_chunks, K))
     else:
         vis_b, llr = _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd_s,
-                                          n_stations, perdir=perdir)
+                                          n_stations, perdir=perdir,
+                                          precision=precision)
     if perdir:         # (.., Ts, K, B, ..) -> (.., K, Ts*Td*B, ..)
         vis = vis_b.unsqueeze(-4).expand(
             lead + (n_chunks, K, Td, B, 4, 2)).transpose(-6, -5) \
@@ -174,7 +183,8 @@ def stokes_i_influence(vis):
 
 def influence_image_single_sr(residual_f, C_f, J_f, hadd_f, freq, uvw,
                               cell, n_stations, n_chunks, npix,
-                              block_baselines=0, imager_block_r=0):
+                              block_baselines=0, imager_block_r=0,
+                              precision="f32"):
     """One sub-band's Stokes-I influence dirty image: the optimized
     influence chain, then the rank-factored imager.  residual_f
     (T, B, 2, 2, 2), C_f (K, T*B, 4, 2), J_f (Ts, K, 2N, 2, 2), hadd_f
@@ -182,12 +192,13 @@ def influence_image_single_sr(residual_f, C_f, J_f, hadd_f, freq, uvw,
     axes."""
     return influence_images_lanes(
         residual_f, C_f, J_f, hadd_f, freq, uvw, cell, n_stations, n_chunks,
-        npix, block_baselines=block_baselines, imager_block_r=imager_block_r)
+        npix, block_baselines=block_baselines, imager_block_r=imager_block_r,
+        precision=precision)
 
 
 def influence_images_lanes(residual, C, J, hadd, freqs, uvw, cell,
                            n_stations, n_chunks, npix, block_baselines=0,
-                           imager_block_r=0):
+                           imager_block_r=0, precision="f32"):
     """Stokes-I influence dirty images of many (episode, band) lanes: the
     body of the JAX package's ``influence_images_multi`` (optimized chain)
     under its batched route's ``vmap``.
@@ -198,20 +209,25 @@ def influence_images_lanes(residual, C, J, hadd, freqs, uvw, cell,
     Returns (..., npix, npix).  The lanes go through the plain chain and
     the factored imager's matmuls together; the SKA-tier statics
     (``block_baselines``, ``imager_block_r``) run the blocked Hessian and
-    the large-tier imager lane by lane, as their CUDA kernels take one."""
+    the large-tier imager lane by lane, as their CUDA kernels take one.
+    ``precision`` (``cal/precision``): "bf16" narrows the column means'
+    final contraction and the imager's matmuls (kernel 2's bf16 mode on
+    the card), with f32 accumulation; the solve-side chain stays f32."""
     lead = residual.shape[:-5]
     T, B = residual.shape[-5], residual.shape[-4]
     Rk = residual.reshape(lead + (2 * T * B, 2, 2))
     inf = influence_visibilities(Rk, C, J, hadd, n_stations, n_chunks,
-                                 block_baselines=block_baselines)
+                                 block_baselines=block_baselines,
+                                 precision=precision)
     ivis = stokes_i_influence(inf.vis)                   # (..., T*B, 2)
     if not imager_block_r:
         return imager.dirty_image_factored_sr(uvw, ivis, freqs, cell,
-                                              npix=npix)
+                                              npix=npix, precision=precision)
     uvw = uvw.expand(lead + tuple(uvw.shape[-2:]))
     freqs = np.broadcast_to(np.asarray(freqs), lead)
     cell = np.broadcast_to(np.asarray(cell), lead)
     imgs = [imager.dirty_image_factored_large_sr(
         uvw[i], ivis[i], float(freqs[i]), float(cell[i]), npix=npix,
-        block_r=imager_block_r) for i in np.ndindex(lead)]
+        block_r=imager_block_r, precision=precision)
+        for i in np.ndindex(lead)]
     return torch.stack(imgs).reshape(lead + (npix, npix))

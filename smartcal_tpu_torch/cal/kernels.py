@@ -163,7 +163,8 @@ def _hessian_res_core_blocked_sr(R3, C5, Jp, Jq, n_stations,
     return _hessian_assemble(off, Dsum, n_stations, B, T)
 
 
-def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False):
+def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False,
+                              contract_dtype=None):
     """Adjoint-form Dsolutions -> Dresiduals column means (8, 4, B, 2) on
     the pre-built lhs blocks ``lhs = Jq Csum^H`` (K, B, 2, 2, 2) and the
     consensus-augmented Hessian ``Dgs`` (K, 4N, 4N, 2); ``perdir`` keeps
@@ -175,6 +176,11 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False):
     for the derivation).  The influence chain's ``addself=False`` form: the
     identity term of dR is not added.  Both operands may carry the same
     leading lane axes (then so does the result).
+
+    ``contract_dtype`` (``cal/precision`` row ``colmeans_contract``)
+    narrows the operands of the final Yr x Lr gather-contraction, with f32
+    accumulation; the transpose solve stays f32.  None or f32 gives the
+    f32 bits.
     """
     N = n_stations
     lead, K, B = lhs.shape[:-5], lhs.shape[-5], lhs.shape[-4]
@@ -198,11 +204,13 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False):
     Lr = lhs[..., torch.as_tensor(_J_OF_R, device=dev), :, :]  # (k,b,r,j,2)
     odd = torch.as_tensor(_ODD_R, device=dev)[:, None, None, None]
     if perdir:
-        out = creal.einsum("...kjbrc,...kbrj->...krcb", Yr, Lr)
+        out = creal.einsum("...kjbrc,...kbrj->...krcb", Yr, Lr,
+                           compute_dtype=contract_dtype)
         out = out.transpose(-5, -4)                      # (8, K, 4, B, 2)
         odd = odd[..., None]
     else:
-        out = creal.einsum("...kjbrc,...kbrj->...rcb", Yr, Lr)  # (8,4,B,2)
+        out = creal.einsum("...kjbrc,...kbrj->...rcb", Yr, Lr,  # (8,4,B,2)
+                           compute_dtype=contract_dtype)
     return torch.where(odd, creal.mul_i(out), out) / bbt
 
 

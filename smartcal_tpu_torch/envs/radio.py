@@ -15,7 +15,11 @@ each, with the same math:
   sub-band, averaged (the JAX host-segmented route's unit), with the
   SKA-tier statics of :meth:`RadioBackend._influence_statics`: the blocked
   Hessian from B >= 8128 (N >= 128) and the large-tier factored imager
-  from npix >= 512, each a hand-written CUDA kernel on the card;
+  from npix >= 512, each a hand-written CUDA kernel on the card, and the
+  backend's ``precision`` (``"bf16"``: the bf16 column means and kernel
+  2's bf16 mode).  The JAX package's sharded influence routes carry the
+  same ``precision`` (smartcal_tpu/parallel/sharded_cal.py); on one card
+  they map to this route;
 * ``data_image`` / ``residual_image`` -> ``imager.multifreq_image_sr``,
   one direct-DFT kernel launch per sub-band;
 * ``hint_sweep`` (the demixing env's exhaustive hint) ->
@@ -78,6 +82,7 @@ import torch
 from smartcal_tpu_torch import obs, resolve_device
 from smartcal_tpu_torch.cal import (coherency, imager, influence, observation,
                                     shapelets, simulate, solver)
+from smartcal_tpu_torch.cal import precision as prec
 
 # SKA-tier thresholds (the JAX backend's, smartcal_tpu/envs/radio.py:69-72):
 # from _BLOCK_MIN_B baselines (N=128 -> B=8128) the influence chain's
@@ -143,12 +148,17 @@ class RadioBackend:
     no GPU is present.  ``hint_batch`` is the number of masks per solve of
     the hint sweep (1: one mask at a time).  ``block_baselines`` /
     ``imager_block_r`` override the SKA-tier block sizes: None picks them
-    by threshold, 0 forces the unblocked path."""
+    by threshold, 0 forces the unblocked path.  ``precision`` ("f32" or
+    "bf16", ``cal/precision``) is the policy of the influence chain: "bf16"
+    narrows the column means' final contraction and the factored imager's
+    matmuls (kernel 2's bf16 mode on the card) with f32 accumulation; the
+    solve, the Hessian, the hint and the data and residual images stay f32
+    under either."""
 
     def __init__(self, n_stations=14, n_freqs=3, n_times=20, tdelta=10,
                  n_poly=2, admm_iters=10, lbfgs_iters=8, init_iters=30,
                  polytype=0, npix=128, hint_batch=8, device="cuda",
-                 block_baselines=None, imager_block_r=None):
+                 block_baselines=None, imager_block_r=None, precision="f32"):
         if n_times <= 0 or n_times % tdelta != 0:
             raise ValueError(
                 f"n_times={n_times} must be a positive multiple of "
@@ -167,6 +177,7 @@ class RadioBackend:
         self.polytype = polytype
         self.npix = npix
         self.hint_batch = hint_batch
+        self.precision = prec.check(precision)
         self.block_baselines = block_baselines
         self.imager_block_r = imager_block_r
         self.stage_seconds = defaultdict(float)
@@ -377,25 +388,26 @@ class RadioBackend:
         return imager.default_cell(ep.obs.uvw, float(ep.obs.freqs[-1]))
 
     def _influence_statics(self, npix):
-        """The SKA-tier block sizes of the influence chain, decided on the
-        host from the episode geometry: the blocked Hessian from the
-        baseline threshold, the large-tier imager from the npix
-        threshold.  The precision policy stays f32 (the bf16 rows are not
-        ported)."""
+        """The SKA-tier statics of the influence chain, decided on the host
+        from the episode geometry: the blocked Hessian from the baseline
+        threshold, the large-tier imager from the npix threshold, and the
+        backend's precision policy."""
         bb = self.block_baselines
         if bb is None:
             bb = _BLOCK_BASELINES if self.n_baselines >= _BLOCK_MIN_B else 0
         ibr = self.imager_block_r
         if ibr is None:
             ibr = _IMAGER_BLOCK_R if npix >= _IMAGER_BLOCK_MIN_NPIX else 0
-        return {"block_baselines": bb, "imager_block_r": ibr}
+        return {"block_baselines": bb, "imager_block_r": ibr,
+                "precision": self.precision}
 
     def influence_image(self, ep: Episode, result: solver.SolveResult, rho,
                         rho_spatial, npix=None):
         """Mean Stokes-I influence dirty image over sub-bands."""
         npix = npix or self.npix
         statics = self._influence_statics(npix)
-        with self._stage("influence", route="per_band", bands=self.n_freqs):
+        with self._stage("influence", route="per_band", bands=self.n_freqs,
+                         precision=self.precision):
             uvw = ep.obs.uvw.reshape(-1, 3)
             cell = self._cell(ep)
             hadd_all = influence.consensus_hadd_all(
@@ -618,7 +630,7 @@ class RadioBackend:
         npix = npix or self.npix
         statics = self._influence_statics(npix)
         with self._stage("influence", route="batched_vmap",
-                         lanes=bep.n_envs):
+                         lanes=bep.n_envs, precision=self.precision):
             residual, C, J, hadd = self.batched_influence_operands(
                 bep, result, rho, rho_spatial)
             imgs = influence.influence_images_lanes(

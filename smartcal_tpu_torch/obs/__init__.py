@@ -16,12 +16,17 @@ Quick use::
 Everything is a strict no-op while no RunLog is active; aggregate a run
 with ``tools/obs_report.py``.  The package imports neither torch nor
 numpy: it reads torch from ``sys.modules`` only, so importing it never
-initialises a device.  The JAX package's cost accounting (``obs/costs.py``),
-baselines, regression gate, SLO detector, collector and flight recorder
-are not here (ROADMAP queue 1 items 12 and 14).
+initialises a device.  The baseline store (``baselines``: fingerprinted
+per-stage baselines and the bf16 band ``BF16_REL_BAND``) and the
+noise-aware detector (``regress``) are the JAX package's, with the port's
+own host fingerprint.  The JAX package's cost accounting
+(``obs/costs.py``), perf gate, SLO detector, collector and flight
+recorder are not here (ROADMAP queue 1 items 12 and 14).
 """
 
-from . import tracectx                                     # noqa: F401
+from . import baselines, regress, tracectx                 # noqa: F401
+from .baselines import (BF16_REL_BAND, BaselineStore,      # noqa: F401
+                        host_fingerprint)
 from .console import echo, emit_json                       # noqa: F401
 from .diagnostics import (UpdateDiag, diag_steps,          # noqa: F401
                           diag_to_host, make_diag, stack_diags, zero_diag)

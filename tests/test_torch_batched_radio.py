@@ -231,7 +231,8 @@ def test_forced_blocked_statics_batched_vs_sequential():
     large-tier imager, as the sequential route does per band."""
     forced = dict(block_baselines=4, imager_block_r=256)
     env = batched(2, bk=forced)
-    assert env.backend._influence_statics(32) == forced
+    assert env.backend._influence_statics(32) == dict(forced,
+                                                      precision="f32")
     bo = env.reset()
     bo2, br, _, binfo = env.step(actions(2))
     plain = batched(2)

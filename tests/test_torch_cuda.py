@@ -140,6 +140,40 @@ def test_factored_imager_kernel_matches_plain_on_gpu():
 
 
 @pytest.mark.cuda
+def test_factored_imager_bf16_kernel_matches_plain_on_gpu():
+    """Kernel 2's bf16 mode against its plain bf16 version at npix and R
+    ragged against the 128-pixel tile and the 32-sample stage, within a
+    tenth of the bf16 band (both round the same f32 operands; only trig
+    ulps and the order of the sum differ); against the f32 mode within the
+    band; two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from smartcal_tpu_torch.cal import imager
+    from smartcal_tpu_torch.ops import factored_imager
+    for npix, R in ((200, 1001), (100, 700), (256, 5003)):
+        uvw, vis, freq, cell = _case(npix + R, R)
+        u = torch.from_numpy(uvw).cuda()
+        v = torch.from_numpy(vis).cuda()
+        before = (factored_imager.launches, factored_imager.launches_bf16)
+        out = imager.dirty_image_factored_large_sr(
+            u, v, freq, cell, npix=npix, block_r=256, precision="bf16")
+        assert (factored_imager.launches, factored_imager.launches_bf16) \
+            == (before[0], before[1] + 1)
+        again = factored_imager.dirty_image_factored_cuda(
+            u, v, freq, cell, npix=npix, precision="bf16")
+        assert torch.equal(out, again)
+        ref = imager.dirty_image_factored_blocked_sr(
+            u, v, freq, cell, npix=npix, block_r=256,
+            precision="bf16").cpu().numpy()
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=0,
+                                   atol=2e-3 * scale)
+        f32 = factored_imager.dirty_image_factored_cuda(
+            u, v, freq, cell, npix=npix).cpu().numpy()
+        assert 0 < np.abs(out.cpu().numpy() - f32).max() < 2e-2 * scale
+
+
+@pytest.mark.cuda
 def test_full_width_learn_step_matches_cpu():
     """One learn step of the calibration agent at full width (128² image,
     M=10, batch 32) on the GPU and on the CPU from the same state, batch

@@ -55,8 +55,22 @@ def test_port_has_modules():
                 "cal/fits_io", "cal/ms_io", "cal/dataset",
                 "models/regressor", "models/tsk", "models/transformer",
                 "train/supervised", "train/model_influence",
-                "train/evaluate", "train/evaluate_models", "train/plots"):
+                "train/evaluate", "train/evaluate_models", "train/plots",
+                "obs/baselines", "obs/regress"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
+
+
+def test_precision_has_the_bf16_surface():
+    """``cal/precision`` carries the whole policy (the bf16 rows too), as
+    its own code: every name the JAX module defines."""
+    path = os.path.join(ROOT, "smartcal_tpu_torch", "cal", "precision.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    names |= {t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)}
+    assert {"POLICIES", "F32", "KERNEL_DTYPES", "check",
+            "contraction_dtype", "dtype_name"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -178,7 +178,7 @@ def test_backend_influence_image_blocked_matches(solved_wellcond):
 
     jbe = RadioBackend(shard=False, **TINY, **SKA_STATICS)
     tbe = TorchBackend(device="cpu", **TINY, **SKA_STATICS)
-    assert tbe._influence_statics(32) == SKA_STATICS
+    assert tbe._influence_statics(32) == dict(SKA_STATICS, precision="f32")
     ref = np.asarray(jbe.influence_image(ep, res, rho, alpha))
     out = tbe.influence_image(interop.episode_from_numpy(ep),
                               interop.solve_result_from_numpy(res), rho,
@@ -191,14 +191,16 @@ def test_backend_influence_image_blocked_matches(solved_wellcond):
 @pytest.mark.parametrize("override", [None, 0])
 def test_influence_statics_match_jax(n_stations, npix, override):
     """The thresholds pick the JAX block sizes (None: automatic; 0: the
-    unblocked path forced)."""
+    unblocked path forced), and the statics carry the backend's precision
+    policy (the default, f32), as the JAX backend's do."""
     from smartcal_tpu_torch.envs.radio import RadioBackend as TorchBackend
 
     kw = dict(n_stations=n_stations, npix=npix, block_baselines=override,
               imager_block_r=override)
     ref = RadioBackend(shard=False, **kw)._influence_statics(npix)
     out = TorchBackend(device="cpu", **kw)._influence_statics(npix)
-    assert ref.pop("precision") == "f32"
+    assert ref["precision"] == "f32"
     assert out == ref
     if override is None and n_stations == 256:
-        assert out == {"block_baselines": 2048, "imager_block_r": 4096}
+        assert out == {"block_baselines": 2048, "imager_block_r": 4096,
+                       "precision": "f32"}
