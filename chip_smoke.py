@@ -16,14 +16,15 @@
    and the hint, stage seconds, L-BFGS iterations and peak memory, the
    hint's shape and range, and the sweep of all 32 selections one mask at
    a time, 8 and 32 at a time, held at rtol 1e-3 at 4 L-BFGS iterations
-   (and printed beside the 1-ulp spread at admm_iters=2: chaotic there);
+   (and 8 against 32 at a time printed beside the 1-ulp spread at
+   admm_iters=2: chaotic there);
    BatchedDemixingEnv(E=4) fused and through its fused=False oracle,
    reset and one step, its stages held on the oracle's own solves and the
    end-to-end differences printed beside a 1-ulp spread; FuzzyDemixingEnv
    reset and one step, its priorities on the card against the CPU
    (atol 1e-3); the five trainers demix_sac (hint, influence), demix_sac
    --batch-envs 4, demix_td3, demix_fuzzy_sac (hint) and calib_sac
-   --light, each 1 episode (one vector episode) of 2 steps, their saved
+   --light, each 1 episode (one vector episode) of 1 step, their saved
    agent, ring and scores checked and their env-steps/s printed; counts
    zeroed just before and read just after each path (no kernel on the
    demixing paths: their images are 128² at N=14 and their reward is no
@@ -45,19 +46,19 @@
 3. drives the reference-scale path: CalibEnv(M=10) on RadioBackend (N=62
    stations, Nf=3, T=20, tdelta=10, npix=128), reset and two steps with the
    analytic hint, random sky from seed 0, with the kernel launch counts
-   zeroed just before and read just after; then profiles a third step and
-   one more solve with torch.profiler to take the device's idle share
-   (1 - busy device seconds / wall seconds) and the solve's CUDA kernels
-   per L-BFGS iteration;
+   zeroed just before and read just after; times one more solve, and
+   queues a third step and that solve under torch.profiler for the
+   device's idle share (1 - busy device seconds / unprofiled wall seconds)
+   and the solve's CUDA kernels per L-BFGS iteration;
 4. holds the imager kernel (the separable-grid engine behind dft_imager)
    against its plain version, the direct DFT, over the full N=62 image and
    at ragged npix and R that cross the engine's tile and stage edges, and
    times kernel, plain version and the plain factored-imager yardstick with
    CUDA events;
-5. drives the train path: ``train/calib_sac.py`` (2 episodes of 2 steps
+5. drives the train path: ``train/calib_sac.py`` (2 episodes of 1 step
    with the hint, seed 0) on the same N=62 backend, counts zeroed just
    before and read just after; checks the two scores and the saved ring
-   (4 transitions, no learn: the agent's learn step is measured on the
+   (2 transitions, no learn: the agent's learn step is measured on the
    batched trainer's agent, step 6b);
 6. drives the elastic-net slice (M = N = 20, no kernel on its path):
    one EnetEnv reset, three steps and a hint, timed and broken down
@@ -66,14 +67,15 @@
    line search's lane-masked form only, which must give the same x; a
    step's idle share), held
    against the CPU stage by stage; ``train/enet_sac.py`` (2 episodes of
-   5 steps with the hint: 10 transitions, no learn at batch 64), its
-   saved agent and ring checked, ``enet_eval`` for one game, then the ring
+   3 steps with the hint: 6 transitions, no learn at batch 64), its
+   saved agent and ring checked, ``enet_eval`` for one game of 2 steps,
+   then the ring
    topped up with random transitions and 5 warm-up learns, learn /
    choose_action / store_transition timed, 3 learn steps held against the
    CPU;
-   ``train/enet_td3.py`` and ``train/enet_ddpg.py`` for 2 short episodes
+   ``train/enet_td3.py`` and ``train/enet_ddpg.py`` for 1 short episode
    and 3 full-width learn steps of each agent held against the CPU;
-   ``train/calib_td3.py`` (1 episode of 2 steps with the hint) and
+   ``train/calib_td3.py`` (1 episode of 1 step with the hint) and
    ``train/calib_ddpg.py`` (1 episode of 1 step) at N=62 with the DFT
    kernel's launches counted, and one full-width CNN TD3 learn step held
    against the CPU; counts zeroed just before and read just after each
@@ -91,12 +93,13 @@
    chaotic in float32), and held are the fused influence, sigmas and
    reward on the oracle's own step solves (those tolerances) and lane 0's
    step solve through the batched route at E=1 (bit for bit); the E sweep
-   (E = 1 and 8, reset and one step: env-steps/s and peak memory);
-   ``CalibEnv(prefetch=True)`` against ``prefetch=False`` over 3 resets
+   (E = 8 beside the E=4 path, reset and one step: env-steps/s and peak
+   memory);
+   ``CalibEnv(prefetch=True)`` against ``prefetch=False`` over 2 resets
    (equal observations, reset seconds, each prefetch taken ready or
    waited on, a solve running while the next episode builds);
-   ``train/calib_sac.py --batch-envs 4`` for 3 vector episodes of 4 steps
-   (12 finite scores; 48 transitions, 5 learns); loads its agent and
+   ``train/calib_sac.py --batch-envs 4`` for 2 vector episodes of 4 steps
+   (8 finite scores; 32 transitions, 1 learn); loads its agent and
    times learn (batch 32, 128² image, M=10), choose_action and
    store_transition with CUDA events, takes a learn step's idle share,
    and holds 3 learn steps on the card against the CPU from the same
@@ -105,7 +108,8 @@
    T=20, npix=1024: the blocked Hessian and the large-tier factored imager
    chosen by threshold), reset and one step with the hint, counts zeroed
    just before and read just after; the first call of each kernel in the
-   step keeps its operands; a second step is profiled for the idle share;
+   step keeps its operands; a second step is profiled for the idle share
+   (at the end of the run, as every profiled measurement);
 7b. drives the mixed-precision path (``bf16_phase``) on that step's own
    episode and solve (the solve is pinned f32, so no new reset or solve):
    ``RadioBackend(precision="bf16")`` at the SKA tier, its statics those of
@@ -116,9 +120,10 @@
    judged by the port's obs/regress) and its band-0 LLR bit for bit; the
    f32 and the bf16 routes timed again on the same operands; kernel 2's
    bf16 mode against its plain bf16 version (2e-3 x max|plain|) at the
-   path's operands and at the ragged cases, against the f32 mode (2e-2 x
-   max), bit for bit over two launches, and timed beside its plain
-   version and the cuBLAS BF16 GEMM of the planes; then the same influence
+   path's operands and at the ragged cases (also R below one 32-sample
+   stage and npix 640), against the f32 mode (2e-2 x max), bit for bit
+   over two launches, and timed beside its plain version and the cuBLAS
+   BF16 GEMM of the planes, with ptxas's registers; then the same influence
    check at N=62 on the step-3 path's episode and solve (no kernel 2
    there: the column means and the factored matmuls in bf16);
 8. holds each kernel against its plain version on the card at those
@@ -148,6 +153,11 @@
    shares beside stage_seconds; a learn step's diag overhead and its
    on/off bit identity; last, a 1-step ``--trace`` run (``--small``) whose
    Chrome trace must hold the spans;
+9c. runs the profiled measurements the phases queued (step 3's, the
+   enet step's and solve's, the learn steps', the batched step's and
+   solve's, the SKA step's, the factored kernel's capture count and the
+   demixing step's): a torch.profiler session slows every later launch of
+   the process, so none runs before the last timed phase;
 10. prints the kernel table as one JSON line (with each kernel's launches
    on the diffuse, demixing, supervised and bf16 paths; kernel 2's bf16
    mode is an entry of its own), the card line, and last
@@ -174,6 +184,20 @@ R=652,800, random and coherent visibilities) and the N=62 tier's
 the phase centre and times it with CUDA events; one JSON line per variant
 and case, details in DIR/engine_ablation.json.
 
+    python3 chip_smoke.py --bf16-ablation PARENT_CU [--out DIR]
+
+instead builds kernel 2's bf16 mode of commit 5dda491 (PARENT_CU, e.g.
+``git show 5dda491:smartcal_tpu_torch/csrc/factored_imager.cu``, on the
+unchanged engine header), the shipped one, and copies of the shipped one
+with part of its work switched off (``BF16_VARIANTS``: constant operands,
+no products; ``BF16_DIAGNOSTICS``: the bf16 pack by integer ops, no
+stores, other promotion cadences); holds the shipped one against its
+plain bf16 version at the ragged cases first, then each at npix=1024,
+R=652,800 on ``--ablation``'s random operands and on a coherent image,
+and times each in two turns (forward, then reversed) beside the cuBLAS
+BF16 GEMM of the planes; one JSON line per variant (ms, errors,
+registers), details in DIR/bf16_ablation.json.
+
     python3 chip_smoke.py --hessian-split PARENT_CU [--out DIR]
 
 instead times the Hessian kernels launch by launch at the SKA path's
@@ -189,6 +213,7 @@ DIR/hessian_split.json.
 import argparse
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -481,6 +506,78 @@ def profiler_capture(fn, name_part, reps=3):
     return len(durs), (float(np.mean(durs)) if durs else None)
 
 
+# A torch.profiler session slows every later launch of the process by
+# 1.2-1.3x, TEARDOWN_CUPTI=1 or not (PERF.md section 7), so the default run
+# queues its profiled measurements and runs them after its timed phases.
+DEFERRED = []
+
+
+def defer(fn, *args):
+    """Queue ``fn(*args)``, a profiled measurement that fills its phase's
+    report in place and prints its line, for :func:`run_deferred`."""
+    DEFERRED.append((fn, args))
+
+
+def run_deferred():
+    while DEFERRED:
+        fn, args = DEFERRED.pop(0)
+        fn(*args)
+
+
+def learn_profile(label, agent, out):
+    """One learn step of ``agent`` profiled: its idle share against the
+    unprofiled ``out["learn_ms"]`` and its device kernels, into ``out``."""
+    prof_s, busy, kernels = device_busy_seconds(agent.learn)
+    out.update(learn_idle_share=idle_share(label, 1e-3 * out["learn_ms"],
+                                           busy, prof_s),
+               learn_device_busy_s=busy, learn_profiled_wall_s=prof_s,
+               learn_device_kernels=kernels)
+    print(f"{label}: {kernels} device kernels and copies", flush=True)
+
+
+def step_profile(label, env, out):
+    """One more step of ``env`` on its hint profiled: the idle share against
+    the unprofiled ``out["step_wall_s"]``, into ``out``."""
+    prof_s, busy, _ = device_busy_seconds(lambda: env.step(env.hint))
+    out.update(step_wall_profiled_s=prof_s, step_device_busy_s=busy,
+               step_idle_share=idle_share(label, out["step_wall_s"], busy,
+                                          prof_s))
+
+
+def n62_profiles(env, backend, rho, mask, out):
+    """The N=62 path's third step and one solve profiled: idle shares
+    against the unprofiled ``out["step_wall_s"]`` / ``out["solve_wall_s"]``
+    and the solve's CUDA kernels per L-BFGS iteration, into ``out``."""
+    step_profile("N=62 step", env, out)
+    iters = LbfgsIters()
+    try:
+        prof_s, busy, kernels = device_busy_seconds(
+            lambda: backend.calibrate(env.ep, rho, mask=mask))
+    finally:
+        iters.restore()
+    its = iters.since(0)
+    out.update(solve_wall_profiled_s=prof_s, solve_device_busy_s=busy,
+               solve_idle_share=idle_share("N=62 solve", out["solve_wall_s"],
+                                           busy, prof_s),
+               solve_kernels=kernels, **its,
+               solve_kernels_per_iter=kernels / max(its["iters_max"], 1))
+    print(f"N=62 solve profiled: {kernels} kernels and copies over "
+          f"{its['iters_max']} L-BFGS iterations (slowest lane; lane mean "
+          f"{its['iters_mean']:.1f}) = {out['solve_kernels_per_iter']:.0f} "
+          "per iteration", flush=True)
+
+
+def capture_profile(fn, out, event_ms):
+    """:func:`profiler_capture` of the factored kernel, into ``out``."""
+    seen, seen_ms = profiler_capture(fn, "separable_partial")
+    out.update(kernel="separable_partial_kernel", launches=3, recorded=seen,
+               recorded_mean_ms=seen_ms, cuda_event_ms=event_ms)
+    print(f"torch.profiler recorded {seen} of 3 launches of the factored "
+          f"kernel (mean recorded {seen_ms} ms; CUDA events {event_ms:.3f} "
+          "ms per call): the idle shares are upper bounds if it missed any",
+          flush=True)
+
+
 class FirstCall:
     """Stands in for ``module.name`` (a module's function or an object's
     method) and keeps the arguments and the result of its first call;
@@ -566,6 +663,39 @@ def scaled_uv(dft_imager, uvw, freq):
 # ragged (R, npix) cases that cross the engine's 128-pixel tile and
 # 16-sample stage edges
 RAGGED = ((1001, 100), (777, 200), (100003, 1000))
+# the bf16 kernel's further ragged cases (R, npix): R below one 32-sample
+# stage, and R not a multiple of it with npix not a multiple of the tile
+BF16_RAGGED = RAGGED + ((5, 100), (5003, 640))
+
+#: nvcc's output of each kernel library this process built ({name: log})
+BUILD_LOGS = {}
+
+
+def ptxas_report(log):
+    """{entry function: {"registers", "spill_stores"}} from nvcc's
+    ``-Xptxas=-v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_stores": None}
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def bf16_registers(log):
+    """ptxas's registers and spill stores of the bf16 kernel's first pass
+    (namespace separable_bf16) in a factored_imager build log, or None."""
+    hits = [v for k, v in ptxas_report(log).items()
+            if "separable_bf16" in k and "partial_kernel" in k]
+    return hits[0] if hits else None
 
 
 def random_imager_case(seed, R, dev, freq=150e6):
@@ -599,7 +729,16 @@ def run_steps(env, n):
     return obs, steps
 
 
-def print_path(label, env, backend, t_reset, steps, peak, launches):
+def held_bytes(dev):
+    """Device bytes still allocated, much of it what the queued profiles
+    hold (their envs and agents): a path's peak includes it."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def print_path(label, env, backend, t_reset, steps, peak, launches,
+               held=0):
     print(f"{label}: K={env.K} reset {t_reset:.3f} s, steps "
           + ", ".join(f"{s['seconds']:.3f} s" for s in steps), flush=True)
     for s in steps:
@@ -607,7 +746,8 @@ def print_path(label, env, backend, t_reset, steps, peak, launches):
               f"sigma_data {s['sigma_data']:.6f}", flush=True)
     print("  stage seconds (host clock, synchronized): "
           + ", ".join(f"{k} {v:.3f}" for k, v in backend.stage_seconds.items())
-          + f"; peak device memory {peak / 2**20:.0f} MiB; launches "
+          + f"; peak device memory {peak / 2**20:.0f} MiB ({held / 2**20:.0f} "
+          "MiB of it held by earlier phases); launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
 
 
@@ -648,7 +788,7 @@ def tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, label, **extra):
 
 TRAIN_EPISODES = 2
 TRAIN_ARGS = ["--stations", "62", "--episodes", str(TRAIN_EPISODES),
-              "--steps", "2", "--use_hint", "--seed", "0", "--quiet"]
+              "--steps", "1", "--use_hint", "--seed", "0", "--quiet"]
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5     # tests/test_torch_sac.py
 
 
@@ -738,8 +878,8 @@ def learn_gpu_vs_cpu(sac, cfg, state, buf, dev, n_steps=3):
 
 
 def train_path(dev, out_dir, zero_counts, read_counts):
-    """Drive train/calib_sac.py on the card (2 episodes of 2 steps at the
-    N=62 backend: 4 transitions, fewer than a batch of 32, so no learn),
+    """Drive train/calib_sac.py on the card (2 episodes of 1 step at the
+    N=62 backend: 2 transitions, fewer than a batch of 32, so no learn),
     with the kernel counts zeroed just before and read just after; check
     the scores and the saved ring.  The agent's learn step is measured on
     the batched trainer's agent (:func:`batched_train_phase`).  Returns
@@ -805,12 +945,13 @@ def saved_counters(prefix):
     return learn_counter, ring_cntr
 
 
-def agent_checks(dev, prefix, learn_counter, ring_cntr):
+def agent_checks(dev, prefix, out, learn_counter, ring_cntr):
     """Load a calibration SAC trainer's saved agent (M=10, 128² image,
     batch 32), check its counters, time save_models, learn,
-    choose_action and store_transition (CUDA events), take a learn step's
+    choose_action and store_transition (CUDA events), queue a learn step's
     idle share, and hold 3 learn steps on the card against the CPU from
-    that state (it has Adam history).  Deletes the ~100 MB pickles."""
+    that state (it has Adam history); all into ``out``.  Deletes the
+    ~100 MB pickles."""
     from smartcal_tpu_torch.rl import sac
     from smartcal_tpu_torch.train import calib_sac
     cfg = calib_sac.agent_config(128, 10, use_hint=True)
@@ -841,34 +982,26 @@ def agent_checks(dev, prefix, learn_counter, ring_cntr):
                                     warmup=3),
         "store_transition_ms": cuda_ms(lambda: agent.store_transition(
             flat, action, 1.0, flat, False, hint), 20, warmup=3)}
-    learn_prof_s, learn_busy, learn_kernels = device_busy_seconds(
-        agent.learn)
-    learn_idle = idle_share("learn step", 1e-3 * times["learn_ms"],
-                            learn_busy, learn_prof_s)
     print(f"  agent (learn_counter {learn_counter}, ring cntr {ring_cntr}): "
           f"save_models {save_s:.3f} s; learn {times['learn_ms']:.3f} ms, "
           f"choose_action {times['choose_action_ms']:.3f} ms, "
           f"store_transition {times['store_transition_ms']:.3f} ms (CUDA "
-          "events, median of 20 after 3 warm-ups); learn step device "
-          f"kernels and copies {learn_kernels}; GPU vs CPU check "
+          "events, median of 20 after 3 warm-ups); GPU vs CPU check "
           f"{gpu_cpu_s:.3f} s", flush=True)
-    del agent
-    torch.cuda.empty_cache()
-    return {"save_models_seconds": save_s, **times,
-            "learn_idle_share": learn_idle, "learn_device_busy_s": learn_busy,
-            "learn_profiled_wall_s": learn_prof_s,
-            "learn_device_kernels": learn_kernels,
-            "gpu_vs_cpu_max_abs_err": gpu_cpu, "gpu_vs_cpu_seconds": gpu_cpu_s}
+    out.update(save_models_seconds=save_s, **times,
+               gpu_vs_cpu_max_abs_err=gpu_cpu, gpu_vs_cpu_seconds=gpu_cpu_s)
+    defer(learn_profile, "learn step", agent, out)
 
 
 # -- the elastic-net slice and the calibration TD3/DDPG trainers ----------
 
-# 35 transitions, fewer than a batch of 64: the learn checks top the ring
+# 6 transitions, fewer than a batch of 64: the learn checks top the ring
 # up with random transitions and warm the agent up with 5 learns
-ENET_SAC_EPISODES, ENET_SAC_STEPS = 2, 5
+ENET_SAC_EPISODES, ENET_SAC_STEPS = 2, 3
+ENET_EVAL_STEPS = 2
 ENET_WARMUP_LEARNS = 5
-ENET_SHORT = ["--episodes", "2", "--steps", "2", "--seed", "0", "--quiet"]
-CALIB_TD3_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "2",
+ENET_SHORT = ["--episodes", "1", "--steps", "2", "--seed", "0", "--quiet"]
+CALIB_TD3_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "1",
                   "--use_hint", "--seed", "0", "--quiet"]
 CALIB_DDPG_ARGS = ["--stations", "62", "--episodes", "1", "--steps", "1",
                    "--seed", "0", "--quiet"]
@@ -967,7 +1100,6 @@ def enet_step_phase(dev):
     L-BFGS iterations per solve, CUDA kernels per iteration and per step
     (torch.profiler), a step's idle share, and the GPU-vs-CPU stages."""
     from smartcal_tpu_torch.envs import enet
-    from smartcal_tpu_torch.ops import lbfgs
     env = enet.EnetEnv(seed=0, device=dev)
     cfg = env.cfg
     torch.cuda.synchronize(dev)
@@ -1003,11 +1135,40 @@ def enet_step_phase(dev):
             and np.all(np.isfinite(hint))):
         raise AssertionError("enet step: non-finite reward or hint")
 
-    # kernels per iteration (one solve) and per step, and a step's idle
-    # share against the unprofiled wall of the same call
+    # a step's wall here; its idle share and the kernels per iteration
+    # (one solve) and per step are queued (:func:`enet_profiles`)
     st = env.state
     action = torch.tensor([0.3, -0.5], device=dev)
     noise = torch.randn(cfg.N, generator=env.generator, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    enet.step(cfg, st, action, noise)
+    torch.cuda.synchronize(dev)
+    step_wall = time.perf_counter() - t0
+    out = {"reset_seconds": t_reset, "steps": steps,
+           "hint_seconds": t_hint, "hint_solve_seconds": hsec,
+           "hint_iters_max": int(h_iters.max()),
+           "hint_iters_mean": float(h_iters.mean()),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    print(f"enet step (M=N=20): reset {t_reset:.3f} s; steps "
+          + "; ".join(f"{s['seconds']:.3f} s (solve {s['solve_seconds']:.3f}"
+                      f" s, {s['iters']} iterations; influence/eig "
+                      f"{s['influence_seconds']:.4f} s)" for s in steps)
+          + f"; hint {t_hint:.3f} s (its solve {hsec:.3f} s, lanes' "
+          f"iterations max {int(h_iters.max())} mean {h_iters.mean():.1f})"
+          f"; peak device memory {out['peak_mem_bytes'] / 2**20:.0f} MiB",
+          flush=True)
+    out["gpu_vs_cpu"] = enet_gpu_vs_cpu(enet, cfg, st, action, noise)
+    defer(enet_profiles, cfg, st, action, noise, step_wall, out)
+    return out
+
+
+def enet_profiles(cfg, st, action, noise, step_wall, out):
+    """The enet solve profiled (CUDA kernels per iteration), again with the
+    line search's lane-masked form only (the same x), and a step's idle
+    share against its unprofiled ``step_wall``; into ``out``."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.ops import lbfgs
     rho, _ = enet.action_to_rho(action)
     solved = []
     s_wall, s_busy, s_kernels = device_busy_seconds(
@@ -1024,51 +1185,31 @@ def enet_step_phase(dev):
         lbfgs._can_sync = can_sync
     if not torch.equal(solved[0].x, solved[1].x):
         raise AssertionError("enet solve: the search's skips changed x")
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    enet.step(cfg, st, action, noise)
-    torch.cuda.synchronize(dev)
-    step_wall = time.perf_counter() - t0
     step_prof, step_busy, step_kernels = device_busy_seconds(
         lambda: enet.step(cfg, st, action, noise))
-    out = {"reset_seconds": t_reset, "steps": steps,
-           "hint_seconds": t_hint, "hint_solve_seconds": hsec,
-           "hint_iters_max": int(h_iters.max()),
-           "hint_iters_mean": float(h_iters.mean()),
-           "profiled_solve": {"iters": s_iters, "wall_s": s_wall,
-                              "busy_s": s_busy, "kernels": s_kernels,
-                              "kernels_per_iter": s_kernels / max(s_iters,
-                                                                  1),
-                              "masked_wall_s": m_wall,
-                              "masked_kernels_per_iter": m_kernels
-                              / max(s_iters, 1)},
-           "profiled_step": {"wall_s": step_wall, "profiled_wall_s":
-                             step_prof, "busy_s": step_busy,
-                             "kernels": step_kernels},
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    out["profiled_solve"] = {
+        "iters": s_iters, "wall_s": s_wall, "busy_s": s_busy,
+        "kernels": s_kernels, "kernels_per_iter": s_kernels / max(s_iters, 1),
+        "masked_wall_s": m_wall,
+        "masked_kernels_per_iter": m_kernels / max(s_iters, 1)}
+    out["profiled_step"] = {"wall_s": step_wall, "profiled_wall_s": step_prof,
+                            "busy_s": step_busy, "kernels": step_kernels}
     out["step_idle_share"] = idle_share("enet step", step_wall, step_busy,
                                         step_prof)
-    print(f"enet step (M=N=20): reset {t_reset:.3f} s; steps "
-          + "; ".join(f"{s['seconds']:.3f} s (solve {s['solve_seconds']:.3f}"
-                      f" s, {s['iters']} iterations; influence/eig "
-                      f"{s['influence_seconds']:.4f} s)" for s in steps)
-          + f"; hint {t_hint:.3f} s (its solve {hsec:.3f} s, lanes' "
-          f"iterations max {int(h_iters.max())} mean {h_iters.mean():.1f})"
-          f"; one solve profiled: {s_kernels} kernels and copies over "
-          f"{s_iters} iterations = {out['profiled_solve']['kernels_per_iter']:.0f}"
-          f" per iteration ({out['profiled_solve']['masked_kernels_per_iter']:.0f}"
-          f" and {m_wall:.3f} s profiled with the lane-masked search only, "
-          f"the same x); one step: {step_kernels} kernels and copies; "
-          f"peak device memory {out['peak_mem_bytes'] / 2**20:.0f} MiB",
+    print(f"enet solve profiled: {s_kernels} kernels and copies over "
+          f"{s_iters} iterations = "
+          f"{out['profiled_solve']['kernels_per_iter']:.0f} per iteration "
+          f"({out['profiled_solve']['masked_kernels_per_iter']:.0f} and "
+          f"{m_wall:.3f} s profiled with the lane-masked search only, the "
+          f"same x); one step: {step_kernels} kernels and copies",
           flush=True)
-    out["gpu_vs_cpu"] = enet_gpu_vs_cpu(enet, cfg, st, action, noise)
-    return out
 
 
 def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
-    """Drive train/enet_sac.py on the card (ENET_SAC_EPISODES x 5 steps
-    with the hint), counts zeroed just before and read just after; check
-    what it saved; run enet_eval for one game on the saved agent; top its
+    """Drive train/enet_sac.py on the card (ENET_SAC_EPISODES x
+    ENET_SAC_STEPS steps with the hint), counts zeroed just before and read
+    just after; check what it saved; run enet_eval for one game of
+    ENET_EVAL_STEPS steps on the saved agent; top its
     ring up with random transitions to a batch, learn ENET_WARMUP_LEARNS
     times, then time learn / choose_action / store_transition with CUDA
     events, take a learn step's idle share, and hold 3 learn steps on the
@@ -1104,7 +1245,8 @@ def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
                              f"{agent.state.learn_counter}")
     t1 = time.perf_counter()
     rows = enet_eval.main(["--agent", prefix + "sac_state.pkl", "--games",
-                           "1", "--seed", "0"])
+                           "1", "--steps", str(ENET_EVAL_STEPS), "--seed",
+                           "0"])
     eval_s = time.perf_counter() - t1
     if not (np.isfinite(rows[0]["rl_rel_err"])
             and np.isfinite(rows[0]["grid_rel_err"])):
@@ -1131,17 +1273,13 @@ def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
                                     warmup=3),
         "store_transition_ms": cuda_ms(lambda: agent.store_transition(
             flat, action, 1.0, flat, False, hint), 20, warmup=3)}
-    l_prof, l_busy, l_kernels = device_busy_seconds(agent.learn)
     out = {"args": args, "summary": summary, "scores": list(scores),
            "train_seconds": train_s, "launches": launches,
            "peak_mem_bytes": peak, "ring_cntr": n,
            "learn_counter": want_learns, "eval": rows,
            "eval_seconds": eval_s, **times,
-           "learn_idle_share": idle_share("enet learn step",
-                                          1e-3 * times["learn_ms"], l_busy,
-                                          l_prof),
-           "learn_device_kernels": l_kernels,
            "gpu_vs_cpu_max_abs_err": gpu_cpu}
+    defer(learn_profile, "enet learn step", agent, out)
     print(f"enet_sac ({' '.join(args[:-2])}): {train_s:.3f} s, "
           f"env_steps_per_sec {summary['env_steps_per_sec']} (the trainer's "
           f"JSON), final_avg_score {summary['final_avg_score']:.4f}; ring "
@@ -1153,8 +1291,7 @@ def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
           f"{times['learn_ms']:.3f} ms, choose_action "
           f"{times['choose_action_ms']:.3f} ms, store_transition "
           f"{times['store_transition_ms']:.3f} ms (CUDA events, median of "
-          f"20 after 3 warm-ups); learn step kernels and copies "
-          f"{l_kernels}", flush=True)
+          "20 after 3 warm-ups)", flush=True)
     del agent
     return out
 
@@ -1202,7 +1339,7 @@ def learns_gpu_vs_cpu(name, state, buf, dev, learn_step, n_steps, seed=7):
 
 
 def enet_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
-    """Drive train/enet_td3.py and train/enet_ddpg.py for 2 short episodes
+    """Drive train/enet_td3.py and train/enet_ddpg.py for 1 short episode
     each (counts zeroed and read around each); then 3 full-width learn
     steps of each agent (TD3 with PER and the hint: the second is the
     delayed ADMM actor step) on the card against the CPU, from a 96-slot
@@ -1334,12 +1471,15 @@ def calib_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
 
 N62 = dict(n_stations=62, n_freqs=3, n_times=20, tdelta=10, n_poly=2,
            admm_iters=10, lbfgs_iters=8, init_iters=30, npix=128)
-BATCH_M, BATCH_E, E_SWEEP = 10, 4, (1, 8)
-# 3 vector episodes of 4 steps: 48 transitions, learning from the 32nd
-# (5 learns, the Adam history the agent checks start from)
+BATCH_M, BATCH_E, E_SWEEP = 10, 4, (8,)
+# 2 vector episodes of 4 steps: 32 transitions, learning at the 32nd (1
+# learn, the Adam history the agent checks start from)
+BATCH_TRAIN_EPISODES, BATCH_TRAIN_STEPS = 8, 4
 BATCH_TRAIN_ARGS = ["--stations", "62", "--batch-envs", "4", "--episodes",
-                    "12", "--steps", "4", "--use_hint", "--seed", "0",
+                    str(BATCH_TRAIN_EPISODES), "--steps",
+                    str(BATCH_TRAIN_STEPS), "--use_hint", "--seed", "0",
                     "--quiet"]
+PREFETCH_RESETS = 2
 # tests/test_batched_radio.py: (rtol, atol) of the fused route against the
 # sequential oracle
 ORACLE_TOL = {"img": (2e-3, 2e-5), "reward": (2e-3, 1e-4),
@@ -1394,20 +1534,21 @@ def check_batched(obs, rewards, info, E, npix, M):
                              "residual")
 
 
-def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
-                      n62_kernels_per_iter):
+def batched_env_phase(dev, zero_counts, read_counts, n62_step_s, n62_idle):
     """BatchedCalibEnv(M=10, n_envs=4) at N=62: reset and two vector steps
     on the hint, counts zeroed just before and read just after; stage
     seconds, L-BFGS iterations (slowest lane and mean) per vector step;
-    a third step profiled for the idle share; one batched solve profiled
-    for CUDA kernels per L-BFGS iteration (beside the N=62 path's single
-    solve); then the same 4 lanes through the fused=False oracle, reset
-    and one step, held at the JAX package's tolerances; then the E sweep."""
+    queued, a third step profiled for the idle share and one batched solve
+    profiled for CUDA kernels per L-BFGS iteration (beside the N=62 path's
+    single solve, in ``n62_idle``); then the same 4 lanes through the
+    fused=False oracle, reset and one step, held at the JAX package's
+    tolerances; then the E sweep."""
     from smartcal_tpu_torch.cal import solver
     from smartcal_tpu_torch.envs import calib, radio
     from smartcal_tpu_torch.envs.calib import BatchedCalibEnv
     from smartcal_tpu_torch.envs.radio import RadioBackend
     E = BATCH_E
+    held = held_bytes(dev)
     backend = RadioBackend(device=dev, **N62)
     env = BatchedCalibEnv(M=BATCH_M, n_envs=E, backend=backend, seed=0,
                           provide_hint=True, device=dev)
@@ -1442,18 +1583,7 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
         launches = read_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         check_batched(obs0, np.zeros(E), info, E, N62["npix"], BATCH_M)
-        # a third vector step profiled (idle share against an unprofiled
-        # step's wall); one batched solve profiled
         step_wall = float(np.mean([s["seconds"] for s in steps]))
-        n0 = len(iters.calls)
-        step_prof, step_busy, step_kernels = device_busy_seconds(
-            lambda: env.step(env.hint))
-        prof_iters = iters.since(n0)
-        rho, mask, _ = env._lane_rho_mask()
-        n0 = len(iters.calls)
-        b_wall, b_busy, b_kernels = device_busy_seconds(
-            lambda: backend.calibrate_batched(env.bep, rho, mask=mask))
-        b_iters = iters.since(n0)
     finally:
         iters.restore()
     if any(launches.values()):
@@ -1463,17 +1593,8 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
     out = {"E": E, "M": BATCH_M, "reset_seconds": t_reset,
            "reset_stage_seconds": reset_stages, "reset_iters": reset_iters,
            "steps": steps, "launches": launches, "peak_mem_bytes": peak,
-           "env_steps_per_s": E / step_wall,
-           "sequential_env_steps_per_s": 1.0 / n62_step_s,
-           "profiled_step": {"wall_s": step_prof, "busy_s": step_busy,
-                             "kernels": step_kernels, **prof_iters},
-           "profiled_batched_solve": {
-               "wall_s": b_wall, "busy_s": b_busy, "kernels": b_kernels,
-               "kernels_per_iter": b_kernels / max(b_iters["iters_max"], 1),
-               **b_iters},
-           "single_solve_kernels_per_iter": n62_kernels_per_iter}
-    out["step_idle_share"] = idle_share("batched vector step (E=4)",
-                                        step_wall, step_busy, step_prof)
+           "held_mem_bytes": held, "env_steps_per_s": E / step_wall,
+           "sequential_env_steps_per_s": 1.0 / n62_step_s}
     print(f"batched env (E={E}, M={BATCH_M}, N=62): K={env.K.tolist()} "
           f"reset {t_reset:.3f} s (stages "
           + ", ".join(f"{k} {v:.3f}" for k, v in reset_stages.items())
@@ -1485,15 +1606,10 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
               for s in steps)
           + f"; {out['env_steps_per_s']:.4f} env-steps/s against the "
           f"sequential N=62 path's {out['sequential_env_steps_per_s']:.4f}; "
-          f"peak device memory {peak / 2**20:.0f} MiB; launches "
+          f"peak device memory {peak / 2**20:.0f} MiB ({held / 2**20:.0f} MiB "
+          "of it held by earlier phases); launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
-    print(f"  profiled: one batched solve {b_kernels} kernels and copies "
-          f"over {b_iters['iters_max']} iterations = "
-          f"{out['profiled_batched_solve']['kernels_per_iter']:.0f} per "
-          f"iteration ({b_wall:.3f} s profiled, device busy {b_busy} s; "
-          f"the N=62 path's single solve {n62_kernels_per_iter:.0f} per "
-          f"iteration); a vector step {step_kernels} kernels and copies",
-          flush=True)
+    defer(batched_profiles, env, backend, step_wall, n62_idle, out)
 
     # -- the same lanes through the fused=False oracle: reset + one step.
     # The N=62 solve is chaotic in float32 (a 1-ulp change of V moves
@@ -1607,9 +1723,11 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
     # -- the E sweep: reset + one vector step at each E (E=4 is above)
     sweep = {E: {"reset_seconds": t_reset, "step_seconds": steps[0]["seconds"],
                  "env_steps_per_s": E / steps[0]["seconds"],
-                 "peak_mem_bytes": peak, "launches": launches,
+                 "peak_mem_bytes": peak, "held_mem_bytes": held,
+                 "launches": launches,
                  **{k: steps[0][k] for k in ("iters_max", "iters_mean")}}}
     for e_n in E_SWEEP:
+        held = held_bytes(dev)
         be = RadioBackend(device=dev, **N62)
         env = BatchedCalibEnv(M=BATCH_M, n_envs=e_n, backend=be, seed=0,
                               provide_hint=True, device=dev)
@@ -1633,7 +1751,7 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
         sweep[e_n] = {"reset_seconds": t_r, "step_seconds": t_s,
                       "env_steps_per_s": e_n / t_s,
                       "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                      "launches": read_counts(),
+                      "held_mem_bytes": held, "launches": read_counts(),
                       **{k: its[k] for k in ("iters_max", "iters_mean")},
                       "stage_seconds": dict(be.stage_seconds)}
         del env, be, obs
@@ -1644,12 +1762,49 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s,
         f"{v['step_seconds']:.3f} s, {v['env_steps_per_s']:.4f} env-steps/s, "
         f"L-BFGS iterations {v['iters_max']} slowest lane / "
         f"{v['iters_mean']:.1f} mean, peak {v['peak_mem_bytes'] / 2**20:.0f} "
-        "MiB" for k, v in sorted(sweep.items())), flush=True)
+        f"MiB ({v['held_mem_bytes'] / 2**20:.0f} held by earlier phases)"
+        for k, v in sorted(sweep.items())), flush=True)
     return out
 
 
+def batched_profiles(env, backend, step_wall, n62_idle, out):
+    """A third vector step of ``env`` profiled (idle share against the
+    unprofiled ``step_wall``) and one batched solve profiled (CUDA kernels
+    per L-BFGS iteration, beside the N=62 path's single solve); into
+    ``out``."""
+    iters = LbfgsIters()
+    try:
+        step_prof, step_busy, step_kernels = device_busy_seconds(
+            lambda: env.step(env.hint))
+        prof_iters = iters.since(0)
+        rho, mask, _ = env._lane_rho_mask()
+        n0 = len(iters.calls)
+        b_wall, b_busy, b_kernels = device_busy_seconds(
+            lambda: backend.calibrate_batched(env.bep, rho, mask=mask))
+        b_iters = iters.since(n0)
+    finally:
+        iters.restore()
+    single = n62_idle["solve_kernels_per_iter"]
+    out.update(
+        profiled_step={"wall_s": step_prof, "busy_s": step_busy,
+                       "kernels": step_kernels, **prof_iters},
+        profiled_batched_solve={
+            "wall_s": b_wall, "busy_s": b_busy, "kernels": b_kernels,
+            "kernels_per_iter": b_kernels / max(b_iters["iters_max"], 1),
+            **b_iters},
+        single_solve_kernels_per_iter=single,
+        step_idle_share=idle_share("batched vector step (E=4)", step_wall,
+                                   step_busy, step_prof))
+    print(f"  profiled: one batched solve {b_kernels} kernels and copies "
+          f"over {b_iters['iters_max']} iterations = "
+          f"{out['profiled_batched_solve']['kernels_per_iter']:.0f} per "
+          f"iteration ({b_wall:.3f} s profiled, device busy {b_busy} s; "
+          f"the N=62 path's single solve {single:.0f} per iteration); a "
+          f"vector step {step_kernels} kernels and copies", flush=True)
+
+
 def prefetch_phase(dev, zero_counts, read_counts):
-    """CalibEnv(M=10) at N=62 with prefetch=False, then True: 3 resets
+    """CalibEnv(M=10) at N=62 with prefetch=False, then True: 2 resets
     each, timed; the observations must be equal bit for bit.  Records, per
     prefetched reset, whether the build was done when taken (hit) or
     waited on (stall), and whether each reset's solve began while the next
@@ -1673,7 +1828,7 @@ def prefetch_phase(dev, zero_counts, read_counts):
         obs, secs, taken = [], [], []
         zero_counts()
         try:
-            for _ in range(3):
+            for _ in range(PREFETCH_RESETS):
                 before = dict(be.prefetch_counts)
                 t0 = time.perf_counter()
                 obs.append(env.reset())
@@ -1695,14 +1850,15 @@ def prefetch_phase(dev, zero_counts, read_counts):
                                      f"{np.abs(a[k] - b[k]).max()})")
     for r in runs.values():
         del r["obs"]
-        if r["launches"]["dft_imager"] != 3 * N62["n_freqs"]:
+        if r["launches"]["dft_imager"] != PREFETCH_RESETS * N62["n_freqs"]:
             raise AssertionError(f"dft_imager launched {r['launches']} times "
-                                 f"over 3 resets, expected "
-                                 f"{3 * N62['n_freqs']}")
+                                 f"over {PREFETCH_RESETS} resets, expected "
+                                 f"{PREFETCH_RESETS * N62['n_freqs']}")
     if not any(runs[True]["solve_began_while_building"]):
         raise AssertionError("no solve overlapped a prefetch build")
-    print("prefetch (CalibEnv M=10, N=62, 3 resets): without "
-          + ", ".join(f"{s:.3f}" for s in runs[False]["reset_seconds"])
+    print(f"prefetch (CalibEnv M=10, N=62, {PREFETCH_RESETS} resets): "
+          "without " + ", ".join(f"{s:.3f}" for s in
+                                 runs[False]["reset_seconds"])
           + " s; with " + ", ".join(f"{s:.3f}" for s in
                                     runs[True]["reset_seconds"])
           + f" s (prefetch taken as {runs[True]['taken']}; solve began "
@@ -1718,18 +1874,17 @@ def prefetch_phase(dev, zero_counts, read_counts):
 
 
 def batched_train_phase(dev, out_dir, zero_counts, read_counts):
-    """train/calib_sac.py --batch-envs 4 at N=62 (3 vector episodes of 4
-    steps: 48 transitions, one learn per vector step from the 32nd), counts
-    zeroed just before and read just after; checks the 12 scores, then
-    the saved agent (learn_counter 5, ring 48) through
+    """train/calib_sac.py --batch-envs 4 at N=62 (2 vector episodes of 4
+    steps: 32 transitions, one learn per vector step from the 32nd), counts
+    zeroed just before and read just after; checks the 8 scores, then
+    the saved agent (learn_counter 1, ring 32) through
     :func:`agent_checks`."""
     import pickle
 
     from smartcal_tpu_torch.train import calib_sac
     prefix = os.path.join(out_dir, "calib_sac_b4_")
     os.makedirs(out_dir, exist_ok=True)
-    torch.cuda.synchronize(dev)
-    torch.cuda.empty_cache()
+    held = held_bytes(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     t0 = time.perf_counter()
@@ -1739,20 +1894,22 @@ def batched_train_phase(dev, out_dir, zero_counts, read_counts):
     peak = torch.cuda.max_memory_allocated(dev)
     with open(prefix + "_scores.pkl", "rb") as fh:
         saved = pickle.load(fh)
-    if (len(scores) != 12 or saved != scores
+    n_env_steps = BATCH_TRAIN_EPISODES * BATCH_TRAIN_STEPS
+    if (len(scores) != BATCH_TRAIN_EPISODES or saved != scores
             or not np.all(np.isfinite(scores))):
         raise AssertionError(f"batched trainer scores {scores} / {saved}")
     if any(launches.values()):
         raise AssertionError(f"the batched trainer launched {launches}")
     out = {"args": BATCH_TRAIN_ARGS, "scores": [float(s) for s in scores],
-           "train_seconds": train_s, "env_steps": 48,
-           "env_steps_per_s": 48 / train_s, "peak_mem_bytes": peak,
-           "launches": launches}
+           "train_seconds": train_s, "env_steps": n_env_steps,
+           "env_steps_per_s": n_env_steps / train_s, "peak_mem_bytes": peak,
+           "held_mem_bytes": held, "launches": launches}
     print(f"batched trainer (calib_sac {' '.join(BATCH_TRAIN_ARGS)}): "
           f"{train_s:.3f} s, {out['env_steps_per_s']:.4f} env-steps/s; "
           "scores " + ", ".join(f"{s:.4f}" for s in scores)
-          + f"; peak device memory {peak / 2**20:.0f} MiB", flush=True)
-    out.update(agent_checks(dev, prefix, learn_counter=5, ring_cntr=48))
+          + f"; peak device memory {peak / 2**20:.0f} MiB ({held / 2**20:.0f} "
+          "MiB of it held by earlier phases)", flush=True)
+    agent_checks(dev, prefix, out, learn_counter=1, ring_cntr=n_env_steps)
     return out
 
 
@@ -1777,13 +1934,13 @@ FUZZY_ATOL = 1e-3                       # tests/test_torch_fuzzy.py
 SHAPELET_RTOL, SHAPELET_ATOL = 1e-4, 1e-6   # tests/test_torch_shapelets.py
 DEMIX_COMMON = ["--seed", "0", "--quiet"]
 DEMIX_DRIVERS = (
-    ("demix_sac", ["--iteration", "1", "--steps", "2", "--warmup", "0",
+    ("demix_sac", ["--iteration", "1", "--steps", "1", "--warmup", "0",
                    "--use_hint", "--provide_influence"]),
     ("demix_sac_b4", ["--batch-envs", "4", "--iteration", "4", "--steps",
-                      "2"]),
-    ("demix_td3", ["--iteration", "1", "--steps", "2"]),
-    ("demix_fuzzy_sac", ["--iteration", "1", "--steps", "2", "--use_hint"]),
-    ("calib_sac_light", ["--light", "--episodes", "1", "--steps", "2"]),
+                      "1"]),
+    ("demix_td3", ["--iteration", "1", "--steps", "1"]),
+    ("demix_fuzzy_sac", ["--iteration", "1", "--steps", "1", "--use_hint"]),
+    ("calib_sac_light", ["--light", "--episodes", "1", "--steps", "1"]),
 )
 
 
@@ -1897,8 +2054,9 @@ def demix_env_phase(dev, zero_counts, read_counts):
     actions (the first step computes the hint), counts zeroed just before
     and read just after; stage seconds, L-BFGS iterations per call, peak
     memory; the hint's shape and range; the sweep of every selection at
-    admm_iters=2 one mask at a time, 8 and 32 at a time (rtol 1e-3).
-    Returns (report, env) for :func:`demix_profile`."""
+    a few L-BFGS iterations one mask at a time, 8 and 32 at a time (rtol
+    1e-3), and at admm_iters=2 8 and 32 at a time (printed).  Returns
+    (report, env) for :func:`demix_profile`."""
     from smartcal_tpu_torch.envs.demixing import DemixingEnv
     from smartcal_tpu_torch.train import demix_sac
     backend = demix_sac.make_backend(DEMIX_TIER, dev)
@@ -1953,8 +2111,8 @@ def demix_env_phase(dev, zero_counts, read_counts):
     # x 2), where round-off stays round-off: the card's reductions change
     # order with the lane count, and at the backend's 30 init iterations
     # the solve is chaotic even at admm_iters=2 (ROADMAP queue 3).  At
-    # admm_iters=2 on the backend itself the widths' differences are
-    # printed beside the 1-ulp spread of V, not held.
+    # admm_iters=2 on the backend itself the difference of 8 and 32 at a
+    # time is printed beside the 1-ulp spread of V, not held.
     masks, valid = env.hint_masks()
     held_backend = demix_sac.make_backend(DEMIX_TIER, dev)
     for k, v in SWEEP_HELD.items():
@@ -1965,6 +2123,8 @@ def demix_env_phase(dev, zero_counts, read_counts):
         sweep[b] = held_backend.hint_sweep(env.ep, env.rho, masks,
                                            batch=b).cpu().numpy()
         sweep_s[b] = time.perf_counter() - t0
+        if b == 1:      # 32 full solves one after another: ~40 s, not held
+            continue
         t0 = time.perf_counter()
         free[b] = backend.hint_sweep(env.ep, env.rho, masks,
                                      admm_iters=SWEEP_ITERS,
@@ -1972,16 +2132,16 @@ def demix_env_phase(dev, zero_counts, read_counts):
         sweep_s[f"{b}_admm{SWEEP_ITERS}"] = time.perf_counter() - t0
     ulp = backend.hint_sweep(env.ep._replace(V=env.ep.V * (1 + 2 ** -23)),
                              env.rho, masks, admm_iters=SWEEP_ITERS,
-                             batch=8).cpu().numpy()
+                             batch=32).cpu().numpy()
     ratios = {f"batch{b}_vs_batch1": tol_ratio(sweep[b], sweep[1],
                                                SWEEP_RTOL, 0.0)
               for b in (8, 32)}
     ratios["batch32_vs_batch8"] = tol_ratio(sweep[32], sweep[8], SWEEP_RTOL,
                                             0.0)
-    free_rel = {f"batch{b}_vs_batch1": float(np.max(np.abs(
-        free[b] - free[1]) / free[1])) for b in (8, 32)}
-    free_rel["batch8_under_1ulp_of_V"] = float(np.max(np.abs(
-        ulp - free[8]) / free[8]))
+    free_rel = {"batch32_vs_batch8": float(np.max(np.abs(
+        free[32] - free[8]) / free[8])),
+        "batch32_under_1ulp_of_V": float(np.max(np.abs(
+            ulp - free[32]) / free[32]))}
     if launches != read_counts() or any(launches.values()):
         raise AssertionError(f"the demixing env launched {launches}: its "
                              "influence map (N=14, npix=128) reaches no "
@@ -2661,19 +2821,19 @@ def supervised_phase(dev, out_dir, zero_counts, read_counts, n_sm):
     zero_counts()
     t0 = time.perf_counter()
     res = evaluate_models.evaluate(env, {"untrained": sac.SACAgent(
-        cfg, device=dev)}, n_steps=2, n_games=1, quiet=True)
+        cfg, device=dev)}, n_steps=1, n_games=1, quiet=True)
     em_s = time.perf_counter() - t0
     em_launches = read_counts()
     if not all(np.isfinite(v).all() for v in res.values()) or \
             any(em_launches.values()):
         raise AssertionError(f"evaluate_models: {res}, {em_launches}")
-    rep["evaluate_models"] = {"seconds": em_s, "games": 1, "steps": 2,
+    rep["evaluate_models"] = {"seconds": em_s, "games": 1, "steps": 1,
                               "results": {k: [float(x) for x in v]
                                           for k, v in res.items()},
                               "launches": em_launches}
     env.close()
     rep["phase_seconds"] = time.perf_counter() - t_phase
-    print(f"evaluate_models (1 game x 2 steps, untrained SAC): {em_s:.3f} s, "
+    print(f"evaluate_models (1 game x 1 step, untrained SAC): {em_s:.3f} s, "
           + ", ".join(f"{k} {v[0]:.4f}" for k, v in res.items())
           + f"; supervised phase {rep['phase_seconds']:.1f} s", flush=True)
     return rep
@@ -3240,7 +3400,7 @@ def bf16_kernel(dev, f_args, n_sm):
                           out, f32, 0.0, BF16_REL_BAND,
                           float(f32.abs().max()))
     del out, again, ref, f32
-    for r_n, r_npix in RAGGED:
+    for r_n, r_npix in BF16_RAGGED:
         ru, rv, rf = random_imager_case(r_n, r_n, dev)
         rc = imager.default_cell(ru, rf)
         o_k = factored_imager.dirty_image_factored_cuda(
@@ -3263,16 +3423,17 @@ def bf16_kernel(dev, f_args, n_sm):
     torch.cuda.empty_cache()
     k_ms2 = cuda_ms(kernel, 5, warmup=1)
     bounds = separable_bounds(npix, R, n_sm)
+    regs = bf16_registers(BUILD_LOGS.get("factored_imager", ""))
     print(f"factored_imager_bf16 at npix={npix} R={R}: kernel {k_ms:.3f} / "
           f"{k_ms2:.3f} ms (median of 5, two runs), plain {plain_ms:.3f} "
           f"ms, library (cuBLAS BF16 GEMM of the planes) {lib_ms:.3f} ms, "
           f"bound {bounds['bound_bf16_ms']:.3f} ms (operations; f32 mode's "
-          f"{bounds['bound_ms']:.3f})", flush=True)
+          f"{bounds['bound_ms']:.3f}); ptxas {regs}", flush=True)
     return {"max_abs_err": max(err), "max_abs_err_vs_f32": err_f32,
             "ms": k_ms, "ms_repeat": k_ms2, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bounds["bound_bf16_ms"],
             "bound_by": "operations", "shapes": f"npix={npix} R={R}",
-            "bit_identical": True}
+            "bit_identical": True, "ptxas": regs}
 
 
 def bf16_main(dev, out_dir, zero_counts, read_counts):
@@ -3341,10 +3502,10 @@ def bf16_phase(dev, zero_counts, read_counts, n_sm, out_dir, ska_spies,
     return out
 
 
-def demix_profile(env):
+def demix_profile(env, out):
     """The demixing env's step profiled (after every timed phase): CUDA
     kernels per L-BFGS iteration of its solve, and its idle share against
-    the same step unprofiled."""
+    the same step unprofiled; into ``out``."""
     a = _demix_actions(2, DEMIX_K)[1]
     t0 = time.perf_counter()
     env.step(a)
@@ -3355,15 +3516,14 @@ def demix_profile(env):
     finally:
         iters.restore()
     its = iters.since(0)
-    out = {"step_wall_s": wall, "step_wall_profiled_s": wall_prof,
-           "step_device_busy_s": busy, "kernels": kernels, **its,
-           "kernels_per_iter": kernels / max(its["iters_max"], 1),
-           "step_idle_share": idle_share("demixing step", wall, busy,
-                                         wall_prof)}
+    out.update(step_wall_s=wall, step_wall_profiled_s=wall_prof,
+               step_device_busy_s=busy, kernels=kernels, **its,
+               kernels_per_iter=kernels / max(its["iters_max"], 1),
+               step_idle_share=idle_share("demixing step", wall, busy,
+                                          wall_prof))
     print(f"demixing step profiled: {kernels} kernels and copies over "
           f"{its['iters_max']} L-BFGS iterations = "
           f"{out['kernels_per_iter']:.0f} per iteration", flush=True)
-    return out
 
 
 IEEE_REDUCE = """__device__ __forceinline__ float reduce_2pi(float x) {
@@ -3577,17 +3737,19 @@ def shipped_variants(src):
     return out
 
 
-def build_split_libs(sources):
-    """nvcc each {name: source text} into _build/hessian_split/, all at
-    once; returns {name: (library, registers reported by ptxas)}."""
+def build_split_libs(sources, subdir="hessian_split"):
+    """nvcc each {name: source text} into _build/<subdir>/, all at once,
+    with csrc/ on the include path; returns {name: (library, registers
+    reported by ptxas)} and keeps each log in BUILD_LOGS["<subdir>/<name>"].
+    """
     from smartcal_tpu_torch.ops import build
-    d = build.BUILD_DIR / "hessian_split"
+    d = build.BUILD_DIR / subdir
     d.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
         (d / f"{name}.cu").write_text(text)
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-               str(d / f"lib{name}.so"), str(d / f"{name}.cu")]
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+               "-o", str(d / f"lib{name}.so"), str(d / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -3595,11 +3757,13 @@ def build_split_libs(sources):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        BUILD_LOGS[f"{subdir}/{name}"] = log
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
         stack = re.findall(r"(\d+) bytes stack frame", log)
+        warn = [ln.strip() for ln in log.splitlines() if "arning" in ln]
         print(f"built {name}: registers {regs} spill stores {spills} "
-              f"stack frames {stack}", flush=True)
+              f"stack frames {stack} warnings {warn}", flush=True)
         libs[name] = (ctypes.CDLL(str(d / f"lib{name}.so")), regs)
     return libs
 
@@ -3718,6 +3882,174 @@ def hessian_split(out_dir, card, parent_src, reps=50):
     return rows
 
 
+# -- --bf16-ablation: kernel 2's bf16 mode against its parent, and ceilings
+
+# copies of the shipped bf16 kernel with one part of its work switched off:
+# the tensor cores and the pipeline alone (constant operands stored as
+# before), and the operand production alone (no products)
+_MAKE = ("constexpr bool kMakeOperands = true;",
+         "constexpr bool kMakeOperands = false;")
+_STORES = """    st_shared_v2(off1 + j * kStride * kRowBytes, w0, w1);
+    st_shared_v2(off2 + j * kStride * kRowBytes, w2, w3);
+"""
+BF16_VARIANTS = {
+    "new": (),
+    "constant_operands": (_MAKE,),
+    "no_wgmma": (("constexpr bool kIssueWgmma = true;",
+                  "constexpr bool kIssueWgmma = false;"),),
+}
+# diagnostic copies: the bf16 pack by integer adds and a byte permute
+# (round half up) in place of cvt.rn.bf16x2; constant operands and no
+# stores (the products and the barriers alone); the tensor-core sum never
+# promoted, and promoted every 4 stages as the parent kernel does (their
+# error on a coherent image)
+BF16_DIAGNOSTICS = {
+    "int_round": (('  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(r) : '
+                   '"f"(hi), "f"(lo));',
+                   "  r = __byte_perm(__float_as_uint(lo) + 0x8000u, "
+                   "__float_as_uint(hi) + 0x8000u, 0x7632);"),),
+    "no_stores": (_MAKE, (_STORES, "")),
+    "no_promotion": (("constexpr int kPromote = 256;",
+                      "constexpr int kPromote = 1 << 30;"),),
+    "promote_4": (("constexpr int kPromote = 256;",
+                   "constexpr int kPromote = 4;"),),
+}
+BF16_CHECKED = ("parent", "new", "int_round")
+
+
+def watched(fn, seconds, label):
+    """``fn()``, then wait at most ``seconds`` for the device: a launch
+    that has not finished by then (a pipeline that deadlocks) ends the
+    process, and the exit tears its context down."""
+    out = fn()
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        if time.perf_counter() - t0 > seconds:
+            print(f"{label}: not finished after {seconds} s", flush=True)
+            os._exit(5)
+        time.sleep(0.005)
+    return out
+
+
+def bf16_ablation(out_dir, card, parent_src, reps=5, npix=1024, R=652800,
+                  dev=None):
+    """Build the parent bf16 kernel (``parent_src``: factored_imager.cu of
+    commit 5dda491, on the unchanged engine header), the shipped one and
+    its copies of BF16_VARIANTS, one nvcc each, all at once.  The shipped
+    kernel is first held against its plain bf16 version at the ragged
+    cases under a watchdog; then each is run at npix=1024, R=652,800 on
+    ``--ablation``'s random operands, held (``BF16_CHECKED``) within
+    BF16_PLAIN_ATOL x max|plain| and bit for bit over two launches (the
+    others' errors are recorded: a coherent image shows the promotion
+    cadence's), and timed with CUDA events in two turns (the parent, the
+    variants, the diagnostics, the cuBLAS BF16 GEMM of the planes; then
+    the reverse).  One JSON line per variant; DIR/bf16_ablation.json."""
+    from smartcal_tpu_torch.cal import imager
+    from smartcal_tpu_torch.ops import build, dft_imager, factored_imager
+    src = (build.CSRC / "factored_imager.cu").read_text()
+    sources = {"parent": Path(parent_src).read_text()}
+    for name, subs in {**BF16_VARIANTS, **BF16_DIAGNOSTICS}.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise AssertionError(f"{name}: '{old}' not in the source")
+            text = text.replace(old, new)
+        sources[name] = text
+    libs = build_split_libs(sources, "bf16_ablation")
+    for lib, _ in libs.values():
+        dft_imager.bind(lib, "factored_image_bf16")
+    dev = dev or torch.device("cuda", 0)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def image(name, uv, vis, npix, cell):
+        plan = (dft_imager.split_plan if name == "parent"
+                else factored_imager._bf16_split)
+        return dft_imager.engine_image(libs[name][0], "factored_image_bf16",
+                                       uv, vis, npix, cell, plan=plan)
+
+    ragged = []
+    for r_n, r_npix in BF16_RAGGED:
+        ru, rv, rf = random_imager_case(r_n, r_n, dev)
+        rc = imager.default_cell(ru, rf)
+        ruv = scaled_uv(dft_imager, ru, rf)
+        got = watched(lambda: image("new", ruv, rv, r_npix, rc), 60,
+                      f"new at npix={r_npix} R={r_n}")
+        ref = imager.dirty_image_factored_blocked_sr(
+            ru, rv, rf, rc, npix=r_npix, block_r=4096, precision="bf16")
+        scale = float(ref.abs().max())
+        err = check_close("factored_imager_bf16 new", f"ragged npix={r_npix}"
+                          f" R={r_n}", got, ref, 0.0, BF16_PLAIN_ATOL, scale)
+        ragged.append({"npix": r_npix, "R": r_n, "max_abs_err": err,
+                       "rel_err": err / scale})
+
+    freq = 150e6
+    g = torch.Generator().manual_seed(npix + R)
+    uvw = (torch.rand((R, 3), generator=g) * 4e3 - 2e3).to(dev)
+    vis = torch.randn((R, 2), generator=g).to(dev)
+    cell = imager.default_cell(uvw, freq)
+    uv = scaled_uv(dft_imager, uvw, freq)
+    coherent = 0.01 * vis              # a source at the phase centre
+    coherent[:, 0] += 1.0
+    refs = {k: imager.dirty_image_factored_blocked_sr(
+        uvw, v, freq, cell, npix=npix, block_r=4096, precision="bf16")
+        for k, v in (("random", vis), ("coherent", coherent))}
+    rows, runs = {}, {}
+    for name in libs:
+        def run(name=name, v=vis):
+            return image(name, uv, v, npix, cell)
+
+        out = watched(run, 120, f"{name} at npix={npix} R={R}")
+        again = run()
+        torch.cuda.synchronize()
+        rows[name] = {"variant": name,
+                      "bit_identical": torch.equal(out, again),
+                      "ptxas": bf16_registers(
+                          BUILD_LOGS[f"bf16_ablation/{name}"]),
+                      "checked": name in BF16_CHECKED}
+        for case, got in (("random", out),
+                          ("coherent", run(v=coherent))):
+            ref = refs[case]
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            rows[name][f"max_abs_err_{case}"] = err
+            rows[name][f"rel_err_{case}"] = err / scale
+            if name in BF16_CHECKED:
+                check_close(f"factored_imager_bf16 {name}",
+                            f"{case} npix={npix} R={R}", got, ref, 0.0,
+                            BF16_PLAIN_ATOL, scale)
+        if name in BF16_CHECKED and not rows[name]["bit_identical"]:
+            raise AssertionError(f"bf16 {name}: two launches differ")
+        runs[name] = run
+        del out, again
+    del refs
+    p1, p2, cb, sb = imager._factored_planes(uvw, vis, freq, cell, npix)
+    lhs = torch.cat([p1, p2], 1).to(torch.bfloat16)
+    del p1, p2
+    rhs = torch.cat([cb, sb], 1).to(torch.bfloat16).T
+    del cb, sb
+    runs["library"] = lambda: torch.matmul(lhs, rhs)
+    rows["library"] = {"variant": "library", "what": "one cuBLAS BF16 GEMM "
+                       "of the precomputed planes (torch.matmul)"}
+    order = ["parent", *BF16_VARIANTS, *BF16_DIAGNOSTICS, "library"]
+    for turn in range(2):
+        for name in (order if turn == 0 else order[::-1]):
+            rows[name].setdefault("ms_turns", []).append(
+                cuda_ms(runs[name], reps, warmup=1))
+    bound = separable_bounds(npix, R, n_sm)["bound_bf16_ms"]
+    for name in order:
+        rows[name].update(ms=float(np.median(rows[name]["ms_turns"])),
+                          bound_ms=bound, card=card,
+                          shapes=f"npix={npix} R={R}")
+        print(json.dumps(rows[name]), flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "bf16_ablation.json"), "w") as fh:
+        json.dump({"variants": rows, "ragged_new": ragged, "card": card},
+                  fh, indent=1)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="smoke_out",
@@ -3742,6 +4074,10 @@ def main():
                     help="time the Hessian kernels' launches apart instead: "
                          "PARENT_CU is the two-pass hessian_blocks.cu of "
                          "commit dc0ef65")
+    ap.add_argument("--bf16-ablation", metavar="PARENT_CU",
+                    help="time kernel 2's bf16 mode against its parent "
+                         "and its ceilings instead: PARENT_CU is the "
+                         "factored_imager.cu of commit 5dda491")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3753,7 +4089,7 @@ def main():
                                             factored_imager, hessian_blocks)
         card = card_line()
         print(card, flush=True)
-        build.build()
+        BUILD_LOGS.update({n: log for n, (_, log) in build.build().items()})
         os.makedirs(args.out, exist_ok=True)
         zero, read = launch_counters(
             {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
@@ -3772,13 +4108,15 @@ def main():
             json.dump(out, fh, indent=1, default=float)
         print(card)
         return 0
-    if args.ablation or args.hessian_split:
+    if args.ablation or args.hessian_split or args.bf16_ablation:
         card = card_line()
         print(card, flush=True)
         if args.ablation:
             ablation(args.out, card)
-        else:
+        elif args.hessian_split:
             hessian_split(args.out, card, args.hessian_split)
+        else:
+            bf16_ablation(args.out, card, args.bf16_ablation)
         print(card)
         return 0
     from smartcal_tpu_torch.cal import imager, influence, kernels
@@ -3805,6 +4143,7 @@ def main():
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build()
+    BUILD_LOGS.update({n: log for n, (_, log) in built.items()})
     report["build_seconds"] = time.perf_counter() - t0
     for name, (sec, log) in built.items():
         print(f"built {name} in {sec:.2f} s\n{log.strip()}", flush=True)
@@ -3853,10 +4192,9 @@ def main():
                          peak_mem_bytes=peak, launches=n62_launches,
                          sigma_data_img=env._sigma_data_img)
 
-    # device idle share: a third step and its solve, profiled; the share is
-    # taken against the unprofiled seconds (the profiler slows the host)
-    step_wall_prof, step_busy, _ = device_busy_seconds(
-        lambda: env.step(env.hint))
+    # device idle share: one more solve timed here; a third step and the
+    # solve profiled at the end, the shares taken against the unprofiled
+    # seconds (the profiler slows the host)
     mask = np.zeros(env.M, np.float32)
     mask[:env.K] = 1.0
     rho = np.ones(env.M, np.float32)
@@ -3864,31 +4202,10 @@ def main():
     t0 = time.perf_counter()
     backend.calibrate(env.ep, rho, mask=mask)
     solve_wall = time.perf_counter() - t0
-    iters = LbfgsIters()
-    try:
-        solve_wall_prof, solve_busy, solve_kernels = device_busy_seconds(
-            lambda: backend.calibrate(env.ep, rho, mask=mask))
-    finally:
-        iters.restore()
-    solve_iters = iters.since(0)
-    step_wall = float(np.mean([s["seconds"] for s in steps]))
     report["n62"]["idle"] = {
-        "step_wall_s": step_wall, "step_wall_profiled_s": step_wall_prof,
-        "step_device_busy_s": step_busy, "solve_wall_s": solve_wall,
-        "solve_wall_profiled_s": solve_wall_prof,
-        "solve_device_busy_s": solve_busy,
-        "step_idle_share": idle_share("N=62 step", step_wall, step_busy,
-                                      step_wall_prof),
-        "solve_idle_share": idle_share("N=62 solve", solve_wall, solve_busy,
-                                       solve_wall_prof),
-        "solve_kernels": solve_kernels, **solve_iters,
-        "solve_kernels_per_iter": solve_kernels
-        / max(solve_iters["iters_max"], 1)}
-    print(f"N=62 solve profiled: {solve_kernels} kernels and copies over "
-          f"{solve_iters['iters_max']} L-BFGS iterations (slowest lane; "
-          f"lane mean {solve_iters['iters_mean']:.1f}) = "
-          f"{report['n62']['idle']['solve_kernels_per_iter']:.0f} per "
-          "iteration", flush=True)
+        "step_wall_s": float(np.mean([s["seconds"] for s in steps])),
+        "solve_wall_s": solve_wall}
+    defer(n62_profiles, env, backend, rho, mask, report["n62"]["idle"])
 
     # -- imager kernel at the N=62 path's shapes, and ragged cases ---------
     ep = env.ep
@@ -3950,8 +4267,7 @@ def main():
     # the E sweep, prefetch, the batched trainer ---------------------------
     n62_step_s = float(np.mean([s["seconds"] for s in report["n62"]["steps"]]))
     report["batched"] = batched_env_phase(
-        dev, zero_counts, read_counts, n62_step_s,
-        report["n62"]["idle"]["solve_kernels_per_iter"])
+        dev, zero_counts, read_counts, n62_step_s, report["n62"]["idle"])
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     report["prefetch"] = prefetch_phase(dev, zero_counts, read_counts)
     report["batched_train"] = batched_train_phase(dev, args.out, zero_counts,
@@ -3959,6 +4275,7 @@ def main():
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
+    ska_held = held_bytes(dev)
     ska_backend = RadioBackend(device=dev, **SKA)
     statics = ska_backend._influence_statics(SKA["npix"])
     if statics != dict(SKA_STATICS, precision="f32"):
@@ -3989,7 +4306,7 @@ def main():
     ska_launches = read_counts()
     ska_peak = torch.cuda.max_memory_allocated(dev)
     print_path("SKA path (N=256, npix=1024)", ska_env, ska_backend,
-               t_ska_reset, ska_steps, ska_peak, ska_launches)
+               t_ska_reset, ska_steps, ska_peak, ska_launches, ska_held)
     check_outputs((ska_obs0, ska_obs), ska_steps, SKA["npix"], ska_env.M)
     for name, least in (("hessian_blocks", 12), ("factored_imager", 6),
                         ("dft_imager", 6)):
@@ -4001,15 +4318,11 @@ def main():
                          reset_seconds=t_ska_reset, steps=ska_steps,
                          K=ska_env.K,
                          stage_seconds=dict(ska_backend.stage_seconds),
-                         peak_mem_bytes=ska_peak, launches=ska_launches,
+                         peak_mem_bytes=ska_peak, held_mem_bytes=ska_held,
+                         launches=ska_launches,
                          sigma_data_img=ska_env._sigma_data_img)
-    ska_step_prof, ska_busy, _ = device_busy_seconds(
-        lambda: ska_env.step(ska_env.hint))
-    report["ska"]["idle"] = {
-        "step_wall_s": ska_steps[0]["seconds"],
-        "step_wall_profiled_s": ska_step_prof, "step_device_busy_s": ska_busy,
-        "step_idle_share": idle_share("SKA step", ska_steps[0]["seconds"],
-                                      ska_busy, ska_step_prof)}
+    report["ska"]["idle"] = {"step_wall_s": ska_steps[0]["seconds"]}
+    defer(step_profile, "SKA step", ska_env, report["ska"]["idle"])
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # -- the bf16 influence path on the SKA and N=62 steps' own operands,
@@ -4115,15 +4428,10 @@ def main():
     del lhs, rhs
     torch.cuda.empty_cache()
     f_ms2 = cuda_ms(f_kernel, 5, warmup=1)
-    seen, seen_ms = profiler_capture(f_kernel, "separable_partial")
-    report["profiler_capture"] = {"kernel": "separable_partial_kernel",
-                                  "launches": 3, "recorded": seen,
-                                  "recorded_mean_ms": seen_ms,
-                                  "cuda_event_ms": f_ms2}
-    print(f"torch.profiler recorded {seen} of 3 launches of the factored "
-          f"kernel (mean recorded {seen_ms} ms; CUDA events {f_ms2:.3f} ms "
-          "per call): the idle shares above are upper bounds if it missed "
-          "any", flush=True)
+    report["profiler_capture"] = {}
+    defer(capture_profile, functools.partial(
+        factored_imager.dirty_image_factored_cuda, f_uvw, f_vis, f_freq,
+        f_cell, npix=npix), report["profiler_capture"], f_ms2)
     f_bounds = separable_bounds(npix, f_R, n_sm)
     print(f"factored_imager at npix={npix} R={f_R}: kernel {f_ms:.3f} / "
           f"{f_ms2:.3f} ms (median, two runs), plain {f_plain_ms:.3f} ms, "
@@ -4182,12 +4490,18 @@ def main():
                                    "blocked tier", block_baselines=4,
                                    imager_block_r=256)
 
-    report["demix_env"]["profile"] = demix_profile(demix_env)
+    report["demix_env"]["profile"] = {}
+    defer(demix_profile, demix_env, report["demix_env"]["profile"])
     del demix_env
 
-    # -- the runtime slice, last: its final run holds a profiler session --
+    # -- the runtime slice, the last timed phase: its final run holds a
+    # profiler session ------------------------------------------------------
     report["runtime"] = runtime_phase(dev, args.out, zero_counts,
                                       read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- the profiled measurements the phases queued ----------------------
+    run_deferred()
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     sup = report["supervised"]
@@ -4304,7 +4618,7 @@ def main():
          "plain_ms": bfk["plain_ms"], "bound_ms": bfk["bound_ms"],
          "bound_by": bfk["bound_by"], "library_ms": bfk["library_ms"],
          "shapes": bfk["shapes"], "bit_identical": bfk["bit_identical"],
-         **new_paths("factored_imager_bf16")}]
+         "ptxas": bfk["ptxas"], **new_paths("factored_imager_bf16")}]
     report.update(kernels=kernels_line, card=card, tiny_rel=tiny_rel,
                   tiny_blocked_rel=tiny_blk_rel,
                   kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],

@@ -99,16 +99,17 @@ def bind(lib, prefix):
     return lib
 
 
-def engine_image(lib, prefix, uv, vis, npix, cell):
+def engine_image(lib, prefix, uv, vis, npix, cell, plan=split_plan):
     """(npix, npix) image of CUDA float32 uv (R, 2) scaled and vis (R, 2)
     through the engine entry point ``<prefix>_launch`` of ``lib``, on the
-    current stream; raises if the launch fails."""
+    current stream, R split by ``plan(npix, R, n_sm)`` -> (n_split,
+    chunk); raises if the launch fails."""
     dev = uv.device
     R = uv.shape[0]
     axis = axis_grid(npix, cell, dev)
     samples = torch.cat([uv, vis], 1).contiguous()   # one float4 per sample
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, chunk = split_plan(npix, R, n_sm)
+    n_split, chunk = plan(npix, R, n_sm)
     partial = torch.empty((n_split, npix, npix), dtype=F32, device=dev)
     out = torch.empty((npix, npix), dtype=F32, device=dev)
     with torch.cuda.device(dev):

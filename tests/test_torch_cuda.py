@@ -143,14 +143,18 @@ def test_factored_imager_kernel_matches_plain_on_gpu():
 def test_factored_imager_bf16_kernel_matches_plain_on_gpu():
     """Kernel 2's bf16 mode against its plain bf16 version at npix and R
     ragged against the 128-pixel tile and the 32-sample stage, within a
-    tenth of the bf16 band (both round the same f32 operands; only trig
-    ulps and the order of the sum differ); against the f32 mode within the
-    band; two launches give the same bits."""
+    tenth of the bf16 band (both round the same f32 operands; the kernel's
+    walked phases, trig ulps and the order of the sum differ); against
+    the f32 mode within the band; two launches give the same bits.  The
+    cases: npix below one tile (100), npix not a multiple of it (200,
+    640), R below one stage (5), R not a multiple of it (1001, 5003), and
+    one split of R per SM (100 x 5003: 79 chunks of 2 stages)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from smartcal_tpu_torch.cal import imager
     from smartcal_tpu_torch.ops import factored_imager
-    for npix, R in ((200, 1001), (100, 700), (256, 5003)):
+    for npix, R in ((200, 1001), (100, 700), (256, 5003), (100, 5),
+                    (200, 5), (640, 5003), (100, 5003)):
         uvw, vis, freq, cell = _case(npix + R, R)
         u = torch.from_numpy(uvw).cuda()
         v = torch.from_numpy(vis).cuda()
