@@ -141,6 +141,27 @@
    shares);
 9. runs two tiny episodes on the GPU and on the CPU (unblocked, and the
    blocked tier forced) and compares them;
+9a. drives the rest of the runtime slice (``runtime_rest_phase``), before
+   the runtime phase's profiler session: one N=62 episode solved on the
+   fused route and under SMARTCAL_HOST_SOLVER=1 (seconds, segments and
+   CUDA-graph captures of each, J / sigma_res / residual compared bit for
+   bit, else held at admm_iters=2 within JAX's host-vs-fused tolerances);
+   the solver ladder reaching its host rung on the tiny tier under a
+   non-finite visibility, then SolverDegradedError (its
+   solver_degraded events); NativePER beside
+   the device ring at the N=62 transition (µs per store, sample with its
+   copy to the card, priority update), SACAgent(prioritized,
+   replay_backend="native") 20 learns beside the device-ring agent's and
+   a save_models / load_models round trip bit for bit; the port's perf
+   gate (bless, a clean gate, a gate_solve delay and a
+   gate_numeric_imager perturbation each firing on its own stage);
+   ``train/demix_fuzzy_sac.py --deterministic`` 2 episodes straight
+   against 1 + --resume to 2, bit for bit with 3 learns before the kill,
+   the straight run with --diag --metrics holding the card's
+   roofline_peak and cost events (flops, bytes) of solve, influence and
+   agent_update_sac; the device-ring agent's learn timed with
+   deterministic algorithms off and on; kernel counts zeroed before and
+   read after;
 9b. drives the runtime slice (``runtime_phase``): ``train/calib_sac.py``
    at N=62 (2 episodes of 1 step, hint) with --metrics --diag --watchdog
    --ckpt-every 1, and 1 episode plus a --resume to 2, whose last
@@ -167,12 +188,14 @@ Any failed phase raises, so the script exits non-zero and prints no result.
 Details go to DIR/chip_smoke.json (default smoke_out/).
 
     python3 chip_smoke.py --runtime [--out DIR]
+    python3 chip_smoke.py --runtime-rest [--out DIR]
     python3 chip_smoke.py --supervised [--out DIR]
     python3 chip_smoke.py --bf16 [--out DIR]
 
-build the kernels and run step 9b (2c) alone, or one N=62 reset + step,
-one SKA reset + step and step 7b on them (details in
-DIR/runtime_phase.json, DIR/supervised_phase.json, DIR/bf16_phase.json).
+build the kernels and run step 9b (9a, 2c) alone, or one N=62 reset +
+step, one SKA reset + step and step 7b on them (details in
+DIR/runtime_phase.json, DIR/runtime_rest_phase.json,
+DIR/supervised_phase.json, DIR/bf16_phase.json).
 
     python3 chip_smoke.py --ablation [--out DIR]
 
@@ -2963,7 +2986,7 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
     import tempfile
 
     from smartcal_tpu_torch.envs.calib import CalibEnv
-    from smartcal_tpu_torch.obs import diag_to_host
+    from smartcal_tpu_torch.obs import costs, diag_to_host
     from smartcal_tpu_torch.rl import replay as rp
     from smartcal_tpu_torch.rl import sac
     from smartcal_tpu_torch.runtime import checkpoint, faults
@@ -2980,6 +3003,19 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
         if os.path.exists(run_log):
             os.remove(run_log)
         timer = StepTimer(CalibEnv)
+        # --diag counts each stage's cost once (obs.costs, between
+        # episodes): timed apart, so the run stays comparable with the
+        # runs from before the counts
+        flush_s, real_flush = [], costs.flush_pending
+
+        def timed_flush():
+            t = time.perf_counter()
+            n = real_flush()
+            torch.cuda.synchronize(dev)
+            flush_s.append(time.perf_counter() - t)
+            return n
+
+        costs.flush_pending = timed_flush
         zero_counts()
         t0 = time.perf_counter()
         try:
@@ -2989,6 +3025,7 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
                 "--ckpt-dir", straight + "/ck"])
         finally:
             timer.restore()
+            costs.flush_pending = real_flush
         straight_s = time.perf_counter() - t0
         launches = read_counts()
         # one image per band per env call: the data image of a reset, the
@@ -3029,7 +3066,10 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
         out["calib_sac_n62"] = {
             "args": RT_N62, "scores": s_a, "resumed_scores": s_b,
             "bit_identical": True, "deterministic_algorithms": False,
-            "straight_seconds": straight_s, "resume_seconds": resume_s,
+            "straight_seconds": straight_s,
+            "cost_count_seconds": sum(flush_s),
+            "straight_seconds_without_cost_counts": straight_s - sum(flush_s),
+            "resume_seconds": resume_s,
             "launches": launches, "checkpoint_span_s": ckpt_spans,
             "payload_bytes": json.load(open(os.path.join(
                 straight, "ck", "ckpt_000002", "meta.json")))["payload_bytes"],
@@ -3040,7 +3080,9 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
             "lbfgs_iters_total": [e["lbfgs_iters_total"]
                                   for e in solver_ev]}
         print(f"runtime: calib_sac N=62 straight 2x1 with --metrics --diag "
-              f"--watchdog --ckpt-every 1 {straight_s:.3f} s, 1 + --resume "
+              f"--watchdog --ckpt-every 1 {straight_s:.3f} s "
+              f"({straight_s - sum(flush_s):.3f} s without the "
+              f"{sum(flush_s):.3f} s of obs.costs counts), 1 + --resume "
               f"to 2 {resume_s:.3f} s; scores "
               + ", ".join(f"{x:.6f}" for x in s_a)
               + " both ways; checkpoints bit-identical (agent state, Adam "
@@ -3256,6 +3298,562 @@ def runtime_phase(dev, out_dir, zero_counts, read_counts):
         shutil.rmtree(tmp, ignore_errors=True)
     out["launches"] = out["calib_sac_n62"]["launches"]
     out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the rest of the runtime slice: the host-segmented solve and the
+# ladder, the native replay, the perf gate, --deterministic, stage costs ---
+
+RR_TIER = N62                       # (a): the reference backend
+RR_M, RR_K = 10, 5
+# (b): the ladder on the tiny tier (a fused solve, one boosted retry and
+# the host rung: three solves, then SolverDegradedError)
+RR_LADDER = dict(TINY, solver_max_retries=1)
+# (c): the N=62 calibration transition (128² image + 11 x 7 sky, 20
+# actions); power-of-two rings for the sum tree
+RR_PER_SIZE, RR_PER_BATCH, RR_PER_SAMPLES = 2048, 32, 50
+RR_AGENT_MEM, RR_LEARNS = 256, 20
+# a delay about the tiny solve's ~0.3 s rep, in every timed rep
+RR_GATE_DELAY_S = 0.3
+RR_GATE_ARGS = []                   # the gate on the card (its default)
+# (e)/(f): the cheapest trainer that learns: demix_fuzzy_sac on the tiny
+# tier with the influence map (the CNN whose cuDNN backward is not
+# deterministic by default), batch 1, 3 steps per episode: 3 learns in
+# the first episode, then the kill
+RR_FUZZY = ["--small", "--K", "3", "--batch_size", "1", "--memory", "64",
+            "--warmup", "0", "--use_influence", "--steps", "3", "--seed",
+            "0", "--quiet", "--deterministic"]
+# the JAX host-vs-fused tolerances (tests/test_cal_backend.py:218-261)
+RR_HOST_TOL = {"J": (2e-3, 2e-4), "residual": (2e-3, 2e-3),
+               "sigma_res": (1e-3, 0.0)}
+
+
+def _rr_solve(backend, ep, rho, mask, host, admm_iters=None):
+    """One ``backend.calibrate`` on the fused route or, with ``host``, under
+    SMARTCAL_HOST_SOLVER=1; returns (result, seconds)."""
+    old = os.environ.get("SMARTCAL_HOST_SOLVER")
+    os.environ["SMARTCAL_HOST_SOLVER"] = "1" if host else "0"
+    try:
+        t0 = time.perf_counter()
+        res = backend.calibrate(ep, rho, mask=mask, admm_iters=admm_iters)
+        return res, time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["SMARTCAL_HOST_SOLVER"]
+        else:
+            os.environ["SMARTCAL_HOST_SOLVER"] = old
+
+
+def _rr_within(name, got, want, rtol, atol):
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    if not ok:
+        raise AssertionError(f"host-segmented {name} beyond rtol {rtol} "
+                             f"atol {atol}: max abs {float(err.max())}")
+    return float(err.max())
+
+
+def rr_routes(dev, out_dir):
+    """(a) one N=62 episode, fused and host-segmented; (b) the ladder down
+    to its host rung and SolverDegradedError under a non-finite
+    visibility."""
+    from smartcal_tpu_torch import obs, prng
+    from smartcal_tpu_torch.cal import solver
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+
+    out = {}
+    log = os.path.join(out_dir, "runtime_rest_solve_run.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    backend = RadioBackend(device=dev, **RR_TIER)
+    with obs.recording(log, flush_lines=1):
+        obs.install_compile_listener()
+        ep, _ = backend.new_calib_episode(prng.PRNGKey(0), RR_K, RR_M)
+        mask = np.zeros(RR_M, np.float32)
+        mask[:RR_K] = 1.0
+        rho = np.ones(RR_M, np.float32)
+        solves, turns = {}, {"fused": [], "host_segmented": []}
+        # in turns (fused, host, fused): the first solve of a process pays
+        # the allocator's growth
+        for route in ("fused", "host_segmented", "fused"):
+            c0 = obs.counters_snapshot().get("compile_events:cuda_graph", 0)
+            res, sec = _rr_solve(backend, ep, rho, mask,
+                                 route == "host_segmented")
+            c1 = obs.counters_snapshot().get("compile_events:cuda_graph", 0)
+            turns[route].append(sec)
+            solves[route] = (res, sec, c1 - c0)
+    ev = [e for e in _run_events(log) if e["event"] == "solver"]
+    if [e["route"] for e in ev] != ["fused", "host_segmented", "fused"]:
+        raise AssertionError(f"solver events {[e['route'] for e in ev]}")
+    fused, host = solves["fused"][0], solves["host_segmented"][0]
+    same = {k: bool(torch.equal(getattr(fused, k), getattr(host, k)))
+            for k in ("J", "residual", "sigma_res", "final_cost")}
+    diff = {k: float((getattr(fused, k) - getattr(host, k)).abs().max())
+            for k in same}
+    for r in (fused, host):
+        if not (solver.result_finite(r)
+                and float(r.sigma_res) < float(r.sigma_data)):
+            raise AssertionError("N=62 solve not finite or sigma_res >= "
+                                 "sigma_data")
+    out["n62"] = {
+        "config": RR_TIER, "K": RR_K,
+        "seconds": turns,
+        "graph_captures": {k: v[2] for k, v in solves.items()},
+        "n_segments": {e["route"]: e["n_segments"] for e in ev},
+        "lbfgs_iters_total": {e["route"]: e["lbfgs_iters_total"]
+                              for e in ev},
+        "bit_identical": same, "max_abs_diff": diff,
+        "sigma_res": {k: float(v[0].sigma_res) for k, v in solves.items()}}
+    print(f"runtime_rest: N=62 solve (K={RR_K} of M={RR_M}) in turns, s: "
+          f"fused {turns['fused'][0]:.3f}, host-segmented "
+          f"{turns['host_segmented'][0]:.3f}, fused "
+          f"{turns['fused'][1]:.3f}; segments "
+          f"{out['n62']['n_segments']}, CUDA-graph captures "
+          f"{out['n62']['graph_captures']}; sigma_res "
+          f"{float(fused.sigma_res):.9g} / {float(host.sigma_res):.9g}; "
+          f"bit-identical {same}", flush=True)
+    if not all(same.values()):
+        # report by how much, then hold at JAX's tolerances where the
+        # solve is not chaotic (admm_iters=2)
+        held = {}
+        pair = [_rr_solve(backend, ep, rho, mask, h, admm_iters=2)[0]
+                for h in (False, True)]
+        for k, (rtol, atol) in RR_HOST_TOL.items():
+            held[k] = _rr_within(k, getattr(pair[1], k),
+                                 getattr(pair[0], k), rtol, atol)
+        out["n62"]["held_at_admm_iters_2"] = held
+        print(f"runtime_rest: not the same bits (max abs {diff}); at "
+              f"admm_iters=2 within JAX's host-vs-fused tolerances: {held}",
+              flush=True)
+    del ep, fused, host, solves, backend
+
+    # (b) the ladder under a non-finite visibility, data that both routes
+    # read: the fused solve, one boosted retry, the host rung (the same
+    # math, so as non-finite), then SolverDegradedError
+    log = os.path.join(out_dir, "runtime_rest_ladder_run.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    backend = RadioBackend(device=dev, **RR_LADDER)
+    with obs.recording(log, flush_lines=1):
+        ep, _ = backend.new_calib_episode(prng.PRNGKey(1), 2, 3)
+        V = ep.V.clone()
+        V[0, 0, 0, 0, 0, 0] = float("nan")
+        t0 = time.perf_counter()
+        try:
+            backend.calibrate(ep._replace(V=V), np.ones(3, np.float32))
+            raised = None
+        except solver.SolverDegradedError as e:
+            raised = str(e)
+        ladder_s = time.perf_counter() - t0
+    deg = [e["route"] for e in _run_events(log)
+           if e["event"] == "solver_degraded"]
+    if deg != ["retry_rho", "host_segmented"] or raised is None:
+        raise AssertionError(f"ladder: degraded {deg}, raised {raised}")
+    out["ladder"] = {"config": RR_LADDER, "solver_degraded": deg,
+                     "raised": raised, "seconds": ladder_s}
+    print(f"runtime_rest: ladder on the card ({RR_LADDER}), one "
+          f"visibility NaN: solver_degraded {deg}, then SolverDegradedError "
+          f"({ladder_s:.3f} s: the host rung gives the fused bits, so it "
+          f"cannot rescue a non-finite solve)", flush=True)
+    return out
+
+
+def _rr_transition(rng, obs_dim, n_actions):
+    return {"state": rng.random(obs_dim, dtype=np.float32),
+            "action": rng.uniform(-1, 1, n_actions).astype(np.float32),
+            "reward": np.float32(rng.random()),
+            "new_state": rng.random(obs_dim, dtype=np.float32),
+            "done": bool(rng.random() < 0.1),
+            "hint": np.zeros(n_actions, np.float32)}
+
+
+def _rr_us(fn, n, dev):
+    """Microseconds per call of ``fn(i)`` over ``n`` calls, host clock,
+    the device drained before and after."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize(dev)
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def rr_replay(dev, tmp):
+    """(c) NativePER beside the device ring at the N=62 transition spec,
+    and the native SAC agent: 20 learns beside the HBM agent's, a save /
+    load round trip."""
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.rl.replay_native import NativePER, to_device
+    from smartcal_tpu_torch.train import blocks, calib_sac
+
+    base = calib_sac.agent_config(RR_TIER["npix"], RR_M, True)
+    spec = rp.transition_spec(base.obs_dim, base.n_actions)
+    rng = np.random.default_rng(0)
+    trs = [_rr_transition(rng, base.obs_dim, base.n_actions)
+           for _ in range(64)]
+    nat = NativePER(RR_PER_SIZE, spec)
+    ring = rp.replay_init(RR_PER_SIZE, spec, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    srng = np.random.default_rng(1)
+    per = {"native": {}, "device": {}}
+    per["native"]["store_us"] = _rr_us(
+        lambda i: nat.store(trs[i % 64]), RR_PER_SIZE, dev)
+    per["device"]["store_us"] = _rr_us(
+        lambda i: rp.replay_add(ring, trs[i % 64]), RR_PER_SIZE, dev)
+    drawn = []
+
+    def nat_sample(i):
+        b, idx, w = nat.sample(RR_PER_BATCH, srng)
+        drawn.append(idx)
+        to_device(b, w, dev)
+
+    def dev_sample(i):
+        drawn.append(rp.replay_sample_per(ring, RR_PER_BATCH, gen)[1])
+
+    per["native"]["sample_us"] = _rr_us(nat_sample, RR_PER_SAMPLES, dev)
+    per["device"]["sample_us"] = _rr_us(dev_sample, RR_PER_SAMPLES, dev)
+    err = rng.random(RR_PER_BATCH)
+    err_t = torch.as_tensor(err, dtype=torch.float32, device=dev)
+    per["native"]["update_us"] = _rr_us(
+        lambda i: nat.update_priorities(drawn[i], err), RR_PER_SAMPLES, dev)
+    per["device"]["update_us"] = _rr_us(
+        lambda i: rp.replay_update_priorities(
+            ring, drawn[RR_PER_SAMPLES + i], err_t, base.error_clip),
+        RR_PER_SAMPLES, dev)
+    health = nat.health()
+    del nat, ring
+    torch.cuda.empty_cache()
+
+    agents = {}
+    for name, backend in (("native", "native"), ("hbm", "hbm")):
+        cfg = dataclasses.replace(base, prioritized=True,
+                                  mem_size=RR_AGENT_MEM,
+                                  replay_backend=backend)
+        agent = sac.SACAgent(cfg, seed=0, device=dev)
+        for t in trs:
+            agent.store_transition(t["state"], t["action"], t["reward"],
+                                   t["new_state"], t["done"], t["hint"])
+        losses = []
+
+        def learn():
+            agent.learn()
+            losses.append(float(agent.last_metrics["critic_loss"]))
+
+        ms = cuda_ms(learn, RR_LEARNS, warmup=0)
+        if len(losses) != RR_LEARNS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name} agent: losses {losses}")
+        agents[name] = {"learn_ms": ms, "learns": len(losses),
+                        "learn_counter": agent.state.learn_counter,
+                        "critic_loss_last": losses[-1]}
+        if name == "hbm":
+            # what deterministic algorithms cost this learn (--deterministic)
+            restore = blocks.set_deterministic()
+            try:
+                agents[name]["learn_ms_deterministic"] = cuda_ms(
+                    agent.learn, RR_LEARNS, warmup=2)
+            finally:
+                restore()
+        if name == "native":
+            prefix = os.path.join(tmp, "native_")
+            agent.save_models(prefix)
+            back = sac.SACAgent(cfg, seed=5, device=dev)
+            if not back.load_models(prefix):
+                raise AssertionError("native agent did not load")
+            sd_a, sd_b = agent.buffer.state_dict(), back.buffer.state_dict()
+            diff = (_payload_diff(agent.state.to_host(), back.state.to_host())
+                    + _payload_diff({k: v for k, v in sd_a.items()
+                                     if k != "spec"},
+                                    {k: v for k, v in sd_b.items()
+                                     if k != "spec"}))
+            if diff or sd_a["spec"] != sd_b["spec"]:
+                raise AssertionError(f"native save/load differs at "
+                                     f"{diff[:10]}")
+            for f in os.listdir(tmp):
+                os.remove(os.path.join(tmp, f))
+            agents[name]["save_load_bit_identical"] = True
+            del back
+        del agent
+        torch.cuda.empty_cache()
+    print(f"runtime_rest: PER at the N=62 transition (obs {base.obs_dim}, "
+          f"{base.n_actions} actions, {RR_PER_SIZE} slots, batch "
+          f"{RR_PER_BATCH}), µs per store / sample / priority update: "
+          f"native {per['native']['store_us']:.1f} / "
+          f"{per['native']['sample_us']:.1f} / "
+          f"{per['native']['update_us']:.1f} (the sample with its copy to "
+          f"the card), device ring {per['device']['store_us']:.1f} / "
+          f"{per['device']['sample_us']:.1f} / "
+          f"{per['device']['update_us']:.1f}; SACAgent(prioritized, "
+          f"{RR_AGENT_MEM} slots) {RR_LEARNS} learns: native "
+          f"{agents['native']['learn_ms']:.3f} ms, hbm "
+          f"{agents['hbm']['learn_ms']:.3f} ms per learn (CUDA events, "
+          f"median), hbm under deterministic algorithms "
+          f"{agents['hbm']['learn_ms_deterministic']:.3f} ms; native "
+          f"save_models / load_models bit-identical",
+          flush=True)
+    return {"per": per, "per_health": health, "agents": agents,
+            "spec": {"obs_dim": base.obs_dim, "n_actions": base.n_actions,
+                     "size": RR_PER_SIZE, "batch": RR_PER_BATCH}}
+
+
+def rr_gate(dev, out_dir):
+    """(d) the perf gate on the card: bless, gate clean, then a delay on
+    the solve stage and a perturbation of the imager's numeric, each
+    firing on its own stage alone."""
+    from smartcal_tpu_torch.runtime import faults
+    from smartcal_tpu_torch.tools import perf_gate
+
+    store = os.path.join(out_dir, "perf_baselines_gate.json")
+    if os.path.exists(store):
+        os.remove(store)
+    runs = {}
+
+    def gate(tag, extra, fault=None):
+        path = os.path.join(out_dir, f"perf_gate_{tag}.json")
+        if fault is not None:
+            os.environ["SMARTCAL_FAULTS"] = json.dumps(fault)
+        t0 = time.perf_counter()
+        try:
+            rc = perf_gate.main(["--baseline", store, "--out", path]
+                                + RR_GATE_ARGS + extra)
+        finally:
+            os.environ.pop("SMARTCAL_FAULTS", None)
+            faults.clear()
+        doc = json.load(open(path))
+        runs[tag] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                     "median_ms": {k: v["median_ms"]
+                                   for k, v in doc["stages"].items()},
+                     "graph_captures_per_rep": {
+                         k: v["graph_captures_per_rep"]
+                         for k, v in doc["stages"].items()},
+                     "fired": sorted({(f["stage"], f["metric"])
+                                      for f in doc["findings"]
+                                      if f["verdict"] == "FIRE"})}
+        return runs[tag]
+
+    if gate("bless", ["--update-baseline"])["rc"] != 0:
+        raise AssertionError(f"perf gate bless: {runs['bless']}")
+    clean = gate("clean", [])
+    if clean["rc"] != 0 or clean["fired"]:
+        raise AssertionError(f"perf gate fired on a clean run: {clean}")
+    # both faults in one run over every stage: each must fire on its own
+    # stage and the influence stage on none (3 samples: a fault is a
+    # multiple of the noise, not a fraction)
+    k = 3
+    hit = gate("faults", ["--samples", str(k)], {
+        "delay_stage": "gate_solve", "delay_at": 0, "delay_span": k,
+        "delay_s": RR_GATE_DELAY_S, "perturb_stage": "gate_numeric_imager",
+        "perturb_at": 0, "perturb_rel": 0.5})
+    fired = {}
+    for stage, metric in hit["fired"]:
+        fired.setdefault(stage, set()).add(metric)
+    if hit["rc"] != 1 or fired.get("imager") != {"rel_err"} \
+            or "wall_s" not in fired.get("solve", ()) \
+            or "influence" in fired or fired.get("solve") - {"wall_s"}:
+        raise AssertionError(f"perf gate faults: {hit}")
+    print("runtime_rest: perf gate on the card: blessed, clean run 0 FIRE "
+          "(stage medians ms "
+          + ", ".join(f"{s} {v:.3f}" for s, v in clean["median_ms"].items())
+          + f"; graph captures per rep {clean['graph_captures_per_rep']}); "
+          f"a gate_solve delay of {RR_GATE_DELAY_S} s and gate_numeric_imager "
+          f"x1.5 in one run fired {hit['fired']}; seconds per gate "
+          + ", ".join(f"{t} {r['seconds']:.2f}" for t, r in runs.items()),
+          flush=True)
+    os.remove(store)
+    return runs
+
+
+def rr_deterministic(dev, out_dir, tmp):
+    """(e) --deterministic on demix_fuzzy_sac: straight 2 episodes against
+    1 killed + resumed to 2, bit for bit, 3 learns before the kill; (f)
+    the straight run carries --diag --metrics: its run log must hold the
+    card's roofline_peak and cost events with flops and bytes for solve,
+    influence and agent_update_sac."""
+    from smartcal_tpu_torch.runtime import checkpoint
+    from smartcal_tpu_torch.runtime.atomic import safe_pickle_load
+    from smartcal_tpu_torch.train import demix_fuzzy_sac
+
+    log = os.path.join(out_dir, "runtime_rest_fuzzy_run.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+
+    def run(tag, episodes, extra=()):
+        t0 = time.perf_counter()
+        scores = demix_fuzzy_sac.main(
+            RR_FUZZY + ["--iteration", str(episodes), "--prefix",
+                        f"{tmp}/{tag}_", "--ckpt-every", "1", "--ckpt-dir",
+                        f"{tmp}/{tag}_ck"] + list(extra))
+        return scores, time.perf_counter() - t0
+
+    s_a, straight_s = run("a", 2, ["--diag", "--metrics", log])
+    s_b1, killed_s = run("b", 1)
+    killed_learns = int(safe_pickle_load(
+        f"{tmp}/b_sac_state.pkl")["learn_counter"])
+    s_b, resumed_s = run("b", 2, ["--resume"])
+    # on for each run (its run header), off again after it
+    header = [e for e in _run_events(log) if e["event"] == "run_header"]
+    if (torch.are_deterministic_algorithms_enabled()
+            or header[0].get("meta", {}).get("deterministic") is not True):
+        raise AssertionError(f"--deterministic: after the runs "
+                             f"{torch.are_deterministic_algorithms_enabled()}"
+                             f", run header {header[0].get('meta')}")
+    pa, step_a = checkpoint.load_latest(f"{tmp}/a_ck")
+    pb, step_b = checkpoint.load_latest(f"{tmp}/b_ck")
+    learned = int(pa["agent_state"]["learn_counter"])
+    diff = _payload_diff(pa, pb)
+    if (step_a != 2 or step_b != 2 or s_a != s_b or s_a[:1] != s_b1
+            or killed_learns < 3 or diff):
+        raise AssertionError(f"--deterministic resume: scores {s_a} / "
+                             f"{s_b} (killed {s_b1}), steps {step_a} "
+                             f"{step_b}, {killed_learns} learns before the "
+                             f"kill, differs at {diff[:10]}")
+    events = _run_events(log)
+    peak = [e for e in events if e["event"] == "roofline_peak"]
+    cost = {e["stage"]: e for e in events if e["event"] == "cost"}
+    want = ("solve", "influence", "agent_update_sac")
+    card = torch.cuda.get_device_name(dev)
+    if (not peak or peak[0].get("device_kind") != card
+            or not all(cost.get(s, {}).get("flops", 0) > 0
+                       and cost.get(s, {}).get("bytes_accessed", 0) > 0
+                       for s in want)):
+        raise AssertionError(f"--diag run log: roofline_peak {peak}, "
+                             f"costs {cost}")
+    out = {"args": RR_FUZZY, "scores": s_a, "bit_identical": True,
+           "learns_total": learned, "learns_before_kill": killed_learns,
+           "seconds": {"straight_diag": straight_s, "killed": killed_s,
+                       "resumed": resumed_s},
+           "roofline_peak": peak[0],
+           "cost": {s: {k: cost[s].get(k) for k in ("flops",
+                                                   "bytes_accessed",
+                                                   "peak_bytes")}
+                    for s in sorted(cost)}}
+    print(f"runtime_rest: demix_fuzzy_sac --deterministic 2 episodes x 3 "
+          f"steps straight ({straight_s:.3f} s, with --diag) against 1 + "
+          f"--resume to 2 ({killed_s:.3f} + {resumed_s:.3f} s): "
+          f"bit-identical, {killed_learns} learns before the kill, "
+          f"{learned} in all; the run log's roofline_peak "
+          f"{peak[0]['device_kind']} {peak[0].get('power_limit')} and cost "
+          + ", ".join(f"{s} {cost[s]['flops']:.4g} flops "
+                      f"{cost[s]['bytes_accessed']:.4g} B" for s in want),
+          flush=True)
+    return out
+
+
+# --deterministic-sweep: every trainer once under --deterministic on the
+# card at the tiny tier, replay batches of 2 and no warmup so that each
+# learns; --diag --metrics make every learn a diag event of the run log
+DET_SWEEP = [
+    ("calib_sac", ["--small", "--episodes", "2", "--steps", "2",
+                   "--use_hint"]),
+    ("calib_sac", ["--small", "--batch-envs", "2", "--episodes", "2",
+                   "--steps", "2", "--use_hint"]),
+    ("calib_td3", ["--small", "--episodes", "2", "--steps", "2",
+                   "--use_hint"]),
+    ("calib_ddpg", ["--small", "--episodes", "2", "--steps", "2"]),
+    ("enet_sac", ["--M", "5", "--N", "5", "--episodes", "2", "--steps",
+                  "2", "--use_hint"]),
+    ("enet_td3", ["--M", "5", "--N", "5", "--episodes", "2", "--steps",
+                  "2"]),
+    ("enet_ddpg", ["--M", "5", "--N", "5", "--episodes", "2", "--steps",
+                   "2"]),
+    ("demix_sac", ["--small", "--K", "3", "--iteration", "2", "--steps",
+                   "2", "--warmup", "0", "--use_hint"]),
+    ("demix_td3", ["--small", "--K", "3", "--iteration", "2", "--steps",
+                   "2", "--warmup", "0", "--batch_size", "2"]),
+    ("demix_fuzzy_sac", ["--small", "--K", "3", "--iteration", "2",
+                         "--steps", "2", "--warmup", "0", "--batch_size",
+                         "2", "--use_influence"]),
+]
+
+
+def deterministic_sweep(dev, out_dir, extra=()):
+    """``--deterministic-sweep``: each trainer of ``DET_SWEEP`` once with
+    ``--deterministic --diag --metrics``, the agents' replay batch cut to
+    2 and their warmup to 0; records per run whether it raised, its learns
+    (diag events) and seconds, and fails after the sweep if any run raised
+    or did not learn."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from smartcal_tpu_torch.rl import ddpg, sac, td3
+
+    def small(init):
+        def __init__(self, *a, **kw):
+            init(self, *a, **kw)
+            object.__setattr__(self, "batch_size", min(self.batch_size, 2))
+            if hasattr(self, "warmup"):
+                object.__setattr__(self, "warmup", 0)
+        return __init__
+
+    classes = (sac.SACConfig, td3.TD3Config, ddpg.DDPGConfig)
+    inits = [c.__init__ for c in classes]
+    tmp = tempfile.mkdtemp(prefix="det_sweep_")
+    runs = []
+    try:
+        for c, init in zip(classes, inits):
+            c.__init__ = small(init)
+        for i, (entry, argv) in enumerate(DET_SWEEP):
+            mod = importlib.import_module(f"smartcal_tpu_torch.train.{entry}")
+            log = os.path.join(tmp, f"{i}_run.jsonl")
+            t0 = time.perf_counter()
+            try:
+                mod.main(argv + ["--deterministic", "--diag", "--metrics",
+                                 log, "--quiet", "--prefix",
+                                 os.path.join(tmp, f"{i}_")] + list(extra))
+                raised = None
+            except Exception as e:                  # noqa: BLE001
+                raised = f"{type(e).__name__}: {e}"
+            events = _run_events(log) if os.path.exists(log) else []
+            runs.append({"entry": entry, "args": argv, "raised": raised,
+                         "learns": sum(e["event"] == "diag" for e in events),
+                         "seconds": time.perf_counter() - t0,
+                         "deterministic_after": bool(
+                             torch.are_deterministic_algorithms_enabled())})
+            print(f"deterministic sweep: {entry} {' '.join(argv)}: "
+                  f"{runs[-1]['learns']} learns, {runs[-1]['seconds']:.2f} "
+                  f"s, raised {raised}", flush=True)
+            torch.use_deterministic_algorithms(False)
+    finally:
+        for c, init in zip(classes, inits):
+            c.__init__ = init
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(os.path.join(out_dir, "deterministic_sweep.json"), "w") as fh:
+        json.dump(runs, fh, indent=1)
+    bad = [r for r in runs if r["raised"] or r["learns"] < 1
+           or r["deterministic_after"]]
+    if bad:
+        raise AssertionError(f"deterministic sweep: {bad}")
+    return runs
+
+
+def runtime_rest_phase(dev, out_dir, zero_counts, read_counts):
+    """The rest of the runtime slice on the card, before the first
+    torch.profiler session: (a) an N=62 episode solved on the fused and the
+    host-segmented route, (b) the ladder's host rung, (c) the native replay
+    and its agent, (d) the perf gate, (e) --deterministic kill/resume and
+    (f) the --diag run's cost and roofline_peak events.  Kernel counts
+    zeroed just before and read just after."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="runtime_rest_")
+    t_phase = time.perf_counter()
+    out = {}
+    try:
+        zero_counts()
+        out.update(rr_routes(dev, out_dir))
+        out["replay"] = rr_replay(dev, tmp)
+        out["gate"] = rr_gate(dev, out_dir)
+        out["deterministic"] = rr_deterministic(dev, out_dir, tmp)
+        out["launches"] = read_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if out["launches"]["dft_imager"] < 1:
+        raise AssertionError(f"runtime_rest launched {out['launches']}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"runtime_rest: phase {out['phase_seconds']:.1f} s, launches "
+          f"{out['launches']}", flush=True)
     return out
 
 
@@ -4060,6 +4658,16 @@ def main():
                     help="build the kernels and run the runtime phase "
                          "alone (checkpoint/resume, rollback, run log, "
                          "diag, trace)")
+    ap.add_argument("--runtime-rest", dest="runtime_rest",
+                    action="store_true",
+                    help="build the kernels and run the rest of the runtime "
+                         "slice alone (host-segmented solve and ladder, "
+                         "native replay, perf gate, --deterministic, stage "
+                         "costs)")
+    ap.add_argument("--deterministic-sweep", dest="deterministic_sweep",
+                    action="store_true",
+                    help="build the kernels and run every trainer once "
+                         "under --deterministic at the tiny tier")
     ap.add_argument("--supervised", action="store_true",
                     help="build the kernels and run the supervised phase "
                          "alone (dataset, transformer, recommend, "
@@ -4084,7 +4692,8 @@ def main():
         return 1
     if args.diag_determinism:
         return diag_determinism_main()
-    if args.runtime or args.supervised or args.bf16:
+    if (args.runtime or args.runtime_rest or args.supervised or args.bf16
+            or args.deterministic_sweep):
         from smartcal_tpu_torch.ops import (build, dft_imager,
                                             factored_imager, hessian_blocks)
         card = card_line()
@@ -4098,8 +4707,14 @@ def main():
         if args.runtime:
             name, out = "runtime_phase", runtime_phase(dev, args.out, zero,
                                                        read)
+        elif args.runtime_rest:
+            name, out = "runtime_rest_phase", runtime_rest_phase(
+                dev, args.out, zero, read)
         elif args.bf16:
             name, out = "bf16_phase", bf16_main(dev, args.out, zero, read)
+        elif args.deterministic_sweep:
+            name, out = "deterministic_sweep", deterministic_sweep(
+                dev, args.out)
         else:
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
             name, out = "supervised_phase", supervised_phase(
@@ -4494,6 +5109,12 @@ def main():
     defer(demix_profile, demix_env, report["demix_env"]["profile"])
     del demix_env
 
+    # -- the rest of the runtime slice, before the first profiler session
+    # (the runtime phase's --trace run) ---------------------------------------
+    report["runtime_rest"] = runtime_rest_phase(dev, args.out, zero_counts,
+                                                read_counts)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # -- the runtime slice, the last timed phase: its final run holds a
     # profiler session ------------------------------------------------------
     report["runtime"] = runtime_phase(dev, args.out, zero_counts,
@@ -4565,6 +5186,8 @@ def main():
                                                            "enet_sac")),
          "launches_runtime_path":
              report["runtime"]["launches"]["dft_imager"],
+         "launches_runtime_rest_path":
+             report["runtime_rest"]["launches"]["dft_imager"],
          "launches_bf16_paths": bf16_launches("dft_imager"),
          "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"],
                                        sup["kernel"]["max_abs_err"]]),

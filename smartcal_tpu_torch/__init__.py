@@ -18,14 +18,17 @@ The layout mirrors the JAX package module for module
   engine (``csrc/separable_imager.cuh``), and the blocked Hessian
   (``csrc/hessian_blocks.cu``); the lane-batched L-BFGS and the
   ``torch.func`` autodiff tools;
-* ``rl/``: the SAC, TD3 and DDPG agents, their networks and the device
-  replay ring;
+* ``rl/``: the SAC, TD3 and DDPG agents, their networks, the device
+  replay ring and the host-side native prioritized replay;
 * ``train/``: the calibration SAC/TD3/DDPG trainers, the demixing
   SAC/TD3/fuzzy-SAC trainers, the elastic-net SAC/TD3/DDPG trainers and
   evaluation, and the plumbing they need (run log, checkpoints, resume,
   the watchdog's rollback);
 * ``obs/``, ``utils/metrics.py``: the run log, spans, counters, update
-  diagnostics and the divergence watchdog;
+  diagnostics, the divergence watchdog, per-stage flops and bytes
+  (``obs/costs.py``) and the fingerprinted baselines and detector;
+* ``tools/``: the perf gate (``python -m
+  smartcal_tpu_torch.tools.perf_gate``);
 * ``runtime/``: crash-safe saves, the checkpoint store, fault injection
   and the recovery policy.
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from smartcal_tpu_torch.cal import precision as prec
+from smartcal_tpu_torch.obs import costs
 from smartcal_tpu_torch.ops import dft_imager, factored_imager
 
 C_LIGHT = 2.99792458e8
@@ -122,15 +123,18 @@ def dirty_image_factored_large_sr(uvw, vis, freq, cell, npix=1024,
     """The npix >= 512 factored imager: the CUDA kernel for CUDA tensors
     (any npix and R; its bf16 mode with ``precision="bf16"``),
     :func:`dirty_image_factored_blocked_sr` for CPU tensors.  Any other
-    device raises."""
-    if uvw.device.type == "cuda":
-        return factored_imager.dirty_image_factored_cuda(
-            uvw, vis, freq, cell, npix=npix, precision=precision)
-    if uvw.device.type == "cpu":
+    device raises.  Either path adds the image's analytic work to an
+    ``obs.costs`` count (``dft_imager.image_cost``)."""
+    if uvw.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"factored_imager: unsupported device "
+                         f"{uvw.device}")
+    with costs.kernel_cost(*dft_imager.image_cost(npix, uvw.shape[0])):
+        if uvw.device.type == "cuda":
+            return factored_imager.dirty_image_factored_cuda(
+                uvw, vis, freq, cell, npix=npix, precision=precision)
         return dirty_image_factored_blocked_sr(uvw, vis, freq, cell,
                                                npix=npix, block_r=block_r,
                                                precision=precision)
-    raise ValueError(f"factored_imager: unsupported device {uvw.device}")
 
 
 def stokes_i_vis(V):

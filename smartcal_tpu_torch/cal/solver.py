@@ -7,11 +7,16 @@ axis of size L = Nf*Ts (the JAX package's ``vmap(vmap(...))``), the ADMM
 loop is a Python loop, and the consensus polynomial update is a small
 reduction over frequency.  ``solve_admm_batched`` is the JAX package's
 ``vmap(solve_admm)`` over E episodes: E*Nf*Ts lanes of one ``lbfgs_solve``
-per inner solve, everything else per episode.  The host-segmented solve
-(``solve_admm_host``) computes the same thing in bounded dispatches for
-TPU watchdogs; it is not needed on one GPU and is still to be ported, as
-are the sharded routes.  ``collect_stats=True`` returns the solver's
-telemetry (:class:`SolverStats`) beside the result.
+per inner solve, everything else per episode.  ``solve_admm_host`` is the
+JAX package's host-segmented solve: ``solve_admm`` with its inner solves
+cut into bounded segments (``lbfgs_resume``), which JAX runs to stay under
+a TPU watchdog.  Here it gives the fused route's bits; it is the last rung
+of ``solve_admm_safe``'s ladder, as in JAX, but on the port that rung
+repeats a non-finite fused solve rather than rescuing it.  The sharded
+routes are not ported.  ``collect_stats=True`` returns the solver's telemetry
+(:class:`SolverStats`) beside the result; ``cost_eval_flops`` is the
+analytic flop model of the inner evaluations beside counted ones
+(``obs.costs``).
 
 All math is split-real float32; samples are time-major ck = t*B + b and
 baselines enumerate p < q row-major.
@@ -26,6 +31,7 @@ import torch
 from smartcal_tpu_torch import obs
 from smartcal_tpu_torch.cal import consensus, creal
 from smartcal_tpu_torch.cal.kernels import baseline_indices, baseline_onehots
+from smartcal_tpu_torch.obs import costs
 from smartcal_tpu_torch.ops import lbfgs
 from smartcal_tpu_torch.ops.autodiff import lane_value_and_grad
 
@@ -72,7 +78,8 @@ class SolverStats(NamedTuple):
 
 
 class SolverDegradedError(RuntimeError):
-    """Every rho-boosted retry still produced non-finite iterates."""
+    """Every rung of the ladder (rho-boosted retries, the host-segmented
+    fallback) still produced non-finite iterates."""
 
 
 def predict_vis_sr(J, C5, n_stations):
@@ -220,7 +227,8 @@ class _QuarticLineSearch:
     The search is ~700 lane-masked ops on (L,) tensors.  Launched one by
     one on a GPU they cost the host more than the whole search costs the
     device, so on CUDA they are captured once into a CUDA graph and each
-    call is one replay.  Elsewhere the search runs eagerly."""
+    call is one replay.  Elsewhere, and while ``obs.costs`` counts the
+    solve (a replay is no op it can see), the search runs eagerly."""
 
     def __init__(self, n_lanes, dtype, device):
         self.n_lanes, self.dtype, self.device = n_lanes, dtype, device
@@ -242,7 +250,7 @@ class _QuarticLineSearch:
 
     def __call__(self, coeffs):
         self.calls += 1
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or costs.counting():
             out = self._search(coeffs)
             self.phi_evals += self._evals
             return out
@@ -280,15 +288,17 @@ def _eval_operands(V6, C7):
 
 
 def _inner_solver(Vp, Cp, cfg: SolverConfig):
-    """``inner_solve(x0, prior, half_rho, iters)``: one lane-batched
-    ``lbfgs_solve`` of the per-lane cost on the lanes of ``Vp``/``Cp``, the
-    quartic line search captured for that lane count.  ``half_rho`` is (K,)
-    or per lane (L, K).  ``inner_solve.search`` is the line search (its
-    counts are the solver telemetry's)."""
+    """``inner_solve(x0, prior, half_rho, iters, resume=None)``: one
+    lane-batched ``lbfgs_solve`` of the per-lane cost on the lanes of
+    ``Vp``/``Cp`` (with ``resume``, an ``LBFGSResult``: ``lbfgs_resume`` of
+    it for ``iters`` more iterations), the quartic line search captured
+    once for that lane count and reused by every call.  ``half_rho`` is
+    (K,) or per lane (L, K).  ``inner_solve.search`` is the line search
+    (its counts are the solver telemetry's)."""
     onehots = baseline_onehots(cfg.n_stations, Vp.dtype, Vp.device)
     search = _QuarticLineSearch(Vp.shape[0], Vp.dtype, Vp.device)
 
-    def inner_solve(x0, prior, half_rho, iters):
+    def inner_solve(x0, prior, half_rho, iters, resume=None):
         def cost(x):
             return _cost_fn_onehot(x, Vp, Cp, onehots, prior, half_rho, cfg)
 
@@ -296,15 +306,19 @@ def _inner_solver(Vp, Cp, cfg: SolverConfig):
             return search(_quartic_coeffs(x, d, Vp, Cp, onehots, prior,
                                           half_rho, cfg))
 
-        return lbfgs.lbfgs_solve(lane_value_and_grad(cost), x0,
-                                 max_iters=iters,
+        vag = lane_value_and_grad(cost)
+        if resume is not None:
+            return lbfgs.lbfgs_resume(vag, resume, iters,
+                                      line_search=line_search)
+        return lbfgs.lbfgs_solve(vag, x0, max_iters=iters,
                                  line_search=line_search)
 
     inner_solve.search = search
     return inner_solve
 
 
-def _stats(admm_iters, resid, inner, init_iters, search, lead=()):
+def _stats(admm_iters, resid, inner, init_iters, search, lead=(),
+           n_segments=1):
     """:class:`SolverStats` of a solve from its per-iteration tensors (lists
     of ``lead``-shaped tensors)."""
     dev = search.device
@@ -320,7 +334,8 @@ def _stats(admm_iters, resid, inner, init_iters, search, lead=()):
         primal_resid=hist(resid, torch.float32),
         inner_iters=hist(inner, torch.int32),
         init_iters=torch.as_tensor(init_iters, device=dev).to(torch.int32),
-        n_segments=torch.ones(lead, dtype=torch.int32, device=dev),
+        n_segments=torch.full(lead, n_segments, dtype=torch.int32,
+                              device=dev),
         phi_evals=search.phi_evals, linesearches=search.calls)
 
 
@@ -339,8 +354,15 @@ def _prep(V, C, freqs, f0, rho, cfg: SolverConfig, Ts):
     btb = bfull.T @ bfull
     tr = torch.trace(btb) / cfg.n_poly
     eye = torch.eye(cfg.n_poly, dtype=btb.dtype, device=btb.device)
-    Bi = torch.linalg.pinv(rho[:, None, None] * btb
-                           + (1e-6 * rho * tr + 1e-30)[:, None, None] * eye)
+    A = (rho[:, None, None] * btb
+         + (1e-6 * rho * tr + 1e-30)[:, None, None] * eye)
+    try:
+        Bi = torch.linalg.pinv(A)
+    except torch.linalg.LinAlgError:
+        # non-finite data (a NaN visibility makes the scale NaN): carried
+        # on as NaN, as JAX's pinv does, so the solve comes out non-finite
+        # and the caller's ladder sees it
+        Bi = torch.full_like(A, float("nan"))
     return V6, C7, rho, data_scale, bfull, Bi
 
 
@@ -368,42 +390,86 @@ def _finalize(J, V6, C7, data_scale, cost, cfg: SolverConfig, T):
             cost * data_scale * data_scale)
 
 
-def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
+def _identity_jones(Nf, Ts, cfg: SolverConfig, dtype, dev):
+    """(Nf, Ts, K, 2N, 2, 2) identity Jones: the cold start."""
+    eye = torch.zeros((2, 2, 2), dtype=dtype, device=dev)
+    eye[:, :, 0] = torch.eye(2, dtype=dtype, device=dev)
+    K, N = cfg.n_dirs, cfg.n_stations
+    return eye.expand(Nf, Ts, K, N, 2, 2, 2).reshape(Nf, Ts, K, 2 * N, 2, 2)
+
+
+def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig,
+               n_chunks: Optional[int] = None,
                admm_iters: Optional[int] = None,
-               collect_stats: bool = False) -> SolveResult:
-    """Consensus-ADMM calibration over frequency sub-bands, cold start.
+               collect_stats: bool = False, J0=None,
+               seg_iters: Optional[int] = None) -> SolveResult:
+    """Consensus-ADMM calibration over frequency sub-bands.
 
     V     : (Nf, T, B, 2, 2, 2) observed visibilities (split-real 2x2)
     C     : (Nf, K, T*B, 4, 2) model coherencies (kernel convention)
     freqs : (Nf,) Hz; f0 reference frequency
     rho   : (K,) per-direction ADMM regularization
-    n_chunks : solution intervals Ts; the chi2-only init phase runs first
+    n_chunks : solution intervals Ts; None takes Ts from ``J0`` (or 1).
+            Without ``J0`` the chi2-only init phase runs first
     admm_iters : optional override of ``cfg.admm_iters``
     collect_stats : return ``(result, SolverStats)``: per outer iteration
             the consensus RMS and the L-BFGS iterations of all lanes, the
             init iterations and the line search's counts (no extra sync;
             the same result bits)
+    J0    : optional warm start (Nf, Ts, K, 2N, 2, 2): the init phase is
+            skipped and the ADMM loop starts from ``J0`` (JAX
+            solver.py:522-534)
+    seg_iters : None runs each inner solve as one ``lbfgs_solve``; an int
+            splits it into segments of at most ``seg_iters`` iterations
+            (``lbfgs_resume`` after the first), the same trajectory and
+            bits (:func:`solve_admm_host`); ``SolverStats.n_segments``
+            counts them
     """
     dev = V.device
     Nf, T = V.shape[0], V.shape[1]
     K, N = cfg.n_dirs, cfg.n_stations
-    Ts = n_chunks
+    if n_chunks is not None:
+        Ts = n_chunks
+        if J0 is not None and J0.shape[1] != Ts:
+            raise ValueError(f"J0 has {J0.shape[1]} solution intervals, "
+                             f"n_chunks={Ts}")
+    else:
+        Ts = 1 if J0 is None else J0.shape[1]
     niter = cfg.admm_iters if admm_iters is None else int(admm_iters)
     rho = torch.as_tensor(rho, dtype=V.dtype, device=dev)
     V6, C7, rho, data_scale, bfull, Bi = _prep(V, C, freqs, f0, rho, cfg,
                                                Ts)
-    eye = torch.zeros((2, 2, 2), dtype=V.dtype, device=dev)
-    eye[:, :, 0] = torch.eye(2, dtype=V.dtype, device=dev)
-    J = eye.expand(Nf, Ts, K, N, 2, 2, 2).reshape(Nf, Ts, K, 2 * N, 2, 2)
+    warm = J0 is not None
+    if warm:
+        J = torch.as_tensor(J0, dtype=V.dtype, device=dev).reshape(
+            Nf, Ts, K, 2 * N, 2, 2)
+    else:
+        J = _identity_jones(Nf, Ts, cfg, V.dtype, dev)
 
     Vp, Cp = _eval_operands(V6, C7)
     L = Nf * Ts
     x_shape = (L, K * 2 * N * 2 * 2)
     p_shape = (L, K, 2 * N, 2, 2)
     inner_solve = _inner_solver(Vp, Cp, cfg)
+    search = inner_solve.search
+    n_segments = 1
+    if seg_iters is not None:
+        one_solve, n_segments = inner_solve, 0
+
+        def inner_solve(x0, prior, half_rho, total):
+            nonlocal n_segments
+            done = min(seg_iters, total)
+            res = one_solve(x0, prior, half_rho, done)
+            n_segments += 1
+            while done < total:
+                step = min(seg_iters, total - done)
+                res = one_solve(None, prior, half_rho, step, resume=res)
+                n_segments += 1
+                done += step
+            return res
 
     init_iters = 0
-    if cfg.init_iters > 0:
+    if not warm and cfg.init_iters > 0:
         # chi2-only initialization at the per-subband data optimum
         res = inner_solve(J.reshape(x_shape), J.reshape(p_shape),
                           torch.zeros_like(rho), cfg.init_iters)
@@ -435,8 +501,8 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig, n_chunks: int = 1,
     result = SolveResult(J=J, Z=Z, residual=residual, sigma_res=sigma_res,
                          sigma_data=sigma_data, final_cost=fcost)
     if collect_stats:
-        return result, _stats(niter, resid, inner, init_iters,
-                              inner_solve.search)
+        return result, _stats(niter, resid, inner, init_iters, search,
+                              n_segments=n_segments)
     return result
 
 
@@ -556,6 +622,26 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
     return result
 
 
+def solve_admm_host(V, C, freqs, f0, rho, cfg: SolverConfig,
+                    n_chunks: int = 1, admm_iters: Optional[int] = None,
+                    seg_iters: int = 8,
+                    collect_stats: bool = False) -> SolveResult:
+    """:func:`solve_admm` as bounded host-driven segments (the JAX
+    package's ``solve_admm_host``, smartcal_tpu/cal/solver.py:735-818):
+    the chi2-only init as ``ceil(init_iters / seg_iters)`` segments, then
+    per ADMM outer iteration the inner solve segmented the same way.  A
+    segment is one ``lbfgs_solve`` or ``lbfgs_resume`` of at most
+    ``seg_iters`` iterations and one quartic line search (one CUDA graph on
+    the card) serves every segment, so the result is the fused route's,
+    bit for bit.  JAX segments to stay under a TPU watchdog; the port's
+    solve is a host-driven loop already, so on the card this route takes
+    the fused one's time and cannot turn a non-finite fused solve finite.
+    Cold start."""
+    return solve_admm(V, C, freqs, f0, rho, cfg, n_chunks=n_chunks,
+                      admm_iters=admm_iters, collect_stats=collect_stats,
+                      seg_iters=seg_iters)
+
+
 def result_finite(res: SolveResult) -> bool:
     """Are the solutions, residuals and costs all finite?  One sync."""
     ok = (torch.isfinite(res.J).all() & torch.isfinite(res.residual).all()
@@ -563,26 +649,46 @@ def result_finite(res: SolveResult) -> bool:
     return bool(ok)
 
 
-def solve_admm_safe(solve_fn, rho, *, max_retries: int = 2,
-                    rho_boost: float = 10.0):
-    """Graceful degradation around a solve: non-finite iterates re-solve at
-    ``rho * rho_boost**attempt`` (bounded retries), then raise
-    :class:`SolverDegradedError`.  Returns ``(result, info)``.  (The JAX
-    ladder's last rung, the host-segmented route, is not ported.)"""
-    info = {"degraded": False, "attempts": 0, "rho_scale": 1.0}
-    res = solve_fn(rho)
+def solve_admm_safe(solve_fn, rho, *, initial_result=None,
+                    host_fallback=None, max_retries: int = 2,
+                    rho_boost: float = 10.0, on_event=None):
+    """Graceful degradation around a solve route (the JAX package's
+    ladder, smartcal_tpu/cal/solver.py:829-878):
+
+    1. ``solve_fn(rho)`` (or the caller's ``initial_result``);
+    2. up to ``max_retries`` re-solves at ``rho * rho_boost**attempt``;
+    3. ``host_fallback(rho)``, the host-segmented route, when given;
+    4. :class:`SolverDegradedError`.
+
+    Returns ``(result, info)``, ``info`` = {"degraded", "attempts",
+    "route", "rho_scale"}; ``on_event(**info)`` is called at each step
+    down the ladder (the caller's run-log hook)."""
+    info = {"degraded": False, "attempts": 0, "route": "primary",
+            "rho_scale": 1.0}
+    res = initial_result if initial_result is not None else solve_fn(rho)
     if result_finite(res):
         return res, info
     info["degraded"] = True
     for attempt in range(1, max_retries + 1):
         scale = float(rho_boost) ** attempt
-        info.update(attempts=attempt, rho_scale=scale)
+        info.update(attempts=attempt, route="retry_rho", rho_scale=scale)
+        if on_event is not None:
+            on_event(**info)
         res = solve_fn(rho * scale)
         if result_finite(res):
             return res, info
+    if host_fallback is not None:
+        info.update(route="host_segmented", rho_scale=1.0)
+        if on_event is not None:
+            on_event(**info)
+        res = host_fallback(rho)
+        if result_finite(res):
+            return res, info
+    tail = (" and the host-segmented fallback"
+            if host_fallback is not None else "")
     raise SolverDegradedError(
         f"non-finite ADMM iterates survived {info['attempts']} rho-boosted "
-        f"retries (x{rho_boost})")
+        f"retries (x{rho_boost}){tail}")
 
 
 def simulate_vis_multi_sr(J, C, n_stations, Ts):
@@ -599,3 +705,52 @@ def residual_to_kernel(residual):
     T, B = residual.shape[0], residual.shape[1]
     return residual.reshape(2 * T * B, 2, 2)
 
+
+def cost_eval_flops(cfg: SolverConfig, Nf: int, Ts: int, td: int, B: int,
+                    device="cuda") -> dict:
+    """Flops of the solver's inner evaluation units (the JAX package's
+    ``cost_eval_flops``, smartcal_tpu/cal/solver.py:920): the analytic
+    model that ``bench.py`` quotes MFU from (``model_*``: 112 flops per
+    sample and direction forward, x3 for the value and gradient, x4 for
+    the quartic's four bilinear model evaluations; the same values as
+    JAX's) beside the port's counts of one lane-batched value-and-grad of
+    the cost and one quartic build with one probe (``counted_*``,
+    ``obs.costs.stage_cost`` on zero operands of the shapes on
+    ``device``), and the model-over-counted ratios."""
+    K, N = cfg.n_dirs, cfg.n_stations
+    dev = torch.device(device)
+    L = Nf * Ts
+    n = K * 2 * N * 2 * 2
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    x, d = z(L, n), z(L, n)
+    Vp, Cp = z(L, 2, 2, 2, td, B), z(L, K, 2, 2, 2, td, B)
+    prior, half_rho = z(L, K, 2 * N, 2, 2), z(K)
+    onehots = baseline_onehots(N, torch.float32, dev)
+
+    def vag(x):
+        return lane_value_and_grad(lambda q: _cost_fn_onehot(
+            q, Vp, Cp, onehots, prior, half_rho, cfg))(x)
+
+    def setup(x, d):
+        coeffs = _quartic_coeffs(x, d, Vp, Cp, onehots, prior, half_rho,
+                                 cfg)
+        return _quartic_phi(coeffs)(torch.ones(L, device=dev))
+
+    counted_vag = costs.stage_cost(vag, x)["flops"]
+    counted_setup = costs.stage_cost(setup, x, d)["flops"]
+    model_cost = 112.0 * K * Nf * Ts * td * B
+    out = {"counted_value_and_grad_flops": counted_vag,
+           "counted_linesearch_setup_flops": counted_setup,
+           "model_value_and_grad_flops": 3.0 * model_cost,
+           "model_linesearch_setup_flops": 4.0 * model_cost,
+           "counted_on": f"torch dispatch count on {dev.type}"}
+    if counted_vag > 0:
+        out["vag_model_over_counted"] = round(3.0 * model_cost / counted_vag,
+                                              3)
+    if counted_setup > 0:
+        out["setup_model_over_counted"] = round(
+            4.0 * model_cost / counted_setup, 3)
+    return out

@@ -192,6 +192,10 @@ class CalibEnv:
                 0.05 * self.rho_spectral[:self.K])
         return self._observation(img)
 
+    def render(self, mode="human"):
+        """Echo the rho vectors (and log them as a ``render`` event)."""
+        obs.echo(f"{self.rho_spectral} {self.rho_spatial}", event="render")
+
     def close(self):
         if self._pf_tag is not None:
             self.backend.discard_prefetched(self._pf_tag)

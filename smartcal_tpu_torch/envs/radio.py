@@ -8,9 +8,19 @@ host-segmented, fused and vectorized routes by device count and problem
 size (radio.py:508-566, 745-795).  On one GPU this port keeps one route
 each, with the same math:
 
-* ``calibrate``       -> ``solver.solve_admm`` (the fused solve's math;
-  the host-segmented solve computes the same thing for TPU watchdogs),
-  wrapped in the rho-boost retry of ``solve_admm_safe``;
+* ``calibrate``       -> ``solver.solve_admm`` (the fused route), wrapped
+  in ``solve_admm_safe``'s ladder: rho-boosted retries, then the
+  host-segmented route ``solver.solve_admm_host``.  The JAX backend picks
+  the host-segmented route itself above 1e7 calibration units
+  (``_fused_work``, recorded on the solve span here: its guard against a
+  TPU watchdog on one fused XLA program).  The port's solve is a
+  host-driven loop with no such program, so the automatic choice here is
+  always the fused route;
+  ``SMARTCAL_HOST_SOLVER=1`` forces the host-segmented route (``=0`` the
+  fused one), and ``SMARTCAL_ROBUST_SOLVER=0/1`` overrides the
+  constructor's ``robust_solver``.  The two routes give the same bits, so
+  the host rung repeats a non-finite fused solve (one more solve before
+  ``SolverDegradedError``) rather than rescuing it;
 * ``influence_image`` -> ``influence.influence_image_single_sr`` per
   sub-band, averaged (the JAX host-segmented route's unit), with the
   SKA-tier statics of :meth:`RadioBackend._influence_statics`: the blocked
@@ -64,11 +74,16 @@ span, under the JAX package's span names (the hint stage is
 ``hint_sweep``, the sigmas stage ``reward``; ``images`` has no JAX twin)
 and tagged ``synced=True``: its duration includes the device's time.
 ``calibrate`` then also collects the solver's telemetry and logs it as a
-``solver`` event, as the JAX backend does.  The prefetch records the JAX
-package's ``prefetch_hit`` / ``prefetch_stall`` / ``prefetch_miss``
+``solver`` event with its route, and each step down the ladder as a
+``solver_degraded`` event, as the JAX backend does.  With ``obs.costs``
+armed (``--diag``), the solve, simulate and influence stages and the
+SKA-tier kernels log deferred ``cost`` events at the JAX sites.  The
+prefetch records the JAX package's ``prefetch_hit`` /
+``prefetch_stall`` / ``prefetch_miss``
 counters, the ``prefetch_pending`` gauge and ``prefetch_wait`` spans.
 """
 
+import os
 import threading
 import time
 from collections import defaultdict
@@ -83,6 +98,7 @@ from smartcal_tpu_torch import obs, resolve_device
 from smartcal_tpu_torch.cal import (coherency, imager, influence, observation,
                                     shapelets, simulate, solver)
 from smartcal_tpu_torch.cal import precision as prec
+from smartcal_tpu_torch.obs import costs as obs_costs
 
 # SKA-tier thresholds (the JAX backend's, smartcal_tpu/envs/radio.py:69-72):
 # from _BLOCK_MIN_B baselines (N=128 -> B=8128) the influence chain's
@@ -153,12 +169,17 @@ class RadioBackend:
     narrows the column means' final contraction and the factored imager's
     matmuls (kernel 2's bf16 mode on the card) with f32 accumulation; the
     solve, the Hessian, the hint and the data and residual images stay f32
-    under either."""
+    under either.  ``robust_solver``, ``solver_max_retries`` and
+    ``solver_rho_boost`` are the solve's degradation ladder (the JAX
+    backend's): non-finite iterates re-solve at boosted rho, then on the
+    host-segmented route, before ``SolverDegradedError``."""
 
     def __init__(self, n_stations=14, n_freqs=3, n_times=20, tdelta=10,
                  n_poly=2, admm_iters=10, lbfgs_iters=8, init_iters=30,
                  polytype=0, npix=128, hint_batch=8, device="cuda",
-                 block_baselines=None, imager_block_r=None, precision="f32"):
+                 block_baselines=None, imager_block_r=None, precision="f32",
+                 robust_solver=True, solver_max_retries=2,
+                 solver_rho_boost=10.0):
         if n_times <= 0 or n_times % tdelta != 0:
             raise ValueError(
                 f"n_times={n_times} must be a positive multiple of "
@@ -177,6 +198,9 @@ class RadioBackend:
         self.polytype = polytype
         self.npix = npix
         self.hint_batch = hint_batch
+        self.robust_solver = robust_solver
+        self.solver_max_retries = solver_max_retries
+        self.solver_rho_boost = solver_rho_boost
         self.precision = prec.check(precision)
         self.block_baselines = block_baselines
         self.imager_block_r = imager_block_r
@@ -235,6 +259,10 @@ class RadioBackend:
                                device=self.device)
         V = solver.simulate_vis_multi_sr(Jsim, Csim, self.n_stations,
                                          self.n_chunks)
+        # inside the simulate span: counted between episodes
+        obs_costs.record_stage_cost(
+            "simulate", solver.simulate_vis_multi_sr, Jsim, Csim,
+            self.n_stations, self.n_chunks, defer=True)
         Vn, _ = simulate.add_noise_device(key, V, snr=snr)
         return Vn
 
@@ -311,46 +339,117 @@ class RadioBackend:
             admm_iters=self.admm_iters, lbfgs_iters=self.lbfgs_iters,
             init_iters=self.init_iters, polytype=self.polytype)
 
+    def _fused_work(self, admm_iters=None):
+        """Calibration units of one solve (the JAX backend's measure):
+        total L-BFGS iterations x N^2 x Nf x T, with the per-call ADMM
+        override counted.  Telemetry only here: a tag of the solve span
+        (the JAX backend routes on it; see :meth:`_use_host_solver`)."""
+        admm = self.admm_iters if admm_iters is None else int(admm_iters)
+        total_iters = self.init_iters + admm * self.lbfgs_iters
+        return total_iters * (self.n_stations ** 2) * self.n_freqs \
+            * self.n_times
+
+    def _use_host_solver(self) -> bool:
+        """Run the solve on the host-segmented route?  The JAX backend does
+        above 1e7 units of :meth:`_fused_work`, to keep one fused XLA program
+        under a TPU watchdog; the port has no such program, so only
+        ``SMARTCAL_HOST_SOLVER=1`` says yes (``=0`` and unset: no)."""
+        return os.environ.get("SMARTCAL_HOST_SOLVER", "").strip() == "1"
+
     def calibrate(self, ep: Episode, rho, mask=None, admm_iters=None):
         """Solve with per-direction rho; ``mask`` (K,) in {0, 1} excludes
         directions by zeroing their model (one solver for every subset).
-        While a RunLog is active the solve collects its telemetry and logs
-        a ``solver`` event (JAX radio.py:498-499, 601-606); the result is
-        the same bits either way."""
+        The route is the fused solve, or the host-segmented one under
+        ``SMARTCAL_HOST_SOLVER=1``, inside the degradation ladder
+        (:meth:`_robustify`).  While a RunLog is active the solve collects
+        its telemetry and logs a ``solver`` event with the route (JAX
+        radio.py:495-607); the result is the same bits either way."""
         collect = obs.active() is not None
         stats = []
-        with self._stage("solve", route="fused"):
-            C = ep.Ccal
+        cfg = self._solver_cfg(ep.n_dirs)
+        C = ep.Ccal
+
+        def collecting(fn):
+            def call(r):
+                out = fn(r)
+                if collect:
+                    out, st = out
+                    stats.append(st)
+                return out
+            return call
+
+        @collecting
+        def host_route(r):
+            return solver.solve_admm_host(
+                ep.V, C, ep.obs.freqs, ep.f0, r, cfg, n_chunks=self.n_chunks,
+                admm_iters=admm_iters, collect_stats=collect)
+
+        @collecting
+        def fused_route(r):
+            out = solver.solve_admm(ep.V, C, ep.obs.freqs, ep.f0, r, cfg,
+                                    n_chunks=self.n_chunks,
+                                    admm_iters=admm_iters,
+                                    collect_stats=collect)
+            # inside the solve span: counted between episodes; the ADMM
+            # count rides as a 0-d tensor, a value of the signature (as in
+            # JAX, where it is traced), not a key of it
+            obs_costs.record_stage_cost(
+                "solve", solver.solve_admm, ep.V, C, ep.obs.freqs, ep.f0, r,
+                cfg, defer=True, n_chunks=self.n_chunks,
+                admm_iters=None if admm_iters is None
+                else torch.tensor(int(admm_iters)))
+            return out
+
+        host = self._use_host_solver()
+        route = "host_segmented" if host else "fused"
+        with self._stage("solve", route=route,
+                         work=self._fused_work(admm_iters)) as sp:
             if mask is not None:
                 m = torch.as_tensor(np.asarray(mask, np.float32),
                                     device=self.device)
                 C = C * m[None, :, None, None, None]
             rho_t = torch.as_tensor(np.asarray(rho, np.float32),
                                     device=self.device)
-            cfg = self._solver_cfg(ep.n_dirs)
-
-            def solve(r):
-                out = solver.solve_admm(ep.V, C, ep.obs.freqs, ep.f0, r, cfg,
-                                        n_chunks=self.n_chunks,
-                                        admm_iters=admm_iters,
-                                        collect_stats=collect)
-                if collect:
-                    out, st = out
-                    stats.append(st)
-                return out
-
-            res, info = solver.solve_admm_safe(solve, rho_t)
-        if info["degraded"]:
-            rl = obs.active()
-            if rl is not None:
-                rl.log("solver_degraded", primary_route="fused",
-                       route="retry_rho", **info)
-            obs.echo(f"solver degraded (fused): {info}", event=None)
+            route_fn = host_route if host else fused_route
+            res, final = self._robustify(route_fn(rho_t), route_fn,
+                                         None if host else host_route,
+                                         rho_t, route)
+            if final != route:
+                sp.tag(final_route=final)
         if collect:
-            obs.log_solver_stats(stats[-1], route="fused",
+            obs.log_solver_stats(stats[-1], route=final,
                                  n_freqs=self.n_freqs,
                                  n_stations=self.n_stations)
         return res
+
+    def _robustify(self, res, route_fn, host_fn, rho, route):
+        """The solve's degradation ladder (JAX radio.py:573-599): non-finite
+        iterates re-solve at boosted rho, then on ``host_fn`` (None when
+        the route already is the host-segmented one), then raise
+        ``SolverDegradedError``.  Each step logs a ``solver_degraded``
+        event.  ``SMARTCAL_ROBUST_SOLVER=0/1`` overrides the constructor's
+        ``robust_solver``; off, the result is returned as it is.  Returns
+        (result, the route that produced it)."""
+        override = os.environ.get("SMARTCAL_ROBUST_SOLVER", "").strip()
+        enabled = (override == "1" if override in ("0", "1")
+                   else self.robust_solver)
+        if not enabled:
+            return res, route
+        final = [route]
+
+        def on_event(**info):
+            if info.get("route") == "host_segmented":
+                final[0] = "host_segmented"
+            rl = obs.active()
+            if rl is not None:
+                rl.log("solver_degraded", primary_route=route, **info)
+            obs.echo(f"solver degraded ({route}): {info}", event=None)
+
+        res, _ = solver.solve_admm_safe(
+            route_fn, rho, initial_result=res, host_fallback=host_fn,
+            max_retries=self.solver_max_retries,
+            rho_boost=self.solver_rho_boost, on_event=on_event)
+        return res, final[0]
 
     def hint_sweep(self, ep: Episode, rho, masks, admm_iters=None,
                    batch=None):
@@ -423,7 +522,55 @@ class RadioBackend:
                     n_stations=self.n_stations, n_chunks=self.n_chunks,
                     npix=npix, **statics)
                 acc = img if acc is None else acc + img
+            # one band's chain, inside the span: counted between episodes
+            obs_costs.record_stage_cost(
+                "influence", influence.influence_image_single_sr,
+                result.residual[0], ep.Ccal[0], result.J[0], hadd_all[0],
+                freqs[0], uvw, cell, defer=True,
+                compute_dtype=self._imager_dtype(), n_stations=self.n_stations,
+                n_chunks=self.n_chunks, npix=npix, **statics)
+            self._record_kernel_costs(ep.n_dirs, npix, cell, statics)
             return acc / self.n_freqs
+
+    def _imager_dtype(self):
+        """The influence imager's contraction dtype under the backend's
+        precision, as a cost event's ``compute_dtype``."""
+        return prec.dtype_name(prec.contraction_dtype("imager_matmul",
+                                                      self.precision))
+
+    def _record_kernel_costs(self, n_dirs, npix, cell, statics):
+        """``kernel:<name>`` cost events of the SKA-tier kernels the
+        influence chain engages (JAX radio.py:824-880): one call of the
+        blocked Hessian and of the large-tier factored imager on zero
+        operands of the episode's shapes, made when the deferred count
+        runs.  Counted by the wrappers' analytic work."""
+        if statics.get("block_baselines"):
+            obs_costs.record_stage_cost(
+                "kernel:hessian_blocks", self._hessian_probe, n_dirs,
+                max(self.n_times // self.n_chunks, 1), defer=True)
+        if statics.get("imager_block_r"):
+            obs_costs.record_stage_cost(
+                "kernel:factored_imager", self._imager_probe,
+                self.n_times * self.n_baselines, npix, float(cell),
+                statics.get("precision", "f32"),
+                compute_dtype=self._imager_dtype(), defer=True)
+
+    def _hessian_probe(self, K, Td):
+        from smartcal_tpu_torch.ops import hessian_blocks
+
+        N, B, dev = self.n_stations, self.n_baselines, self.device
+        sched, p_idx, q_idx = hessian_blocks.full_schedule(N, dev)
+        jb = torch.zeros((K, B, 2, 2, 2), device=dev)
+        return hessian_blocks.hessian_block_sums(
+            torch.zeros((Td, B, 2, 2, 2), device=dev),
+            torch.zeros((K, Td, B, 2, 2, 2), device=dev), jb, jb, p_idx,
+            q_idx, N, sched=sched)
+
+    def _imager_probe(self, R, npix, cell, precision):
+        dev = self.device
+        return imager.dirty_image_factored_large_sr(
+            torch.zeros((R, 3), device=dev), torch.zeros((R, 2), device=dev),
+            150e6, cell, npix=npix, precision=precision)
 
     def data_image(self, ep: Episode, npix=None):
         with self._stage("images"):
@@ -637,6 +784,14 @@ class RadioBackend:
                 residual, C, J, hadd, bep.freqs, bep.uvw[:, None],
                 bep.cell[:, None], n_stations=self.n_stations,
                 n_chunks=self.n_chunks, npix=npix, **statics)
+            obs_costs.record_stage_cost(
+                "influence", influence.influence_images_lanes, residual, C,
+                J, hadd, bep.freqs, bep.uvw[:, None], bep.cell[:, None],
+                defer=True, compute_dtype=self._imager_dtype(),
+                n_stations=self.n_stations, n_chunks=self.n_chunks,
+                npix=npix, **statics)
+            self._record_kernel_costs(bep.n_dirs, npix,
+                                      float(bep.cell[0]), statics)
             return torch.mean(imgs, dim=1)
 
     def image_sigmas_batched(self, bep: BatchedEpisode,

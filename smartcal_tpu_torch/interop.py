@@ -285,6 +285,26 @@ def replay_from_jax(buf) -> dict:
             "priority": np.array(buf.priority, np.float32)[:n]}
 
 
+def native_replay_from_jax(state: dict) -> dict:
+    """The port's ``NativePER`` state dict of a JAX ``NativePER.state_dict``
+    (host arrays): the same ring, leaves, cursor, fill and beta, the spec's
+    dtypes as numpy dtype strings."""
+    out = _host({k: v for k, v in state.items() if k != "spec"})
+    out["spec"] = {k: (tuple(shape), np.dtype(dt).str)
+                   for k, (shape, dt) in state["spec"].items()}
+    return out
+
+
+def _replay_from_jax(obj: dict) -> dict:
+    """The port's replay payload of a JAX ``pack_replay`` payload: the
+    device ring form of an "hbm" payload, the native form of a "native"
+    one."""
+    if obj.get("kind") == "native":
+        return {"kind": "native",
+                "state": native_replay_from_jax(obj["state"])}
+    return {"kind": "device_ring", "state": replay_from_jax(obj["state"])}
+
+
 def _state_from_jax(st, cfg):
     if isinstance(cfg, sac.SACConfig):
         return sac_state_from_jax(st, cfg)
@@ -315,7 +335,8 @@ def agent_loop_from_jax(payload: dict, cfg, device="cpu") -> dict:
       demix_*): the agent state through :func:`sac_state_from_jax` /
       :func:`td3_state_from_jax` / :func:`ddpg_state_from_jax` (by the type
       of ``cfg``, the port's config), the ring, the env's key state, the
-      scores, the episode and ``extra``;
+      scores, the episode, ``extra`` and the native sampler's numpy
+      generator state;
     * ``train_fused`` payloads (``kind`` "enet_fused"): the same for the
       elastic-net trainers.
 
@@ -330,11 +351,12 @@ def agent_loop_from_jax(payload: dict, cfg, device="cpu") -> dict:
            "scores": [float(s) for s in payload["scores"]],
            "agent_state": _state_from_jax(payload["agent_state"],
                                           cfg).to_host(),
-           "replay": {"kind": "device_ring",
-                      "state": replay_from_jax(payload["replay"]["state"])}}
+           "replay": _replay_from_jax(payload["replay"])}
     gen_state = gen.get_state().numpy().copy()
     if kind == "agent_loop":
         out["agent_generator"] = gen_state
+        if "agent_sample_rng" in payload:
+            out["agent_sample_rng"] = payload["agent_sample_rng"]
         if "env_state" in payload:
             out["env_state"] = _host(dict(payload["env_state"]))
         if payload.get("extra"):

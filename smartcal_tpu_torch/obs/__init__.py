@@ -19,15 +19,19 @@ numpy: it reads torch from ``sys.modules`` only, so importing it never
 initialises a device.  The baseline store (``baselines``: fingerprinted
 per-stage baselines and the bf16 band ``BF16_REL_BAND``) and the
 noise-aware detector (``regress``) are the JAX package's, with the port's
-own host fingerprint.  The JAX package's cost accounting
-(``obs/costs.py``), perf gate, SLO detector, collector and flight
-recorder are not here (ROADMAP queue 1 items 12 and 14).
+own host fingerprint; ``smartcal_tpu_torch.tools.perf_gate`` runs them as
+a gate.  ``costs`` is the per-stage flops/bytes accounting and the card's
+roofline peak (the JAX package's API and events, counted by running the
+stage under a dispatch mode).  The JAX package's SLO detector, collector
+and flight recorder are not here (ROADMAP queue 1 item 14).
 """
 
-from . import baselines, regress, tracectx                 # noqa: F401
+from . import baselines, costs, regress, tracectx          # noqa: F401
 from .baselines import (BF16_REL_BAND, BaselineStore,      # noqa: F401
                         host_fingerprint)
 from .console import echo, emit_json                       # noqa: F401
+from .costs import (device_peak, log_roofline_peak,        # noqa: F401
+                    record_stage_cost, stage_cost)
 from .diagnostics import (UpdateDiag, diag_steps,          # noqa: F401
                           diag_to_host, make_diag, stack_diags, zero_diag)
 from .registry import (counter_add, counters_snapshot,     # noqa: F401

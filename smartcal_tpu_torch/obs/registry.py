@@ -85,12 +85,16 @@ def install_compile_listener() -> bool:
 def record_compile(key: str, dur_s: float, **fields: object) -> None:
     """One compile of the port (``nvcc:<source>``, ``cuda_graph:<what>``):
     a ``compile`` event plus the ``compile_events`` / ``compile_secs``
-    counters, when the listener is installed and a run is recording."""
+    counters and ``compile_events:<kind>`` by the key's prefix (``nvcc``,
+    ``cuda_graph``), when the listener is installed and a run is
+    recording."""
     rl = active()
     if rl is None or not _listener_installed:
         return
     rl.log("compile", key=key, dur_s=round(float(dur_s), 4), **fields)
+    kind = "compile_events:" + key.split(":", 1)[0]
     with _lock:
+        _counters[kind] = _counters.get(kind, 0.0) + 1.0
         _counters["compile_events"] = _counters.get("compile_events",
                                                     0.0) + 1.0
         _counters["compile_secs"] = _counters.get("compile_secs",

@@ -21,6 +21,9 @@ kernel is held against.
 :func:`dirty_image` launches the kernel for CUDA tensors and raises if the
 build or the launch fails; it runs :func:`dirty_image_reference` only for
 tensors that lie on the CPU.  ``launches`` counts kernel launches.
+:func:`image_cost` is the image's analytic work (the bound of PERF.md's
+kernel table), which :func:`dirty_image` adds to an ``obs.costs`` count
+on either path.
 """
 
 import ctypes
@@ -28,6 +31,8 @@ import math
 
 import numpy as np
 import torch
+
+from smartcal_tpu_torch.obs import costs
 
 C_LIGHT = 2.99792458e8
 F32 = torch.float32
@@ -155,6 +160,14 @@ def dirty_image_cuda(uv, vis, npix, cell):
     return out
 
 
+def image_cost(npix, R):
+    """(flops, bytes) of one separable-grid image of R samples: the
+    4 npix^2 R flops of the GEMM, uvw and vis read once and the image
+    written once (shared with ``ops/factored_imager``)."""
+    P = npix * npix
+    return 4.0 * P * R, R * 3 * 4 + R * 2 * 4 + P * 4
+
+
 def dirty_image(uvw, vis, freq, cell, npix=128):
     """Dirty image (npix, npix) from uvw (R, 3) meters and split-real
     vis (R, 2): the kernel for CUDA tensors, the plain version for CPU
@@ -169,10 +182,11 @@ def dirty_image(uvw, vis, freq, cell, npix=128):
         raise ValueError("dft_imager: uvw and vis on different devices")
     scale = torch.tensor(uv_scale(freq), dtype=F32, device=uvw.device)
     uv = (uvw[:, :2] * scale).contiguous()
-    if uvw.device.type == "cuda":
-        img = dirty_image_cuda(uv, vis.contiguous(), npix, cell)
-    elif uvw.device.type == "cpu":
-        img = dirty_image_reference(uv, pixel_grid(npix, cell), vis)
-    else:
+    if uvw.device.type not in ("cuda", "cpu"):
         raise ValueError(f"dft_imager: unsupported device {uvw.device}")
+    with costs.kernel_cost(*image_cost(npix, uvw.shape[0])):
+        if uvw.device.type == "cuda":
+            img = dirty_image_cuda(uv, vis.contiguous(), npix, cell)
+        else:
+            img = dirty_image_reference(uv, pixel_grid(npix, cell), vis)
     return img.reshape(npix, npix)

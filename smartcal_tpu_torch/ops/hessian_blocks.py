@@ -35,6 +35,8 @@ PyTorch, the kernel's reduction in its order.
 if the build or the launch fails; it runs the plain version
 (``cal/kernels._hessian_block_sums``) only for tensors on the CPU.
 ``launches`` counts one per call (the tile pass and the combine).
+:func:`block_sums_cost` is a call's analytic work (the bound of PERF.md's
+kernel table), added to an ``obs.costs`` count on either path.
 """
 
 import ctypes
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from smartcal_tpu_torch.cal import kernels
+from smartcal_tpu_torch.obs import costs
 
 F32 = torch.float32
 ROWS, COLS = 8, 8        # p-stations x q-stations per tile (csrc kRows, kCols)
@@ -263,18 +266,31 @@ def hessian_block_sums_cuda(R3, C5, Jp, Jq, p_idx, q_idx, n_stations,
     return off, dsum
 
 
+def block_sums_cost(R3, C5, Jp, Jq, p_idx, q_idx, n_stations):
+    """(flops, bytes) of one block-sums call: every operand read once, off
+    and Dsum written once; 192 FP32 flops per (k, t, b) (off 128, the Gram
+    matrix of C 64) and 384 per (k, b)."""
+    K, Td, B = C5.shape[0], C5.shape[1], C5.shape[2]
+    n_in = sum(t.numel() * t.element_size()
+               for t in (R3, C5, Jp, Jq, p_idx, q_idx))
+    n_out = (K * B * 32 + K * int(n_stations) * 8) * 4
+    return 192.0 * K * Td * B + 384.0 * K * B, n_in + n_out
+
+
 def hessian_block_sums(R3, C5, Jp, Jq, p_idx, q_idx, n_stations,
                        sched=None):
     """Unnormalized (off, Dsum) of the baselines ``p_idx``/``q_idx``: the
     kernel for CUDA tensors, the plain version for CPU tensors.  Any other
     device raises."""
-    if C5.device.type == "cuda":
-        return hessian_block_sums_cuda(R3, C5, Jp, Jq, p_idx, q_idx,
-                                       n_stations, sched=sched)
-    if C5.device.type == "cpu":
+    if C5.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"hessian_blocks: unsupported device {C5.device}")
+    with costs.kernel_cost(*block_sums_cost(R3, C5, Jp, Jq, p_idx, q_idx,
+                                            n_stations)):
+        if C5.device.type == "cuda":
+            return hessian_block_sums_cuda(R3, C5, Jp, Jq, p_idx, q_idx,
+                                           n_stations, sched=sched)
         return kernels._hessian_block_sums(R3, C5, Jp, Jq, p_idx, q_idx,
                                            n_stations)
-    raise ValueError(f"hessian_blocks: unsupported device {C5.device}")
 
 
 def hessian_res_core_sr(R3, C5, Jp, Jq, n_stations):

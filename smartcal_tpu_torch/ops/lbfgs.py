@@ -294,28 +294,15 @@ def _default_line_search(value_and_grad, lr):
     return line_search
 
 
-def lbfgs_solve(value_and_grad: Callable, x0, max_iters: int = 200,
-                history_size: int = LBFGS_HISTORY_DEFAULT,
-                tolerance_grad: float = 1e-5,
-                tolerance_change: float = 1e-9, lr: float = 1.0,
-                line_search: Optional[Callable] = None) -> LBFGSResult:
-    """Minimise independent per-lane objectives by L-BFGS.
-
-    ``value_and_grad(x)`` maps (L, n) iterates to ((L,) values, (L, n)
-    gradients); ``line_search(x, d)`` returns the (L,) step along ``d``.  The
-    six early-exit tests of lbfgsnew.py:725-741 stop a lane; the loop ends
-    when no lane is active, checked once per iteration (the only sync)."""
-    L, n = x0.shape
-    dtype, dev = x0.dtype, x0.device
-    line_search = line_search or _default_line_search(value_and_grad, lr)
-    x = x0
-    loss, g = value_and_grad(x0)
-    hist = history_init(L, n, history_size, dtype, dev)
-    it = torch.zeros(L, dtype=torch.int32, device=dev)
-    stop = torch.sum(torch.abs(g), dim=-1) <= tolerance_grad
-    diverged = torch.isnan(loss)
+def _solve_loop(value_and_grad, line_search, x, loss, g, hist, it, stop,
+                diverged, cap, tolerance_grad, tolerance_change):
+    """The L-BFGS loop over the carry (x, loss, g, hist, it, stop,
+    diverged) until no lane is below its iteration ``cap`` and unstopped,
+    shared by :func:`lbfgs_solve` and :func:`lbfgs_resume` so a segmented
+    solve walks the same trajectory.  The loop carries nothing else: the
+    line search's host-side skips look at its own per-call state only."""
     while True:
-        active = (it < max_iters) & (~stop)
+        active = (it < cap) & (~stop)
         if not bool(active.any()):
             break
         d = two_loop_direction(hist, g)
@@ -350,6 +337,81 @@ def lbfgs_solve(value_and_grad: Callable, x0, max_iters: int = 200,
     return LBFGSResult(x=x, loss=loss, grad=g, hist=hist, n_iters=it,
                        converged=stop & ~diverged, stop=stop,
                        diverged=diverged)
+
+
+def lbfgs_solve(value_and_grad: Callable, x0, max_iters: int = 200,
+                history_size: int = LBFGS_HISTORY_DEFAULT,
+                tolerance_grad: float = 1e-5,
+                tolerance_change: float = 1e-9, lr: float = 1.0,
+                line_search: Optional[Callable] = None) -> LBFGSResult:
+    """Minimise independent per-lane objectives by L-BFGS.
+
+    ``value_and_grad(x)`` maps (L, n) iterates to ((L,) values, (L, n)
+    gradients); ``line_search(x, d)`` returns the (L,) step along ``d``.  The
+    six early-exit tests of lbfgsnew.py:725-741 stop a lane; the loop ends
+    when no lane is active, checked once per iteration (the only sync)."""
+    L, n = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    line_search = line_search or _default_line_search(value_and_grad, lr)
+    loss, g = value_and_grad(x0)
+    hist = history_init(L, n, history_size, dtype, dev)
+    it = torch.zeros(L, dtype=torch.int32, device=dev)
+    stop = torch.sum(torch.abs(g), dim=-1) <= tolerance_grad
+    return _solve_loop(value_and_grad, line_search, x0, loss, g, hist, it,
+                       stop, torch.isnan(loss), max_iters, tolerance_grad,
+                       tolerance_change)
+
+
+def lbfgs_resume(value_and_grad: Callable, res: LBFGSResult,
+                 extra_iters: int, tolerance_grad: float = 1e-5,
+                 tolerance_change: float = 1e-9, lr: float = 1.0,
+                 line_search: Optional[Callable] = None) -> LBFGSResult:
+    """Continue a lane-batched :func:`lbfgs_solve` for up to
+    ``extra_iters`` more iterations per lane (the JAX package's
+    ``lbfgs_resume``): the same loop over the carry recovered from
+    ``res``, each lane capped at its own ``n_iters + extra_iters``, so
+    ``solve(30)`` and ``solve(10)`` + 2x ``resume(10)`` walk the same
+    trajectory bit for bit.  A stopped lane stays as it is.  This is how
+    :func:`~smartcal_tpu_torch.cal.solver.solve_admm_host` splits a solve
+    into bounded segments."""
+    line_search = line_search or _default_line_search(value_and_grad, lr)
+    return _solve_loop(value_and_grad, line_search, res.x, res.loss,
+                       res.grad, res.hist, res.n_iters, res.stop,
+                       res.diverged, res.n_iters + int(extra_iters),
+                       tolerance_grad, tolerance_change)
+
+
+def linesearch_phi_evals(vmapped: bool = True) -> int:
+    """Static phi-evaluation count of ONE :func:`strong_wolfe_cubic` call
+    (the JAX package's line-search cost model).  The bracket loop runs 3
+    trips and zoom 4, so the counts are constants.  Where every branch of
+    the search runs (a vmapped JAX solve; here a CUDA graph replay), each
+    bracket trip makes 4 zoom trips x (p01 + p02 + interior) and the
+    continuation's lo + hi + interior + mu:
+
+      init: phi(0) + phi(alpha1)                                 =  2
+      per bracket trip: 4 x 3 + 4                                = 16
+      total: 2 + 3 x 16                                          = 50
+
+    ``vmapped=False`` is the lower bound where the zoom runs at most once
+    per search.  The solver's measured count is
+    ``SolverStats.phi_evals``."""
+    if vmapped:
+        return 2 + 3 * (4 * 3 + 4)
+    return 2 + 3 * 4 + 4 * 3
+
+
+def solve_eval_counts(n_iters: int, use_line_search: bool = True,
+                      vmapped: bool = True) -> dict:
+    """Evaluation budget of an :func:`lbfgs_solve` that took ``n_iters``
+    iterations: one ``value_and_grad`` per iteration plus the initial one,
+    and the line search's phi probes (:func:`linesearch_phi_evals`)."""
+    n = int(n_iters)
+    return {
+        "value_and_grad_evals": n + 1,
+        "phi_evals": (n * linesearch_phi_evals(vmapped)
+                      if use_line_search else 0),
+    }
 
 
 # ---------------------------------------------------------------------------

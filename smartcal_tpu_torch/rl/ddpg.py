@@ -20,11 +20,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch import obs, resolve_device
 from smartcal_tpu_torch.obs import diagnostics as dg
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, _host, _params,
-                                       adam_init, adam_update, soft_update)
+                                       adam_init, adam_update,
+                                       record_update_cost, soft_update)
 from smartcal_tpu_torch.rl.td3 import _grads, build_nets
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
 
@@ -216,9 +217,13 @@ class DDPGAgent:
         rp.replay_add(self.buffer, tr, priority=1.0)
 
     def learn(self, sample_noise=None):
-        self.last_metrics = learn(self.cfg, self.state, self.buffer,
-                                  self.generator, sample_noise,
-                                  collect_diag=self.collect_diag)
+        with obs.span("agent_update_ddpg"):
+            self.last_metrics = learn(self.cfg, self.state, self.buffer,
+                                      self.generator, sample_noise,
+                                      collect_diag=self.collect_diag)
+        if self.buffer.cntr >= self.cfg.batch_size:
+            record_update_cost("agent_update_ddpg", learn, self.cfg,
+                               self.state, self.buffer, self.collect_diag)
         self.last_diag = self.last_metrics.pop("diag", None)
 
     def save_models(self, prefix: Optional[str] = None):

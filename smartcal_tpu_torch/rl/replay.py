@@ -243,12 +243,21 @@ def replay_health(buf: ReplayState, n_age_bins: int = 4) -> dict:
     (1 = uniform), max/mean priority ratio, IS-weight extremes at the
     current beta, uniform vs priority-weighted mean age, and the priority
     mass per age quartile (young to old)."""
-    filled, cntr, size = buf.filled, buf.cntr, buf.size
-    out = {"filled": filled, "cntr": cntr, "size": size,
-           "beta": float(buf.beta)}
+    p = buf.priority[:buf.filled].cpu().numpy()
+    return health_from_arrays(p, buf.cntr, buf.size, float(buf.beta),
+                              n_age_bins)
+
+
+def health_from_arrays(p, cntr: int, size: int, beta: float,
+                       n_age_bins: int = 4) -> dict:
+    """:func:`replay_health`'s math over host priorities ``p`` (at least
+    the filled prefix), shared with the native sum-tree replay."""
+    filled = int(min(cntr, size))
+    out = {"filled": filled, "cntr": int(cntr), "size": int(size),
+           "beta": float(beta)}
     if filled == 0:
         return out
-    p = buf.priority[:filled].cpu().numpy().astype(np.float64)
+    p = np.asarray(p[:filled], np.float64)
     total = float(p.sum())
     out["priority_total"] = total
     out["priority_max"] = float(p.max())
@@ -261,10 +270,10 @@ def replay_health(buf: ReplayState, n_age_bins: int = 4) -> dict:
     h = float(-(nz * np.log(nz)).sum())
     out["priority_entropy"] = h / math.log(filled) if filled > 1 else 1.0
     out["max_mean_priority_ratio"] = float(p.max() / p.mean())
-    w = (filled * np.maximum(probs, 1e-12)) ** (-float(buf.beta))
+    w = (filled * np.maximum(probs, 1e-12)) ** (-float(beta))
     out["is_weight_min"] = float(w.min())
     out["is_weight_max"] = float(w.max())
-    ages = (cntr - 1 - np.arange(filled)) % max(size, 1)
+    ages = (int(cntr) - 1 - np.arange(filled)) % max(size, 1)
     out["age_mean_uniform"] = float(ages.mean())
     out["age_mean_weighted"] = float((probs * ages).sum())
     edges = np.linspace(0, max(float(ages.max()), 1.0), n_age_bins + 1)

@@ -28,6 +28,13 @@ normal draws ``(n_next, n_pi, n_dual)``, :func:`learn` the replay draws
 ``torch.Generator`` on the device.  The learn counter is a host int, so
 "learn or not" and "dual update or not" are decided without a device
 sync.
+
+``SACConfig(prioritized=True, replay_backend="native")`` keeps the ring on
+the host (:class:`~smartcal_tpu_torch.rl.replay_native.NativePER`, the C++
+sum tree), sampled with a numpy generator seeded ``seed + 1`` as in the
+JAX agent; only the minibatch crosses to the device.  Each learn is an
+``agent_update_sac`` span, and with ``obs.costs`` armed a deferred
+``cost`` event (:func:`record_update_cost`).
 """
 
 import copy
@@ -37,9 +44,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch import obs, resolve_device
+from smartcal_tpu_torch.obs import costs
 from smartcal_tpu_torch.obs import diagnostics as dg
 from smartcal_tpu_torch.rl import replay as rp
+from smartcal_tpu_torch.rl import replay_native
 from smartcal_tpu_torch.rl.networks import (MLPActor, MLPCritic,
                                             SplitImageMetaActor,
                                             SplitImageMetaCritic,
@@ -98,10 +107,6 @@ class SACConfig:
             raise NotImplementedError(
                 "is_clip (the fleet's staleness-clipped importance "
                 "weights) is not ported yet: ROADMAP queue 1 item 13")
-        if self.replay_backend == "native":
-            raise NotImplementedError(
-                "replay_backend='native' (the host sum tree) is not ported "
-                "yet: ROADMAP queue 1 item 12")
 
 
 @dataclasses.dataclass
@@ -476,11 +481,50 @@ def learn(cfg: SACConfig, st: SACState, buf: rp.ReplayState, generator=None,
     return m
 
 
+def _update_probe(learn_fn, cfg, st, buf, collect_diag):
+    """``learn_fn`` (an agent module's ``learn``) on copies of ``st`` and of
+    the ring's priorities, with a generator of its own: what a deferred
+    update cost counts, leaving the agent's state, ring and draws as they
+    are.  The copies are not counted."""
+    dev = buf.device
+    with costs.uncounted():
+        st = st.copy_to(dev)
+        buf = rp.ReplayState(buf.data, buf.priority.clone(), buf.cntr,
+                             buf.beta)
+    return learn_fn(cfg, st, buf, torch.Generator(device=dev).manual_seed(0),
+                    collect_diag=collect_diag)
+
+
+def _native_update_probe(cfg, st, batch, is_w, collect_diag):
+    """:func:`learn_from_batch` on a copy of ``st`` (the native arm's
+    update; see :func:`_update_probe`)."""
+    dev = is_w.device
+    with costs.uncounted():
+        st = st.copy_to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = tuple(torch.randn((cfg.batch_size, cfg.n_actions),
+                              generator=gen, device=dev) for _ in range(3))
+    return learn_from_batch(cfg, st, batch, is_w, noise,
+                            collect_diag=collect_diag)
+
+
+def record_update_cost(stage, learn_fn, cfg, st, buf, collect_diag=False):
+    """The deferred ``cost`` event of an agent update (the JAX agents'
+    ``agent_update_<algo>`` site), counted on copies by
+    :func:`_update_probe` between episodes.  A no-op unless ``obs.costs``
+    is armed and a RunLog records."""
+    costs.record_stage_cost(stage, _update_probe, learn_fn, cfg, st, buf,
+                            collect_diag, defer=True)
+
+
 class SACAgent:
     """Stateful wrapper with the reference ``Agent`` API (choose_action /
     store_transition / learn / save_models / load_models) for host-driven
-    training loops.  The agent, its replay ring and its generator live on
-    ``device`` (default "cuda": raises without a GPU)."""
+    training loops.  The agent and its generator live on ``device``
+    (default "cuda": raises without a GPU), and so does its replay ring,
+    except under ``replay_backend="native"`` with PER: a host
+    :class:`~smartcal_tpu_torch.rl.replay_native.NativePER` sampled by a
+    numpy generator seeded ``seed + 1`` (JAX rl/sac.py:509-625)."""
 
     def __init__(self, cfg: SACConfig, seed: int = 0, name_prefix: str = "",
                  device="cuda", collect_diag: bool = False):
@@ -488,9 +532,15 @@ class SACAgent:
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = sac_init(cfg, self.generator, self.device)
-        self.buffer = rp.replay_init(
-            cfg.mem_size, rp.transition_spec(cfg.obs_dim, cfg.n_actions),
-            self.device)
+        spec = rp.transition_spec(cfg.obs_dim, cfg.n_actions)
+        self.native = cfg.prioritized and cfg.replay_backend == "native"
+        if self.native:
+            self.buffer = replay_native.NativePER(cfg.mem_size, spec,
+                                                  error_clip=cfg.error_clip)
+            self._rng = np.random.default_rng(seed + 1)
+        else:
+            self.buffer = rp.replay_init(cfg.mem_size, spec, self.device)
+            self._rng = None
         self.name_prefix = name_prefix
         self.collect_diag = collect_diag
         self.last_metrics = {}
@@ -511,6 +561,9 @@ class SACAgent:
     def store_transition(self, state, action, reward, state_, done, hint):
         tr = {"state": state, "action": action, "reward": reward,
               "new_state": state_, "done": done, "hint": hint}
+        if self.native:
+            self.buffer.store(tr)      # max-priority init (enet_sac.py:63-64)
+            return
         # uniform buffers store priority 1; PER the max priority
         # (enet_sac.py:63-64)
         rp.replay_add(self.buffer, tr,
@@ -518,16 +571,60 @@ class SACAgent:
 
     def learn(self, sample_noise=None, noise=None):
         """One learn step (a no-op below ``batch_size`` transitions); the
-        replay draws and the normal draws default to the generator's."""
-        self.last_metrics = learn(self.cfg, self.state, self.buffer,
-                                  self.generator, sample_noise, noise,
-                                  collect_diag=self.collect_diag)
+        replay draws and the normal draws default to the generators'
+        (under the native backend ``sample_noise`` is the segment
+        uniforms, else drawn from the numpy sampler)."""
+        if self.native:
+            self.last_metrics = self._learn_native(sample_noise, noise)
+        else:
+            with obs.span("agent_update_sac"):
+                self.last_metrics = learn(self.cfg, self.state, self.buffer,
+                                          self.generator, sample_noise,
+                                          noise,
+                                          collect_diag=self.collect_diag)
+            if self.buffer.cntr >= self.cfg.batch_size:
+                record_update_cost("agent_update_sac", learn, self.cfg,
+                                   self.state, self.buffer,
+                                   self.collect_diag)
         self.last_diag = self.last_metrics.pop("diag", None)
+
+    def _learn_native(self, uniforms=None, noise=None) -> dict:
+        """The native arm: sample on the host, one copy of the minibatch to
+        the device, :func:`learn_from_batch`, then the new priorities from
+        ``td`` back to the tree."""
+        cfg = self.cfg
+        if not self.buffer.ready(cfg.batch_size):
+            # the metrics of the device ring's no-learn branch
+            zero = torch.zeros((), device=self.device)
+            out = {"critic_loss": zero, "actor_loss": zero,
+                   "alpha": self.state.alpha, "rho": self.state.rho}
+            if self.collect_diag:
+                out["diag"] = dg.zero_diag(self.device)
+            return out
+        batch, idx, is_w = self.buffer.sample(cfg.batch_size, self._rng,
+                                              uniforms=uniforms)
+        batch, is_w = replay_native.to_device(batch, is_w, self.device)
+        if noise is None:
+            noise = tuple(torch.randn((cfg.batch_size, cfg.n_actions),
+                                      generator=self.generator,
+                                      device=self.device)
+                          for _ in range(3))
+        with obs.span("agent_update_sac"):
+            m = learn_from_batch(cfg, self.state, batch, is_w, noise,
+                                 collect_diag=self.collect_diag)
+        costs.record_stage_cost("agent_update_sac", _native_update_probe,
+                                cfg, self.state, batch, is_w,
+                                self.collect_diag, defer=True)
+        self.buffer.update_priorities(idx, m.pop("td"))
+        return m
 
     def save_models(self, prefix: Optional[str] = None):
         prefix = prefix if prefix is not None else self.name_prefix
         atomic_pickle(self.state.to_host(), f"{prefix}sac_state.pkl")
-        rp.save_replay(self.buffer, f"{prefix}replaymem_sac.pkl")
+        if self.native:
+            self.buffer.save(f"{prefix}replaymem_sac.pkl")
+        else:
+            rp.save_replay(self.buffer, f"{prefix}replaymem_sac.pkl")
 
     def load_models(self, prefix: Optional[str] = None) -> bool:
         """Resume from ``save_models`` files; a missing or corrupt state file
@@ -539,5 +636,7 @@ class SACAgent:
         self.state = SACState.from_host(self.cfg, host, self.device)
         mem = safe_pickle_load(f"{prefix}replaymem_sac.pkl")
         if mem is not None:
-            self.buffer = rp.replay_from_host(mem, self.device)
+            self.buffer = (replay_native.NativePER.from_state_dict(mem)
+                           if self.native
+                           else rp.replay_from_host(mem, self.device))
         return True

@@ -31,14 +31,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from smartcal_tpu_torch import resolve_device
+from smartcal_tpu_torch import obs, resolve_device
 from smartcal_tpu_torch.obs import diagnostics as dg
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl.networks import (MLPCritic, MLPDeterministicActor,
                                             SplitImageMetaCritic,
                                             SplitImageMetaDeterministicActor)
 from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, _host, _params,
-                                       adam_init, adam_update, soft_update)
+                                       adam_init, adam_update,
+                                       record_update_cost, soft_update)
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
 
 
@@ -378,9 +379,13 @@ class TD3Agent:
         rp.replay_add(self.buffer, tr, priority=1.0 if pri is None else pri)
 
     def learn(self, sample_noise=None, smooth_noise=None):
-        self.last_metrics = learn(self.cfg, self.state, self.buffer,
-                                  self.generator, sample_noise, smooth_noise,
-                                  collect_diag=self.collect_diag)
+        with obs.span("agent_update_td3"):
+            self.last_metrics = learn(self.cfg, self.state, self.buffer,
+                                      self.generator, sample_noise, smooth_noise,
+                                      collect_diag=self.collect_diag)
+        if self.buffer.cntr >= self.cfg.batch_size:
+            record_update_cost("agent_update_td3", learn, self.cfg,
+                               self.state, self.buffer, self.collect_diag)
         self.last_diag = self.last_metrics.pop("diag", None)
 
     def save_models(self, prefix: Optional[str] = None):

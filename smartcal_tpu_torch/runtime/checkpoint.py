@@ -185,25 +185,35 @@ def _check_host(obj, where="payload") -> None:
 # ---------------------------------------------------------------------------
 
 def pack_replay(buf: object) -> dict:
-    """Host form of a device replay ring for the checkpoint payload: the
-    filled prefix of every field and of the priorities, ``cntr`` (the
-    cursor is ``cntr % size``), ``beta`` and the ring size
-    (``rl.replay.replay_to_host``)."""
+    """Host form of a replay buffer for the checkpoint payload.  A device
+    ring: the filled prefix of every field and of the priorities, ``cntr``
+    (the cursor is ``cntr % size``), ``beta`` and the ring size
+    (``rl.replay.replay_to_host``).  A native ring (``NativePER``, JAX
+    runtime/checkpoint.py:174-220): its ``state_dict`` (ring arrays, the
+    tree's leaves, cursor and fill, beta), so priorities round-trip bit
+    for bit."""
     from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl.replay_native import NativePER
 
     if isinstance(buf, rp.ReplayState):
         return {"kind": "device_ring", "state": rp.replay_to_host(buf)}
+    if isinstance(buf, NativePER):
+        return {"kind": "native", "state": buf.state_dict()}
     raise TypeError(f"unsupported replay buffer {type(buf)!r}")
 
 
 def unpack_replay(obj: dict, device="cuda") -> object:
-    """The full-size ring on ``device`` of a :func:`pack_replay` payload;
-    the slots past the prefix are zero, as in the ring that was packed."""
+    """The buffer of a :func:`pack_replay` payload: a full-size ring on
+    ``device`` (the slots past the prefix are zero, as in the ring that was
+    packed), or a host ``NativePER``."""
     from smartcal_tpu_torch.rl import replay as rp
 
     kind = obj.get("kind")
     if kind == "device_ring":
         return rp.replay_from_host(obj["state"], device)
+    if kind == "native":
+        from smartcal_tpu_torch.rl.replay_native import NativePER
+        return NativePER.from_state_dict(obj["state"])
     raise ValueError(f"unknown replay payload kind {kind!r}")
 
 

@@ -13,6 +13,14 @@ line of a JAX trainer parses here too, and every flag acts:
   and the per-episode "episode N score ..." echo on stderr;
 * :class:`TrainRuntime` owns the checkpoint cadence, the ``--resume``
   restore and the watchdog's rollback-and-retry;
+* ``--deterministic`` (:func:`set_deterministic`, applied by ``TrainObs``
+  for the run and undone at its close) makes a run's learn steps the same
+  bits on every run of the card, which keeps the runtime's contract (a
+  resumed run equals the straight one bit for bit) once learning has
+  begun;
+* ``--diag`` also arms ``obs.costs`` (the per-stage flops/bytes events
+  and the card's ``roofline_peak``), whose deferred counts ``TrainObs``
+  runs between episodes;
 * :func:`pack_agent_loop` / :func:`restore_agent_loop` /
   :func:`apply_agent_recovery` are the checkpoint payload of the
   host-driven agent loops (calib_*, demix_*), :func:`rollback_fused` the
@@ -34,12 +42,38 @@ import numpy as np
 import torch
 
 from smartcal_tpu_torch import obs
+from smartcal_tpu_torch.obs import costs
 from smartcal_tpu_torch.runtime import faults as rt_faults
+
+#: cuBLAS workspace of deterministic mode (PyTorch's reproducibility notes)
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+def set_deterministic():
+    """``--deterministic``: ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless the
+    environment already names a workspace) and
+    ``torch.use_deterministic_algorithms(True)``.  An op with no
+    deterministic implementation then raises.  Off by default: the default
+    run keeps its bits.  Returns a function that puts the mode and the
+    variable back as they were."""
+    was_on = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
+    torch.use_deterministic_algorithms(True)
+
+    def restore():
+        torch.use_deterministic_algorithms(was_on, warn_only=was_warn)
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+    return restore
 
 
 def add_runtime_args(p):
     """The shared fault-tolerance flags (checkpoint / resume / watchdog
-    recovery)."""
+    recovery) and ``--deterministic``."""
     p.add_argument("--resume", action="store_true",
                    help="restore the run from the newest valid checkpoint "
                         "in --ckpt-dir and continue bit-continuably")
@@ -65,6 +99,12 @@ def add_runtime_args(p):
                    action="store_false", default=True,
                    help="do NOT reseed the exploration generator on "
                         "recovery")
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic algorithms (CUBLAS_WORKSPACE_CONFIG="
+                        f"{CUBLAS_DETERMINISTIC}, torch.use_deterministic_"
+                        "algorithms) for the run, so a resumed run equals "
+                        "the straight one bit for bit once learning has "
+                        "begun")
     return p
 
 
@@ -132,14 +172,19 @@ def diag_from_args(args) -> bool:
 
 class TrainObs:
     """Per-run observability handle of a trainer (see the module doc).
-    With neither ``metrics`` nor ``trace`` set, the hooks are no-ops."""
+    With neither ``metrics`` nor ``trace`` set, the hooks are no-ops.
+    ``deterministic`` turns on deterministic algorithms until
+    :meth:`close`."""
 
     MEM_EVERY = 10          # episodes between device-memory gauge samples
     DIAG_LOG_EVERY = 1      # update-diag events logged every N updates
 
     def __init__(self, entry, metrics=None, run_id=None, trace=None,
                  quiet=False, diag=False, watchdog=False,
-                 watchdog_cfg=None, compile_cache=None, **meta):
+                 watchdog_cfg=None, compile_cache=None, deterministic=False,
+                 **meta):
+        self._undo_deterministic = (set_deterministic() if deterministic
+                                    else None)
         self.entry = entry
         self.quiet = quiet
         if compile_cache:
@@ -159,6 +204,8 @@ class TrainObs:
         if path is None and trace:
             path = os.path.join(trace, f"{entry}_run.jsonl")
         self.runlog = None
+        if deterministic:
+            meta["deterministic"] = True
         if path:
             self.runlog = obs.RunLog(path, run_id=run_id,
                                      meta={"entry": entry, **meta})
@@ -168,6 +215,11 @@ class TrainObs:
             self.diag = False
             self.echo("--diag has no effect without --metrics or "
                       "--watchdog; diagnostics disabled")
+        if self.diag and self.runlog is not None:
+            # per-stage flops/bytes, counted once per shape signature, and
+            # the fraction-of-peak denominator
+            costs.set_enabled(True)
+            costs.log_roofline_peak()
         if trace:
             from smartcal_tpu_torch.utils.metrics import start_trace
             self._profiler = start_trace(trace)
@@ -232,6 +284,10 @@ class TrainObs:
             self._episodes += 1
             if self._episodes % self.MEM_EVERY == 0:
                 obs.log_memory_gauges()
+            if self.diag:
+                # between episodes, outside every span: the counts the
+                # in-span sites deferred
+                costs.flush_pending()
         if echo and not self.quiet:
             if scores:
                 tail = scores[-100:]
@@ -256,6 +312,10 @@ class TrainObs:
             obs.log_memory_gauges()
             # reset: a later run in the same process starts from zero
             obs.flush_counters(reset=True)
+            if self.diag:
+                costs.flush_pending()     # drain before the log closes
+                costs.set_enabled(False)
+                costs.reset_cache()       # a next run logs into its own
             self.runlog.log("run_end", episodes=self._episodes,
                             updates=self._updates,
                             watchdog_tripped=self.tripped,
@@ -263,6 +323,9 @@ class TrainObs:
             obs.deactivate(self.runlog)
             self.runlog.close()
             self.runlog = None
+        if self._undo_deterministic is not None:
+            self._undo_deterministic()
+            self._undo_deterministic = None
 
     def __enter__(self):
         return self
@@ -289,6 +352,7 @@ def train_obs_from_args(args, entry, **meta) -> TrainObs:
                     watchdog=(getattr(args, "watchdog", False)
                               or getattr(args, "max_recoveries", 0) > 0),
                     compile_cache=getattr(args, "compile_cache", None),
+                    deterministic=getattr(args, "deterministic", False),
                     seed=getattr(args, "seed", None), **meta)
 
 
@@ -483,10 +547,11 @@ def pack_agent_loop(agent, env, scores, episode, extra=None) -> dict:
     """Host payload of everything a host-driven agent loop needs to restart
     bit-continuably: the agent state (networks, targets, Adam states,
     alpha/rho, counters, DDPG's OU noise), the agent's generator state,
-    the ring (filled prefix, PER priorities, ``cntr``, ``beta``), the env's
-    episode RNG state (the single key chain of a sequential env, the
-    per-lane keys and counters of a batched one), scores and the episode
-    counter."""
+    the ring (filled prefix, PER priorities, ``cntr``, ``beta``; a native
+    ring's whole state), the native sampler's numpy generator state
+    (``agent_sample_rng``, JAX train/blocks.py:464), the env's episode RNG
+    state (the single key chain of a sequential env, the per-lane keys and
+    counters of a batched one), scores and the episode counter."""
     from smartcal_tpu_torch.runtime import pack_env_state, pack_replay
 
     payload = {
@@ -498,6 +563,8 @@ def pack_agent_loop(agent, env, scores, episode, extra=None) -> dict:
         "generator_device": agent.generator.device.type,
         "replay": pack_replay(agent.buffer),
     }
+    if getattr(agent, "_rng", None) is not None:
+        payload["agent_sample_rng"] = agent._rng.bit_generator.state
     if env is not None:
         env_state = pack_env_state(env)
         if env_state is not None:
@@ -519,6 +586,9 @@ def restore_agent_loop(agent, env, payload):
     set_generator_state(agent.generator, payload["agent_generator"],
                         payload.get("generator_device"))
     agent.buffer = unpack_replay(payload["replay"], agent.device)
+    if "agent_sample_rng" in payload \
+            and getattr(agent, "_rng", None) is not None:
+        agent._rng.bit_generator.state = payload["agent_sample_rng"]
     if env is not None and "env_state" in payload:
         restore_env_state(env, payload["env_state"])
     return list(payload["scores"]), int(payload["episode"]), \

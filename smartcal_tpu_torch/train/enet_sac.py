@@ -191,7 +191,7 @@ def fused_loop(entry, seed, episodes, cfg, state, buf, generator, device,
 def fused_handles(entry, tob, seed, quiet, metrics_path, run_id, trace, diag,
                   watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume,
                   max_recoveries, recovery_lr_shrink, recovery_reseed,
-                  compile_cache=None, **meta):
+                  compile_cache=None, deterministic=False, **meta):
     """(TrainObs, TrainRuntime) of a fused trainer's keyword arguments (the
     JAX ``train_fused`` signature); ``tob`` given is used as it is."""
     from smartcal_tpu_torch.train.blocks import TrainObs, TrainRuntime
@@ -200,7 +200,8 @@ def fused_handles(entry, tob, seed, quiet, metrics_path, run_id, trace, diag,
         tob = TrainObs(entry, metrics=metrics_path, run_id=run_id,
                        trace=trace, quiet=quiet, diag=diag,
                        watchdog=watchdog or max_recoveries > 0,
-                       compile_cache=compile_cache, seed=seed, **meta)
+                       compile_cache=compile_cache,
+                       deterministic=deterministic, seed=seed, **meta)
     rt = TrainRuntime(entry, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                       keep=keep_ckpts, resume=resume,
                       max_recoveries=max_recoveries,
@@ -219,7 +220,8 @@ def runtime_kwargs(args) -> dict:
                 resume=args.resume, max_recoveries=args.max_recoveries,
                 recovery_lr_shrink=args.recovery_lr_shrink,
                 recovery_reseed=args.recovery_reseed,
-                compile_cache=args.compile_cache)
+                compile_cache=args.compile_cache,
+                deterministic=args.deterministic)
 
 
 def add_size_args(p):
@@ -242,7 +244,8 @@ def train_fused(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
                 diag=False, watchdog=False, ckpt_dir=None, ckpt_every=0,
                 keep_ckpts=3, resume=False, max_recoveries=0,
                 recovery_lr_shrink=0.5, recovery_reseed=True,
-                compile_cache=None, tob=None, device="cuda"):
+                compile_cache=None, deterministic=False, tob=None,
+                device="cuda"):
     """Fused episodes on ``device`` with the JAX ``train_fused``'s
     observability and fault-tolerance arguments (``block`` episodes run
     one after another: the same dynamics); saves every ``save_every``
@@ -259,7 +262,8 @@ def train_fused(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
     tob, rt = fused_handles(
         "enet_sac", tob, seed, quiet, metrics_path, run_id, trace, diag,
         watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
-        recovery_lr_shrink, recovery_reseed, compile_cache, block=block)
+        recovery_lr_shrink, recovery_reseed, compile_cache,
+        deterministic=deterministic, block=block)
     return fused_loop(
         "enet_sac", seed, episodes, cfg, agent_state, buf, generator, dev,
         lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,

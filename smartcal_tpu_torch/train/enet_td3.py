@@ -82,7 +82,8 @@ def train_fused(seed=0, episodes=1000, steps=4, use_hint=True,
                 trace=None, diag=False, watchdog=False, ckpt_dir=None,
                 ckpt_every=0, keep_ckpts=3, resume=False, max_recoveries=0,
                 recovery_lr_shrink=0.5, recovery_reseed=True,
-                compile_cache=None, tob=None, device="cuda"):
+                compile_cache=None, deterministic=False, tob=None,
+                device="cuda"):
     """Fused episodes on ``device`` with the obs and runtime arguments of
     ``enet_sac.train_fused``; saves every ``save_every`` episodes and at
     the end.  Returns (scores, wall seconds, agent state, ring)."""
@@ -97,7 +98,8 @@ def train_fused(seed=0, episodes=1000, steps=4, use_hint=True,
     tob, rt = fused_handles(
         "enet_td3", tob, seed, quiet, metrics_path, run_id, trace, diag,
         watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
-        recovery_lr_shrink, recovery_reseed, compile_cache)
+        recovery_lr_shrink, recovery_reseed, compile_cache,
+        deterministic=deterministic)
     return fused_loop(
         "enet_td3", seed, episodes, cfg, agent_state, buf, generator, dev,
         lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,

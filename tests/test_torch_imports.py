@@ -56,8 +56,31 @@ def test_port_has_modules():
                 "models/regressor", "models/tsk", "models/transformer",
                 "train/supervised", "train/model_influence",
                 "train/evaluate", "train/evaluate_models", "train/plots",
-                "obs/baselines", "obs/regress"):
+                "obs/baselines", "obs/regress", "obs/costs",
+                "rl/replay_native", "tools/__init__", "tools/perf_gate"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
+
+
+def test_new_modules_import_without_jax():
+    """The runtime slice's new modules import in a process that has no
+    JAX: nothing of them reaches for it, directly or through another
+    module."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import smartcal_tpu_torch.obs.costs, "
+            "smartcal_tpu_torch.rl.replay_native, "
+            "smartcal_tpu_torch.tools.perf_gate, "
+            "smartcal_tpu_torch.cal.solver, smartcal_tpu_torch.envs.radio, "
+            "smartcal_tpu_torch.train.blocks\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'smartcal_tpu')]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=env, timeout=300)
 
 
 def test_precision_has_the_bf16_surface():

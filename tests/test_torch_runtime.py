@@ -11,6 +11,7 @@ SAC, TD3 (PER + hint) and DDPG trainers at M = N = 5 and for
 ``calib_sac --small``, sequential and with ``--batch-envs 2``.
 """
 
+import argparse
 import json
 import os
 import pickle
@@ -247,6 +248,37 @@ def test_kill_resume_parity_calib_sac(batch):
     assert step == (2 if batch == 1 else 1)
     assert payload["env_state"]["kind"] == ("env_key" if batch == 1
                                             else "env_state_dict")
+
+
+@pytest.mark.parametrize("entry", ["calib_sac", "enet_sac"])
+def test_deterministic_flag_holds_for_the_run(entry, monkeypatch):
+    """``--deterministic`` parses without a side effect; the run's handle
+    turns the mode and the cuBLAS workspace on for its episodes and puts
+    both back at its close (a host-driven loop and a fused one)."""
+    p = blocks.add_runtime_args(argparse.ArgumentParser())
+    assert p.parse_args(["--deterministic"]).deterministic
+    assert not p.parse_args([]).deterministic
+    assert not torch.are_deterministic_algorithms_enabled()
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    seen = []
+    real = blocks.TrainObs.episode
+
+    def episode(self, *a, **kw):
+        seen.append((torch.are_deterministic_algorithms_enabled(),
+                     os.environ.get("CUBLAS_WORKSPACE_CONFIG")))
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(blocks.TrainObs, "episode", episode)
+    if entry == "calib_sac":
+        calib_sac.main(CALIB + ["--episodes", "1", "--prefix", "d",
+                                "--deterministic"])
+    else:
+        enet_sac.main(["--episodes", "1", "--steps", "2", "--M", "5",
+                       "--N", "5", "--device", "cpu", "--quiet", "--prefix",
+                       "d_", "--deterministic"])
+    assert seen == [(True, blocks.CUBLAS_DETERMINISTIC)]
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
 
 
 # -- fault injection ---------------------------------------------------------

@@ -183,9 +183,13 @@ def test_no_learn_below_batch_size(jax_init):
 def test_config_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 13"):
         tsac.SACConfig(obs_dim=4, n_actions=2, is_clip=2.0)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the native sum-tree replay is ported (tests/test_torch_replay_native)
+    cfg = tsac.SACConfig(obs_dim=4, n_actions=2, prioritized=True,
+                         replay_backend="native")
+    assert cfg.replay_backend == "native"
+    with pytest.raises(ValueError):      # fleet knobs stay hbm-only
         tsac.SACConfig(obs_dim=4, n_actions=2, prioritized=True,
-                       replay_backend="native")
+                       replay_backend="native", ere_eta=0.5)
     with pytest.raises(ValueError):
         tsac.SACConfig(obs_dim=4, n_actions=2, alpha_rule="v3")
     with pytest.raises(ValueError):
