@@ -162,6 +162,21 @@
    agent_update_sac; the device-ring agent's learn timed with
    deterministic algorithms off and on; kernel counts zeroed before and
    read after;
+9a'. drives the distributed-training slice (``fleet_phase``), before the
+   runtime phase's profiler session: the enet thread fleet
+   (``parallel/learner.train_supervised``, M = N = 20 at 30 L-BFGS
+   iterations, 2 actors x 4 lanes, IS-clip 2.0, ERE 0.98, publish every 2,
+   4 rounds, actor 1 killed at iteration 1: a restart, learning past it,
+   staleness > 0, env-steps/s); the process fleet (2 spawned workers on
+   the card, 2 rounds, every worker joined); ``make_parallel_sac`` at 16
+   lanes (3 timed vector steps, one learn each, env-steps/s) and
+   ``train_distributed`` for 2 episodes; the demixing fleet
+   (``train_supervised_demix``, K=6, N=14, npix=128, influence maps, 1
+   thread actor x 1 iteration of 1 x 3 steps): kernel 1 launched Nf per
+   observation, its first image held against the direct DFT and timed;
+   one DSAC learn and one fused sharded step held against the CPU from
+   states with Adam history, and the synchronizing CUDA calls of one
+   fused step counted;
 9b. drives the runtime slice (``runtime_phase``): ``train/calib_sac.py``
    at N=62 (2 episodes of 1 step, hint) with --metrics --diag --watchdog
    --ckpt-every 1, and 1 episode plus a --resume to 2, whose last
@@ -191,11 +206,16 @@ Details go to DIR/chip_smoke.json (default smoke_out/).
     python3 chip_smoke.py --runtime-rest [--out DIR]
     python3 chip_smoke.py --supervised [--out DIR]
     python3 chip_smoke.py --bf16 [--out DIR]
+    python3 chip_smoke.py --fleet [--out DIR]
 
 build the kernels and run step 9b (9a, 2c) alone, or one N=62 reset +
 step, one SKA reset + step and step 7b on them (details in
 DIR/runtime_phase.json, DIR/runtime_rest_phase.json,
-DIR/supervised_phase.json, DIR/bf16_phase.json).
+DIR/supervised_phase.json, DIR/bf16_phase.json); ``--fleet`` runs step
+9a' alone and deeper: the enet solves at 200 L-BFGS iterations, 8 fleet
+rounds, and the demixing fleet with 2 actor threads in processes of
+their own under a time limit, with and without its CUDA-graph captures
+under one lock (DIR/fleet_phase.json).
 
     python3 chip_smoke.py --ablation [--out DIR]
 
@@ -1127,8 +1147,10 @@ def enet_step_phase(dev):
     cfg = env.cfg
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    timers = {n: Timed(enet, n, dev) for n in ("_solve", "_influence",
-                                                "hint_solve")}
+    # the lane functions the one-env step and hint run at E = 1
+    timers = {n: Timed(enet, n, dev) for n in ("_solve_lanes",
+                                                "_influence_lanes",
+                                                "hint_solve_lanes")}
     rng = np.random.default_rng(0)
     steps = []
     try:
@@ -1148,11 +1170,11 @@ def enet_step_phase(dev):
     finally:
         for tm in timers.values():
             tm.restore()
-    for s, (sec, res), (isec, _) in zip(steps, timers["_solve"].calls,
-                                        timers["_influence"].calls):
+    for s, (sec, res), (isec, _) in zip(steps, timers["_solve_lanes"].calls,
+                                        timers["_influence_lanes"].calls):
         s.update(solve_seconds=sec, influence_seconds=isec,
                  iters=int(res.n_iters[0]))
-    hsec, (_, hres) = timers["hint_solve"].calls[0]
+    hsec, (_, hres) = timers["hint_solve_lanes"].calls[0]
     h_iters = hres.n_iters.cpu().numpy()
     if not (np.all(np.isfinite([s["reward"] for s in steps]))
             and np.all(np.isfinite(hint))):
@@ -4648,6 +4670,423 @@ def bf16_ablation(out_dir, card, parent_src, reps=5, npix=1024, R=652800,
     return rows
 
 
+# -- the distributed-training slice (fleet_phase) ---------------------------
+FLEET_ENET = {"M": 20, "N": 20}        # full width; the inner solve's depth
+FLEET_LBFGS = 30                       # default run (200 under --fleet)
+FLEET_ROUNDS = 4                       # thread fleet rounds (8 under --fleet)
+FLEET_PROC_ROUNDS = 4                  # process fleet rounds, 2 past warm-up
+FLEET_LANES = 16                       # make_parallel_sac lanes
+FLEET_PAR_STEPS = 3                    # its timed vector steps
+FLEET_DEMIX = dict(n_stations=14, npix=128)   # the demixing trainers'
+FLEET_K = 6
+
+
+def _fleet_events(path):
+    return [json.loads(ln) for ln in open(path) if ln.strip()]
+
+
+def _graph_captures(events):
+    """(count, seconds) of the run's CUDA-graph captures (the solve's
+    line search, ROADMAP lever g)."""
+    caps = [e["dur_s"] for e in events if e.get("event") == "compile"
+            and str(e.get("key", "")).startswith("cuda_graph")]
+    return len(caps), float(sum(caps))
+
+
+def _host_ring(rp, buf):
+    """A copy of a flat or sharded ring on the CPU."""
+    return type(buf)({k: v.cpu().clone() for k, v in buf.data.items()},
+                     buf.priority.cpu().clone(), buf.cntr, buf.beta)
+
+
+def fleet_gpu_vs_cpu(dev, backend):
+    """(a) one DSAC learn at the demixing fleet's width (128^2 map, K=6)
+    and (b) one fused sharded step (store 32 versioned transitions into a
+    4-shard ring, PER + ERE sample, IS-clipped SAC learn, priority update)
+    at the enet width, each from a state with Adam history (3 learns on
+    the card), on the card and from copies on the CPU with the same
+    draws; held at TRAIN_RTOL / TRAIN_ATOL.  Also counts the
+    synchronizing CUDA calls of one fused step on the card
+    (``torch.cuda.set_sync_debug_mode``): those of the sample, learn and
+    priority update, and those of the store of the host block apart."""
+    import warnings
+
+    from smartcal_tpu_torch.parallel import demix_learner
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import replay_sharded as rps
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.rl import sac_discrete as dsac
+
+    out = {}
+    rng = np.random.default_rng(0)
+    dcfg = demix_learner._demix_agent_cfg(
+        backend, FLEET_K, True, 0.0, 1.0, {"batch_size": 8, "mem_size": 64})
+    g = torch.Generator(device=dev).manual_seed(0)
+    st = dsac.dsac_init(dcfg, g, dev)
+    ring = rp.replay_init(dcfg.mem_size, dsac.transition_spec(dcfg.obs_dim),
+                          dev)
+    n = 24
+    rp.replay_add_batch(ring, {
+        "state": 1e-2 * rng.standard_normal((n, dcfg.obs_dim)).astype(
+            np.float32),
+        "new_state": 1e-2 * rng.standard_normal((n, dcfg.obs_dim)).astype(
+            np.float32),
+        "action": rng.integers(0, dcfg.n_actions, n).astype(np.int32),
+        "reward": rng.uniform(-1, 1, n).astype(np.float32),
+        "done": np.zeros(n, bool)})
+    for _ in range(3):
+        dsac.learn(dcfg, st, ring, g)
+    cpu_st, cpu_ring = st.copy_to("cpu"), _host_ring(rp, ring)
+    u = torch.rand(dcfg.batch_size, generator=torch.Generator().manual_seed(1))
+    dsac.learn(dcfg, st, ring, sample_noise=u.to(dev))
+    dsac.learn(dcfg, cpu_st, cpu_ring, sample_noise=u)
+    out["dsac"] = state_diff(st.to_host(), cpu_st.to_host())
+    print(f"DSAC learn GPU vs CPU (128^2 map, K={FLEET_K}, batch 8, Adam "
+          f"history): max abs err {out['dsac'][0]:.3e}, at most "
+          f"{out['dsac'][1]:.3f} of the tolerance -> ok", flush=True)
+
+    obs_dim = FLEET_ENET["M"] + FLEET_ENET["M"] * FLEET_ENET["N"]
+    cfg = sac.SACConfig(obs_dim=obs_dim, n_actions=2, prioritized=True,
+                        is_clip=2.0, ere_eta=0.98, batch_size=32,
+                        mem_size=256)
+    spec = rp.versioned_spec(rp.transition_spec(obs_dim, 2))
+    st = sac.sac_init(cfg, g, dev)
+    buf = rps.replay_init(cfg.mem_size, spec, 4, device=dev)
+
+    def block(seed, version):
+        r = np.random.default_rng(seed)
+        s = r.standard_normal((32, obs_dim)).astype(np.float32)
+        return {"state": s, "new_state": s + 0.1,
+                "action": r.uniform(-1, 1, (32, 2)).astype(np.float32),
+                "reward": r.uniform(0, 3, 32).astype(np.float32),
+                "done": np.zeros(32, bool),
+                "hint": np.zeros((32, 2), np.float32),
+                "version": np.full(32, version, np.int32),
+                "behavior_logp": r.uniform(-3, 1, 32).astype(np.float32)}
+
+    for i in range(3):
+        rps.replay_add_batch(buf, block(i, i))
+        sac.learn(cfg, st, buf, g, learner_version=3)
+    cpu_st, cpu_buf = st.copy_to("cpu"), _host_ring(rps, buf)
+    cg = torch.Generator().manual_seed(2)
+    u = torch.rand(cfg.batch_size, generator=cg)
+    noise = tuple(torch.randn((cfg.batch_size, 2), generator=cg)
+                  for _ in range(3))
+    nb = block(9, 2)
+    u_d, noise_d = u.to(dev), tuple(x.to(dev) for x in noise)
+    torch.cuda.synchronize(dev)
+
+    def syncs_of(fn):
+        """fn's result and the synchronizing CUDA calls it made."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return res, [str(w.message) for w in caught
+                     if "called a synchronizing" in str(w.message)]
+
+    # the store copies the actor's host block to the card; the sample,
+    # learn and priority update must not go back to the host
+    _, store_syncs = syncs_of(lambda: rps.replay_add_batch(buf, nb))
+    m, syncs = syncs_of(lambda: sac.learn(cfg, st, buf, sample_noise=u_d,
+                                          noise=noise_d, learner_version=4))
+    torch.cuda.synchronize(dev)
+    rps.replay_add_batch(cpu_buf, nb)
+    m_cpu = sac.learn(cfg, cpu_st, cpu_buf, sample_noise=u, noise=noise,
+                      learner_version=4)
+    for k in ("critic_loss", "actor_loss", "staleness_mean",
+              "is_clip_mean"):
+        a, b = float(m[k]), float(m_cpu[k])
+        if not abs(a - b) <= TRAIN_ATOL + TRAIN_RTOL * abs(b):
+            raise AssertionError(f"fused step GPU vs CPU: {k} {a} against "
+                                 f"{b}")
+    out["fused"] = state_diff(st.to_host(), cpu_st.to_host())
+    p_err = float((buf.priority.cpu() - cpu_buf.priority).abs().max())
+    if not torch.allclose(buf.priority.cpu(), cpu_buf.priority,
+                          rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+        raise AssertionError("fused step GPU vs CPU: priorities disagree")
+    out["fused_priority_max_abs_err"] = p_err
+    out["fused_step_syncs"] = len(syncs)
+    out["fused_store_syncs"] = len(store_syncs)
+    print(f"fused sharded step GPU vs CPU (4 shards, PER + ERE 0.98 + "
+          f"IS-clip 2, batch 32, Adam history): max abs err "
+          f"{out['fused'][0]:.3e}, at most {out['fused'][1]:.3f} of the "
+          f"tolerance, priorities {p_err:.3e} -> ok; synchronizing CUDA "
+          f"calls on the card: {len(syncs)} in the sample, learn and "
+          f"priority update, {len(store_syncs)} in the store of the host "
+          f"block ({len(nb)} fields and 2 index vectors copied to the "
+          f"card)", flush=True)
+    return out
+
+
+def demix_two_threads(out_dir, caps1, limit_s=300):
+    """The demixing fleet's CLI as a user runs it, with its default 2
+    actor threads on the card (``python -m smartcal_tpu_torch.parallel.
+    demix_learner --supervised``; 2 rounds of 1 x 3 steps, K=6, N=14,
+    npix=128, influence maps), in a process of its own under a time limit:
+    every solve captures its line search graph anew (lever g), two threads
+    capture by turns under the solver's capture lock.  Fails unless the
+    CLI exits 0 after both rounds with no actor death.  Returns its
+    seconds and the graph captures of its run log."""
+    run = os.path.join(out_dir, "fleet_demix2_run.jsonl")
+    cmd = [sys.executable, "-m", "smartcal_tpu_torch.parallel.demix_learner",
+           "--supervised", "--episodes", "2", "--K", str(FLEET_K),
+           "--stations", str(FLEET_DEMIX["n_stations"]), "--npix",
+           str(FLEET_DEMIX["npix"]), "--provide_influence",
+           "--rollout_epochs", "1", "--rollout_steps", "3", "--metrics", run,
+           "--quiet"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=limit_s)
+        rc, err = proc.returncode, proc.stderr.strip().splitlines()[-3:]
+    except subprocess.TimeoutExpired:
+        rc, err = None, ["timed out"]
+    wall = time.perf_counter() - t0
+    events = _fleet_events(run) if os.path.exists(run) else []
+    downs = [e["reason"][:160] for e in events
+             if e.get("event") in ("actor_down", "actor_failed")]
+    rounds = sum(e.get("event") == "episode" for e in events)
+    caps = _graph_captures(events)
+    res = dict(rc=rc, wall_s=wall, rounds=rounds, stderr_tail=err,
+               actor_deaths=downs, graph_captures=caps[0],
+               graph_capture_s=caps[1])
+    print(f"demix fleet CLI, 2 actor threads (its default), 2 rounds: rc "
+          f"{rc}, {wall:.1f} s (process start included), {rounds} rounds, "
+          f"{len(downs)} actor deaths, {caps[0]} graph captures in "
+          f"{caps[1]:.3f} s ({caps[1] / max(caps[0], 1):.4f} s each; 1 "
+          f"thread: {caps1[1] / max(caps1[0], 1):.4f} s)", flush=True)
+    if rc != 0 or downs or rounds != 2:
+        raise AssertionError(f"demix fleet CLI with 2 actor threads: rc "
+                             f"{rc}, {rounds} rounds, deaths {downs}, "
+                             f"stderr {err}")
+    return res
+
+
+def fleet_phase(dev, out_dir, zero_counts, read_counts, n_sm, deep=False):
+    """The distributed-training slice on the card, counts zeroed just before
+    and read just after each path:
+
+    1. the enet thread fleet (``parallel/learner.train_supervised``) at
+       M = N = 20: 2 actor threads x 4 env lanes, IS-clip 2.0, ERE 0.98,
+       publish every 2 rounds, a fault plan killing actor 1 at iteration
+       1: at least one restart, learning past the kill, staleness > 0;
+    2. the process fleet: 2 spawned workers on the card for 4 rounds
+       (env-steps/s over the 2 past warm-up), every worker joined at
+       stop;
+    3. ``make_parallel_sac``: 16 lanes, timed vector steps with one learn
+       each (env-steps/s); ``train_distributed`` for 2 episodes;
+    4. the demixing fleet (``train_supervised_demix``): K=6, N=14,
+       npix=128, influence maps, 1 thread actor x 1 iteration (1 epoch x
+       3 steps): kernel 1 launches Nf per observation, its first image
+       held against the plain version at its operands and timed;
+    5. one DSAC learn and one fused sharded step held against the CPU
+       (``fleet_gpu_vs_cpu``), and the fused step's synchronizing calls.
+
+    ``deep`` (``--fleet``): the enet solves at their 200 L-BFGS iterations,
+    8 thread-fleet rounds, and the demixing fleet with 2 actor threads in
+    a process of its own under a time limit, which must run both rounds
+    with no actor death (``demix_two_threads``: the CUDA-graph captures
+    under threaded actors, ROADMAP lever g)."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.ops import dft_imager
+    from smartcal_tpu_torch.parallel import (demix_learner, learner,
+                                             make_mesh, make_parallel_sac)
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.runtime import (BackoffPolicy, FaultPlan,
+                                            clear_faults, install_faults)
+
+    t_phase = time.perf_counter()
+    env_kw = dict(FLEET_ENET, lbfgs_iters=200 if deep else FLEET_LBFGS)
+    rounds = 8 if deep else FLEET_ROUNDS
+    backoff = BackoffPolicy(base_s=0.05, factor=2.0, max_s=0.2, jitter=0.0)
+    fleet_kw = dict(seed=0, n_actors=2, env_kwargs=env_kw,
+                    agent_kwargs={"batch_size": 16}, rollout_epochs=1,
+                    rollout_steps=2, batch_envs=4, is_clip=2.0,
+                    ere_eta=0.98, publish_every=2, quiet=True,
+                    restart_backoff=backoff, device=dev)
+    out = {"enet": dict(env_kw), "deep": deep}
+
+    # 1. the thread fleet with a kill
+    run = os.path.join(out_dir, "fleet_thread_run.jsonl")
+    install_faults(FaultPlan(kill_actor=1, kill_at=1))
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        (st, buf), scores, summ = learner.train_supervised(
+            episodes=rounds, metrics=run, **fleet_kw)
+    finally:
+        clear_faults()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    events = _fleet_events(run)
+    kinds = [e["event"] for e in events]
+    if summ["restarts"] < 1 or "actor_restart" not in kinds:
+        raise AssertionError(f"thread fleet: no restart after the kill "
+                             f"({summ})")
+    after = kinds[kinds.index("actor_restart"):]
+    if st.learn_counter < 1 or "episode" not in after:
+        raise AssertionError("thread fleet: no learning past the kill")
+    if not summ.get("transition_staleness_mean", 0.0) > 0.0:
+        raise AssertionError(f"thread fleet: no staleness ({summ})")
+    if len(scores) != rounds or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"thread fleet scores {scores}")
+    out["thread"] = dict(summary=summ, wall_s=wall, rounds=len(scores),
+                         learn_counter=st.learn_counter, ring=buf.cntr,
+                         launches=launches)
+    print(f"enet thread fleet (2 actors x 4 lanes, M={env_kw['M']} "
+          f"N={env_kw['N']}, L-BFGS {env_kw['lbfgs_iters']}, {rounds} rounds, kill actor 1 at "
+          f"iteration 1): {wall:.1f} s, restarts {summ['restarts']}, learns "
+          f"{st.learn_counter}, env-steps/s {summ['env_steps_per_s']} "
+          f"(steady, after 2 rounds), staleness "
+          f"{summ['transition_staleness_mean']}, clip saturation "
+          f"{summ['is_clip_saturation']}", flush=True)
+    del st, buf
+
+    # 2. the process fleet: 2 spawned workers on the card
+    run = os.path.join(out_dir, "fleet_process_run.jsonl")
+    zero_counts()
+    t0 = time.perf_counter()
+    (st, buf), scores, summ = learner.train_supervised(
+        episodes=FLEET_PROC_ROUNDS, metrics=run, actor_mode="process",
+        **fleet_kw)
+    wall = time.perf_counter() - t0
+    if summ["alive_at_exit"] != 0:
+        raise AssertionError(f"process fleet: {summ['alive_at_exit']} "
+                             "worker(s) not joined at stop")
+    if len(scores) != FLEET_PROC_ROUNDS or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"process fleet scores {scores}")
+    if not summ["env_steps_per_s"]:
+        raise AssertionError(f"process fleet: no steady rounds ({summ})")
+    out["process"] = dict(summary=summ, wall_s=wall, ring=buf.cntr,
+                          rounds=len(scores), launches=read_counts())
+    print(f"enet process fleet (2 workers on the card, {FLEET_PROC_ROUNDS} "
+          f"rounds): {wall:.1f} s (worker start included), env-steps/s "
+          f"{summ['env_steps_per_s']} (steady, after 2 rounds; thread "
+          f"fleet {out['thread']['summary']['env_steps_per_s']}), every "
+          f"worker joined", flush=True)
+    del st, buf
+
+    # 3. make_parallel_sac: FLEET_LANES lanes as one program
+    mesh = make_mesh(devices=[dev])
+    ecfg = enet.EnetConfig(**env_kw)
+    # a batch of two vector steps: one learn per timed step
+    acfg = sac.SACConfig(obs_dim=ecfg.obs_dim, n_actions=2,
+                         batch_size=2 * FLEET_LANES, prioritized=True)
+    init, step, _ = make_parallel_sac(ecfg, acfg, mesh, FLEET_LANES)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    zero_counts()
+    pst = init(gen)
+    pst, m = step(pst, gen)
+    float(m["mean_reward"])
+    t0 = time.perf_counter()
+    for _ in range(FLEET_PAR_STEPS):
+        pst, m = step(pst, gen)
+        float(m["mean_reward"])
+    wall = time.perf_counter() - t0
+    if pst.agent.learn_counter != FLEET_PAR_STEPS:
+        raise AssertionError(f"make_parallel_sac learned "
+                             f"{pst.agent.learn_counter} times")
+    par = FLEET_LANES * FLEET_PAR_STEPS / wall
+    dst, dscores = learner.train_distributed(
+        seed=0, episodes=2, n_actors=2, env_kwargs=env_kw,
+        agent_kwargs={"batch_size": 8}, rollout_epochs=1, rollout_steps=2,
+        quiet=True, device=dev)
+    if dst.buf.cntr != 8 or not np.all(np.isfinite(dscores)):
+        raise AssertionError(f"train_distributed: {dst.buf.cntr} stored, "
+                             f"scores {dscores}")
+    out["parallel_sac"] = dict(lanes=FLEET_LANES, steps=FLEET_PAR_STEPS,
+                               wall_s=wall, env_steps_per_s=par,
+                               launches=read_counts(),
+                               train_distributed_scores=dscores)
+    print(f"make_parallel_sac ({FLEET_LANES} lanes, {FLEET_PAR_STEPS} vector "
+          f"steps with one learn each): {wall:.2f} s, env-steps/s "
+          f"{par:.2f}; train_distributed 2 episodes -> ok", flush=True)
+    del pst, dst
+
+    # 4. the demixing fleet, kernel 1 on its influence maps
+    backend = RadioBackend(device=dev, **FLEET_DEMIX)
+    demix_kw = dict(seed=0, episodes=1, K=FLEET_K, backend=backend,
+                    provide_influence=True, rollout_epochs=1,
+                    rollout_steps=3, quiet=True, device=dev,
+                    agent_kwargs={"batch_size": 2})
+    spy = FirstCall(dft_imager, "dirty_image_cuda")
+    # the actor rolls on while the learner ingests, and its next iteration
+    # would end before the fleet joins it: a fault plan stops the actor
+    # at iteration 1, so the path is 1 actor x 1 iteration; the rollouts
+    # are counted all the same
+    rollouts = {"n": 0}
+    lanes_rollout = demix_learner._lanes_rollout
+
+    def counted_rollout(*a, **kw):
+        rollouts["n"] += 1
+        return lanes_rollout(*a, **kw)
+
+    demix_learner._lanes_rollout = counted_rollout
+    run = os.path.join(out_dir, "fleet_demix_run.jsonl")
+    install_faults(FaultPlan(kill_actor=0, kill_at=1))
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        (dst, dbuf), dscores, dsumm = demix_learner.train_supervised_demix(
+            n_actors=1, metrics=run, **demix_kw)
+    finally:
+        spy.restore()
+        demix_learner._lanes_rollout = lanes_rollout
+        clear_faults()
+    wall = time.perf_counter() - t0
+    demix_launches = read_counts()
+    n_obs = (1 + 3) * rollouts["n"]       # r0's observation + 3 steps
+    want = backend.n_freqs * n_obs
+    if demix_launches["dft_imager"] != want:
+        raise AssertionError(f"demix fleet: kernel 1 launched "
+                             f"{demix_launches['dft_imager']} times, "
+                             f"expected {want} (Nf per observation)")
+    if dbuf.cntr != 3 or not np.all(np.isfinite(dscores)):
+        raise AssertionError(f"demix fleet: {dbuf.cntr} stored, scores "
+                             f"{dscores}")
+    caps = _graph_captures(_fleet_events(run))
+    (uv, vis, npix, cell), _ = spy.args
+    err = check_imager(dft_imager, uv, vis, npix, cell, "demix fleet path")
+    lm = dft_imager.pixel_grid(npix, cell, dev)
+    k_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, vis, npix, cell),
+                   20)
+    plain_ms = cuda_ms(lambda: dft_imager.dirty_image_reference(uv, lm, vis),
+                       5)
+    bnd = separable_bounds(npix, uv.shape[0], n_sm)
+    out["demix"] = dict(wall_s=wall, launches=demix_launches,
+                        observations=n_obs, rollouts=rollouts["n"],
+                        summary=dsumm,
+                        graph_captures=caps[0], graph_capture_s=caps[1],
+                        kernel=dict(P=npix * npix, R=uv.shape[0],
+                                    max_abs_err=err, ms=k_ms,
+                                    plain_ms=plain_ms, **bnd))
+    print(f"demix fleet (K={FLEET_K}, N={backend.n_stations}, npix={npix}, "
+          f"1 actor x 1 epoch x 3 "
+          f"steps, influence maps): {wall:.1f} s, kernel 1 launched "
+          f"{demix_launches['dft_imager']} times (Nf={backend.n_freqs} x "
+          f"{n_obs} observations of {rollouts['n']} rollout(s)), {caps[0]} "
+          f"CUDA-graph captures "
+          f"in "
+          f"{caps[1]:.3f} s; kernel 1 at P={npix * npix} R={uv.shape[0]}: "
+          f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    del dst, dbuf
+    if deep:
+        out["demix_two_threads"] = demix_two_threads(out_dir, caps)
+
+    # 5. GPU against CPU, and the fused step's syncs
+    out["gpu_vs_cpu"] = fleet_gpu_vs_cpu(dev, backend)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"fleet phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="smoke_out",
@@ -4668,6 +5107,11 @@ def main():
                     action="store_true",
                     help="build the kernels and run every trainer once "
                          "under --deterministic at the tiny tier")
+    ap.add_argument("--fleet", action="store_true",
+                    help="build the kernels and run the distributed-training "
+                         "phase alone, deeper (200 L-BFGS iterations, 8 "
+                         "fleet rounds, the demixing fleet with 1 and 2 "
+                         "actor threads)")
     ap.add_argument("--supervised", action="store_true",
                     help="build the kernels and run the supervised phase "
                          "alone (dataset, transformer, recommend, "
@@ -4693,7 +5137,7 @@ def main():
     if args.diag_determinism:
         return diag_determinism_main()
     if (args.runtime or args.runtime_rest or args.supervised or args.bf16
-            or args.deterministic_sweep):
+            or args.deterministic_sweep or args.fleet):
         from smartcal_tpu_torch.ops import (build, dft_imager,
                                             factored_imager, hessian_blocks)
         card = card_line()
@@ -4715,6 +5159,10 @@ def main():
         elif args.deterministic_sweep:
             name, out = "deterministic_sweep", deterministic_sweep(
                 dev, args.out)
+        elif args.fleet:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            name, out = "fleet_phase", fleet_phase(dev, args.out, zero, read,
+                                                   n_sm, deep=True)
         else:
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
             name, out = "supervised_phase", supervised_phase(
@@ -5115,6 +5563,11 @@ def main():
                                                 read_counts)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # -- the distributed-training slice, before the first profiler session
+    report["fleet"] = fleet_phase(dev, args.out, zero_counts, read_counts,
+                                  n_sm)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # -- the runtime slice, the last timed phase: its final run holds a
     # profiler session ------------------------------------------------------
     report["runtime"] = runtime_phase(dev, args.out, zero_counts,
@@ -5126,6 +5579,7 @@ def main():
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     sup = report["supervised"]
+    fl = report["fleet"]["demix"]
     bf, bfk = report["bf16"], report["bf16"]["kernel"]
 
     def bf16_launches(name):
@@ -5190,7 +5644,8 @@ def main():
              report["runtime_rest"]["launches"]["dft_imager"],
          "launches_bf16_paths": bf16_launches("dft_imager"),
          "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"],
-                                       sup["kernel"]["max_abs_err"]]),
+                                       sup["kernel"]["max_abs_err"],
+                                       fl["kernel"]["max_abs_err"]]),
          "ms": dft_ms,
          "plain_ms": dft_plain_ms, **f32_bounds(dft_bounds),
          "library_ms": None,
@@ -5206,6 +5661,14 @@ def main():
          "supervised_bound_ms": sup["kernel"]["bound_ms"],
          "supervised_bound_by": sup["kernel"]["bound_by"],
          "supervised_max_abs_err": sup["kernel"]["max_abs_err"],
+         "launches_demix_fleet_path": fl["launches"]["dft_imager"],
+         "demix_fleet_observations": fl["observations"],
+         "demix_fleet_shapes": f"P={fl['kernel']['P']} R={fl['kernel']['R']}",
+         "demix_fleet_ms": fl["kernel"]["ms"],
+         "demix_fleet_plain_ms": fl["kernel"]["plain_ms"],
+         "demix_fleet_bound_ms": fl["kernel"]["bound_ms"],
+         "demix_fleet_bound_by": fl["kernel"]["bound_by"],
+         "demix_fleet_max_abs_err": fl["kernel"]["max_abs_err"],
          **new_paths("dft_imager")},
         {"name": "hessian_blocks", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/hessian_blocks.cu",

@@ -22,6 +22,7 @@ All math is split-real float32; samples are time-major ck = t*B + b and
 baselines enumerate p < q row-major.
 """
 
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -221,14 +222,21 @@ def _quartic_phi(coeffs):
     return phi
 
 
+# One capture at a time in the process: two threads capturing at once
+# (the demixing fleet's actor threads) break each other's captures
+# ("operation not permitted when stream is capturing").
+_CAPTURE_LOCK = threading.Lock()
+
+
 class _QuarticLineSearch:
     """``lbfgs.strong_wolfe_cubic`` on the quartic's (L, 5) coefficients.
 
     The search is ~700 lane-masked ops on (L,) tensors.  Launched one by
     one on a GPU they cost the host more than the whole search costs the
     device, so on CUDA they are captured once into a CUDA graph and each
-    call is one replay.  Elsewhere, and while ``obs.costs`` counts the
-    solve (a replay is no op it can see), the search runs eagerly."""
+    call is one replay; the warm-up and capture hold ``_CAPTURE_LOCK``.
+    Elsewhere, and while ``obs.costs`` counts the solve (a replay is no op
+    it can see), the search runs eagerly."""
 
     def __init__(self, n_lanes, dtype, device):
         self.n_lanes, self.dtype, self.device = n_lanes, dtype, device
@@ -248,6 +256,21 @@ class _QuarticLineSearch:
         return lbfgs.strong_wolfe_cubic(counted, self.n_lanes,
                                         dtype=self.dtype, device=self.device)
 
+    def _capture(self, coeffs):
+        self.coeffs = coeffs.clone()
+        side = torch.cuda.Stream(self.device)     # warm-up, then capture
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._search(self.coeffs)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: the episode-prefetch thread may allocate and
+        # launch on its own stream while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.step = self._search(self.coeffs)
+        self._graph_evals = self._evals
+        self.graph = graph
+
     def __call__(self, coeffs):
         self.calls += 1
         if self.device.type != "cuda" or costs.counting():
@@ -255,22 +278,12 @@ class _QuarticLineSearch:
             self.phi_evals += self._evals
             return out
         if self.graph is None:
-            t0 = time.perf_counter()
-            self.coeffs = coeffs.clone()
-            side = torch.cuda.Stream(self.device)     # warm-up, then capture
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._search(self.coeffs)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            # thread-local: the episode-prefetch thread may allocate and
-            # launch on its own stream while this thread captures
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
-                self.step = self._search(self.coeffs)
-            self._graph_evals = self._evals
-            obs.record_compile("cuda_graph:quartic_line_search",
-                               time.perf_counter() - t0, lanes=self.n_lanes)
+            with _CAPTURE_LOCK:
+                t0 = time.perf_counter()
+                self._capture(coeffs)
+                obs.record_compile("cuda_graph:quartic_line_search",
+                                   time.perf_counter() - t0,
+                                   lanes=self.n_lanes)
         self.phi_evals += self._graph_evals
         self.coeffs.copy_(coeffs)
         self.graph.replay()

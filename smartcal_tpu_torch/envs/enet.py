@@ -24,6 +24,13 @@ Randomness is explicit: :func:`reset` takes the raw draws (A, the nonzero
 count Mo, the values z and indices idx), :func:`step` and
 :func:`draw_noise` the noise vector; :class:`EnetEnv` draws them from its
 own ``torch.Generator`` on the env's device.
+
+The step and the hint are written once, over E envs as one program (the
+JAX package's ``vmap`` of its one-env functions): each lane keeps its own
+A, y and noise, the E inner solves are the lanes of ONE ``lbfgs_solve``
+(:func:`step_lanes`), and the E hints its E x 50 lanes
+(:func:`get_hint_lanes`).  :func:`step`, :func:`get_hint` and the other
+one-env functions run them at E = 1.
 """
 
 import dataclasses
@@ -93,10 +100,10 @@ def reset(cfg: EnetConfig, A, Mo, z, idx) -> Tuple[EnetState, torch.Tensor]:
 def action_to_rho(action):
     """Affine action -> (rho, penalty) map (enetenv.py:75-84): actions in
     [-1, 1] span [LOW, HIGH]; out-of-range components are clamped with a
-    -0.1 penalty each."""
+    -0.1 penalty each.  Leading axes are lanes."""
     rho_raw = action * (HIGH - LOW) / 2.0 + (HIGH + LOW) / 2.0
-    penalty = (-0.1 * torch.sum(rho_raw < LOW)
-               - 0.1 * torch.sum(rho_raw > HIGH)).to(torch.float32)
+    penalty = (-0.1 * torch.sum(rho_raw < LOW, dim=-1)
+               - 0.1 * torch.sum(rho_raw > HIGH, dim=-1)).to(torch.float32)
     return torch.clamp(rho_raw, LOW, HIGH), penalty
 
 
@@ -110,7 +117,7 @@ def _eig_state(cfg: EnetConfig, B):
             np.float32)
         E = torch.from_numpy(E).to(B.device)
     else:
-        E = torch.linalg.eigvalsh(0.5 * (B + B.T))
+        E = torch.linalg.eigvalsh(0.5 * (B + B.transpose(-1, -2)))
     return 1.0 + E
 
 
@@ -122,71 +129,102 @@ def _abs(x):
 
 def _lane_loss(A, y, x, l2, l1, w=None):
     """Per-lane elastic-net loss of x (L, M): ``sum(((y - A x) w)^2) +
-    l2 ||x||^2 + l1 ||x||_1`` with (L,) or scalar l2, l1 and an optional
+    l2 ||x||^2 + l1 ||x||_1`` with A (N, M) shared by the lanes or (L, N,
+    M) per lane, y (N,) or (L, N), (L,) or scalar l2, l1 and an optional
     (L, N) row weight w."""
-    err = y - x @ A.T
+    err = y - (A @ x[..., None]).squeeze(-1)
     if w is not None:
         err = err * w
     return (torch.sum(err ** 2, dim=-1) + l2 * torch.sum(x ** 2, dim=-1)
             + l1 * torch.sum(_abs(x), dim=-1))
 
 
-def _solve(cfg: EnetConfig, A, y, rho) -> LBFGSResult:
-    """The step's inner solve (enetenv.py:96-114): one L-BFGS lane from
-    x = 0."""
-    x0 = torch.zeros((1, cfg.M), dtype=A.dtype, device=A.device)
+def _solve_lanes(cfg: EnetConfig, A, y, rho) -> LBFGSResult:
+    """The step's inner solves (enetenv.py:96-114) of E envs as the lanes
+    of one L-BFGS solve from x = 0: A (E, N, M), y (E, N), rho (E, 2)."""
+    x0 = torch.zeros((A.shape[0], cfg.M), dtype=A.dtype, device=A.device)
     return lbfgs_solve(
-        lane_value_and_grad(lambda x: _lane_loss(A, y, x, rho[0], rho[1])),
+        lane_value_and_grad(lambda x: _lane_loss(A, y, x, rho[:, 0],
+                                                 rho[:, 1])),
         x0, max_iters=cfg.lbfgs_iters, history_size=cfg.history_size)
 
 
-def _influence(cfg: EnetConfig, A, y, rho, res: LBFGSResult):
-    """Influence eigen-state (enetenv.py:117-139) at the solve's x: the
+def _solve(cfg: EnetConfig, A, y, rho) -> LBFGSResult:
+    """:func:`_solve_lanes` of one env: a one-lane result."""
+    return _solve_lanes(cfg, A[None], y[None], rho[None])
+
+
+def _influence_lanes(cfg: EnetConfig, A, y, rho, res: LBFGSResult):
+    """Influence eigen-states (enetenv.py:117-139) at the solves' x: the
     model Jacobian is A; ``ll`` = d(dL/dx)/dy at y = ones (it equals
-    -2 A^T) through the solve's inverse Hessian, ``B = A @ mm``."""
-    x = res.x[0]
+    -2 A^T), by ``torch.func`` over the lanes, through each lane's inverse
+    Hessian, ``B = A @ mm``.  Returns (E, N)."""
+    def lossfn(xv, yv, Av, rv):
+        return _lane_loss(Av, yv, xv[None], rv[0], rv[1])[0]
 
-    def lossfn(xv, yv):
-        return _lane_loss(A, yv, xv[None], rho[0], rho[1])[0]
-
-    ll = func.jacrev(func.grad(lossfn, argnums=0), argnums=1)(
-        x, torch.ones_like(y))                                   # (M, N)
-    mm = inv_hessian_mult(res.hist, ll[None])[0]
+    ll = func.vmap(func.jacrev(func.grad(lossfn, argnums=0), argnums=1))(
+        res.x, torch.ones_like(y), A, rho)                    # (E, M, N)
+    mm = inv_hessian_mult(res.hist, ll)
     return _eig_state(cfg, A @ mm)
 
 
-def _solve_and_influence(cfg: EnetConfig, A, y, rho):
-    """Inner solve + influence eigen-state: ``(x, E, solve result)``."""
-    res = _solve(cfg, A, y, rho)
-    return res.x[0], _influence(cfg, A, y, rho, res), res
+def _influence(cfg: EnetConfig, A, y, rho, res: LBFGSResult):
+    """:func:`_influence_lanes` of one env and its one-lane result."""
+    return _influence_lanes(cfg, A[None], y[None], rho[None], res)[0]
+
+
+def _solve_and_influence_lanes(cfg: EnetConfig, A, y, rho):
+    """Lane solves + influence eigen-states: ``(x (E, M), E (E, N), solve
+    result)``."""
+    res = _solve_lanes(cfg, A, y, rho)
+    return res.x, _influence_lanes(cfg, A, y, rho, res), res
 
 
 def _noisy(cfg: EnetConfig, y0, noise):
-    return y0 + cfg.snr * torch.linalg.norm(y0) / torch.linalg.norm(noise) \
-        * noise
+    return y0 + cfg.snr * torch.linalg.norm(y0, dim=-1, keepdim=True) \
+        / torch.linalg.norm(noise, dim=-1, keepdim=True) * noise
+
+
+def _lanes(st: EnetState) -> EnetState:
+    return EnetState(*(f[None] for f in st))
+
+
+def step_lanes(cfg: EnetConfig, st: EnetState, actions, noise,
+               keepnoise: bool = False):
+    """One env step (enetenv.py:72-161) of E envs: ``actions`` (E, 2),
+    ``noise`` (E, N) unit normals of the fresh draws (unused, and may be
+    None, with ``keepnoise``).  Returns ``(state, obs (E, obs_dim),
+    rewards (E,), dones (E,))``; ``done`` is always False as in the
+    reference."""
+    actions = torch.as_tensor(actions, dtype=torch.float32,
+                              device=st.A.device)
+    rho, penalty = action_to_rho(actions)
+    y = st.y if keepnoise else _noisy(cfg, st.y0, noise)
+    x, EE, _ = _solve_and_influence_lanes(cfg, st.A, y, rho)
+    obs = torch.cat([EE, st.A.flatten(1)], dim=-1)
+    final_err = torch.linalg.norm((st.A @ x[..., None])[..., 0] - y, dim=-1)
+    reward = (torch.linalg.norm(y, dim=-1) / final_err
+              + torch.amin(EE, dim=-1) / torch.amax(EE, dim=-1) + penalty)
+    dones = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    return st._replace(y=y, x=x), obs, reward, dones
 
 
 def step(cfg: EnetConfig, st: EnetState, action, noise,
          keepnoise: bool = False):
-    """One env step (enetenv.py:72-161) with the (N,) unit normal ``noise``
-    of the fresh draw (unused, and may be None, with ``keepnoise``).
-    Returns ``(new_state, obs, reward, done)``; ``done`` is always False as
-    in the reference."""
+    """:func:`step_lanes` of one env: ``action`` (2,), ``noise`` (N,).
+    Returns ``(new_state, obs, reward, done)``, ``done`` the bool False."""
     action = torch.as_tensor(action, dtype=torch.float32,
-                             device=st.A.device).reshape(-1)
-    rho, penalty = action_to_rho(action)
-    y = st.y if keepnoise else _noisy(cfg, st.y0, noise)
-    x, EE, _ = _solve_and_influence(cfg, st.A, y, rho)
-    obs = torch.cat([EE, st.A.reshape(-1)])
-    final_err = torch.linalg.norm(st.A @ x - y)
-    reward = (torch.linalg.norm(y) / final_err
-              + torch.min(EE) / torch.max(EE) + penalty)
-    return st._replace(y=y, x=x), obs, reward, False
+                             device=st.A.device).reshape(1, -1)
+    st2, obs, reward, _ = step_lanes(
+        cfg, _lanes(st), action, None if keepnoise else noise[None],
+        keepnoise=keepnoise)
+    return EnetState(*(f[0] for f in st2)), obs[0], reward[0], False
 
 
 def draw_noise(cfg: EnetConfig, st: EnetState, noise) -> EnetState:
     """One noisy observation into ``st.y`` (reference ``initsol``'s data
-    draw, enetenv.py:197-202) for later ``keepnoise=True`` steps."""
+    draw, enetenv.py:197-202) for later ``keepnoise=True`` steps;
+    ``noise`` (N,) unit normals, or (E, N) for E lanes."""
     return st._replace(y=_noisy(cfg, st.y0, noise))
 
 
@@ -207,42 +245,63 @@ def hint_lanes(cfg: EnetConfig, device):
 
 
 def hint_mses(cfg: EnetConfig, st: EnetState, x):
-    """The (25, 2) held-out MSEs of the hint's 50 lane solutions x (50, M):
-    each lane scores the rows of its test fold."""
+    """The held-out MSEs of the hint's lane solutions x (E x 50, M), each
+    lane scored on the rows of its test fold: (E, 25, 2) for a lane state,
+    (25, 2) for one env's state and x (50, M)."""
     test = hint_lanes(cfg, x.device)[1].to(x.dtype)
-    pred_err = (x @ st.A.T - st.y) ** 2
+    lead = st.A.shape[:-2]
+    xs = x.reshape(lead + (test.shape[0], cfg.M))
+    pred = (st.A[..., None, :, :] @ xs[..., None])[..., 0]
+    pred_err = (pred - st.y[..., None, :]) ** 2
     mses = torch.sum(pred_err * test, dim=-1) / torch.sum(test, dim=-1)
-    return mses.reshape(len(HINT_GRID) ** 2, 2)
+    return mses.reshape(lead + (len(HINT_GRID) ** 2, 2))
 
 
-def hint_solve(cfg: EnetConfig, st: EnetState):
-    """The hint's 25 x 2 cross-validation solves (enetenv.py:229-241) as
-    50 lanes of one L-BFGS solve: each candidate trains on one half of the
-    rows (the SKEnet objective, lambda1 on the L1 term, lambda2 on the
-    squared L2 term) and scores the MSE on the other.  Returns the (25, 2)
-    MSEs and the solve's result."""
+def hint_solve_lanes(cfg: EnetConfig, st: EnetState):
+    """The hint's 25 x 2 cross-validation solves (enetenv.py:229-241) of E
+    envs as the E x 50 lanes of one L-BFGS solve (env-major): each
+    candidate trains on one half of the rows (the SKEnet objective,
+    lambda1 on the L1 term, lambda2 on the squared L2 term) and scores the
+    MSE on the other.  Returns the (E, 25, 2) MSEs and the solve's
+    result."""
+    E = st.A.shape[0]
     lams, test = hint_lanes(cfg, st.A.device)
+    n = lams.shape[0]
+    lams, test = lams.repeat(E, 1), test.repeat(E, 1)
+    A = st.A.repeat_interleave(n, dim=0)
+    y = st.y.repeat_interleave(n, dim=0)
     w = torch.where(test, 0.0, 1.0)
-    x0 = torch.zeros((lams.shape[0], cfg.M), dtype=st.A.dtype,
-                     device=st.A.device)
+    x0 = torch.zeros((E * n, cfg.M), dtype=st.A.dtype, device=st.A.device)
     res = lbfgs_solve(
-        lane_value_and_grad(lambda x: _lane_loss(st.A, st.y, x, lams[:, 1],
+        lane_value_and_grad(lambda x: _lane_loss(A, y, x, lams[:, 1],
                                                  lams[:, 0], w)),
         x0, max_iters=HINT_ITERS, history_size=cfg.history_size)
     return hint_mses(cfg, st, res.x), res
 
 
+def hint_solve(cfg: EnetConfig, st: EnetState):
+    """:func:`hint_solve_lanes` of one env: the (25, 2) MSEs and the
+    solve's 50-lane result."""
+    mses, res = hint_solve_lanes(cfg, _lanes(st))
+    return mses[0], res
+
+
 def hint_from_mses(mses):
     """The grid point of least mean MSE, mapped back to action space (the
-    inverse of the step's affine map; hint[0] = lambda1, hint[1] =
-    lambda2)."""
-    lam = _grid(mses.device)[torch.argmin(torch.mean(mses, dim=1))]
+    inverse of the step's affine map; hint[..., 0] = lambda1, hint[..., 1]
+    = lambda2); leading axes of ``mses`` are lanes."""
+    lam = _grid(mses.device)[torch.argmin(torch.mean(mses, dim=-1), dim=-1)]
     return (lam - (HIGH + LOW) / 2.0) / ((HIGH - LOW) / 2.0)
 
 
+def get_hint_lanes(cfg: EnetConfig, st: EnetState):
+    """(E, 2) grid-search hints in action space (enetenv.py:229-241)."""
+    return hint_from_mses(hint_solve_lanes(cfg, st)[0])
+
+
 def get_hint(cfg: EnetConfig, st: EnetState):
-    """Grid-search hint in action space (enetenv.py:229-241)."""
-    return hint_from_mses(hint_solve(cfg, st)[0])
+    """:func:`get_hint_lanes` of one env: its (2,) hint."""
+    return get_hint_lanes(cfg, _lanes(st))[0]
 
 
 def reset_draws(cfg: EnetConfig, generator, device):
@@ -252,6 +311,24 @@ def reset_draws(cfg: EnetConfig, generator, device):
             torch.randint(3, M, (), generator=generator, device=device),
             torch.randn(M, generator=generator, device=device),
             torch.randint(0, M, (M,), generator=generator, device=device))
+
+
+def reset_draws_lanes(cfg: EnetConfig, n_lanes: int, generator, device):
+    """The raw draws of :func:`reset_lanes` for ``n_lanes`` envs."""
+    M, N, E = cfg.M, cfg.N, n_lanes
+    return (torch.randn((E, N, M), generator=generator, device=device),
+            torch.randint(3, M, (E,), generator=generator, device=device),
+            torch.randn((E, M), generator=generator, device=device),
+            torch.randint(0, M, (E, M), generator=generator, device=device))
+
+
+def reset_lanes(cfg: EnetConfig, A, Mo, z, idx):
+    """:func:`reset` of E envs from their stacked draws (leading axis E).
+    Returns the lane state (every field with a leading E axis) and the
+    (E, obs_dim) observations."""
+    sts, obs = zip(*(reset(cfg, A[e], Mo[e], z[e], idx[e])
+                     for e in range(A.shape[0])))
+    return EnetState(*(torch.stack(f) for f in zip(*sts))), torch.stack(obs)
 
 
 class EnetEnv:
@@ -297,3 +374,4 @@ class EnetEnv:
 
     def get_hint(self):
         return get_hint(self.cfg, self.state).cpu().numpy()
+

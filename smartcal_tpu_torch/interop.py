@@ -20,7 +20,7 @@ import copy
 from smartcal_tpu_torch.cal import coherency, observation, simulate, solver
 from smartcal_tpu_torch.envs import radio
 from smartcal_tpu_torch.models import transformer, tsk
-from smartcal_tpu_torch.rl import ddpg, sac, td3
+from smartcal_tpu_torch.rl import ddpg, sac, sac_discrete, td3
 
 
 def _t(x, device):
@@ -263,14 +263,40 @@ def ddpg_state_from_jax(st, cfg, device="cpu"):
     return ddpg.DDPGState.from_host(cfg, host, device)
 
 
+def dsac_state_from_jax(st, cfg, device="cpu"):
+    """The port's :class:`~smartcal_tpu_torch.rl.sac_discrete.DSACState` of
+    a JAX ``DSACState``: the categorical actor, the Q-vector critics and
+    their targets, the three Adam states, alpha and the learn counter.
+    ``cfg`` is the port's ``DSACConfig``."""
+    actor, critic = sac_discrete.build_nets(cfg)
+    host = _nets_from_jax(st, {"actor": "actor_params", "c1": "c1_params",
+                               "c2": "c2_params", "t1": "t1_params",
+                               "t2": "t2_params"}, actor, critic)
+    host.update(actor_opt=_adam_from_optax(st.actor_opt, actor),
+                c1_opt=_adam_from_optax(st.c1_opt, critic),
+                c2_opt=_adam_from_optax(st.c2_opt, critic),
+                alpha=float(st.alpha), learn_counter=int(st.learn_counter))
+    return sac_discrete.DSACState.from_host(cfg, host, device)
+
+
+def sharded_replay_from_jax(buf) -> dict:
+    """The port's sharded ring payload (``rl/replay_sharded.replay_to_host``
+    form) of a JAX ``ShardedReplayState`` (host arrays): the same (S,
+    local) layout, ``cntr`` and ``beta``."""
+    return {"cntr": int(np.asarray(buf.cntr)),
+            "beta": float(np.asarray(buf.beta)),
+            "data": {k: np.array(v) for k, v in buf.data.items()},
+            "priority": np.array(buf.priority, np.float32)}
+
+
 def seed_from_jax_key(key) -> int:
     """The 63-bit ``torch.Generator`` seed the port takes for a JAX PRNG key:
     the key's two uint32 words as one integer, high word first, top bit
     cleared.  A JAX key stream has no torch counterpart, so a run resumed
     from a JAX checkpoint draws a different (but fixed) exploration
-    stream from there on."""
-    k = np.asarray(key, np.uint32).reshape(-1)
-    return ((int(k[0]) << 32) | int(k[1])) & ((1 << 63) - 1)
+    stream from there on (``prng.generator_seed``)."""
+    from smartcal_tpu_torch import prng
+    return prng.generator_seed(key)
 
 
 def replay_from_jax(buf) -> dict:
@@ -302,6 +328,9 @@ def _replay_from_jax(obj: dict) -> dict:
     if obj.get("kind") == "native":
         return {"kind": "native",
                 "state": native_replay_from_jax(obj["state"])}
+    if obj.get("kind") == "hbm_sharded":
+        return {"kind": "device_sharded",
+                "state": sharded_replay_from_jax(obj["state"])}
     return {"kind": "device_ring", "state": replay_from_jax(obj["state"])}
 
 
@@ -312,6 +341,8 @@ def _state_from_jax(st, cfg):
         return td3_state_from_jax(st, cfg)
     if isinstance(cfg, ddpg.DDPGConfig):
         return ddpg_state_from_jax(st, cfg)
+    if isinstance(cfg, sac_discrete.DSACConfig):
+        return dsac_state_from_jax(st, cfg)
     raise TypeError(f"no agent state for config {type(cfg)!r}")
 
 
@@ -338,12 +369,17 @@ def agent_loop_from_jax(payload: dict, cfg, device="cpu") -> dict:
       scores, the episode, ``extra`` and the native sampler's numpy
       generator state;
     * ``train_fused`` payloads (``kind`` "enet_fused"): the same for the
-      elastic-net trainers.
+      elastic-net trainers;
+    * supervised-fleet payloads (``kind`` "fleet": ``parallel/learner`` and
+      ``parallel/demix_learner``): the agent (a ``DSACConfig`` for the
+      demixing fleet), the flat or sharded ring, the scores, the episode,
+      the learner version and every actor slot's next iteration, as the
+      port's ``run_supervised_loop`` restores them.
 
     The JAX agent key becomes the state of a ``torch.Generator`` on
     ``device`` seeded with :func:`seed_from_jax_key`."""
     kind = payload.get("kind")
-    if kind not in ("agent_loop", "enet_fused"):
+    if kind not in ("agent_loop", "enet_fused", "fleet"):
         raise ValueError(f"not a JAX agent checkpoint payload: {kind!r}")
     key = payload["agent_key" if kind == "agent_loop" else "key"]
     gen = torch.Generator(device=device).manual_seed(seed_from_jax_key(key))
@@ -353,7 +389,12 @@ def agent_loop_from_jax(payload: dict, cfg, device="cpu") -> dict:
                                           cfg).to_host(),
            "replay": _replay_from_jax(payload["replay"])}
     gen_state = gen.get_state().numpy().copy()
-    if kind == "agent_loop":
+    if kind == "fleet":
+        out.update(generator=gen_state,
+                   learner_version=int(payload["learner_version"]),
+                   actor_iterations={int(k): int(v) for k, v in
+                                     payload["actor_iterations"].items()})
+    elif kind == "agent_loop":
         out["agent_generator"] = gen_state
         if "agent_sample_rng" in payload:
             out["agent_sample_rng"] = payload["agent_sample_rng"]

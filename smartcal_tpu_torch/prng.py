@@ -49,3 +49,20 @@ def split(key, num: int = 2) -> np.ndarray:
     lo = (counts & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     b1, b2 = threefry2x32(key[0], key[1], hi, lo)
     return np.stack([b1, b2], axis=-1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: threefry2x32(key, (0, data)) of
+    the 32-bit ``data``, the fleets' per-(actor, iteration) derivation."""
+    key = np.asarray(key, np.uint32)
+    b1, b2 = threefry2x32(key[0], key[1], np.uint32(0),
+                          np.uint32(int(data) & 0xFFFFFFFF))
+    return np.asarray([b1, b2], np.uint32)
+
+
+def generator_seed(key) -> int:
+    """The 63-bit ``torch.Generator`` seed of a key: its two words as one
+    integer, high word first, top bit cleared.  A fleet actor seeds its
+    generator from its ``fold_in`` key this way."""
+    k = np.asarray(key, np.uint32).reshape(-1)
+    return ((int(k[0]) << 32) | int(k[1])) & ((1 << 63) - 1)

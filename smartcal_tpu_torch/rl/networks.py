@@ -315,6 +315,48 @@ class SplitImageMetaCritic(nn.Module):
                                       action)
 
 
+class SplitImageMetaCategoricalActor(nn.Module):
+    """Image + metadata towers over a flat observation -> one dense vector
+    over a discrete action set: the categorical policy (logits) of the
+    distributed demixing learner, whose actions are the 2^(K-1) direction
+    subsets (``demixing_rl/distributed_per_sac.py:34,180-184``).  The
+    submodules carry flax's names at the top level: ``InfluenceCNN_0``,
+    then ``Dense_i`` / ``LayerNorm_i`` of the metadata and head towers and
+    the final ``Dense``."""
+
+    def __init__(self, img_shape, obs_dim, n_actions, use_image=True,
+                 meta_hidden=(128, 16), head_hidden=(256, 128),
+                 generator=None, device=None):
+        super().__init__()
+        self.img_shape = tuple(img_shape)
+        names = _Names(self)
+        self.cnn = None
+        d = 0
+        if use_image:
+            self.cnn = names.add("InfluenceCNN", InfluenceCNN(
+                img_shape, generator=generator, device=device))
+            d = getattr(self, self.cnn).out_dim
+        meta_dim = obs_dim - img_shape[0] * img_shape[1]
+        self.meta, dm = _tower(names, meta_dim, meta_hidden, generator,
+                               device)
+        self.head, dh = _tower(names, d + dm, head_hidden, generator, device)
+        self.out = names.add("Dense", _dense(dh, n_actions, True, generator,
+                                             device))
+
+    def forward(self, obs):
+        img, meta = split_obs(obs, self.img_shape)
+        feats = [getattr(self, self.cnn)(img)] if self.cnn else []
+        x = _run(self, self.head,
+                 torch.cat(feats + [_run(self, self.meta, meta)], dim=-1))
+        return getattr(self, self.out)(x)
+
+
+class SplitImageMetaQVector(SplitImageMetaCategoricalActor):
+    """The same towers read as a state-only critic: Q(s, .) over every
+    discrete action, so the discrete SAC's soft value is an exact
+    expectation."""
+
+
 def _obs_keys(obs_dict, img_key, meta_key):
     if img_key is None:
         img_key = "img" if "img" in obs_dict else "infmap"

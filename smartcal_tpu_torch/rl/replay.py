@@ -73,6 +73,64 @@ def transition_spec(obs_dim: int, n_actions: int) -> dict:
     }
 
 
+def versioned_spec(spec: dict) -> dict:
+    """``spec`` with the fleet's provenance fields: ``version`` (the policy
+    snapshot the acting actor held, the learner's staleness currency) and
+    ``behavior_logp`` (log pi_behavior of the stored action, the
+    denominator of the clipped importance ratio).  The stores write only
+    the keys a ring was built with, so versioned and plain rings share
+    every other path."""
+    return {**spec, "version": ((), torch.int32),
+            "behavior_logp": ((), torch.float32)}
+
+
+def backend_for(buf: object):
+    """The replay module of ``buf``'s layout: this module for the flat
+    :class:`ReplayState`, :mod:`~smartcal_tpu_torch.rl.replay_sharded` for
+    its ``ShardedReplayState``.  Both expose the same store, sample and
+    update names, so the agents' learn steps dispatch on the ring type."""
+    import sys
+
+    from smartcal_tpu_torch.rl import replay_sharded as rps
+
+    if isinstance(buf, rps.ShardedReplayState):
+        return rps
+    return sys.modules[__name__]
+
+
+def staleness_clip_weights(raw, versions, learner_version, clip_c: float):
+    """The staleness-gated clipped weights every agent's fleet weighting
+    shares (``sac.impact_weights``, the discrete twin,
+    ``td3.staleness_weights``): ``raw`` (a per-transition weight, or a
+    callable of the staleness) clipped to ``[1/clip_c, clip_c]`` for stale
+    transitions and exactly 1.0 at staleness <= 0.  Returns ``(weights,
+    aux)``, aux the staleness mean, the mean weight and the fraction of
+    stale transitions whose raw weight hit a bound."""
+    if not torch.is_tensor(learner_version):
+        learner_version = int(learner_version)   # no host-to-device copy
+    stale = (learner_version - versions.to(torch.int32)).to(torch.float32)
+    if callable(raw):
+        raw = raw(stale)
+    is_stale = stale > 0
+    lo, hi = 1.0 / clip_c, clip_c
+    w = torch.where(is_stale, torch.clamp(raw, lo, hi), 1.0)
+    n_stale = torch.clamp(torch.sum(is_stale.to(torch.float32)), min=1.0)
+    saturated = is_stale & ((raw >= hi) | (raw <= lo))
+    aux = {"staleness_mean": torch.mean(stale),
+           "is_clip_mean": torch.mean(w),
+           "is_clip_saturation": torch.sum(saturated.to(torch.float32))
+           / n_stale}
+    return w, aux
+
+
+def zero_clip_aux(device="cpu") -> dict:
+    """The no-learn branch's :func:`staleness_clip_weights` aux (identity
+    weights, nothing stale)."""
+    return {"staleness_mean": torch.zeros((), device=device),
+            "is_clip_mean": torch.ones((), device=device),
+            "is_clip_saturation": torch.zeros((), device=device)}
+
+
 def validate_fleet_knobs(is_clip: float, ere_eta: float,
                          replay_backend: str = "hbm") -> None:
     """Config-time checks of the fleet knobs, as the JAX package makes
@@ -206,8 +264,8 @@ def ere_weights(buf: ReplayState, eta: float):
     slots = torch.arange(n, device=buf.device)
     ages = torch.remainder(buf.cntr - 1 - slots, max(n, 1))
     x = ages.to(torch.float32) / max(filled - 1, 1)
-    w = torch.tensor(eta, dtype=torch.float32, device=buf.device) \
-        ** (ERE_SPAN * x)
+    # a Python base: no host-to-device copy (the same float32 bits)
+    w = torch.pow(float(eta), ERE_SPAN * x)
     return torch.where(slots < filled, w, 0.0)
 
 
@@ -319,3 +377,11 @@ def replay_from_host(payload: dict, device="cuda") -> ReplayState:
 
 def load_replay(path: str, device="cuda") -> ReplayState:
     return replay_from_host(strict_pickle_load(path), device)
+
+
+def merge_from_buffer(dst: ReplayState, src_host: dict, n: int) -> None:
+    """Learner-side ingestion of an actor's host buffer (reference
+    ``store_transition_from_buffer``, enet_sac.py:254-268): the first
+    ``n`` transitions enter one by one with max-priority initialisation."""
+    for i in range(n):
+        replay_add(dst, {k: np.asarray(v[i]) for k, v in src_host.items()})

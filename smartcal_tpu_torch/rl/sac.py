@@ -52,7 +52,8 @@ from smartcal_tpu_torch.rl import replay_native
 from smartcal_tpu_torch.rl.networks import (MLPActor, MLPCritic,
                                             SplitImageMetaActor,
                                             SplitImageMetaCritic,
-                                            gaussian_sample)
+                                            gaussian_sample,
+                                            tanh_gaussian_log_prob)
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8       # optax.adam defaults
@@ -103,10 +104,6 @@ class SACConfig:
                 f"{self.replay_backend!r}")
         rp.validate_fleet_knobs(self.is_clip, self.ere_eta,
                                 self.replay_backend)
-        if self.is_clip > 0:
-            raise NotImplementedError(
-                "is_clip (the fleet's staleness-clipped importance "
-                "weights) is not ported yet: ROADMAP queue 1 item 13")
 
 
 @dataclasses.dataclass
@@ -310,6 +307,43 @@ def choose_action(cfg: SACConfig, st: SACState, obs, noise=None,
 
 
 @torch.no_grad()
+def choose_action_logp(cfg: SACConfig, st: SACState, obs, noise):
+    """:func:`choose_action` that also returns ``log pi(a|s)`` (shape
+    ``obs.shape[:-1]``): the behavior log-prob a fleet actor stores for the
+    learner's importance ratio.  The same draw gives the same action."""
+    a, lp = gaussian_sample(*st.actor(obs), noise)
+    return a, lp[..., 0]
+
+
+def impact_weights(cfg: SACConfig, actor, batch: dict, learner_version):
+    """Clipped importance weights of a versioned batch (IMPACT,
+    arXiv:1912.00167 eq. 2, for one-step TD): ``pi_now(a|s) /
+    pi_behavior(a|s)``, the numerator under the current ``actor`` module
+    and the denominator the stored ``behavior_logp``, clipped to
+    ``[1/is_clip, is_clip]`` and exactly 1.0 where the transition's
+    ``version`` is not behind ``learner_version``.  Returns ``(weights,
+    aux)``."""
+    with torch.no_grad():
+        mu, logsigma = actor(batch["state"])
+        lp_now = tanh_gaussian_log_prob(mu, logsigma, batch["action"])
+        ratio = torch.exp(lp_now - batch["behavior_logp"])
+    return rp.staleness_clip_weights(ratio, batch["version"],
+                                     learner_version, cfg.is_clip)
+
+
+def weighted_critic_loss(cfg, q1, q2, y, is_w):
+    """The twin TD loss: IS-weighted (``replay.per_mse``) under PER or with
+    ``is_clip`` armed (the fleet weights folded into ``is_w``), plain MSE
+    otherwise.  Both are sum / numel, as ``jnp.mean`` is, so weights of
+    exactly 1.0 give the unweighted loss bit for bit."""
+    if cfg.prioritized or cfg.is_clip > 0:
+        return rp.per_mse(q1, y, is_w) + rp.per_mse(q2, y, is_w)
+    td1, td2 = q1 - y, q2 - y
+    return (torch.sum(td1 * td1) / td1.numel()
+            + torch.sum(td2 * td2) / td2.numel())
+
+
+@torch.no_grad()
 def policy_apply(cfg: SACConfig, actor, obs):
     """Deterministic policy head: ``tanh(mu)`` of the actor module."""
     return torch.tanh(actor(obs)[0])
@@ -337,7 +371,8 @@ def _hint_gap(cfg: SACConfig, actions, hints):
 
 
 def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
-                     noise, collect_diag: bool = False) -> dict:
+                     noise, collect_diag: bool = False,
+                     learner_version=None) -> dict:
     """The SAC learn step on an already-sampled ``batch`` (field -> (B, ...)
     tensors), with PER importance weights ``is_w`` (B,) and the unit normal
     draws ``noise = (n_next, n_pi, n_dual)``, each (B, n_actions).  Updates
@@ -348,8 +383,21 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     diagnostics.UpdateDiag` read from tensors the step holds (gradients
     and Adam steps, the Q batch, the policy's log-probabilities), the
     parameter norms taken before each optimizer step; the update itself
-    is the same computation either way."""
+    is the same computation either way.
+
+    ``learner_version`` (required when ``cfg.is_clip`` is armed) drives the
+    fleet's staleness weighting (:func:`impact_weights`): the critic loss
+    is weighted per transition, same-version transitions at exactly 1.0,
+    and the metrics carry its aux."""
     n_next, n_pi, n_dual = noise
+    clip_aux = {}
+    if cfg.is_clip > 0:
+        if learner_version is None:
+            raise ValueError("cfg.is_clip armed but learn_from_batch was "
+                             "not given the learner_version")
+        w_clip, clip_aux = impact_weights(cfg, st.actor, batch,
+                                          learner_version)
+        is_w = is_w * w_clip
     s, a, s2, hint = (batch[k] for k in ("state", "action", "new_state",
                                           "hint"))
     r = cfg.reward_scale * batch["reward"][:, None]
@@ -365,10 +413,7 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     # -- critic update (enet_sac.py:577-587)
     p1, p2 = _params(st.c1), _params(st.c2)
     q1, q2 = st.c1(s, a), st.c2(s, a)
-    if cfg.prioritized:
-        closs = rp.per_mse(q1, y, is_w) + rp.per_mse(q2, y, is_w)
-    else:
-        closs = torch.mean((q1 - y) ** 2) + torch.mean((q2 - y) ** 2)
+    closs = weighted_critic_loss(cfg, q1, q2, y, is_w)
     g = torch.autograd.grad(closs, list(p1.values()) + list(p2.values()))
     if collect_diag:
         c_norm = dg.tree_norm([p1, p2])
@@ -415,7 +460,7 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     st.learn_counter += 1
     out = {"critic_loss": closs.detach(), "actor_loss": aloss.detach(),
            "alpha": st.alpha, "rho": st.rho,
-           "td": (q1 - y).abs().squeeze(-1).detach()}
+           "td": (q1 - y).abs().squeeze(-1).detach(), **clip_aux}
     if collect_diag:
         q = q1.detach()
         out["diag"] = dg.make_diag(
@@ -432,27 +477,28 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     return out
 
 
-def sample_batch(cfg: SACConfig, buf: rp.ReplayState, generator=None,
-                 sample_noise=None):
-    """Draw one batch from ``buf`` as :func:`learn` does: PER (with ERE
-    modulation when ``cfg.ere_eta`` < 1), ERE, or uniform.  Returns (batch,
-    idx, is_w)."""
+def sample_batch(cfg, buf, generator=None, sample_noise=None):
+    """Draw one batch from ``buf`` (flat or sharded) as the agents' learn
+    steps do: PER (with ERE modulation when ``cfg.ere_eta`` < 1), ERE, or
+    uniform.  Returns (batch, idx, is_w)."""
+    rpb = rp.backend_for(buf)
     ere = cfg.ere_eta if cfg.ere_eta < 1.0 else None
     B = cfg.batch_size
     if cfg.prioritized:
-        return rp.replay_sample_per(buf, B, generator, u=sample_noise,
-                                    recency_eta=ere)
+        return rpb.replay_sample_per(buf, B, generator, u=sample_noise,
+                                     recency_eta=ere)
     if ere is not None:
-        batch, idx = rp.replay_sample_ere(buf, B, ere, generator,
-                                          u=sample_noise)
+        batch, idx = rpb.replay_sample_ere(buf, B, ere, generator,
+                                           u=sample_noise)
     else:
-        batch, idx = rp.replay_sample_uniform(buf, B, generator,
-                                              gumbel_noise=sample_noise)
+        batch, idx = rpb.replay_sample_uniform(buf, B, generator,
+                                               gumbel_noise=sample_noise)
     return batch, idx, torch.ones(B, device=buf.device)
 
 
-def learn(cfg: SACConfig, st: SACState, buf: rp.ReplayState, generator=None,
-          sample_noise=None, noise=None, collect_diag: bool = False) -> dict:
+def learn(cfg: SACConfig, st: SACState, buf, generator=None,
+          sample_noise=None, noise=None, collect_diag: bool = False,
+          learner_version=None) -> dict:
     """One learn step: sample from ``buf``, :func:`learn_from_batch`, and
     re-prioritise the sampled slots under PER.  A no-op while the buffer
     holds fewer than ``batch_size`` transitions (decided on the host
@@ -460,11 +506,18 @@ def learn(cfg: SACConfig, st: SACState, buf: rp.ReplayState, generator=None,
     uniforms for PER/ERE) and ``noise`` default to draws from
     ``generator``.  Updates ``st`` and ``buf`` in place; returns the
     metrics without ``td`` (with ``collect_diag``, ``diag``: a zero one
-    when no learn happened, as in the JAX package)."""
+    when no learn happened, as in the JAX package).
+
+    ``buf`` is the flat ring or the sharded one (``rl/replay_sharded``):
+    the sample and priority update dispatch on its type, and nothing of
+    the sampled batch crosses to the host.  ``learner_version`` arms the
+    staleness weighting when ``cfg.is_clip`` is set."""
     if buf.cntr < cfg.batch_size:
         zero = torch.zeros((), device=st.alpha.device)
         out = {"critic_loss": zero, "actor_loss": zero, "alpha": st.alpha,
                "rho": st.rho}
+        if cfg.is_clip > 0:
+            out.update(rp.zero_clip_aux(st.alpha.device))
         if collect_diag:
             out["diag"] = dg.zero_diag(st.alpha.device)
         return out
@@ -474,10 +527,12 @@ def learn(cfg: SACConfig, st: SACState, buf: rp.ReplayState, generator=None,
                                   generator=generator, device=buf.device)
                       for _ in range(3))
     m = learn_from_batch(cfg, st, batch, is_w, noise,
-                         collect_diag=collect_diag)
+                         collect_diag=collect_diag,
+                         learner_version=learner_version)
     td = m.pop("td")
     if cfg.prioritized:
-        rp.replay_update_priorities(buf, idx, td, cfg.error_clip)
+        rp.backend_for(buf).replay_update_priorities(buf, idx, td,
+                                                     cfg.error_clip)
     return m
 
 

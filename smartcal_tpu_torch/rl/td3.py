@@ -39,7 +39,8 @@ from smartcal_tpu_torch.rl.networks import (MLPCritic, MLPDeterministicActor,
                                             SplitImageMetaDeterministicActor)
 from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, _host, _params,
                                        adam_init, adam_update,
-                                       record_update_cost, soft_update)
+                                       record_update_cost, sample_batch,
+                                       soft_update, weighted_critic_loss)
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
 
 
@@ -74,10 +75,6 @@ class TD3Config:
         if not 0.0 < self.is_decay <= 1.0:
             raise ValueError(
                 f"is_decay must be in (0, 1], got {self.is_decay}")
-        if self.is_clip > 0:
-            raise NotImplementedError(
-                "is_clip (the fleet's staleness-clipped update weights) is "
-                "not ported yet: ROADMAP queue 1 item 13")
 
 
 def build_nets(cfg, generator=None, device="cpu"):
@@ -250,10 +247,7 @@ def learn_from_batch(cfg: TD3Config, st: TD3State, batch: dict, is_w,
 
     p1, p2 = _params(st.c1), _params(st.c2)
     q1, q2 = st.c1(s, a), st.c2(s, a)
-    if cfg.prioritized:
-        closs = rp.per_mse(q1, y, is_w) + rp.per_mse(q2, y, is_w)
-    else:
-        closs = torch.mean((q1 - y) ** 2) + torch.mean((q2 - y) ** 2)
+    closs = weighted_critic_loss(cfg, q1, q2, y, is_w)
     g = torch.autograd.grad(closs, list(p1.values()) + list(p2.values()))
     if collect_diag:
         c_norm = dg.tree_norm([p1, p2])
@@ -296,46 +290,53 @@ def learn_from_batch(cfg: TD3Config, st: TD3State, batch: dict, is_w,
     return out
 
 
-def sample_batch(cfg: TD3Config, buf: rp.ReplayState, generator=None,
-                 sample_noise=None):
-    """One batch as :func:`learn` draws it: PER (ERE-modulated when
-    ``cfg.ere_eta`` < 1), ERE, or uniform.  Returns (batch, idx, is_w)."""
-    ere = cfg.ere_eta if cfg.ere_eta < 1.0 else None
-    B = cfg.batch_size
-    if cfg.prioritized:
-        return rp.replay_sample_per(buf, B, generator, u=sample_noise,
-                                    recency_eta=ere)
-    if ere is not None:
-        batch, idx = rp.replay_sample_ere(buf, B, ere, generator,
-                                          u=sample_noise)
-    else:
-        batch, idx = rp.replay_sample_uniform(buf, B, generator,
-                                              gumbel_noise=sample_noise)
-    return batch, idx, torch.ones(B, device=buf.device)
+def staleness_weights(cfg: TD3Config, batch: dict, learner_version):
+    """Clipped staleness-decay weights of a versioned batch (the
+    deterministic policy's stand-in for ``sac.impact_weights``):
+    ``clip(is_decay ** staleness, 1/is_clip, is_clip)``, exactly 1.0 at
+    staleness <= 0.  Returns ``(weights, aux)``."""
+    return rp.staleness_clip_weights(lambda stale: torch.pow(cfg.is_decay,
+                                                            stale),
+                                     batch["version"], learner_version,
+                                     cfg.is_clip)
 
 
-def learn(cfg: TD3Config, st: TD3State, buf: rp.ReplayState, generator=None,
+def learn(cfg: TD3Config, st: TD3State, buf, generator=None,
           sample_noise=None, smooth_noise=None,
-          collect_diag: bool = False) -> dict:
+          collect_diag: bool = False, learner_version=None) -> dict:
     """One TD3 learn step (enet_td3.py:222-364): a no-op while the ring
     holds fewer than ``batch_size`` transitions (decided on the host
     counter).  ``sample_noise`` (Gumbel noise, or uniforms for PER/ERE) and
     the scalar ``smooth_noise`` default to draws from ``generator``.
-    Updates ``st`` and ``buf`` in place; returns the metrics (with
-    ``collect_diag``, ``diag``: a zero one when no learn happened)."""
+    Updates ``st`` and ``buf`` (flat or sharded) in place; returns the
+    metrics (with ``collect_diag``, ``diag``: a zero one when no learn
+    happened).  ``cfg.is_clip`` with ``learner_version`` weights the critic
+    loss by :func:`staleness_weights`."""
     if buf.cntr < cfg.batch_size:
         out = {"critic_loss": torch.zeros((), device=buf.device)}
+        if cfg.is_clip > 0:
+            out.update(rp.zero_clip_aux(buf.device))
         if collect_diag:
             out["diag"] = dg.zero_diag(buf.device)
         return out
     batch, idx, is_w = sample_batch(cfg, buf, generator, sample_noise)
+    clip_aux = {}
+    if cfg.is_clip > 0:
+        if learner_version is None:
+            raise ValueError("cfg.is_clip armed but learn was not given "
+                             "the learner_version")
+        w_clip, clip_aux = staleness_weights(cfg, batch, learner_version)
+        # staleness 0: w_clip is exactly 1.0 and is_w keeps its bits
+        is_w = is_w * w_clip
     if smooth_noise is None:
         smooth_noise = torch.randn((), generator=generator,
                                    device=buf.device)
     m = learn_from_batch(cfg, st, batch, is_w, smooth_noise,
                          collect_diag=collect_diag)
     if cfg.prioritized:
-        rp.replay_update_priorities(buf, idx, m.pop("td"), cfg.error_clip)
+        rp.backend_for(buf).replay_update_priorities(buf, idx, m.pop("td"),
+                                                     cfg.error_clip)
+    m.update(clip_aux)
     return m
 
 

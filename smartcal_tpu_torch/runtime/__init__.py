@@ -10,11 +10,16 @@ smartcal_tpu/runtime):
 * :mod:`~smartcal_tpu_torch.runtime.faults`: deterministic fault
   injection (``SMARTCAL_FAULTS``);
 * :mod:`~smartcal_tpu_torch.runtime.recovery`: the watchdog's
-  rollback-and-retry policy.
+  rollback-and-retry policy;
+* :mod:`~smartcal_tpu_torch.runtime.supervisor`: heartbeat-monitored
+  actor slots (threads or spawned worker processes) with restart on
+  death, for the parallel learners;
+* :mod:`~smartcal_tpu_torch.runtime.ipc`: the framed, CRC-checked pickle
+  transport of the process fleet (the JAX package's frames, byte for
+  byte).
 
-The actor supervisor and the framed IPC of the JAX package come with the
-distributed slice (ROADMAP queue 1 item 13).  Standard library and numpy
-at import; torch is imported by the functions that move tensors.
+Standard library and numpy at import; torch is imported by the functions
+that move tensors.
 """
 
 from .atomic import (CorruptStateError, atomic_pickle,       # noqa: F401
@@ -29,3 +34,6 @@ from .faults import (FaultInjected, FaultPlan,               # noqa: F401
                      plan_from_env)
 from .recovery import (RecoveryAction, RecoveryManager,      # noqa: F401
                        RecoveryPolicy)
+from .ipc import (CorruptPayloadError, frame_payload,        # noqa: F401
+                  unframe_payload)
+from .supervisor import Fleet                                # noqa: F401

@@ -193,8 +193,11 @@ def pack_replay(buf: object) -> dict:
     tree's leaves, cursor and fill, beta), so priorities round-trip bit
     for bit."""
     from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import replay_sharded as rps
     from smartcal_tpu_torch.rl.replay_native import NativePER
 
+    if isinstance(buf, rps.ShardedReplayState):
+        return {"kind": "device_sharded", "state": rps.replay_to_host(buf)}
     if isinstance(buf, rp.ReplayState):
         return {"kind": "device_ring", "state": rp.replay_to_host(buf)}
     if isinstance(buf, NativePER):
@@ -211,6 +214,9 @@ def unpack_replay(obj: dict, device="cuda") -> object:
     kind = obj.get("kind")
     if kind == "device_ring":
         return rp.replay_from_host(obj["state"], device)
+    if kind == "device_sharded":
+        from smartcal_tpu_torch.rl import replay_sharded as rps
+        return rps.replay_from_host(obj["state"], device)
     if kind == "native":
         from smartcal_tpu_torch.rl.replay_native import NativePER
         return NativePER.from_state_dict(obj["state"])

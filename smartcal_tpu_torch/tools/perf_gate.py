@@ -14,11 +14,15 @@ detector (``smartcal_tpu_torch/obs/regress.py``).  Stages:
 * ``imager``: ``imager.multifreq_image_sr`` of one episode, kernel 1
   (``csrc/dft_imager.cu``) on the card; a rep makes ``IMAGER_REPEAT``
   images, as one image (~0.5 ms on an H100) is a measurement of the
-  host's launch jitter, which moves by up to 2x between runs.
+  host's launch jitter, which moves by up to 2x between runs;
+* ``replay_fused``: the fleet learner's fused step (``rl/replay_sharded``
+  store of 32 versioned transitions into a 4-shard ring, PER + ERE sample,
+  the IS-clipped SAC learn, the priority update), the JAX gate's
+  composition; a rep runs ``REPLAY_REPEAT`` steps from a fresh copy of the
+  same agent and ring.
 
-The JAX gate's ``replay_fused`` waits for the port's fleet replay and
-``serve_batch`` / ``publish`` for its serving slice (ROADMAP queue 1
-items 13 and 14).
+The JAX gate's ``serve_batch`` / ``publish`` wait for the port's serving
+slice (ROADMAP queue 1 item 14).
 
 Usage::
 
@@ -67,7 +71,8 @@ K_SAMPLES = 5
 WARM_REPS = 2
 SUB_REPS = 2
 IMAGER_REPEAT = 20
-STAGE_NAMES = ("solve", "influence", "imager")
+REPLAY_REPEAT = 10
+STAGE_NAMES = ("solve", "influence", "imager", "replay_fused")
 
 
 def _sync(dev):
@@ -151,7 +156,65 @@ def build_stages(names, device):
                                "repeat": IMAGER_REPEAT},
                    "run": run_imager, "cost": lambda: obs.stage_cost(image)},
     }
+    if "replay_fused" in names:
+        stages["replay_fused"] = _build_replay_stage(dev, card)
     return {n: stages[n] for n in names}
+
+
+def _build_replay_stage(dev, card):
+    """The fleet learner's fused store -> PER/ERE sample -> IS-clipped
+    learn -> priority update on a 4-shard ring (the JAX gate's
+    composition): one rep is ``REPLAY_REPEAT`` steps from a fresh copy of
+    the same agent, ring and generator; the numeric scalar is the ring's
+    mean priority after them."""
+    import torch
+
+    from smartcal_tpu_torch import obs
+    from smartcal_tpu_torch.obs import costs
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import replay_sharded as rps
+    from smartcal_tpu_torch.rl import sac
+
+    S, n = 4, 32
+    cfg = sac.SACConfig(obs_dim=6, n_actions=2, prioritized=True,
+                        is_clip=2.0, ere_eta=0.99, batch_size=8,
+                        mem_size=64)
+    spec = rp.versioned_spec(rp.transition_spec(cfg.obs_dim, cfg.n_actions))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    st0 = sac.sac_init(cfg, gen, dev)
+    obs_b = torch.randn((n, cfg.obs_dim), generator=gen, device=dev)
+    a, lp = sac.choose_action_logp(cfg, st0, obs_b, torch.randn(
+        (n, cfg.n_actions), generator=gen, device=dev))
+    flat = {"state": obs_b, "new_state": obs_b + 0.1, "action": a,
+            "reward": (torch.arange(n, device=dev) % 3).float() - 1.0,
+            "done": torch.zeros(n, dtype=torch.bool, device=dev),
+            "hint": torch.zeros((n, cfg.n_actions), device=dev),
+            "version": torch.ones(n, dtype=torch.int32, device=dev),
+            "behavior_logp": lp}
+
+    def fresh():
+        with costs.uncounted():
+            return (st0.copy_to(dev),
+                    rps.replay_init(cfg.mem_size, spec, S, device=dev),
+                    torch.Generator(device=dev).manual_seed(3))
+
+    def fused(st, buf, g):
+        rps.replay_add_batch(buf, flat)
+        return sac.learn(cfg, st, buf, g, learner_version=2)
+
+    def run():
+        st, buf, g = fresh()
+        for _ in range(REPLAY_REPEAT):
+            fused(st, buf, g)
+        _sync(dev)
+        return float(torch.mean(buf.priority))
+
+    return {"statics": {"stage": "replay_fused", "shards": S,
+                        "obs_dim": cfg.obs_dim, "batch_size": cfg.batch_size,
+                        "mem_size": cfg.mem_size, "n_store": n,
+                        "repeat": REPLAY_REPEAT, "device": card},
+            "run": run,
+            "cost": lambda: obs.stage_cost(lambda: fused(*fresh()))}
 
 
 def measure_stages(stages, k_samples):

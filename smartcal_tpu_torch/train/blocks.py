@@ -149,6 +149,42 @@ def add_ere_arg(p):
     return p
 
 
+def add_fleet_args(p):
+    """The actor-fleet flags of the parallel learners: actor count, the
+    IMPACT IS-clip constant, the ERE knob, the weight-publication cadence,
+    the actor backend, the replay shards and the simulated hosts."""
+    p.add_argument("--n-actors", dest="n_actors", type=int, default=None,
+                   help="actors of the supervised fleet / lanes of the "
+                        "one-program learner (default: 2 supervised, 1 "
+                        "lane per mesh dp device otherwise)")
+    p.add_argument("--is-clip", dest="is_clip", type=float, default=0.0,
+                   help="IMPACT staleness-clipped importance weighting "
+                        "constant c >= 1 (0 = off): stale transitions' TD "
+                        "loss is weighted by the policy ratio clipped to "
+                        "[1/c, c]; same-version transitions are "
+                        "bit-identical to the unweighted path")
+    add_ere_arg(p)
+    p.add_argument("--publish-every", dest="publish_every", type=int,
+                   default=1,
+                   help="supervised fleet: publish learner weights every N "
+                        "learner rounds (N > 1 forces actor staleness)")
+    p.add_argument("--actor-mode", dest="actor_mode",
+                   choices=("thread", "process"), default="thread",
+                   help="supervised fleet backend: 'thread' (actors share "
+                        "this process, each on its own CUDA stream) or "
+                        "'process' (spawned worker processes shipping "
+                        "framed transition batches into per-slot ingest "
+                        "queues)")
+    p.add_argument("--replay-shards", dest="replay_shards", type=int,
+                   default=0,
+                   help="shard the learner's replay ring into N round-robin "
+                        "shards on the device (0 = the flat ring)")
+    p.add_argument("--sim-hosts", dest="sim_hosts", type=int, default=1,
+                   help="process fleet: tag contiguous actor-slot blocks "
+                        "with N simulated host ids (one machine)")
+    return p
+
+
 def add_batched_args(p):
     """The batched-env flag shared by the radio trainers."""
     p.add_argument("--batch-envs", dest="batch_envs", type=int, default=1,
@@ -262,13 +298,13 @@ class TrainObs:
         return False
 
     def log_replay_health(self, buf, **tags) -> bool:
-        """One ``replay_health`` event for ``buf`` (a device ring); feeds the
-        watchdog.  No-op unless diagnostics are on.  Returns the trip
-        state."""
+        """One ``replay_health`` event for ``buf`` (a device ring, flat or
+        sharded); feeds the watchdog.  No-op unless diagnostics are on.
+        Returns the trip state."""
         if not self.diag:
             return self.tripped
         from smartcal_tpu_torch.rl import replay as rp
-        health = rp.replay_health(buf)
+        health = rp.backend_for(buf).replay_health(buf)
         if self.runlog is not None:
             self.runlog.log("replay_health", **health, **tags)
         if self.watchdog is not None \

@@ -183,8 +183,9 @@ def test_step_stages_on_jax_inputs(seed, monkeypatch):
     np.testing.assert_allclose(tE.numpy(), np.asarray(jE), rtol=1e-4,
                                atol=1e-5)
     # the step around JAX's solve and influence state
-    monkeypatch.setattr(te, "_solve_and_influence",
-                        lambda cfg, A, y, rho: (t(jx), t(jE), None))
+    monkeypatch.setattr(te, "_solve_and_influence_lanes",
+                        lambda cfg, A, y, rho: (t(jx)[None], t(jE)[None],
+                                                None))
     jst2, jobs, jrew, _ = je.step(JCFG, jst, jnp.asarray(action),
                                   jax.random.PRNGKey(0), keepnoise=True)
     tst2, tobs, trew, done = te.step(TCFG, tst, t(action), None,

@@ -57,7 +57,11 @@ def test_port_has_modules():
                 "train/supervised", "train/model_influence",
                 "train/evaluate", "train/evaluate_models", "train/plots",
                 "obs/baselines", "obs/regress", "obs/costs",
-                "rl/replay_native", "tools/__init__", "tools/perf_gate"):
+                "rl/replay_native", "tools/__init__", "tools/perf_gate",
+                "prng", "rl/replay_sharded", "rl/sac_discrete",
+                "runtime/ipc", "runtime/supervisor", "parallel/__init__",
+                "parallel/mesh", "parallel/multihost", "parallel/trainer",
+                "parallel/learner", "parallel/demix_learner"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
 
@@ -73,7 +77,12 @@ def test_new_modules_import_without_jax():
             "smartcal_tpu_torch.rl.replay_native, "
             "smartcal_tpu_torch.tools.perf_gate, "
             "smartcal_tpu_torch.cal.solver, smartcal_tpu_torch.envs.radio, "
-            "smartcal_tpu_torch.train.blocks\n"
+            "smartcal_tpu_torch.train.blocks, "
+            "smartcal_tpu_torch.parallel.learner, "
+            "smartcal_tpu_torch.parallel.demix_learner, "
+            "smartcal_tpu_torch.rl.replay_sharded, "
+            "smartcal_tpu_torch.rl.sac_discrete, "
+            "smartcal_tpu_torch.runtime.supervisor\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'smartcal_tpu')]\n"
             "assert not bad, bad\n")

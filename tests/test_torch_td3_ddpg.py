@@ -349,5 +349,5 @@ def test_entry_points_default_to_cuda():
         ttd3.TD3Agent(ttd3.TD3Config(**BASE))
     with pytest.raises(RuntimeError, match="no GPU"):
         tddpg.DDPGAgent(tddpg.DDPGConfig(**BASE))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttd3.TD3Config(**BASE, is_clip=2.0)
+    # the fleet's staleness weighting is ported: the config is accepted
+    assert ttd3.TD3Config(**BASE, is_clip=2.0).is_clip == 2.0
