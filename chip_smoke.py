@@ -177,6 +177,27 @@
    one DSAC learn and one fused sharded step held against the CPU from
    states with Adam history, and the synchronizing CUDA calls of one
    fused step counted;
+9a''. drives the serving slice (``serve_phase``), before the runtime
+   phase's profiler session: one ``CalibServer`` at the N=62 backend, M=10,
+   4 lanes, a fresh SAC policy (obs_dim 128² + 11·7): a cold warmup into
+   an empty program cache (the policy through ``torch.export``, the solve
+   and influence prepared, the line search captured once); one
+   ``process_once`` batch of 4 heterogeneous jobs (k 2/5/7/10, a diffuse
+   sky, maxiter None/9/12, 2 pinned-rho and 2 policy jobs) with 0 compile
+   events, each lane bit for bit ``calibrate_batched`` +
+   ``influence_images_batched`` + ``image_sigmas_batched`` on the serving
+   buffer; the supervised worker on 12 submitted jobs (3 batches) while
+   the breaker thread replays each batch's sentinel lane beside the next
+   batch (the overlap read from the run log; no compile event from a
+   thread but the breaker's); ``swap_policy`` to version 1 with the same
+   weights and the batch again, bit for bit; the exported policy program
+   against the eager actor at version 0's weights and at perturbed ones
+   (version 2), whose served rho must be the eager forward's and not
+   version 0's; one ``sentinel_poll`` whose replay launches kernel 1 six
+   times, held against its plain version at those operands and timed; a
+   second server on the same cache warms up with the policy program
+   loaded from its .pt2, the prepared programs' sidecars found and 0 nvcc
+   builds; the stage spans from the run log;
 9b. drives the runtime slice (``runtime_phase``): ``train/calib_sac.py``
    at N=62 (2 episodes of 1 step, hint) with --metrics --diag --watchdog
    --ckpt-every 1, and 1 episode plus a --resume to 2, whose last
@@ -207,6 +228,7 @@ Details go to DIR/chip_smoke.json (default smoke_out/).
     python3 chip_smoke.py --supervised [--out DIR]
     python3 chip_smoke.py --bf16 [--out DIR]
     python3 chip_smoke.py --fleet [--out DIR]
+    python3 chip_smoke.py --serve [--out DIR]
 
 build the kernels and run step 9b (9a, 2c) alone, or one N=62 reset +
 step, one SKA reset + step and step 7b on them (details in
@@ -215,7 +237,16 @@ DIR/supervised_phase.json, DIR/bf16_phase.json); ``--fleet`` runs step
 9a' alone and deeper: the enet solves at 200 L-BFGS iterations, 8 fleet
 rounds, and the demixing fleet with 2 actor threads in processes of
 their own under a time limit, with and without its CUDA-graph captures
-under one lock (DIR/fleet_phase.json).
+under one lock (DIR/fleet_phase.json); ``--serve`` runs step 9a'' alone
+and deeper: the open-loop load generator on the N=62 server at 0.6 and
+0.9 of the capacity one batch gives, 200 requests each,
+``python -m smartcal_tpu_torch.tools.serve_calib --tier medium --policy``
+twice on one cache (the second run loads the policy program, finds the
+prepared programs' sidecars, builds nothing with nvcc and records 0
+steady-state compile events), ``tools.serve_fleet`` with 2
+replica processes on the card and a replica kill (replica 1 warm from the
+shared cache with 0 nvcc builds), and ``tools.serve_learn`` with at least
+3 publishes and 0 compile events in its window (DIR/serve_phase.json).
 
     python3 chip_smoke.py --ablation [--out DIR]
 
@@ -3648,6 +3679,9 @@ def rr_gate(dev, out_dir):
                      "graph_captures_per_rep": {
                          k: v["graph_captures_per_rep"]
                          for k, v in doc["stages"].items()},
+                     "compile_events": {
+                         k: v["metrics"]["compile_events"]["value"]
+                         for k, v in doc["stages"].items()},
                      "fired": sorted({(f["stage"], f["metric"])
                                       for f in doc["findings"]
                                       if f["verdict"] == "FIRE"})}
@@ -3658,6 +3692,10 @@ def rr_gate(dev, out_dir):
     clean = gate("clean", [])
     if clean["rc"] != 0 or clean["fired"]:
         raise AssertionError(f"perf gate fired on a clean run: {clean}")
+    # what the serve stages guard: a warmed batch and a publication build
+    # and capture nothing
+    if any(clean["compile_events"][k] for k in ("serve_batch", "publish")):
+        raise AssertionError(f"perf gate serve stages compiled: {clean}")
     # both faults in one run over every stage: each must fire on its own
     # stage and the influence stage on none (3 samples: a fault is a
     # multiple of the noise, not a fraction)
@@ -5087,6 +5125,619 @@ def fleet_phase(dev, out_dir, zero_counts, read_counts, n_sm, deep=False):
 
 
 
+# -- the serving slice (serve_phase) -----------------------------------------
+SERVE_M, SERVE_LANES = 10, 4           # the reference backend's M, 4 lanes
+# (k, diffuse, maxiter, pinned rho?) per job of the heterogeneous batch
+SERVE_JOBS = ((2, False, None, True), (5, True, 9, False),
+              (7, False, 12, True), (10, False, None, False))
+# 3 batches: the sentinel's replay of batch b runs beside batch b + 1
+SERVE_WORKER_JOBS = 12
+SERVE_CALIB = ["--tier", "medium", "--M", "4", "--lanes", "4", "--rates",
+               "4", "--duration", "0.5", "--pool", "1", "--seed", "0",
+               "--policy", "--quiet"]
+# --serve: the open-loop load at two fractions of the capacity that step
+# (2)'s batch gives (lanes / batch seconds), 200 requests at each
+SERVE_LOAD_FRACTIONS = (0.6, 0.9)
+SERVE_LOAD_JOBS = 200
+SERVE_FLEET = ["--tier", "medium", "--M", "4", "--lanes", "4", "--replicas",
+               "2", "--kill", "--rate-per-replica", "1.5", "--duration", "6",
+               "--pool", "4", "--quiet"]
+# a medium-tier batch takes ~4.6 s on the card: 1 job/s keeps the queue
+# short; one held-out eval at the start and one at the end (an eval waits
+# for its jobs and would hold the learner loop)
+SERVE_LEARN = ["--tier", "medium", "--M", "4", "--lanes", "4", "--rate", "1",
+               "--duration", "30", "--pool", "6", "--eval-pool", "2",
+               "--eval-every-s", "1000", "--publish-every", "2",
+               "--batch-size", "8", "--mem-size", "256", "--quiet"]
+
+
+def _compile_delta(c0, c1):
+    keys = ("compile_events", "compile_events:nvcc",
+            "compile_events:cuda_graph", "compile_secs",
+            "serve_oracle_compile_events",
+            "serve_oracle_captures", "serve_oracle_capture_secs")
+    return {k: c1.get(k, 0.0) - c0.get(k, 0.0) for k in keys}
+
+
+def _serve_jobs(backend, obs_dim, Job, prng):
+    """The heterogeneous batch: k in {2, 5, 7, 10}, one diffuse episode,
+    maxiter None / 9 / 12, two pinned-rho jobs and two policy jobs with an
+    obs_vec."""
+    key = prng.PRNGKey(11)
+    rng = np.random.default_rng(11)
+    eps = []
+    for k, diffuse, _, _ in SERVE_JOBS:
+        key, sub = prng.split(key)
+        eps.append(backend.new_calib_episode(sub, k, SERVE_M,
+                                             diffuse=diffuse)[0])
+    ovecs = [(1e-3 * rng.standard_normal(obs_dim)).astype(np.float32)
+             for _ in SERVE_JOBS]
+
+    def make():
+        return [Job(episode=ep, k=k, maxiter=mi,
+                    rho=(np.linspace(0.5 + i, 2.0 + i, k).astype(np.float32)
+                         if pinned else None),
+                    obs_vec=None if pinned else ov)
+                for i, ((k, _, mi, pinned), ep, ov) in enumerate(
+                    zip(SERVE_JOBS, eps, ovecs))]
+
+    return make
+
+
+def _served_vs_direct(srv, backend, jobs):
+    """Each served lane against ``calibrate_batched`` +
+    ``influence_images_batched`` + ``image_sigmas_batched`` on the serving
+    buffer and the batch's lane parameters: (bit_identical, per-lane
+    largest relative difference)."""
+    bep = srv._bep
+    with srv._lock:
+        policy, prog = srv._policy, srv._programs.get("policy")
+    rho, mask, alpha, iters, _ = srv._lane_params(jobs, 0, policy, prog)
+    res = backend.calibrate_batched(bep, rho, mask, iters)
+    imgs = backend.influence_images_batched(bep, res, rho, alpha)
+    sd, sr = backend.image_sigmas_batched(bep, res)
+    sig = res.sigma_res.cpu().numpy()
+    imgs, sd, sr = imgs.cpu().numpy(), sd.cpu().numpy(), sr.cpu().numpy()
+    same, rels = True, []
+    for lane, job in enumerate(jobs):
+        got = job.future.result(timeout=5)
+        want = (float(sig[lane]), float(sd[lane]), float(sr[lane]),
+                float(np.std(imgs[lane])))
+        have = (got.sigma_res, got.sigma_data_img, got.sigma_res_img,
+                got.img_std)
+        same &= have == want
+        rels.append(max(abs(a - b) / max(abs(b), 1e-30)
+                        for a, b in zip(have, want)))
+    return same, rels
+
+
+def _sentinel_beside_worker(events, window):
+    """From the serve phase's run log: the sentinel replays on the breaker
+    thread whose span overlaps a later ``serve_batch`` span, and the
+    breaker's line-search captures that ran during a batch.  Raises unless
+    at least one replay overlapped a later batch, or if any compile event
+    in the worker's ``window`` (wall-clock seconds) came from another
+    thread than the breaker's."""
+    def interval(e):
+        return float(e["t"]) - float(e["dur_s"]), float(e["t"])
+
+    batches = [(e.get("batch"), interval(e)) for e in events
+               if e.get("event") == "span" and e.get("name") == "serve_batch"
+               and window[0] <= float(e["t"]) <= window[1]]
+
+    def during_batch(a0, a1, after=-1):
+        return [b for b, (b0, b1) in batches
+                if b > after and min(a1, b1) - max(a0, b0) > 0]
+
+    overlaps = []
+    for e in events:
+        if e.get("event") == "span" and e.get("name") == "serve_sentinel" \
+                and e.get("thread") == "serve-breaker":
+            a0, a1 = interval(e)
+            for b in during_batch(a0, a1, after=e["batch"]):
+                overlaps.append({"replay_of": e["batch"], "beside": b,
+                                 "replay_s": e["dur_s"]})
+    comp = [e for e in events if e.get("event") == "compile"
+            and window[0] <= float(e["t"]) <= window[1]]
+    foreign = [e for e in comp if e.get("thread") != "serve-breaker"]
+    captures = [e["dur_s"] for e in comp
+                if e.get("thread") == "serve-breaker"
+                and str(e.get("key", "")).startswith("cuda_graph")
+                and during_batch(*interval(e))]
+    if not overlaps or foreign:
+        raise AssertionError(f"serve sentinel beside the worker: overlaps "
+                             f"{overlaps}, compile events off the breaker "
+                             f"thread {foreign}")
+    return {"overlaps": overlaps, "captures_s": captures}
+
+
+def _results(jobs):
+    return [(r.sigma_res, r.sigma_data_img, r.sigma_res_img, r.img_std)
+            for r in (j.future.result(timeout=5) for j in jobs)]
+
+
+def _tool(module, args, timeout):
+    """``python -m module args`` in a process of its own: (rc, seconds,
+    stdout tail)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", module] + args,
+                       capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"{module} rc {p.returncode}:\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    return secs, p.stdout
+
+
+def serve_calib_restart(out_dir):
+    """Step 7: ``tools.serve_calib --tier medium --policy`` twice against
+    one cache directory: the second run must load the exported policy
+    program from its ``.pt2`` (one ``export_cache_hit``, no miss), find the
+    prepared programs' sidecars (``source == "cache"``), build nothing with
+    nvcc and record 0 steady-state compile events."""
+    import shutil
+
+    cache = os.path.join(out_dir, "serve_calib_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    path = os.path.join(out_dir, "serve_calib.json")
+    if os.path.exists(path):
+        os.remove(path)
+    secs = []
+    for _ in range(2):
+        s, _ = _tool("smartcal_tpu_torch.tools.serve_calib",
+                     SERVE_CALIB + ["--cache-dir", cache, "--out", path], 600)
+        secs.append(s)
+    doc = json.load(open(path))
+    cold, warm = doc["runs"][0], doc["runs"][-1]
+    ww = warm["warmup"]
+    bad = [k for k, v in ww["sources"].items() if v != "cache"]
+    if bad or "policy" not in ww["sources"] \
+            or ww["export_cache_hit"] != 1 or ww["export_cache_miss"] \
+            or ww["compile_events:nvcc"] \
+            or warm["steady_compile_events"] \
+            or cold["steady_compile_events"]:
+        raise AssertionError(f"serve_calib warm restart: sources "
+                             f"{ww['sources']}, policy loads "
+                             f"{ww['export_cache_hit']:g} (misses "
+                             f"{ww['export_cache_miss']:g}), nvcc builds "
+                             f"{ww['compile_events:nvcc']}, "
+                             f"steady compile events "
+                             f"{cold['steady_compile_events']} / "
+                             f"{warm['steady_compile_events']}")
+    rate = warm["rates"][0]
+    out = dict(process_seconds=secs, restart=doc["restart"],
+               cold_sources=cold["warmup"]["sources"],
+               warm_sources=warm["warmup"]["sources"],
+               cold_nvcc_builds=cold["warmup"]["compile_events:nvcc"],
+               cold_graph_captures=cold["warmup"][
+                   "compile_events:cuda_graph"],
+               warm_graph_captures=warm["warmup"][
+                   "compile_events:cuda_graph"],
+               warm_rate=rate)
+    shutil.rmtree(cache, ignore_errors=True)
+    print(f"serve_calib --tier medium twice (processes {secs[0]:.1f} s, "
+          f"{secs[1]:.1f} s): warmup cold {doc['restart']['cold_warmup_s']} "
+          f"s ({out['cold_nvcc_builds']:g} nvcc builds, sources "
+          f"{out['cold_sources']}), warm {doc['restart']['warm_warmup_s']} s "
+          f"(0 nvcc builds, the policy program loaded from its .pt2, "
+          f"the prepared programs' sidecars found, "
+          f"{out['warm_graph_captures']:g} line-search captures at warmup), "
+          f"steady compile events 0 and 0; warm run {rate['completed']}/"
+          f"{rate['submitted']} jobs at {rate['offered_rate']} jobs/s, p50 "
+          f"{rate.get('latency_p50_s')} s", flush=True)
+    return out
+
+
+def serve_phase(dev, out_dir, zero_counts, read_counts, n_sm, deep=False):
+    """The serving slice: one CalibServer at the reference backend (N=62),
+    M=10, 4 lanes, a fresh SAC policy armed (obs_dim 128^2 + 11*7):
+    (1) a cold warmup into an empty cache; (2) one heterogeneous
+    ``process_once`` batch, 0 compile events, each lane bit for bit the
+    direct batched calls; (3) the worker serves 12 submitted jobs (3
+    batches), the breaker thread replaying each batch's sentinel lane while
+    the worker serves the next (the overlap is read from the run log, and
+    no compile event may come from a thread but the breaker's); (4)
+    ``swap_policy`` to version 1 with the same weights, the same batch again
+    bit for bit; the policy program against the eager actor at version 0's
+    weights, then ``swap_policy`` to perturbed weights (version 2): the
+    served rho is the eager forward's of those weights and not version
+    0's; (5) ``sentinel_poll``: kernel 1 launched by the replay and held
+    against its plain version at the replay's operands; (6) stop, and a
+    second server on the same cache warms up from it (the policy program
+    loaded from its .pt2, the prepared programs' sidecars found, 0 nvcc
+    builds).  ``deep`` (``--serve``) adds the open-loop load generator at
+    two fractions of the capacity, 200 requests each, (7)
+    ``tools.serve_calib --tier medium`` twice on one cache, the replica
+    fleet (2 processes, a kill) and the online lifecycle."""
+    import copy
+    import shutil
+
+    from smartcal_tpu_torch import obs, prng
+    from smartcal_tpu_torch.envs import calib as calib_env
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.ops import dft_imager
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.serve import CalibServer, Job, loadgen
+
+    t_phase = time.perf_counter()
+    out = {}
+    backend = RadioBackend(device=dev, **N62)
+    obs_dim = backend.npix * backend.npix + (SERVE_M + 1) * 7
+    cfg = sac.SACConfig(obs_dim=obs_dim, n_actions=2 * SERVE_M)
+    st = sac.sac_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = {k: v.detach().clone() for k, v in st.actor.state_dict().items()}
+    cache = os.path.join(out_dir, "serve_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    run = os.path.join(out_dir, "serve_run.jsonl")
+    if os.path.exists(run):
+        os.remove(run)
+    make_jobs = _serve_jobs(backend, obs_dim, Job, prng)
+    with obs.recording(run, meta={"entry": "chip_smoke.serve_phase"}):
+        obs.install_compile_listener()
+        srv = CalibServer(backend, M=SERVE_M, lanes=SERVE_LANES,
+                          cache_dir=cache, policy=(cfg, params),
+                          compile_cache=False, max_wait_s=0.05,
+                          poll_s=0.05)
+        # (1) cold warmup
+        t0 = time.perf_counter()
+        warm = srv.warmup(seed=0)
+        cold_s = time.perf_counter() - t0
+        if warm["sources"] != {"solve": "export", "influence": "export",
+                               "policy": "export"}:
+            raise AssertionError(f"serve warmup into an empty cache: "
+                                 f"{warm['sources']}")
+        # (2) one heterogeneous batch
+        jobs = make_jobs()
+        zero_counts()
+        c0 = obs.counters_snapshot()
+        t0 = time.perf_counter()
+        n = srv.process_once(jobs, timeout=0.01)
+        batch_s = time.perf_counter() - t0
+        d_batch = _compile_delta(c0, obs.counters_snapshot())
+        batch_launches = read_counts()
+        if n != SERVE_LANES or d_batch["compile_events"]:
+            raise AssertionError(f"serve batch: {n} jobs, compile events "
+                                 f"{d_batch}")
+        v0 = _results(jobs)
+        same, rels = _served_vs_direct(srv, backend, jobs)
+        if not same:
+            raise AssertionError(f"served lanes differ from the direct "
+                                 f"batched calls: relative {rels}")
+        print(f"serve (N=62, M={SERVE_M}, {SERVE_LANES} lanes, policy "
+              f"armed): cold warmup {cold_s:.2f} s "
+              f"({warm['export_cache_miss']:g} cache misses, "
+              f"{warm['compile_events:cuda_graph']:g} line-search captures, "
+              f"{warm['compile_events:nvcc']:g} nvcc "
+              f"builds); one heterogeneous batch (k 2/5/7/10, a diffuse "
+              f"sky, maxiter None/9/12, 2 pinned + 2 policy jobs) "
+              f"{batch_s:.2f} s, 0 compile events, every lane bit for bit "
+              f"the direct batched calls", flush=True)
+        # (3) the supervised worker, every batch's sentinel lane replayed
+        # on the breaker thread while the worker serves the next batch
+        srv.sentinel_every = 1
+        srv.start()
+        c0 = obs.counters_snapshot()
+        t0 = time.perf_counter()
+        t_worker = time.time()
+        futs = [srv.submit(j) for _ in range(SERVE_WORKER_JOBS // 4)
+                for j in make_jobs()]
+        res = [f.result(timeout=600) for f in futs]
+        worker_s = time.perf_counter() - t0
+        time.sleep(0.2)
+        # the sentinel replays on the breaker thread: wait for the last
+        deadline = time.monotonic() + 300
+        while srv._sentinel_pending is not None \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        srv.stop(timeout=120)           # joins a replay still running
+        t_worker = (t_worker, time.time())
+        d_worker = _compile_delta(c0, obs.counters_snapshot())
+        wst = srv.stats()
+        if not all(np.isfinite(r.sigma_res) for r in res) \
+                or wst["failed"] or wst["circuit_open"] \
+                or wst["sentinel"]["replayed"] < SERVE_WORKER_JOBS // 4:
+            raise AssertionError(f"serve worker: compile events {d_worker}, "
+                                 f"stats {wst}")
+        per_batch = worker_s / max(1, wst["batches"] - 2)
+        print(f"serve worker: {len(res)} jobs in {worker_s:.2f} s over "
+              f"{wst['batches'] - 2} batches ({per_batch:.2f} s per batch), "
+              f"sentinel replays on the breaker thread: "
+              f"{wst['sentinel']['replayed']} "
+              f"({d_worker['serve_oracle_captures']:g} per-solve line-search "
+              f"captures, {d_worker['serve_oracle_capture_secs']:.3f} s)",
+              flush=True)
+        # (4) swap to version 1 with the same weights, the batch again
+        srv.sentinel_every = 1
+        swap = srv.swap_policy(params, 1)
+        jobs1 = make_jobs()
+        c0 = obs.counters_snapshot()
+        srv.process_once(jobs1, timeout=0.01)
+        d_swap = _compile_delta(c0, obs.counters_snapshot())
+        v1 = _results(jobs1)
+        if v1 != v0 or d_swap["compile_events"]:
+            raise AssertionError(f"version-1 batch differs from version 0 "
+                                 f"({v0} vs {v1}) or compiled {d_swap}")
+        # (4b) the policy program against the eager actor at the batch's
+        # 4-lane operands, at version 0's weights and at perturbed ones
+        # (version 2): a program that baked in its example weights fails
+        ovec = np.zeros((SERVE_LANES, obs_dim), np.float32)
+        for lane, j in enumerate(jobs1):
+            if j.obs_vec is not None:
+                ovec[lane] = j.obs_vec
+        policy_lanes = [i for i, j in enumerate(jobs1) if j.rho is None]
+        gen = torch.Generator(device=dev).manual_seed(2)
+        params2 = {k: v + 0.05 * torch.randn(v.shape, generator=gen,
+                                             device=dev, dtype=v.dtype)
+                   for k, v in params.items()}
+
+        def eager_heads(actor_params):
+            actor = copy.deepcopy(st.actor)
+            actor.load_state_dict(actor_params)
+            return [a.cpu().numpy() for a in sac.policy_heads(
+                cfg, actor, torch.as_tensor(ovec, device=dev))]
+
+        def served(jobs):
+            with srv._lock:
+                pol, prog = srv._policy, srv._programs["policy"]
+            heads = srv._policy_forward(prog, pol[1], ovec)
+            return prog, heads, srv._lane_params(jobs, 0, pol, prog)[0]
+
+        def eager_rho(heads):
+            lo, hi = calib_env.LOW, calib_env.HIGH
+            return np.clip(heads[0] * (hi - lo) / 2 + (hi + lo) / 2, lo, hi)
+
+        prog0, heads0, rho0 = served(jobs1)
+        err0 = max(float(np.max(np.abs(a - b)))
+                   for a, b in zip(heads0, eager_heads(params)))
+        swap2 = srv.swap_policy(params2, 2)
+        jobs2 = make_jobs()
+        prog2, heads2, rho2 = served(jobs2)
+        e2 = eager_heads(params2)
+        err2 = max(float(np.max(np.abs(a - b))) for a, b in zip(heads2, e2))
+        want2 = eager_rho(e2)
+        rho_err = max(float(np.max(np.abs(rho2[i, :j.k] - want2[i, :j.k])
+                                    / want2[i, :j.k]))
+                      for i, j in enumerate(jobs2) if i in policy_lanes)
+        rho_moved = min(float(np.max(np.abs(rho2[i] - rho0[i]) / rho0[i]))
+                        for i in policy_lanes)
+        c0 = obs.counters_snapshot()
+        srv.process_once(jobs2, timeout=0.01)
+        d_swap2 = _compile_delta(c0, obs.counters_snapshot())
+        v2 = _results(jobs2)
+        if prog2 is not prog0 or err0 > 1e-5 or err2 > 1e-5 \
+                or rho_err > 1e-5 or rho_moved < 1e-2 \
+                or d_swap2["compile_events"] \
+                or any(v2[i] == v0[i] for i in policy_lanes) \
+                or not all(np.isfinite(v2).ravel()):
+            raise AssertionError(
+                f"policy program vs the eager actor: heads max abs "
+                f"{err0:.3e} (v0) / {err2:.3e} (v2), served rho vs eager "
+                f"{rho_err:.3e}, moved {rho_moved:.3e} from v0, compile "
+                f"{d_swap2}, v2 {v2} vs v0 {v0}")
+        print(f"serve policy program vs the eager actor (4 lanes): heads "
+              f"max abs {err0:.3e} at v0's weights, {err2:.3e} at "
+              f"perturbed weights (v2, swap {swap2['swap_s'] * 1e3:.2f} ms, "
+              f"the same program); served rho vs eager {rho_err:.3e} "
+              f"relative, moved {rho_moved:.3e} from v0's on every policy "
+              f"lane; the v2 batch's policy lanes differ from v0's, 0 "
+              f"compile events (tolerance 1e-5)", flush=True)
+        # (5) the sentinel's replay: kernel 1's launches and operands
+        spy = FirstCall(dft_imager, "dirty_image_cuda")
+        zero_counts()
+        c0 = obs.counters_snapshot()
+        t0 = time.perf_counter()
+        try:
+            ev = srv.sentinel_poll()
+        finally:
+            spy.restore()
+        sent_s = time.perf_counter() - t0
+        sent_launches = read_counts()
+        d_sent = _compile_delta(c0, obs.counters_snapshot())
+        want = 2 * backend.n_freqs          # data + residual, Nf bands each
+        if ev is None or sent_launches["dft_imager"] != want:
+            raise AssertionError(f"sentinel replay: event {ev}, launches "
+                                 f"{sent_launches} (expected {want})")
+        (uv, vis, npix, cell), _ = spy.args
+        err = check_imager(dft_imager, uv, vis, npix, cell,
+                           "serve sentinel replay")
+        lm = dft_imager.pixel_grid(npix, cell, dev)
+        k_ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, vis, npix,
+                                                           cell), 20)
+        plain_ms = cuda_ms(lambda: dft_imager.dirty_image_reference(
+            uv, lm, vis), 5)
+        bnd = separable_bounds(npix, uv.shape[0], n_sm)
+        print(f"serve swap to v1 (same weights): {swap['swap_s'] * 1e3:.2f} "
+              f"ms, the batch bit for bit version 0's, 0 compile events; "
+              f"sentinel replay {sent_s:.2f} s, kernel 1 launched "
+              f"{sent_launches['dft_imager']} times, "
+              f"{d_sent['compile_events:cuda_graph']:g} line-search "
+              f"captures ({d_sent['compile_secs']:.3f} s); "
+              f"relative errors solve {ev['rel_err_solve']:.3e} influence "
+              f"{ev['rel_err_influence']:.3e} sigma {ev['rel_err_sigma']:.3e}"
+              f" (reported, not judged: the full-depth solve is chaotic in "
+              f"float32); kernel 1 at P={npix * npix} R={uv.shape[0]}: "
+              f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+        if deep:
+            out["loadgen"] = serve_loadgen(srv, backend, loadgen,
+                                           SERVE_LANES / batch_s)
+        srv.stop()
+        # a warm restart in this process: a second server on the same
+        # cache loads every program (the line search is captured again)
+        srv2 = CalibServer(backend, M=SERVE_M, lanes=SERVE_LANES,
+                           cache_dir=cache, policy=(cfg, params),
+                           compile_cache=False)
+        t0 = time.perf_counter()
+        warm2 = srv2.warmup(seed=0)
+        warm_s = time.perf_counter() - t0
+        if set(warm2["sources"].values()) != {"cache"} \
+                or warm2["export_cache_hit"] != 1 \
+                or warm2["export_cache_miss"] \
+                or warm2["export_cache_prepared_hit"] != 2 \
+                or warm2["compile_events:nvcc"]:
+            raise AssertionError(f"serve warm restart: {warm2}")
+        print(f"serve warm restart on the same cache: warmup {warm_s:.2f} s "
+              f"(cold {cold_s:.2f} s), the policy program loaded from its "
+              f".pt2 (1 hit, 0 misses), the 2 prepared programs' sidecars "
+              f"found, 0 nvcc builds, "
+              f"{warm2['compile_events:cuda_graph']:g} line-search "
+              f"capture", flush=True)
+        del srv2
+        obs.flush_counters()
+    events = _fleet_events(run)
+    spans = {}
+    for e in events:
+        if e.get("event") == "span" and str(e.get("name", "")).startswith(
+                "serve_"):
+            spans.setdefault(e["name"], []).append(float(e["dur_s"]))
+    span_ms = {k: {"n": len(v), "median_ms": 1e3 * float(np.median(v))}
+               for k, v in spans.items()}
+    print("serve spans (median ms): " + ", ".join(
+        f"{k} {v['median_ms']:.1f} (n={v['n']})"
+        for k, v in sorted(span_ms.items())), flush=True)
+    beside = _sentinel_beside_worker(events, t_worker)
+    print(f"serve sentinel beside the worker (run log): "
+          f"{len(beside['overlaps'])} replays overlapped a later batch "
+          f"({beside['overlaps']}); line-search captures on the breaker "
+          f"thread during a batch {beside['captures_s']} s; compile events "
+          f"from the worker's thread 0", flush=True)
+    out.update(warmup=warm, cold_warmup_s=cold_s, warm_restart=warm2,
+               warm_warmup_s=warm_s, batch_s=batch_s,
+               batch_compile=d_batch, batch_launches=batch_launches,
+               worker=dict(jobs=len(res), seconds=worker_s,
+                           seconds_per_batch=per_batch, stats=wst,
+                           compile=d_worker, sentinel_beside=beside),
+               swap=dict(swap, compile=d_swap, bit_identical=True),
+               policy_check=dict(heads_err_v0=err0, heads_err_v2=err2,
+                                 rho_err_v2=rho_err, rho_moved=rho_moved,
+                                 swap_v2=swap2, compile=d_swap2),
+               sentinel=dict(event=ev, seconds=sent_s, compile=d_sent,
+                             launches=sent_launches),
+               spans=span_ms, launches=sent_launches,
+               kernel=dict(P=npix * npix, R=uv.shape[0], max_abs_err=err,
+                           ms=k_ms, plain_ms=plain_ms, **bnd))
+    del srv
+    shutil.rmtree(cache, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if deep:
+        # the restart (~55 s of two processes) would take the default run
+        # past ~900 s on a slow host: it runs under --serve
+        out["serve_calib"] = serve_calib_restart(out_dir)
+        out["fleet"] = serve_fleet_run(out_dir)
+        out["lifecycle"] = serve_learn_run(out_dir)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"serve phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def serve_loadgen(srv, backend, loadgen, capacity):
+    """--serve: the open-loop load generator on the N=62 server (its worker
+    restarted), a pool of 4 heterogeneous episodes, at two fractions of
+    ``capacity`` (jobs/s: lanes over one batch's seconds), each long enough
+    for ``SERVE_LOAD_JOBS`` requests, so that the p99 rests on some
+    hundreds of requests in a steady queue rather than on a handful."""
+    pool = loadgen.build_job_pool(backend, SERVE_M, 4, seed=1)
+    srv.sentinel_every = 0
+    srv.start()
+    rates = []
+    try:
+        for frac in SERVE_LOAD_FRACTIONS:
+            rate = frac * capacity
+            b0 = srv.stats()["batches"]
+            gen = loadgen.OpenLoopLoadGen(
+                srv, pool, rate=rate, duration_s=SERVE_LOAD_JOBS / rate,
+                seed=0, maxiter_choices=(None, 9, 12))
+            r = gen.run(drain_timeout_s=600.0)
+            if r["accounted"] != r["submitted"] or r["failed"]:
+                raise AssertionError(f"load generator at {rate}: {r}")
+            r.update(capacity_jobs_s=capacity, fraction=frac,
+                     batches=srv.stats()["batches"] - b0)
+            rates.append(r)
+            print(f"serve load {frac} x capacity ({rate:.4f} jobs/s of "
+                  f"{capacity:.4f}) for {r['duration_s']:.1f} s: "
+                  f"{r['completed']}/{r['submitted']} completed in "
+                  f"{r['batches']} batches, shed {r['shed']}, "
+                  f"{r.get('achieved_jobs_s')} jobs/s, latency p50 "
+                  f"{r.get('latency_p50_s')} s p99 {r.get('latency_p99_s')} "
+                  f"s, queue wait p50 {r.get('queue_wait_p50_s')} s p99 "
+                  f"{r.get('queue_wait_p99_s')} s", flush=True)
+    finally:
+        srv.stop(timeout=120)
+    return rates
+
+
+def serve_fleet_run(out_dir):
+    """--serve: ``tools.serve_fleet`` with 2 replica processes on the card
+    (medium tier), a replica killed mid-run and requeued; the second
+    replica warm-starts off the shared cache and builds nothing."""
+    import shutil
+
+    root = os.path.join(out_dir, "serve_fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "fleet.json")
+    secs, _ = _tool("smartcal_tpu_torch.tools.serve_fleet",
+                    SERVE_FLEET + ["--cache-dir", os.path.join(root, "cache"),
+                                   "--trace-dir", os.path.join(root, "tr"),
+                                   "--out", path], 900)
+    rec = json.load(open(path))["runs"][-1]
+    pt, kill = rec["scaling"][0], rec["kill"]
+    builds = {}
+    for name in sorted(os.listdir(os.path.join(root, "tr", "scale2x1"))):
+        if name.startswith("replica") and name.endswith(".jsonl"):
+            ev = _fleet_events(os.path.join(root, "tr", "scale2x1", name))
+            builds[name] = sum(1 for e in ev if e.get("event") == "compile"
+                               and str(e.get("key", "")).startswith("nvcc"))
+    warm1 = pt["warm_sources"].get("1") or pt["warm_sources"].get(1)
+    if warm1 != ["cache"] or builds.get("replica1-g0.jsonl", 1) \
+            or pt["steady_compile_events_fleet"] \
+            or kill["summary"]["completed"] != kill["summary"]["submitted"] \
+            or kill["replica_restarts"] < 1:
+        raise AssertionError(f"serve fleet: warm sources {pt['warm_sources']}"
+                             f", nvcc builds {builds}, steady "
+                             f"{pt['steady_compile_events_fleet']}, kill "
+                             f"{kill}")
+    s = pt["summary"]
+    print(f"serve fleet (2 replica processes, medium tier, {secs:.1f} s): "
+          f"boot {pt['boot_s']} s, replica 1 all from the cache with 0 nvcc "
+          f"builds ({builds}), {s.get('achieved_jobs_s')} jobs/s at "
+          f"{pt['offered_rate']} offered, p99 {s.get('latency_p99_s')} s, "
+          f"fleet steady compile events 0; kill: "
+          f"{kill['summary']['completed']}/{kill['summary']['submitted']} "
+          f"completed, requeued {kill['requeued']}, recovered in "
+          f"{kill['recover_s']} s", flush=True)
+    shutil.rmtree(os.path.join(root, "cache"), ignore_errors=True)
+    return dict(record=rec, nvcc_builds=builds, seconds=secs)
+
+
+def serve_learn_run(out_dir):
+    """--serve: ``tools.serve_learn`` (medium tier): >= 3 publishes, 0
+    compile events in the serving window."""
+    import shutil
+
+    root = os.path.join(out_dir, "serve_learn")
+    shutil.rmtree(root, ignore_errors=True)
+    path = os.path.join(root, "learn.json")
+    secs, _ = _tool("smartcal_tpu_torch.tools.serve_learn",
+                    SERVE_LEARN + ["--cache-dir", os.path.join(root, "cache"),
+                                   "--out", path], 900)
+    rec = json.load(open(path))
+    life, serving = rec["lifecycle"], rec["serving"]
+    if life["swaps"] < 3 or serving["steady_compile_events"] \
+            or serving["failed"]:
+        raise AssertionError(f"serve_learn: swaps {life['swaps']}, compile "
+                             f"events {serving['steady_compile_events']}, "
+                             f"failed {serving['failed']}")
+    print(f"serve_learn (medium tier, {secs:.1f} s): {life['swaps']} "
+          f"publishes (p50 {life['publish_ms_p50']} ms), 0 compile events "
+          f"in the window, {serving['completed']}/{serving['submitted']} "
+          f"jobs, p99 {serving['latency_p99_s']} s, sigma_res "
+          f"{[s['sigma_res_mean'] for s in life['sigma_res_trajectory']]}",
+          flush=True)
+    shutil.rmtree(os.path.join(root, "cache"), ignore_errors=True)
+    return dict(record=rec, seconds=secs)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="smoke_out",
@@ -5112,6 +5763,11 @@ def main():
                          "phase alone, deeper (200 L-BFGS iterations, 8 "
                          "fleet rounds, the demixing fleet with 1 and 2 "
                          "actor threads)")
+    ap.add_argument("--serve", action="store_true",
+                    help="build the kernels and run the serving phase "
+                         "alone, deeper (the load generator at two rates, "
+                         "the replica fleet with a kill, the online "
+                         "lifecycle)")
     ap.add_argument("--supervised", action="store_true",
                     help="build the kernels and run the supervised phase "
                          "alone (dataset, transformer, recommend, "
@@ -5137,7 +5793,7 @@ def main():
     if args.diag_determinism:
         return diag_determinism_main()
     if (args.runtime or args.runtime_rest or args.supervised or args.bf16
-            or args.deterministic_sweep or args.fleet):
+            or args.deterministic_sweep or args.fleet or args.serve):
         from smartcal_tpu_torch.ops import (build, dft_imager,
                                             factored_imager, hessian_blocks)
         card = card_line()
@@ -5162,6 +5818,10 @@ def main():
         elif args.fleet:
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
             name, out = "fleet_phase", fleet_phase(dev, args.out, zero, read,
+                                                   n_sm, deep=True)
+        elif args.serve:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            name, out = "serve_phase", serve_phase(dev, args.out, zero, read,
                                                    n_sm, deep=True)
         else:
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -5568,6 +6228,11 @@ def main():
                                   n_sm)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # -- the serving slice, before the first profiler session -------------
+    report["serve"] = serve_phase(dev, args.out, zero_counts, read_counts,
+                                  n_sm)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # -- the runtime slice, the last timed phase: its final run holds a
     # profiler session ------------------------------------------------------
     report["runtime"] = runtime_phase(dev, args.out, zero_counts,
@@ -5580,6 +6245,7 @@ def main():
 
     sup = report["supervised"]
     fl = report["fleet"]["demix"]
+    sv = report["serve"]
     bf, bfk = report["bf16"], report["bf16"]["kernel"]
 
     def bf16_launches(name):
@@ -5645,7 +6311,8 @@ def main():
          "launches_bf16_paths": bf16_launches("dft_imager"),
          "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"],
                                        sup["kernel"]["max_abs_err"],
-                                       fl["kernel"]["max_abs_err"]]),
+                                       fl["kernel"]["max_abs_err"],
+                                       sv["kernel"]["max_abs_err"]]),
          "ms": dft_ms,
          "plain_ms": dft_plain_ms, **f32_bounds(dft_bounds),
          "library_ms": None,
@@ -5669,6 +6336,15 @@ def main():
          "demix_fleet_bound_ms": fl["kernel"]["bound_ms"],
          "demix_fleet_bound_by": fl["kernel"]["bound_by"],
          "demix_fleet_max_abs_err": fl["kernel"]["max_abs_err"],
+         "launches_serve_batch_path":
+             sv["batch_launches"]["dft_imager"],
+         "launches_serve_sentinel_replay": sv["launches"]["dft_imager"],
+         "serve_shapes": f"P={sv['kernel']['P']} R={sv['kernel']['R']}",
+         "serve_ms": sv["kernel"]["ms"],
+         "serve_plain_ms": sv["kernel"]["plain_ms"],
+         "serve_bound_ms": sv["kernel"]["bound_ms"],
+         "serve_bound_by": sv["kernel"]["bound_by"],
+         "serve_max_abs_err": sv["kernel"]["max_abs_err"],
          **new_paths("dft_imager")},
         {"name": "hessian_blocks", "route": "cuda",
          "source": "smartcal_tpu_torch/csrc/hessian_blocks.cu",

@@ -300,16 +300,23 @@ def _eval_operands(V6, C7):
             Cp.reshape((-1,) + tuple(Cp.shape[2:])).contiguous())
 
 
-def _inner_solver(Vp, Cp, cfg: SolverConfig):
+def _inner_solver(Vp, Cp, cfg: SolverConfig, search=None):
     """``inner_solve(x0, prior, half_rho, iters, resume=None)``: one
     lane-batched ``lbfgs_solve`` of the per-lane cost on the lanes of
     ``Vp``/``Cp`` (with ``resume``, an ``LBFGSResult``: ``lbfgs_resume`` of
     it for ``iters`` more iterations), the quartic line search captured
     once for that lane count and reused by every call.  ``half_rho`` is
-    (K,) or per lane (L, K).  ``inner_solve.search`` is the line search
-    (its counts are the solver telemetry's)."""
+    (K,) or per lane (L, K).  ``search`` is a prebuilt
+    ``_QuarticLineSearch`` of that lane count, None builds one.
+    ``inner_solve.search`` is the line search (its counts are the solver
+    telemetry's)."""
     onehots = baseline_onehots(cfg.n_stations, Vp.dtype, Vp.device)
-    search = _QuarticLineSearch(Vp.shape[0], Vp.dtype, Vp.device)
+    if search is None:
+        search = _QuarticLineSearch(Vp.shape[0], Vp.dtype, Vp.device)
+    elif (search.n_lanes, search.dtype) != (Vp.shape[0], Vp.dtype):
+        raise ValueError(
+            f"prebuilt line search is for {search.n_lanes} {search.dtype} "
+            f"lanes, the solve has {Vp.shape[0]} {Vp.dtype} lanes")
 
     def inner_solve(x0, prior, half_rho, iters, resume=None):
         def cost(x):
@@ -521,7 +528,8 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig,
 
 def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
                        n_chunks: int = 1, admm_iters=None,
-                       collect_stats: bool = False) -> SolveResult:
+                       collect_stats: bool = False,
+                       search=None) -> SolveResult:
     """:func:`solve_admm` of E episodes at once: the JAX package's
     ``vmap(solve_admm)`` (smartcal_tpu/envs/radio.py batched_solve_callable).
 
@@ -536,7 +544,10 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
     fields carry a leading episode axis; ``collect_stats`` returns
     ``(result, SolverStats)`` with a leading episode axis on the tensors
     (an episode past its own count records 0 there, as the JAX package's
-    fixed-size histories do)."""
+    fixed-size histories do).  ``search`` is an optional prebuilt line
+    search (``_QuarticLineSearch``) for the E*Nf*Ts lanes, whose graph is then
+    captured once and replayed by every solve that is given it (the serving
+    route's programs, ``envs/radio.batched_solve_callable``)."""
     dev, dt = V.device, V.dtype
     E, Nf, T = V.shape[0], V.shape[1], V.shape[2]
     K, N = cfg.n_dirs, cfg.n_stations
@@ -562,7 +573,7 @@ def solve_admm_batched(V, C, freqs, f0, rho, cfg: SolverConfig,
     L = E * Nf * Ts
     x_shape = (L, K * 2 * N * 2 * 2)
     p_shape = (L, K, 2 * N, 2, 2)
-    inner_solve = _inner_solver(Vp, Cp, cfg)
+    inner_solve = _inner_solver(Vp, Cp, cfg, search)
 
     init_iters = torch.zeros(E, dtype=torch.int32, device=dev)
     if cfg.init_iters > 0:

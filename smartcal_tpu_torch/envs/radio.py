@@ -61,6 +61,13 @@ route:
   the JAX package (not the DFT kernel: the fused reward differs from the
   sequential env's by round-off only).
 
+Serving (``serve/``): ``serve_signature`` is the JAX backend's signature
+dict (the program cache's key), and ``batched_solve_callable`` /
+``batched_influence_callable`` are the batched solve and influence chain as
+callables of ``batched_solve_operands`` / ``batched_influence_operands``;
+the solve callable owns one line search per lane count, whose CUDA graph
+is captured by its first call and replayed by every later one.
+
 Prefetch: ``prefetch_episode`` / ``take_prefetched`` and ``run_pipelined``
 build episodes on one worker thread; on the card it works on a stream of
 its own, and the caller's stream waits on an event recorded at the end of
@@ -739,6 +746,33 @@ class RadioBackend:
         return (bep.V, C, torch.as_tensor(bep.freqs, device=dev), bep.f0,
                 rho, iters)
 
+    def batched_solve_callable(self, n_dirs):
+        """The batched masked-ADMM solve over a leading lane axis as a
+        callable of the positional operands of :meth:`batched_solve_operands`
+        (the JAX backend's ``batched_solve_callable``, the serving layer's
+        solve program).  It owns one quartic line search per lane count
+        (``solver._QuarticLineSearch``): on the card the search's CUDA
+        graph is captured by the first call at a lane count and replayed by
+        every later one, so a warmed program captures nothing.  The bits are
+        :meth:`calibrate_batched`'s."""
+        cfg = self._solver_cfg(n_dirs)
+        n_chunks = self.n_chunks
+        searches = {}
+        lock = threading.Lock()
+
+        def solve(V, C, freqs, f0, rho, iters):
+            lanes = V.shape[0] * V.shape[1] * n_chunks
+            with lock:
+                search = searches.get(lanes)
+                if search is None:
+                    search = searches[lanes] = solver._QuarticLineSearch(
+                        lanes, V.dtype, V.device)
+                return solver.solve_admm_batched(
+                    V, C, freqs, f0, rho, cfg, n_chunks=n_chunks,
+                    admm_iters=iters, search=search)
+
+        return solve
+
     def calibrate_batched(self, bep: BatchedEpisode, rho, mask=None,
                           admm_iters=None) -> solver.SolveResult:
         """Batched :meth:`calibrate`: the E masked ADMM solves as one
@@ -757,8 +791,10 @@ class RadioBackend:
     def batched_influence_operands(self, bep: BatchedEpisode,
                                    result: solver.SolveResult, rho,
                                    rho_spatial) -> tuple:
-        """(residual, Ccal, J, hadd (E, Nf, K)): the per-episode consensus
-        scalars beside the solve's outputs."""
+        """(residual, Ccal, J, hadd (E, Nf, K), freqs (E, Nf), uvw
+        (E, T*B, 3), cell (E,)): the per-episode consensus scalars beside
+        the solve's outputs and the imaging geometry, the positional
+        operands of :meth:`batched_influence_callable`."""
         E, K = bep.n_envs, bep.n_dirs
         rho = np.asarray(rho, np.float32).reshape(E, K)
         alpha = np.asarray(rho_spatial, np.float32).reshape(E, K)
@@ -766,7 +802,27 @@ class RadioBackend:
         hadd = torch.stack([influence.consensus_hadd_all(
             rho[e], alpha[e], freqs[e], float(bep.f0[e]),
             n_poly=self.n_poly, polytype=self.polytype) for e in range(E)])
-        return result.residual, bep.Ccal, result.J, hadd
+        return (result.residual, bep.Ccal, result.J, hadd, bep.freqs,
+                bep.uvw, bep.cell)
+
+    def batched_influence_callable(self, n_dirs, npix):
+        """The batched influence chain (consensus Hessian-add, the bands'
+        influence images, their mean) as a callable of the positional
+        operands of :meth:`batched_influence_operands` (the JAX backend's
+        ``batched_influence_callable``, the serving layer's influence
+        program); the statics are the single-episode route's.  Returns
+        (E, npix, npix), the bits of :meth:`influence_images_batched`."""
+        statics = self._influence_statics(npix)
+        n_stations, n_chunks = self.n_stations, self.n_chunks
+
+        def influence_program(residual, C, J, hadd, freqs, uvw, cell):
+            imgs = influence.influence_images_lanes(
+                residual, C, J, hadd, freqs, uvw[:, None],
+                np.asarray(cell)[:, None], n_stations=n_stations,
+                n_chunks=n_chunks, npix=npix, **statics)
+            return torch.mean(imgs, dim=1)
+
+        return influence_program
 
     def influence_images_batched(self, bep: BatchedEpisode,
                                  result: solver.SolveResult, rho,
@@ -778,12 +834,10 @@ class RadioBackend:
         statics = self._influence_statics(npix)
         with self._stage("influence", route="batched_vmap",
                          lanes=bep.n_envs, precision=self.precision):
-            residual, C, J, hadd = self.batched_influence_operands(
-                bep, result, rho, rho_spatial)
-            imgs = influence.influence_images_lanes(
-                residual, C, J, hadd, bep.freqs, bep.uvw[:, None],
-                bep.cell[:, None], n_stations=self.n_stations,
-                n_chunks=self.n_chunks, npix=npix, **statics)
+            ops = self.batched_influence_operands(bep, result, rho,
+                                                  rho_spatial)
+            imgs = self.batched_influence_callable(bep.n_dirs, npix)(*ops)
+            residual, C, J, hadd = ops[:4]
             obs_costs.record_stage_cost(
                 "influence", influence.influence_images_lanes, residual, C,
                 J, hadd, bep.freqs, bep.uvw[:, None], bep.cell[:, None],
@@ -792,7 +846,7 @@ class RadioBackend:
                 npix=npix, **statics)
             self._record_kernel_costs(bep.n_dirs, npix,
                                       float(bep.cell[0]), statics)
-            return torch.mean(imgs, dim=1)
+            return imgs
 
     def image_sigmas_batched(self, bep: BatchedEpisode,
                              result: solver.SolveResult, npix=None):
@@ -816,3 +870,21 @@ class RadioBackend:
         sI = 0.5 * (V[..., 0, 0, :] + V[..., 1, 1, :])
         stds = torch.std(sI, dim=(-3, -2, -1), correction=0)
         return torch.sqrt(torch.mean(stds ** 2, dim=-1))
+
+    def serve_signature(self, n_dirs, n_lanes, npix=None) -> dict:
+        """The static signature of the batched solve and influence programs
+        (the JAX backend's ``serve_signature``, same keys and values, so one
+        backend gives one ``serve.export.sig_digest`` in both packages):
+        every constructor knob that selects a different program, plus the
+        lane, direction and image geometry.  The serving layer keys its
+        program cache on it."""
+        return {
+            "n_stations": self.n_stations, "n_freqs": self.n_freqs,
+            "n_times": self.n_times, "tdelta": self.tdelta,
+            "n_poly": self.n_poly, "polytype": self.polytype,
+            "lbfgs_iters": self.lbfgs_iters, "init_iters": self.init_iters,
+            "K": int(n_dirs), "lanes": int(n_lanes),
+            "npix": int(npix or self.npix), "precision": self.precision,
+            "block_baselines": self.block_baselines,
+            "imager_block_r": self.imager_block_r,
+        }

@@ -8,8 +8,12 @@ parameter trees (the agents' networks, the transformer and the MLP
 regressor) and optax Adam states become the port's types, so one
 episode, sky, controller, model or agent can be fed to both packages,
 and a JAX trainer's checkpoint payload becomes the port's
-(:func:`agent_loop_from_jax`), so a JAX run resumes in the port.  Nothing
-here imports the JAX package: the fields are read by name.
+(:func:`agent_loop_from_jax`), so a JAX run resumes in the port.  The
+serving layer's jobs, job pools, results and served policy cross too
+(:func:`job_from_jax`, :func:`job_pool_from_jax`,
+:func:`job_result_from_jax`, :func:`served_policy_from_jax`), so the same
+episodes and weights go through both servers.  Nothing here imports the
+JAX package: the fields are read by name.
 """
 
 import numpy as np
@@ -408,3 +412,50 @@ def agent_loop_from_jax(payload: dict, cfg, device="cpu") -> dict:
                    saved_marker=int(payload.get("saved_marker", 0)))
     out["generator_device"] = torch.device(device).type
     return out
+
+
+def job_from_jax(job, device="cpu"):
+    """The port's :class:`~smartcal_tpu_torch.serve.router.Job` of a JAX
+    ``Job``: its episode through :func:`episode_from_numpy`, the request
+    fields (k, rho, rho_spatial, maxiter, deadline_s, obs_vec, warm, trace)
+    copied; the port's job gets its own id and future."""
+    from smartcal_tpu_torch.serve.router import Job
+
+    def arr(x):
+        return None if x is None else np.array(x, np.float32)
+
+    return Job(episode=episode_from_numpy(job.episode, device), k=int(job.k),
+               rho=arr(job.rho), rho_spatial=arr(job.rho_spatial),
+               maxiter=None if job.maxiter is None else int(job.maxiter),
+               deadline_s=job.deadline_s, obs_vec=arr(job.obs_vec),
+               warm=bool(job.warm),
+               trace=None if job.trace is None else dict(job.trace))
+
+
+def job_pool_from_jax(pool, device="cpu") -> list:
+    """A JAX job pool (``(k, episode)`` pairs of ``build_job_pool`` or
+    ``(k, episode, obs_vec)`` triples of ``build_obs_pool``) as the
+    port's."""
+    return [(int(e[0]), episode_from_numpy(e[1], device))
+            + tuple(np.array(x, np.float32) for x in e[2:]) for e in pool]
+
+
+_RESULT_FIELDS = ("lane", "sigma_res", "sigma_data_img", "sigma_res_img",
+                  "img_std", "degraded", "deadline_miss")
+
+
+def job_result_from_jax(res) -> dict:
+    """A JAX (or the port's) ``JobResult`` as a comparable dict: its lane,
+    the four served statistics and the two flags (ids and timings differ
+    between any two servers)."""
+    return {f: (float(getattr(res, f)) if f.startswith(("sigma", "img"))
+                else getattr(res, f)) for f in _RESULT_FIELDS}
+
+
+def served_policy_from_jax(st, cfg, device="cpu"):
+    """The port's served policy ``(cfg, actor weights by name)`` of a JAX
+    ``SACState`` (its ``actor_params``, through :func:`sac_state_from_jax`).
+    ``cfg`` is the port's ``SACConfig``."""
+    port = sac_state_from_jax(st, cfg, device)
+    return cfg, {k: v.detach().clone()
+                 for k, v in port.actor.state_dict().items()}

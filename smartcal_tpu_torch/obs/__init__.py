@@ -22,11 +22,14 @@ noise-aware detector (``regress``) are the JAX package's, with the port's
 own host fingerprint; ``smartcal_tpu_torch.tools.perf_gate`` runs them as
 a gate.  ``costs`` is the per-stage flops/bytes accounting and the card's
 roofline peak (the JAX package's API and events, counted by running the
-stage under a dispatch mode).  The JAX package's SLO detector, collector
-and flight recorder are not here (ROADMAP queue 1 item 14).
+stage under a dispatch mode).  The serving fleet's parts are the JAX
+package's too: the SLO burn-rate detector (``slo``), the crash flight
+recorder (``flightrec``, teed from every RunLog line) and the timeline
+collector (``collect``).
 """
 
-from . import baselines, costs, regress, tracectx          # noqa: F401
+from . import (baselines, collect, costs, flightrec,       # noqa: F401
+               regress, slo, tracectx)
 from .baselines import (BF16_REL_BAND, BaselineStore,      # noqa: F401
                         host_fingerprint)
 from .console import echo, emit_json                       # noqa: F401
@@ -34,11 +37,15 @@ from .costs import (device_peak, log_roofline_peak,        # noqa: F401
                     record_stage_cost, stage_cost)
 from .diagnostics import (UpdateDiag, diag_steps,          # noqa: F401
                           diag_to_host, make_diag, stack_diags, zero_diag)
+from .flightrec import (arm_flight_recorder,               # noqa: F401
+                        flight_recorder_stats, flush_flight_recorder,
+                        note_shed)
 from .registry import (counter_add, counters_snapshot,     # noqa: F401
                        flush_counters, gauge_set, install_compile_listener,
                        log_memory_gauges, record_compile, reset_counters)
 from .runlog import (SCHEMA_VERSION, RunLog, activate,     # noqa: F401
                      active, deactivate, recording, sanitize)
+from .slo import SloBurnDetector                           # noqa: F401
 from .spans import span                                    # noqa: F401
 from .watchdog import Watchdog, WatchdogConfig             # noqa: F401
 

@@ -87,11 +87,12 @@ def record_compile(key: str, dur_s: float, **fields: object) -> None:
     a ``compile`` event plus the ``compile_events`` / ``compile_secs``
     counters and ``compile_events:<kind>`` by the key's prefix (``nvcc``,
     ``cuda_graph``), when the listener is installed and a run is
-    recording."""
+    recording.  The event names the thread that compiled."""
     rl = active()
     if rl is None or not _listener_installed:
         return
-    rl.log("compile", key=key, dur_s=round(float(dur_s), 4), **fields)
+    rl.log("compile", key=key, dur_s=round(float(dur_s), 4),
+           thread=threading.current_thread().name, **fields)
     kind = "compile_events:" + key.split(":", 1)[0]
     with _lock:
         _counters[kind] = _counters.get(kind, 0.0) + 1.0

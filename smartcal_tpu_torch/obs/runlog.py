@@ -29,7 +29,7 @@ import threading
 import time
 from typing import Iterator, Optional
 
-from . import tracectx
+from . import flightrec, tracectx
 
 # Schema history (the JAX package's; the header's ``schema`` field):
 # 1 — run_header / episode / span / solver / gauge / counters / memory /
@@ -40,7 +40,9 @@ from . import tracectx
 #     JAX package's ``cost`` / ``roofline_peak`` have no port counterpart
 #     yet (ROADMAP queue 1 item 12).
 # 3 — optional ``trace`` / ``span`` / ``parent`` ids on any event
-#     (obs/tracectx.py); the fleet events come with item 14.
+#     (obs/tracectx.py); ``clock_offset`` (per-peer skew from IPC envelope
+#     send/receive times), ``slo_burn`` (obs/slo.py) and ``blackbox_flush``
+#     (flight-recorder dump header, obs/flightrec.py).
 SCHEMA_VERSION = 3
 
 
@@ -164,8 +166,7 @@ class RunLog:
 
     def _emit(self, rec, force_flush: bool = False):
         line = json.dumps(sanitize(rec), allow_nan=False) + "\n"
-        # the JAX package tees each line into its flight recorder here; the
-        # port's comes with the serving slice (ROADMAP queue 1 item 14)
+        flightrec.record_line(line)   # flight-recorder tee (no-op unarmed)
         with self._lock:
             if self._fh is None:
                 return

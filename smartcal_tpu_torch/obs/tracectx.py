@@ -1,12 +1,17 @@
-"""Span ids of the adopted trace (the in-process part of
-smartcal_tpu/obs/tracectx.py).
+"""W3C-style trace context (the port's copy of
+smartcal_tpu/obs/tracectx.py): span ids of the adopted trace and the
+process-crossing carriers that join a request's spans across the serving
+fleet's processes.
 
-The thread-local active trace is what :func:`current_fields` reads:
-:meth:`RunLog.log <smartcal_tpu_torch.obs.runlog.RunLog.log>` attaches it
-to every event, and :class:`~smartcal_tpu_torch.obs.spans.Span` allocates
-child span ids from it.  The cross-process carrier (envelopes, clock
-offsets, ``use_trace`` across IPC) belongs to the serving slice (ROADMAP
-queue 1 item 14); :func:`use_trace` adopts a carrier within the process.
+* a **carrier** is ``{"trace": <32-hex>, "span": <16-hex>}``, small enough
+  to ride in a framed IPC envelope (``runtime/ipc``) or a Job payload;
+* an **envelope** is a carrier plus the sender's wall clock ``t``, the raw
+  material of the clock-offset handshake that lets ``obs/collect`` merge
+  per-process timelines;
+* the thread-local active trace is what :func:`current_fields` reads:
+  :meth:`RunLog.log <smartcal_tpu_torch.obs.runlog.RunLog.log>` attaches
+  it to every event, and :class:`~smartcal_tpu_torch.obs.spans.Span`
+  allocates child span ids from it.
 
 Strict no-op contract: with no adopted trace :func:`current_fields`
 returns the shared empty dict and :func:`push_span` returns None.
@@ -16,6 +21,7 @@ Standard library only.
 import contextlib
 import os
 import threading
+import time
 from typing import Dict, Iterator, Optional, Tuple
 
 _tls = threading.local()
@@ -44,6 +50,12 @@ def _stack() -> list:
     return st
 
 
+def new_root_carrier() -> Dict[str, str]:
+    """A root carrier for a new request (no thread state touched): the
+    fleet router stamps one onto each Job at admission."""
+    return {"trace": new_trace_id(), "span": new_span_id()}
+
+
 def current_fields() -> Dict[str, object]:
     """``{"trace": ..., "span": ...}`` of the adopted trace, or the shared
     empty dict."""
@@ -54,6 +66,53 @@ def current_fields() -> Dict[str, object]:
     if st:
         return {"trace": tid, "span": st[-1]}
     return {"trace": tid}
+
+
+def carrier() -> Optional[Dict[str, str]]:
+    """The adopted trace as a serializable carrier, or None."""
+    tid = _trace()
+    if tid is None:
+        return None
+    st = _stack()
+    out = {"trace": tid}
+    if st:
+        out["span"] = st[-1]
+    return out
+
+
+def envelope() -> Optional[Dict[str, object]]:
+    """Carrier plus the sender's wall time ``t``: what rides an IPC frame.
+    The receiver's receive time minus ``t`` (minimised over frames)
+    estimates the peer's clock offset."""
+    car = carrier()
+    if car is None:
+        return {"t": round(time.time(), 6)}
+    out: Dict[str, object] = dict(car)
+    out["t"] = round(time.time(), 6)
+    return out
+
+
+def fields_of(car: Optional[Dict[str, str]]) -> Dict[str, object]:
+    """Event fields naming the carrier's own span (no new ids): for events
+    that are the carrier's point of origin (``fleet_dispatch``)."""
+    if not car or "trace" not in car:
+        return {}
+    out: Dict[str, object] = {"trace": car["trace"]}
+    if car.get("span"):
+        out["span"] = car["span"]
+    return out
+
+
+def child_fields(car: Optional[Dict[str, str]]) -> Dict[str, object]:
+    """Event fields for a new child span of the carrier: a fresh span id
+    with ``parent`` pointing at the carrier's span.  For point events that
+    mark a hop (``serve_admit``, ``serve_request``)."""
+    if not car or "trace" not in car:
+        return {}
+    out: Dict[str, object] = {"trace": car["trace"], "span": new_span_id()}
+    if car.get("span"):
+        out["parent"] = car["span"]
+    return out
 
 
 def push_span() -> Optional[Tuple[str, Optional[str]]]:

@@ -13,8 +13,8 @@ and detects:
 
 On a trip it logs ONE ``watchdog_trip`` event (reason, step, the values
 and a ring of the last ``ring`` diagnostics) and latches ``tripped``.
-(The JAX package also flushes its flight recorder here; the port's comes
-with the serving slice, ROADMAP queue 1 item 14.)  Standard library only.
+A trip also flushes the flight recorder (``obs/flightrec``).  Standard
+library only.
 """
 
 import dataclasses
@@ -151,3 +151,5 @@ class Watchdog:
             rl.log("watchdog_trip", reason=reason, step=step,
                    observations=self._seen, ring=list(self._ring), **tags)
             rl.flush()
+        from . import flightrec
+        flightrec.flush("watchdog_trip", {"reason": reason, "step": step})

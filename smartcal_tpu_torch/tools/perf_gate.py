@@ -21,8 +21,16 @@ detector (``smartcal_tpu_torch/obs/regress.py``).  Stages:
   composition; a rep runs ``REPLAY_REPEAT`` steps from a fresh copy of the
   same agent and ring.
 
-The JAX gate's ``serve_batch`` / ``publish`` wait for the port's serving
-slice (ROADMAP queue 1 item 14).
+* ``serve_batch``: one batch of 3 heterogeneous pinned-rho jobs through a
+  warmed ``serve.CalibServer`` (``process_once``: pack, the solve program
+  with its line-search graph captured at warmup, influence, sigmas);
+* ``publish``: one versioned ``ExportCache.publish`` + ``swap_policy``
+  against a warmed policy-armed server (``serve.lifecycle.PolicyPublisher``)
+  and a policy forward.
+
+For these two the ``compile_events`` metric counts the CUDA-graph captures
+too: a warmed batch or a publication that builds or captures anything is
+the regression each guards.
 
 Usage::
 
@@ -72,7 +80,8 @@ WARM_REPS = 2
 SUB_REPS = 2
 IMAGER_REPEAT = 20
 REPLAY_REPEAT = 10
-STAGE_NAMES = ("solve", "influence", "imager", "replay_fused")
+STAGE_NAMES = ("solve", "influence", "imager", "replay_fused",
+               "serve_batch", "publish")
 
 
 def _sync(dev):
@@ -158,7 +167,100 @@ def build_stages(names, device):
     }
     if "replay_fused" in names:
         stages["replay_fused"] = _build_replay_stage(dev, card)
+    if "serve_batch" in names:
+        stages["serve_batch"] = _build_serve_stage(be, card)
+    if "publish" in names:
+        stages["publish"] = _build_publish_stage(be, card)
     return {n: stages[n] for n in names}
+
+
+def _serve_cache_dir() -> str:
+    """A scratch program cache for the serve stages, removed at exit."""
+    import atexit
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="perf_gate_serve_")
+    atexit.register(shutil.rmtree, d, True)
+    return d
+
+
+def _build_serve_stage(be, card):
+    """One warmed CalibServer batch: pack -> solve program -> influence ->
+    sigmas on the caller's thread (``process_once``), the JAX gate's
+    composition; the numeric scalar is the first job's sigma_res."""
+    import numpy as np
+
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.serve import CalibServer, Job
+
+    srv = CalibServer(be, M=M, lanes=LANES, cache_dir=_serve_cache_dir(),
+                      compile_cache=False, max_wait_s=0.02)
+    srv.warmup(seed=7)
+    key = prng.PRNGKey(9)
+    eps, ks = [], [2, 3, 2]
+    for k in ks:
+        key, sub = prng.split(key)
+        eps.append(be.new_calib_episode(sub, k, M)[0])
+
+    def run():
+        jobs = [Job(episode=ep, k=k,
+                    rho=np.linspace(0.5 + i, 1.5 + i, k).astype(np.float32),
+                    maxiter=TIER["admm_iters"])
+                for i, (ep, k) in enumerate(zip(eps, ks))]
+        srv.process_once(jobs, timeout=0.01)
+        return float(jobs[0].future.result(timeout=60).sigma_res)
+
+    from smartcal_tpu_torch import obs
+
+    return {"statics": dict(be.serve_signature(M, LANES, TIER["npix"]),
+                            stage="serve_batch", jobs=len(ks), device=card),
+            "run": run, "cost": lambda: obs.stage_cost(run),
+            "captures_gated": True}
+
+
+def _build_publish_stage(be, card):
+    """Warm hot-swap publication: one versioned ``ExportCache.publish`` +
+    ``swap_policy`` against a warmed policy-armed server per rep, then a
+    policy forward (the JAX gate's composition).  A publication that
+    builds or captures anything breaks the zero-compile hot-swap."""
+    import numpy as np
+    import torch
+
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.serve import CalibServer, PolicyPublisher
+
+    obs_dim = TIER["npix"] * TIER["npix"] + (M + 1) * 7
+    cfg = sac.SACConfig(obs_dim=obs_dim, n_actions=2 * M)
+    st = sac.sac_init(cfg, torch.Generator(device=be.device).manual_seed(7),
+                      be.device)
+    params = {k: v.detach().clone() for k, v in st.actor.state_dict().items()}
+    srv = CalibServer(be, M=M, lanes=LANES, cache_dir=_serve_cache_dir(),
+                      compile_cache=False, policy=(cfg, params),
+                      max_wait_s=0.02)
+    srv.warmup(seed=7)
+    pub = PolicyPublisher(srv, keep_versions=4)
+    probe = torch.linspace(-0.5, 0.5, obs_dim, device=be.device)[None, :]
+    ver = [0]
+
+    def run():
+        ver[0] += 1
+        pub.publish(params, ver[0])
+        act, _, _ = sac.policy_heads(cfg, st.actor, probe)
+        _sync(be.device)
+        return float(torch.mean(torch.abs(act)))
+
+    from smartcal_tpu_torch import obs
+
+    def forward():
+        # the program's operand is one observation per lane
+        return srv._policy_forward(srv._program("policy"), params,
+                                   probe.expand(LANES, -1))
+
+    return {"statics": dict(be.serve_signature(M, LANES, TIER["npix"]),
+                            stage="publish", obs_dim=obs_dim, device=card),
+            "run": run, "cost": lambda: obs.stage_cost(forward),
+            "captures_gated": True}
 
 
 def _build_replay_stage(dev, card):
@@ -261,8 +363,10 @@ def measure_stages(stages, k_samples):
     for name, stage in stages.items():
         value = rt_faults.maybe_perturb(f"gate_numeric_{name}", 0,
                                         float(numeric[name]))
+        events = builds[name] + (captures[name]
+                                 if stage.get("captures_gated") else 0.0)
         metrics = {"wall_s": bl.summarize_samples(walls[name]),
-                   "compile_events": bl.scalar_metric(builds[name]),
+                   "compile_events": bl.scalar_metric(events),
                    "numeric": bl.scalar_metric(value)}
         cost = stage["cost"]()
         for k in ("flops", "peak_bytes"):

@@ -185,6 +185,53 @@ def add_fleet_args(p):
     return p
 
 
+def add_lifecycle_args(p):
+    """The online-lifecycle flags (``tools/serve_learn``: learn from served
+    traffic, ``serve/lifecycle``).  The IMPACT/ERE spellings are
+    ``add_fleet_args``' but with the lifecycle defaults armed: served
+    traffic is off-policy and ages across policy hot-swaps, so
+    staleness-clipped IS weighting and recency-biased sampling are the
+    baseline here, not an ablation (the JAX package's defaults)."""
+    p.add_argument("--is-clip", dest="is_clip", type=float, default=2.0,
+                   help="IMPACT staleness-clipped importance weighting "
+                        "constant c >= 1 (0 = off; default ON at 2.0): "
+                        "transitions teed under an older policy version "
+                        "get their TD update weighted by the clipped "
+                        "policy ratio; current-version transitions are "
+                        "bit-identical to the unweighted path")
+    add_ere_arg(p)
+    p.set_defaults(ere_eta=0.996)        # recency bias ON by default here
+    p.add_argument("--learn-every-s", dest="learn_every_s", type=float,
+                   default=0.25,
+                   help="learner loop tick: drain the transition stage, "
+                        "ingest, and run the learn steps every S seconds "
+                        "of serving")
+    p.add_argument("--publish-every", dest="publish_every", type=int,
+                   default=8,
+                   help="publish (versioned program-cache entry + atomic "
+                        "hot-swap) the learner's policy every N learn "
+                        "steps")
+    p.add_argument("--replay-shards", dest="replay_shards", type=int,
+                   default=4,
+                   help="shards of the learner's device-resident versioned "
+                        "replay ring")
+    p.add_argument("--mem-size", dest="mem_size", type=int, default=1024,
+                   help="replay ring capacity (divisible by "
+                        "--replay-shards)")
+    p.add_argument("--batch-size", dest="batch_size", type=int, default=64,
+                   help="SAC learn batch size (the learn step no-ops "
+                        "until the ring holds this many transitions)")
+    p.add_argument("--stage-cap", dest="stage_cap", type=int, default=4096,
+                   help="transition staging-ring capacity between the "
+                        "batch worker and the learner (overflow drops "
+                        "oldest, counted)")
+    p.add_argument("--keep-versions", dest="keep_versions", type=int,
+                   default=8,
+                   help="published policy programs retained in the "
+                        "program cache (older versions pruned)")
+    return p
+
+
 def add_batched_args(p):
     """The batched-env flag shared by the radio trainers."""
     p.add_argument("--batch-envs", dest="batch_envs", type=int, default=1,

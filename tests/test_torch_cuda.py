@@ -472,3 +472,110 @@ def test_featurization_and_transformer_steps_on_gpu_match_cpu():
         np.testing.assert_allclose(models["cuda"][k].cpu().numpy(),
                                    v.numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=k)
+
+
+SERVE_TINY = dict(n_stations=6, n_freqs=2, n_times=4, tdelta=2,
+                  admm_iters=2, lbfgs_iters=3, init_iters=5, npix=32)
+
+
+def _serve_jobs(backend, M):
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.serve import Job
+
+    key = prng.PRNGKey(8)
+    jobs = []
+    for i, (k, maxiter) in enumerate(((2, 2), (3, 3), (2, 4))):
+        key, sub = prng.split(key)
+        ep, _ = backend.new_calib_episode(sub, k, M)
+        jobs.append(Job(episode=ep, k=k, maxiter=maxiter,
+                        rho=np.linspace(0.5 + i, 1.5 + i, k).astype(
+                            np.float32)))
+    return jobs
+
+
+@pytest.mark.cuda
+def test_served_batch_on_gpu_captures_nothing_and_matches_direct(tmp_path):
+    """A warmed CalibServer's heterogeneous batch on the card: no compile
+    event (the line search's graph was captured at warmup and is
+    replayed), each lane bit for bit the direct batched calls, and within
+    1e-3 of the same server on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from smartcal_tpu_torch import obs
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.serve import CalibServer
+
+    M = 3
+    out = {}
+    with obs.recording(str(tmp_path / "run.jsonl")):
+        obs.install_compile_listener()
+        for dev in ("cuda", "cpu"):
+            be = RadioBackend(device=dev, **SERVE_TINY)
+            srv = CalibServer(be, M=M, lanes=3, cache_dir=str(tmp_path / dev),
+                              compile_cache=False)
+            warm = srv.warmup(seed=7)
+            jobs = _serve_jobs(be, M)
+            c0 = obs.counters_snapshot().get("compile_events", 0.0)
+            srv.process_once(jobs, timeout=0.01)
+            c1 = obs.counters_snapshot().get("compile_events", 0.0)
+            got = [j.future.result(timeout=60) for j in jobs]
+            out[dev] = np.array([r.sigma_res for r in got])
+            if dev == "cuda":
+                assert warm["compile_events:cuda_graph"] == 1
+                assert c1 - c0 == 0
+                rho, mask, alpha, iters, _ = srv._lane_params(jobs)
+                res = be.calibrate_batched(srv._bep, rho, mask, iters)
+                imgs = be.influence_images_batched(srv._bep, res, rho, alpha)
+                sd, sr = be.image_sigmas_batched(srv._bep, res)
+                for lane, r in enumerate(got):
+                    assert (r.sigma_res, r.sigma_data_img, r.sigma_res_img,
+                            r.img_std) == (
+                        float(res.sigma_res[lane]), float(sd[lane]),
+                        float(sr[lane]),
+                        float(np.std(imgs[lane].cpu().numpy())))
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_policy_publication_on_gpu_compiles_nothing(tmp_path):
+    """Publications to a warmed policy-armed server on the card export,
+    build and capture nothing; a swap to identical weights serves the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from smartcal_tpu_torch import obs
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.serve import CalibServer, PolicyPublisher
+
+    M = 3
+    be = RadioBackend(device="cuda", **SERVE_TINY)
+    cfg = sac.SACConfig(obs_dim=32 * 32 + (M + 1) * 7, n_actions=2 * M)
+    st = sac.sac_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      "cuda")
+    params = {k: v.detach().clone() for k, v in st.actor.state_dict().items()}
+    with obs.recording(str(tmp_path / "run.jsonl")):
+        obs.install_compile_listener()
+        srv = CalibServer(be, M=M, lanes=3, cache_dir=str(tmp_path / "c"),
+                          compile_cache=False, policy=(cfg, params))
+        srv.warmup(seed=7)
+        pub = PolicyPublisher(srv, keep_versions=2)
+
+        def wave():
+            jobs = _serve_jobs(be, M)
+            for j in jobs:
+                j.rho = None
+                j.obs_vec = np.full(cfg.obs_dim, 1e-3, np.float32)
+            srv.process_once(jobs, timeout=0.01)
+            return [j.future.result(timeout=60).sigma_res for j in jobs]
+
+        before = wave()
+        c0 = obs.counters_snapshot()
+        for v in (1, 2, 3):
+            pub.publish(params, v)
+        c1 = obs.counters_snapshot()
+        assert c1.get("compile_events", 0.0) == c0.get("compile_events", 0.0)
+        assert c1.get("export_cache_miss", 0.0) == \
+            c0.get("export_cache_miss", 0.0)
+        assert srv.policy_version == 3
+        assert wave() == before

@@ -61,14 +61,19 @@ def test_port_has_modules():
                 "prng", "rl/replay_sharded", "rl/sac_discrete",
                 "runtime/ipc", "runtime/supervisor", "parallel/__init__",
                 "parallel/mesh", "parallel/multihost", "parallel/trainer",
-                "parallel/learner", "parallel/demix_learner"):
+                "parallel/learner", "parallel/demix_learner",
+                "obs/slo", "obs/flightrec", "obs/collect",
+                "serve/__init__", "serve/router", "serve/export",
+                "serve/server", "serve/loadgen", "serve/fleet",
+                "serve/lifecycle", "tools/serve_calib",
+                "tools/serve_fleet", "tools/serve_learn"):
         assert f"smartcal_tpu_torch/{mod}.py" in names, mod
 
 
 def test_new_modules_import_without_jax():
-    """The runtime slice's new modules import in a process that has no
-    JAX: nothing of them reaches for it, directly or through another
-    module."""
+    """The runtime, distributed-training and serving slices' new modules
+    import in a process that has no JAX: nothing of them reaches for it,
+    directly or through another module."""
     import subprocess
     import sys
 
@@ -82,7 +87,20 @@ def test_new_modules_import_without_jax():
             "smartcal_tpu_torch.parallel.demix_learner, "
             "smartcal_tpu_torch.rl.replay_sharded, "
             "smartcal_tpu_torch.rl.sac_discrete, "
-            "smartcal_tpu_torch.runtime.supervisor\n"
+            "smartcal_tpu_torch.runtime.supervisor, "
+            "smartcal_tpu_torch.obs.slo, smartcal_tpu_torch.obs.flightrec, "
+            "smartcal_tpu_torch.obs.collect, "
+            "smartcal_tpu_torch.serve.router, "
+            "smartcal_tpu_torch.serve.export, "
+            "smartcal_tpu_torch.serve.server, "
+            "smartcal_tpu_torch.serve.loadgen, "
+            "smartcal_tpu_torch.serve.fleet, "
+            "smartcal_tpu_torch.serve.lifecycle, "
+            "smartcal_tpu_torch.tools.serve_calib, "
+            "smartcal_tpu_torch.tools.serve_fleet, "
+            "smartcal_tpu_torch.tools.serve_learn\n"
+            "from smartcal_tpu_torch.serve import CalibServer, FleetRouter, "
+            "ServingLearner\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'smartcal_tpu')]\n"
             "assert not bad, bad\n")

@@ -119,7 +119,7 @@ def test_other_fingerprint_is_no_baseline(blessed, tmp_path, monkeypatch):
 
 
 def test_usage_errors(tmp_path, capsys):
-    assert perf_gate.main(["--stages", "serve_batch", "--device",
+    assert perf_gate.main(["--stages", "serve_stream", "--device",
                            "cpu"]) == 2
     assert "unknown stage" in capsys.readouterr().err
     assert perf_gate.main(["--device", "cuda:7", "--baseline",
