@@ -50,6 +50,15 @@
    queues a third step and that solve under torch.profiler for the
    device's idle share (1 - busy device seconds / unprofiled wall seconds)
    and the solve's CUDA kernels per L-BFGS iteration;
+3b. on that path's own episode and the solve it timed (no new solve):
+   the host-loop backend's (``vectorized=False``) influence map, the
+   oracle chain band by band with kernel 1 imaging each band (counts
+   zeroed just before and read just after: Nf launches), held finite,
+   within 5e-3 of the optimized route's image on the same operands and
+   bit for bit over two calls, timed beside it; kernel 1 held against
+   its plain version at the first band's influence operands and timed;
+   the host-loop episode build of one key against the vectorized one
+   (Ccal bit for bit, V within 1e-5);
 4. holds the imager kernel (the separable-grid engine behind dft_imager)
    against its plain version, the direct DFT, over the full N=62 image and
    at ragged npix and R that cross the engine's tile and stage edges, and
@@ -247,6 +256,14 @@ steady-state compile events), ``tools.serve_fleet`` with 2
 replica processes on the card and a replica kill (replica 1 warm from the
 shared cache with 0 nvcc builds), and ``tools.serve_learn`` with at least
 3 publishes and 0 compile events in its window (DIR/serve_phase.json).
+
+    python3 chip_smoke.py --oracle [--out DIR]
+
+builds the kernels and runs CalibEnv(M=10) at N=62, reset + 1 step with
+the hint, after one unrecorded reset of each route, on the vectorized and
+on the host-loop backend from seed 0 (stage seconds, peak memory, kernel
+1's launches: Nf more per influence map on the host loop), with step 3b's
+checks between them (DIR/oracle_phase.json).
 
     python3 chip_smoke.py --ablation [--out DIR]
 
@@ -856,6 +873,191 @@ def tiny_gpu_vs_cpu(CalibEnv, RadioBackend, dev, label, **extra):
     if max(rel + [rel_r, rel_s]) > 1e-3:
         raise AssertionError(f"tiny episode {label}: GPU and CPU disagree")
     return rel + [rel_r, rel_s]
+
+
+# -- the oracle chain: RadioBackend(vectorized=False), the host-loop route -
+
+# tests/test_calib_pipeline.py: the host loop's influence image against the
+# optimized routes (relative norm), and its episode build's V against the
+# vectorized build's (Ccal: the same bits)
+HOST_LOOP_IMG_REL = 5e-3
+HOST_LOOP_V_REL = 1e-5
+
+
+def rel_norm(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()).clamp(min=1e-300))
+
+
+def oracle_checks(dev, env, backend, res, rho, alpha, zero_counts,
+                  read_counts, n_sm):
+    """The host-loop route's influence map (the oracle chain band by band,
+    each band imaged by kernel 1) on the N=62 phase's own episode and
+    solve: finite, within HOST_LOOP_IMG_REL of the optimized route's image
+    on the same operands, the same bits over two calls, kernel 1 launched
+    Nf times (counted from zero just before the first call) and held
+    against its plain version at the first band's influence operands; and
+    the host-loop episode build of one key against the vectorized one."""
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.ops import dft_imager
+
+    t_checks = time.perf_counter()
+    oracle = RadioBackend(device=dev, vectorized=False, **N62)
+    ep = env.ep
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    spy = FirstCall(dft_imager, "dirty_image_cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        img = oracle.influence_image(ep, res, rho, alpha)
+        torch.cuda.synchronize(dev)
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        spy.restore()
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    again = oracle.influence_image(ep, res, rho, alpha)
+    torch.cuda.synchronize(dev)
+    again_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt = backend.influence_image(ep, res, rho, alpha)
+    torch.cuda.synchronize(dev)
+    opt_s = time.perf_counter() - t0
+    img_rel = rel_norm(img, opt)
+    print(f"oracle influence at N=62: first call {first_s:.3f} s, again "
+          f"{again_s:.3f} s, optimized route {opt_s:.3f} s on the same "
+          f"operands; image vs optimized {img_rel:.3e} (bound "
+          f"{HOST_LOOP_IMG_REL}); same bits over two calls "
+          f"{torch.equal(img, again)}; peak {peak / 2**20:.0f} MiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    if not bool(torch.isfinite(img).all()) or img.shape != opt.shape:
+        raise AssertionError("the oracle influence image is not finite")
+    if not torch.equal(img, again):
+        raise AssertionError("two oracle influence calls differ")
+    if not img_rel <= HOST_LOOP_IMG_REL:
+        raise AssertionError(f"oracle vs optimized influence image "
+                             f"{img_rel:.3e} > {HOST_LOOP_IMG_REL}")
+    if launches["dft_imager"] != N62["n_freqs"]:
+        raise AssertionError(f"dft_imager launched {launches['dft_imager']} "
+                             f"times on the oracle path, expected "
+                             f"{N62['n_freqs']}")
+
+    (uv, vis, npix, cell), _ = spy.args
+    err = check_imager(dft_imager, uv, vis, npix, cell,
+                       "oracle influence (band 0)")
+    lm = dft_imager.pixel_grid(npix, cell, dev)
+    ms = cuda_ms(lambda: dft_imager.dirty_image_cuda(uv, vis, npix, cell), 20)
+    plain_ms = cuda_ms(
+        lambda: dft_imager.dirty_image_reference(uv, lm, vis), 5)
+    bounds = separable_bounds(npix, uv.shape[0], n_sm)
+    print(f"dft_imager at the oracle's influence operands P={npix * npix} "
+          f"R={uv.shape[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bounds['bound_ms']:.4f} ms ({bounds['bound_by']})",
+          flush=True)
+
+    key = prng.PRNGKey(5)
+    t0 = time.perf_counter()
+    ep_v, _ = backend.new_calib_episode(key, env.K, env.M)
+    torch.cuda.synchronize(dev)
+    build_v = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ep_l, _ = oracle.new_calib_episode(key, env.K, env.M)
+    torch.cuda.synchronize(dev)
+    build_l = time.perf_counter() - t0
+    ccal_same = torch.equal(ep_l.Ccal, ep_v.Ccal)
+    v_rel = rel_norm(ep_l.V, ep_v.V)
+    print(f"host-loop episode build at N=62 (K={env.K}): {build_l:.3f} s "
+          f"against {build_v:.3f} s vectorized; Ccal same bits {ccal_same}, "
+          f"V {v_rel:.3e} (bound {HOST_LOOP_V_REL})", flush=True)
+    if not ccal_same or not v_rel <= HOST_LOOP_V_REL:
+        raise AssertionError("the host-loop episode build parts from the "
+                             "vectorized one")
+    print(f"oracle checks {time.perf_counter() - t_checks:.2f} s",
+          flush=True)
+    return {"influence_first_s": first_s, "influence_again_s": again_s,
+            "optimized_influence_s": opt_s, "img_rel_vs_optimized": img_rel,
+            "same_bits": True, "peak_mem_bytes": peak, "launches": launches,
+            "kernel": {"shapes": f"P={npix * npix} R={uv.shape[0]}",
+                       "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                       **{k: v for k, v in bounds.items()
+                          if k != "bound_bf16_ms"}},
+            "episode_build_s": {"host_loop": build_l, "vectorized": build_v},
+            "episode_v_rel": v_rel,
+            "checks_seconds": time.perf_counter() - t_checks}
+
+
+def oracle_phase(dev, out_dir, zero_counts, read_counts, n_sm):
+    """``--oracle``: CalibEnv(M=10) at N=62, reset + 1 step with the hint,
+    after one unrecorded reset of each route, on the vectorized backend
+    and then on the host-loop backend (the
+    oracle chain, kernel 1 imaging each band's influence) from the same
+    seed: stage seconds, peak memory and kernel 1's launches of each
+    (counted from zero just before each reset); between them
+    :func:`oracle_checks` on the vectorized step's episode and one more
+    solve of it."""
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+
+    t_start = time.perf_counter()
+    # one unrecorded reset of each route first: the process's first solve,
+    # influence and noise draw pay one-time set-up that would be charged to
+    # whichever route ran first
+    for vectorized in (True, False):
+        CalibEnv(M=10, backend=RadioBackend(device=dev, vectorized=vectorized,
+                                            **N62),
+                 seed=1, device=dev).reset()
+    out = {}
+    for name, vectorized in (("vectorized", True), ("host_loop", False)):
+        backend = RadioBackend(device=dev, vectorized=vectorized, **N62)
+        env = CalibEnv(M=10, backend=backend, seed=0, provide_hint=True,
+                       device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        obs0 = env.reset()
+        t_reset = time.perf_counter() - t0
+        obs, steps = run_steps(env, 1)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print_path(f"N=62 {name} route", env, backend, t_reset, steps, peak,
+                   launches)
+        check_outputs((obs0, obs), steps, N62["npix"], env.M)
+        out[name] = dict(reset_seconds=t_reset, steps=steps, K=env.K,
+                         stage_seconds=dict(backend.stage_seconds),
+                         peak_mem_bytes=peak, launches=launches)
+        if vectorized:
+            mask = np.zeros(env.M, np.float32)
+            mask[:env.K] = 1.0
+            rho = np.ones(env.M, np.float32)
+            rho[:env.K] = env.rho_spectral[:env.K]
+            alpha = np.zeros(env.M, np.float32)
+            alpha[:env.K] = env.rho_spatial[:env.K]
+            res = backend.calibrate(env.ep, rho, mask=mask)
+            out["checks"] = oracle_checks(dev, env, backend, res, rho, alpha,
+                                          zero_counts, read_counts, n_sm)
+            del res
+        del env, backend
+    extra = (out["host_loop"]["launches"]["dft_imager"]
+             - out["vectorized"]["launches"]["dft_imager"])
+    if extra != 2 * N62["n_freqs"]:
+        raise AssertionError(f"the host loop launched dft_imager {extra} "
+                             f"more times than the vectorized route, "
+                             f"expected {2 * N62['n_freqs']} (Nf per "
+                             "influence map, reset and step)")
+    ratios = {k: out["host_loop"]["stage_seconds"][k]
+              / out["vectorized"]["stage_seconds"][k]
+              for k in ("simulate", "influence")}
+    print("host loop / vectorized stage seconds: "
+          + ", ".join(f"{k} {v:.2f}x" for k, v in ratios.items()),
+          flush=True)
+    out["stage_ratio"] = ratios
+    out["total_seconds"] = time.perf_counter() - t_start
+    return out
 
 
 # -- the train path: train/calib_sac.py on the N=62 backend ----------------
@@ -5776,6 +5978,10 @@ def main():
                     help="build the kernels and run one N=62 reset + step, "
                          "one SKA reset + step and the bf16 phase on them "
                          "alone")
+    ap.add_argument("--oracle", action="store_true",
+                    help="build the kernels and run CalibEnv(M=10) at N=62, "
+                         "reset + 1 step, on the host-loop backend (the "
+                         "oracle chain) beside the vectorized one")
     ap.add_argument("--diag-determinism", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--hessian-split", metavar="PARENT_CU",
@@ -5793,7 +5999,8 @@ def main():
     if args.diag_determinism:
         return diag_determinism_main()
     if (args.runtime or args.runtime_rest or args.supervised or args.bf16
-            or args.deterministic_sweep or args.fleet or args.serve):
+            or args.deterministic_sweep or args.fleet or args.serve
+            or args.oracle):
         from smartcal_tpu_torch.ops import (build, dft_imager,
                                             factored_imager, hessian_blocks)
         card = card_line()
@@ -5815,6 +6022,10 @@ def main():
         elif args.deterministic_sweep:
             name, out = "deterministic_sweep", deterministic_sweep(
                 dev, args.out)
+        elif args.oracle:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            name, out = "oracle_phase", oracle_phase(dev, args.out, zero,
+                                                     read, n_sm)
         elif args.fleet:
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
             name, out = "fleet_phase", fleet_phase(dev, args.out, zero, read,
@@ -5923,12 +6134,20 @@ def main():
     rho = np.ones(env.M, np.float32)
     rho[:env.K] = env.rho_spectral[:env.K]
     t0 = time.perf_counter()
-    backend.calibrate(env.ep, rho, mask=mask)
+    n62_res = backend.calibrate(env.ep, rho, mask=mask)
     solve_wall = time.perf_counter() - t0
     report["n62"]["idle"] = {
         "step_wall_s": float(np.mean([s["seconds"] for s in steps])),
         "solve_wall_s": solve_wall}
     defer(n62_profiles, env, backend, rho, mask, report["n62"]["idle"])
+
+    # -- the oracle chain on this episode and solve (no new solve) ---------
+    alpha = np.zeros(env.M, np.float32)
+    alpha[:env.K] = env.rho_spatial[:env.K]
+    report["n62"]["oracle"] = oracle_checks(
+        dev, env, backend, n62_res, rho, alpha, zero_counts, read_counts,
+        n_sm)
+    del n62_res
 
     # -- imager kernel at the N=62 path's shapes, and ragged cases ---------
     ep = env.ep
@@ -6244,6 +6463,7 @@ def main():
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
     sup = report["supervised"]
+    orc = report["n62"]["oracle"]
     fl = report["fleet"]["demix"]
     sv = report["serve"]
     bf, bfk = report["bf16"], report["bf16"]["kernel"]
@@ -6295,6 +6515,13 @@ def main():
          "replaces": "smartcal_tpu/ops/pallas_imager.py:58",
          "launches": ska_launches["dft_imager"],
          "launches_n62_path": n62_launches["dft_imager"],
+         "launches_oracle_path": orc["launches"]["dft_imager"],
+         "oracle_shapes": orc["kernel"]["shapes"],
+         "oracle_ms": orc["kernel"]["ms"],
+         "oracle_plain_ms": orc["kernel"]["plain_ms"],
+         "oracle_bound_ms": orc["kernel"]["bound_ms"],
+         "oracle_bound_by": orc["kernel"]["bound_by"],
+         "oracle_max_abs_err": orc["kernel"]["max_abs_err"],
          "launches_train_path": report["train"]["launches"]["dft_imager"],
          "launches_calib_td3_path":
              report["calib_td3_ddpg"]["calib_td3"]["launches"]["dft_imager"],
@@ -6310,6 +6537,7 @@ def main():
              report["runtime_rest"]["launches"]["dft_imager"],
          "launches_bf16_paths": bf16_launches("dft_imager"),
          "max_abs_err": max(dft_err + [report["diffuse"]["dft_max_abs_err"],
+                                       orc["kernel"]["max_abs_err"],
                                        sup["kernel"]["max_abs_err"],
                                        fl["kernel"]["max_abs_err"],
                                        sv["kernel"]["max_abs_err"]]),

@@ -50,3 +50,15 @@ def consensus_cores(freqs, f0, n_terms, polytype=0, rho=0.0, alpha=0.0):
     fscale = 1.0 - rho[..., None] * torch.einsum("fi,...ij,fj->...f",
                                                  bfull, bi, bfull)
     return bfull, bi, fscale
+
+
+def consensus_poly(n_terms, n_stations, freqs, f0, fidx, polytype=0,
+                   rho=0.0, alpha=0.0):
+    """Dense (F, P) with the reference's shapes, for golden tests and API
+    parity (reference calibration_tools.py:551-585): F (2N, 2N) =
+    (1 - rho b_f Bi b_f^T) I_2N and P (2N*Ne, 2N) = kron(Bi b_f^T, I_2N)."""
+    bfull, bi, fscale = consensus_cores(freqs, f0, n_terms, polytype, rho,
+                                        alpha)
+    eye2n = torch.eye(2 * n_stations, dtype=F32, device=bfull.device)
+    return (fscale[fidx] * eye2n,
+            torch.kron(bi @ bfull[fidx][:, None], eye2n))

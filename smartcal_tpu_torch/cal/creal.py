@@ -3,16 +3,40 @@
 
 The port keeps the JAX package's split-real layout (last axis = [re, im])
 at every public function, so the parity tests compare like with like and
-the operands of later kernels match the JAX ones one to one.
+the operands of later kernels match the JAX ones one to one.  ``split``
+and ``fuse`` are the host edge (numpy complex <-> float32 pairs), as in
+the JAX package; the rest take and return tensors.
 """
 
+import numpy as np
 import torch
 
 from smartcal_tpu_torch.cal import precision as prec
 
 
+def split(x):
+    """numpy complex -> float32 (..., 2) numpy.  Host-side."""
+    x = np.asarray(x)
+    return np.stack([x.real, x.imag], axis=-1).astype(np.float32)
+
+
+def fuse(x):
+    """float32 (..., 2) (numpy or tensor) -> numpy complex64.  Host-side."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x)
+    return (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
+
+
 def conj(a):
     return torch.stack([a[..., 0], -a[..., 1]], dim=-1)
+
+
+def mul(a, b):
+    """Elementwise complex multiply (broadcasting)."""
+    ar, ai = a[..., 0], a[..., 1]
+    br, bi = b[..., 0], b[..., 1]
+    return torch.stack([ar * br - ai * bi, ar * bi + ai * br], dim=-1)
 
 
 def mul_i(a):
@@ -44,6 +68,14 @@ def einsum(spec, a, b, compute_dtype=None):
     return torch.stack([rr - ii, ri + ir], dim=-1)
 
 
+def matmul(a, b):
+    """Complex matmul over the last two non-pair axes: a (..., M, K, 2) @
+    b (..., K, N, 2) -> (..., M, N, 2)."""
+    ar, ai = a[..., 0], a[..., 1]
+    br, bi = b[..., 0], b[..., 1]
+    return torch.stack([ar @ br - ai @ bi, ar @ bi + ai @ br], dim=-1)
+
+
 def solve(a, b):
     """Solve complex A x = b in split form through the real 2Nx2N block
     system [[Ar, -Ai], [Ai, Ar]] [xr; xi] = [br; bi] — one batched
@@ -69,3 +101,8 @@ def solve(a, b):
     else:
         x = torch.linalg.solve(abig, bbig)
     return torch.stack([x[..., :n, :], x[..., n:, :]], dim=-1)
+
+
+def scale(a, s):
+    """Multiply split-complex ``a`` by a real scalar or array ``s``."""
+    return a * torch.as_tensor(s, dtype=a.dtype, device=a.device)[..., None]

@@ -4,9 +4,12 @@ smartcal_tpu/cal/imager.py).
 Two formulations, as in the JAX package:
 
 * the direct DFT ``dirty_image_sr`` — img[p] = mean_r Re(V_r exp(-i phi)),
-  the data/residual images behind every reward.  It is the hand-written
-  CUDA kernel of ``ops/dft_imager.py`` on a CUDA tensor, and that module's
-  plain version on a CPU tensor;
+  the data/residual images behind every reward and the oracle chain's
+  influence images.  It is the hand-written CUDA kernel of
+  ``ops/dft_imager.py`` on a CUDA tensor, and that module's plain version
+  on a CPU tensor.  ``dirty_image_sr_xla`` is the plain version on either
+  device (the JAX package's XLA formulation, under its name): it runs
+  only where a caller asks for it;
 * the rank-factored DFT ``dirty_image_factored_sr`` — the influence-map
   imager: per-axis trig planes and two (npix, R) @ (R, npix) matmuls.
   From npix >= 512 its planes reach GB scale, and
@@ -48,6 +51,16 @@ def dirty_image_sr(uvw, vis, freq, cell, npix=128):
     uvw (R, 3) meters, vis (R, 2).  Goes through ``ops.dft_imager`` (the
     CUDA kernel for CUDA tensors)."""
     return dft_imager.dirty_image(uvw, vis, freq, cell, npix=npix)
+
+
+def dirty_image_sr_xla(uvw, vis, freq, cell, npix=128):
+    """:func:`dirty_image_sr` in its plain formulation on the device of
+    ``uvw``, never the kernel: the direct DFT of
+    ``dft_imager.dirty_image_reference``."""
+    uv = uvw[:, :2] * torch.tensor(dft_imager.uv_scale(freq),
+                                   dtype=uvw.dtype, device=uvw.device)
+    return dft_imager.dirty_image_reference(
+        uv, pixel_grid(npix, cell, uvw.device), vis).reshape(npix, npix)
 
 
 def _factored_planes(uvw, vis, freq, cell, npix):
@@ -158,6 +171,12 @@ def multifreq_image_sr(uvw, V_list, freqs, cell, npix=128):
     imgs = [image_observation_sr(uvw, V_list[f], f_hz, cell, npix=npix)
             for f, f_hz in enumerate(torch.as_tensor(freqs).tolist())]
     return torch.mean(torch.stack(imgs), dim=0)
+
+
+def image_noise_std(img):
+    """sigma of an image, the env observation statistic (calibenv.py:148-166
+    reads np.std of the FITS data): the population std."""
+    return torch.std(img, correction=0)
 
 
 def image_to_fits(path, img, obs, freq=None, cell=None, **kw):

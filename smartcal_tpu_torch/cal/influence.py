@@ -1,21 +1,35 @@
 """Influence-map engine: residual sensitivity to data perturbations
-(counterpart of smartcal_tpu/cal/influence.py), optimized chain only.
+(counterpart of smartcal_tpu/cal/influence.py).
 
 Per calibration interval (chunk of Tdelta timeslots):
-  H  = Hessianres(R, C, J) + Hadd(consensus)   (scatter-free core)
-  column means of dR through the adjoint 4-RHS transpose solve
+  H  = Hessianres(R, C, J) + Hadd(consensus)
+  column means of dR = d(residual)/d(data)
   influence per baseline, replicated over the interval, scaled 8*B*Td.
 The consensus Hessian addition is a scalar per direction
 (:func:`consensus_hadd_all`, :func:`consensus_hadd_scalars`).  ``perdir``
 keeps the K directions' influence apart (the featurization of the
-demixing recommender, with :func:`perdir_summary`).  The SKA tier's
-statics select the blocked Hessian (``block_baselines`` > 0: the CUDA kernel of
-``ops/hessian_blocks.py`` on the card, the blocked plain core on the CPU)
-and the factored imager's large tier (``imager_block_r`` > 0).
-``precision="bf16"`` (``cal/precision``) narrows the column means' final
-contraction and the imager's matmuls, with f32 accumulation; the Hessian,
-the solve and the LLR stay f32.  The oracle chain and the sharded tiers
-are still to be ported.
+demixing recommender, with :func:`perdir_summary`).
+
+Two formulations, as in the JAX package (``optimized``):
+
+* the optimized chain (default): the scatter-free Hessian core, the
+  column means through the adjoint 4-RHS transpose solve, the chunk
+  invariants hoisted, and the rank-factored imager.  The SKA tier's
+  statics select the blocked Hessian (``block_baselines`` > 0: the CUDA
+  kernel of ``ops/hessian_blocks.py`` on the card, the blocked plain core
+  on the CPU) and the factored imager's large tier (``imager_block_r`` >
+  0).  ``precision="bf16"`` (``cal/precision``) narrows the column means'
+  final contraction and the imager's matmuls, with f32 accumulation; the
+  Hessian, the solve and the LLR stay f32;
+* the oracle chain (``optimized=False``, :func:`_chunk_influence`): the
+  reference formulation of ``cal/kernels.py`` (scatter-based Hessian, the
+  8B-column solve of dJ, its column means) interval by interval, f32 and
+  unblocked, imaged by the direct DFT (kernel 1 on the card).  It is the
+  plain reference the optimized chain is held to, and the
+  ``RadioBackend(vectorized=False)`` host-loop route.
+
+The sharded tiers are not ported: on one card they map to the
+single-device route.
 """
 
 from typing import NamedTuple
@@ -103,8 +117,40 @@ def _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd, n_stations,
     return vis, kernels._llr_core_sr(R3, C5, Jp, Jq)
 
 
+def _chunk_influence(R, C, J, hadd, n_stations, perdir=False):
+    """One calibration interval, the oracle formulation: R (2*B*Td, 2, 2);
+    C (K, B*Td, 4, 2); J (K, 2N, 2, 2); hadd (K,).  Returns ((B, 4, 2)
+    Stokes-I-only vis, or (K, B, 4, 2) with ``perdir``, and (K,) llr):
+    the scatter-based Hessian, the 8B-column solve of dJ and its column
+    means (``cal/kernels.py``), each rebuilding its split-real operands."""
+    H = kernels.hessian_res_sr(R, C, J, n_stations)
+    diag = torch.arange(H.shape[1], device=H.device)
+    H[:, diag, diag, 0] += hadd[:, None]
+    dJ = kernels.dsolutions_all_sr(C, J, n_stations, H)
+    pol_means = kernels.dresiduals_colmeans_sr(C, J, n_stations, dJ,
+                                               addself=False, perdir=perdir)
+    vis = torch.sum(pol_means, dim=0).transpose(-3, -2).clone()
+    vis[..., 1:3, :] = 0.0              # fullpol=False: XY, YX dropped
+    return vis, kernels.log_likelihood_ratio_sr(R, C, J, n_stations)
+
+
+def _per_interval(fn, ops, lead, n_chunks, *args, **kw):
+    """``fn`` on one interval at a time: ``ops`` carry the lane axes
+    ``lead`` and the interval axis in front; returns (vis, llr) with them
+    restored."""
+    flat = [t.reshape((-1,) + tuple(t.shape[len(lead) + 1:])) for t in ops]
+    outs = [fn(*(t[g] for t in flat), *args, **kw)
+            for g in range(flat[0].shape[0])]
+    vis_b = torch.stack([o[0] for o in outs]).reshape(
+        lead + (n_chunks,) + tuple(outs[0][0].shape))
+    llr = torch.stack([o[1] for o in outs]).reshape(
+        lead + (n_chunks,) + tuple(outs[0][1].shape))
+    return vis_b, llr
+
+
 def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
-                           block_baselines=0, perdir=False, precision="f32"):
+                           block_baselines=0, perdir=False, precision="f32",
+                           optimized=True):
     """Influence visibilities over all calibration intervals.
 
     R : (2*B*T, 2, 2) kernel-convention residuals of one sub-band
@@ -113,37 +159,42 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
     Unblocked, the intervals of every lane go through the chain in one
     pass; ``block_baselines`` > 0 runs the blocked Hessian (SKA tier)
     interval by interval, lane by lane: its CUDA kernel takes one.
-    ``precision`` as in :func:`_chunk_influence_opt`.  Returns vis
-    (T*B, 4, 2), or (K, T*B, 4, 2) with ``perdir``, scaled by 8*B*Tdelta,
-    and llr (Ts, K), under the lane axes."""
+    ``precision`` as in :func:`_chunk_influence_opt`.  ``optimized=False``
+    runs the oracle chain (:func:`_chunk_influence`) interval by interval
+    instead, f32 and unblocked (``block_baselines`` and ``precision`` do
+    not apply).  Returns vis (T*B, 4, 2), or (K, T*B, 4, 2) with
+    ``perdir``, scaled by 8*B*Tdelta, and llr (Ts, K), under the lane
+    axes."""
     B = n_stations * (n_stations - 1) // 2
     lead, K = C.shape[:-4], C.shape[-4]
     T = C.shape[-3] // B
     Td = T // n_chunks
-    R3 = R.reshape(lead + (n_chunks, Td, B, 2, 2, 2))
-    C5 = C.reshape(lead + (K, n_chunks, Td, B, 2, 2, 2)).transpose(-3, -2) \
-        .movedim(-6, -7).contiguous()                    # (.., Ts, K, Td, B..)
-    p_idx, q_idx = kernels.baseline_indices(n_stations, R.device)
-    J4 = J.reshape(lead + (n_chunks, K, n_stations, 2, 2, 2))
-    Jp = J4[..., p_idx, :, :, :]                         # (.., Ts, K, B, ..)
-    Jq = J4[..., q_idx, :, :, :]
-    Csum = torch.sum(C5, dim=-5)                         # (.., Ts, K, B, ..)
-    lhs = creal.einsum("...skbuv,...skbwv->...skbuw", Jq, creal.conj(Csum))
     hadd_s = hadd[..., None, :].expand(lead + (n_chunks, K))
-    if block_baselines:
-        ops = [t.reshape((-1,) + tuple(t.shape[len(lead) + 1:]))
-               for t in (R3, C5, Jp, Jq, lhs, hadd_s)]
-        outs = [_chunk_influence_opt(*(t[g] for t in ops), n_stations,
-                                     block_baselines, perdir=perdir,
-                                     precision=precision)
-                for g in range(ops[0].shape[0])]
-        vis_b = torch.stack([o[0] for o in outs]).reshape(
-            lead + (n_chunks,) + tuple(outs[0][0].shape))
-        llr = torch.stack([o[1] for o in outs]).reshape(lead + (n_chunks, K))
+    if not optimized:
+        R4 = R.reshape(lead + (n_chunks, 2 * B * Td, 2, 2))
+        C4 = C.reshape(lead + (K, n_chunks, B * Td, 4, 2)).movedim(-4, -5)
+        vis_b, llr = _per_interval(_chunk_influence, (R4, C4, J, hadd_s),
+                                   lead, n_chunks, n_stations, perdir=perdir)
     else:
-        vis_b, llr = _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd_s,
-                                          n_stations, perdir=perdir,
-                                          precision=precision)
+        R3 = R.reshape(lead + (n_chunks, Td, B, 2, 2, 2))
+        C5 = C.reshape(lead + (K, n_chunks, Td, B, 2, 2, 2)) \
+            .transpose(-3, -2).movedim(-6, -7).contiguous()
+        p_idx, q_idx = kernels.baseline_indices(n_stations, R.device)
+        J4 = J.reshape(lead + (n_chunks, K, n_stations, 2, 2, 2))
+        Jp = J4[..., p_idx, :, :, :]                     # (.., Ts, K, B, ..)
+        Jq = J4[..., q_idx, :, :, :]
+        Csum = torch.sum(C5, dim=-5)                     # (.., Ts, K, B, ..)
+        lhs = creal.einsum("...skbuv,...skbwv->...skbuw", Jq,
+                           creal.conj(Csum))
+        if block_baselines:
+            vis_b, llr = _per_interval(
+                _chunk_influence_opt, (R3, C5, Jp, Jq, lhs, hadd_s), lead,
+                n_chunks, n_stations, block_baselines, perdir=perdir,
+                precision=precision)
+        else:
+            vis_b, llr = _chunk_influence_opt(R3, C5, Jp, Jq, lhs, hadd_s,
+                                              n_stations, perdir=perdir,
+                                              precision=precision)
     if perdir:         # (.., Ts, K, B, ..) -> (.., K, Ts*Td*B, ..)
         vis = vis_b.unsqueeze(-4).expand(
             lead + (n_chunks, K, Td, B, 4, 2)).transpose(-6, -5) \
@@ -231,3 +282,40 @@ def influence_images_lanes(residual, C, J, hadd, freqs, uvw, cell,
         block_r=imager_block_r, precision=precision)
         for i in np.ndindex(lead)]
     return torch.stack(imgs).reshape(lead + (npix, npix))
+
+
+def influence_images_multi(residual, C, J, hadd_all, freqs, uvw, cell,
+                           n_stations, n_chunks, npix, use_pallas=True,
+                           optimized=True, block_baselines=0,
+                           imager_block_r=0, precision="f32"):
+    """Per-sub-band Stokes-I influence dirty images (Nf, npix, npix).
+
+    residual (Nf, T, B, 2, 2, 2) solver residuals; C (Nf, K, T*B, 4, 2);
+    J (Nf, Ts, K, 2N, 2, 2); hadd_all (Nf, K) (:func:`consensus_hadd_all`);
+    ``freqs`` (Nf,) a host array; uvw (T*B, 3) meters; ``cell`` the pixel
+    size.
+
+    ``optimized`` (default) runs the bands as lanes of
+    :func:`influence_images_lanes` (the optimized chain and the factored
+    imager, with the SKA-tier statics and ``precision``).
+    ``optimized=False`` loops over the bands on the oracle chain, f32 and
+    unblocked, and images each with the direct DFT: kernel 1 on the card
+    (``imager.dirty_image_sr``), or its plain formulation
+    ``imager.dirty_image_sr_xla`` when ``use_pallas=False`` (the JAX
+    package's switch away from its TPU kernel, kept under its name)."""
+    if optimized:
+        return influence_images_lanes(
+            residual, C, J, hadd_all, np.asarray(freqs), uvw, cell,
+            n_stations, n_chunks, npix, block_baselines=block_baselines,
+            imager_block_r=imager_block_r, precision=precision)
+    from smartcal_tpu_torch.cal import solver  # lazy: solver is a consumer
+
+    image = imager.dirty_image_sr if use_pallas else imager.dirty_image_sr_xla
+    imgs = []
+    for f, f_hz in enumerate(np.asarray(freqs).tolist()):
+        inf = influence_visibilities(
+            solver.residual_to_kernel(residual[f]), C[f], J[f], hadd_all[f],
+            n_stations, n_chunks, optimized=False)
+        imgs.append(image(uvw, stokes_i_influence(inf.vis), f_hz, cell,
+                          npix=npix))
+    return torch.stack(imgs)

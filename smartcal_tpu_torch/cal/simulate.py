@@ -7,12 +7,15 @@ All draws are host numpy from Generators seeded like the JAX package's
 (``observation.host_rng`` with the same salts), so the same key gives
 bit-identical skies and solutions.  The coordinate math of the demixing
 sky is float32 (``cal/coords``), as in the JAX package.  The noise is
-drawn on the host too; its scaling and the add run on the device.  The
-DP3 parset writer and the host-numpy ``add_noise`` are not ported: no
-path of the port calls them.
+drawn on the host too: ``add_noise_device`` scales and adds it on the
+device (the vectorized episode build), ``add_noise`` in host numpy (the
+host-loop build, ``RadioBackend(vectorized=False)``), from the same
+stream.  ``write_dp3_parsets`` writes the JAX package's DP3 parsets byte
+for byte.
 """
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -285,6 +288,40 @@ def simulate_demixing_sky(key, ra0, dec0, t0, f0, K=6, Kc=40, M_weak=350,
         lm_dirs=np.asarray(lm_dirs, np.float32), f0=float(f0))
 
 
+def write_dp3_parsets(outdir, sourcedb="sky_bbs.txt", tdelta=10):
+    """DP3 parsets for external cross-checks of the same data (reference
+    simulate.py:142-188: demix / ddecal / predict-subtract steps, L-BFGS
+    settings matching the in-framework solver's).  Text only: DP3 is an
+    external tool.  Returns the three paths."""
+    def w(name, step, opts):
+        with open(os.path.join(outdir, name), "w") as fh:
+            fh.write(f"steps=[{step}]\n")
+            for k, v in opts.items():
+                fh.write(f"{step}.{k}={v}\n")
+
+    w("test_demix.parset", "demix", {
+        "type": "demixer", "blrange": "[60,100000]",
+        "demixtimestep": tdelta, "demixfreqstep": 16, "ntimechunk": 4,
+        "uselbfgssolver": "true", "lbfgs.historysize": 10, "maxiter": 30,
+        "lbfgs.robustdof": 200})
+    w("test_ddecal.parset", "ddecal", {
+        "type": "ddecal", "h5parm": "./solutions.h5",
+        "sourcedb": sourcedb, "mode": "fulljones", "uvlambdamin": 30,
+        "usebeammodel": "true", "beamproximitylimit": 0.1,
+        "solveralgorithm": "lbfgs", "solverlbfgs.dof": 200.0,
+        "solverlbfgs.iter": 4, "solverlbfgs.minibatches": 3,
+        "solverlbfgs.history": 10, "maxiter": 50,
+        "smoothnessconstraint": 1e6, "nchan": 16, "stepsize": 1e-3,
+        "solint": tdelta})
+    w("test_predict.parset", "predict", {
+        "type": "h5parmpredict", "sourcedb": sourcedb,
+        "usebeammodel": "true", "applycal.correction": "fulljones",
+        "applycal.parmdb": "./solutions.h5", "operation": "subtract"})
+    return [os.path.join(outdir, n) for n in
+            ("test_demix.parset", "test_ddecal.parset",
+             "test_predict.parset")]
+
+
 def synth_solutions(key, K, n_stations, Ts, freqs, f0, amp=1.0,
                     spatial_term=False, spalpha=0.95, lm_dirs=None):
     """Synthetic per-direction systematic errors J: (Nf, Ts, K, 2N, 2, 2)
@@ -338,6 +375,18 @@ def identity_solutions(K, n_stations, Ts, Nf):
     for p in range(n_stations):
         J[:, :, :, 2 * p:2 * p + 2, :, 0] = eye
     return J
+
+
+def add_noise(key, V, snr):
+    """AWGN scaled so ||noise|| = snr * ||signal|| (reference
+    addnoise.py:7-17), in host numpy on a split-real numpy ``V``: the JAX
+    package's ``add_noise``, the same stream as :func:`add_noise_device`.
+    Returns (V + scaled noise, scale)."""
+    rng = _rng_of(key, salt=5)
+    noise = rng.standard_normal(V.shape).astype(np.float32)
+    noise -= noise.mean()
+    scale = snr * np.linalg.norm(V) / max(np.linalg.norm(noise), 1e-30)
+    return V + noise * scale, float(scale)
 
 
 def add_noise_device(key, V, snr):

@@ -715,6 +715,15 @@ def solve_admm_safe(solve_fn, rho, *, initial_result=None,
         f"retries (x{rho_boost}){tail}")
 
 
+def simulate_vis_sr(J, C, n_stations, Ts):
+    """Corrupt model coherencies of one sub-band with per-interval Jones
+    (the role of ``sagecal_gpu -O DATA -p``): J (Ts, K, 2N, 2, 2), C (K,
+    T*B, 4, 2) -> (T, B, 2, 2, 2)."""
+    B = n_stations * (n_stations - 1) // 2
+    V = predict_vis_sr(J, coherency_to_chunks(C, B, Ts), n_stations)
+    return V.reshape(-1, B, 2, 2, 2)
+
+
 def simulate_vis_multi_sr(J, C, n_stations, Ts):
     """Corrupt model coherencies with per-interval Jones for every sub-band:
     J (Nf, Ts, K, 2N, 2, 2), C (Nf, K, T*B, 4, 2) -> (Nf, T, B, 2, 2, 2)."""
@@ -728,6 +737,12 @@ def residual_to_kernel(residual):
     """(T, B, 2, 2, 2) solver residual -> kernel-convention R (2BT, 2, 2)."""
     T, B = residual.shape[0], residual.shape[1]
     return residual.reshape(2 * T * B, 2, 2)
+
+
+def stokes_i_std(V):
+    """Noise proxy: the population std of the Stokes I = (XX + YY)/2 real
+    and imaginary planes (demixingenv.py:233-252)."""
+    return torch.std(0.5 * (V[..., 0, 0, :] + V[..., 1, 1, :]), correction=0)
 
 
 def cost_eval_flops(cfg: SolverConfig, Nf: int, Ts: int, td: int, B: int,

@@ -32,6 +32,15 @@ each, with the same math:
   they map to this route;
 * ``data_image`` / ``residual_image`` -> ``imager.multifreq_image_sr``,
   one direct-DFT kernel launch per sub-band;
+* ``vectorized=False`` is the JAX backend's host-loop route (the parity
+  oracle and the pre-pipeline baseline, smartcal_tpu/envs/radio.py:
+  216-275, 981-1000): the episode is built band by band (coherencies,
+  shapelet, corruption) with the noise added in host numpy
+  (``simulate.add_noise``), and ``influence_image`` runs the oracle chain
+  band by band (``influence.influence_images_multi(optimized=False)``),
+  each band imaged by the direct DFT (kernel 1 on the card).  The solve,
+  the hint, the images and the batched routes are the same as
+  ``vectorized=True``;
 * ``hint_sweep`` (the demixing env's exhaustive hint) ->
   ``solver.solve_admm_batched`` with one lane-episode per mask, ``batch``
   masks per solve (the JAX package vmaps the masks, ``lax.map`` over
@@ -179,19 +188,31 @@ class RadioBackend:
     under either.  ``robust_solver``, ``solver_max_retries`` and
     ``solver_rho_boost`` are the solve's degradation ladder (the JAX
     backend's): non-finite iterates re-solve at boosted rho, then on the
-    host-segmented route, before ``SolverDegradedError``."""
+    host-segmented route, before ``SolverDegradedError``.
+
+    ``vectorized`` (default True) builds each episode with all sub-bands
+    in one expression and maps the influence with the optimized chain;
+    False is the host-loop route (module docstring): band by band, the
+    noise in host numpy, the influence on the oracle chain imaged by
+    kernel 1.  ``shard`` ("auto", True, False or None) is the JAX
+    backend's mesh switch, accepted for its signature: with one GPU no
+    mesh divides, so every value runs the single-device route, exactly as
+    the JAX backend does on one device."""
 
     def __init__(self, n_stations=14, n_freqs=3, n_times=20, tdelta=10,
                  n_poly=2, admm_iters=10, lbfgs_iters=8, init_iters=30,
                  polytype=0, npix=128, hint_batch=8, device="cuda",
                  block_baselines=None, imager_block_r=None, precision="f32",
                  robust_solver=True, solver_max_retries=2,
-                 solver_rho_boost=10.0):
+                 solver_rho_boost=10.0, vectorized=True, shard="auto"):
         if n_times <= 0 or n_times % tdelta != 0:
             raise ValueError(
                 f"n_times={n_times} must be a positive multiple of "
                 f"tdelta={tdelta}: every solution interval needs the same "
                 "number of slots")
+        if shard not in ("auto", True, False, None):
+            raise ValueError(f"shard={shard!r}: expected 'auto', True, False "
+                             "or None")
         self.device = resolve_device(device)
         self.n_stations = n_stations
         self.n_freqs = n_freqs
@@ -205,6 +226,8 @@ class RadioBackend:
         self.polytype = polytype
         self.npix = npix
         self.hint_batch = hint_batch
+        self.vectorized = bool(vectorized)
+        self.shard = shard
         self.robust_solver = robust_solver
         self.solver_max_retries = solver_max_retries
         self.solver_rho_boost = solver_rho_boost
@@ -247,8 +270,13 @@ class RadioBackend:
 
     def _coherencies(self, obs, sky):
         uvw = obs.uvw.reshape(-1, 3)
-        return coherency.predict_coherencies_multi_sr(
-            uvw[:, 0], uvw[:, 1], uvw[:, 2], sky, obs.freqs)
+        if self.vectorized:
+            return coherency.predict_coherencies_multi_sr(
+                uvw[:, 0], uvw[:, 1], uvw[:, 2], sky, obs.freqs)
+        return torch.stack([
+            coherency.predict_coherencies_sr(uvw[:, 0], uvw[:, 1], uvw[:, 2],
+                                             sky, f)
+            for f in obs.freqs.cpu().numpy()])
 
     def _corrupt_and_noise(self, key, obs, Csim, J_extra_dirs, snr, amp,
                            spatial_term, lm_dirs):
@@ -264,6 +292,13 @@ class RadioBackend:
                                           self.n_chunks, self.n_freqs)
         Jsim = torch.as_tensor(np.concatenate([Jerr, Jid], axis=2),
                                device=self.device)
+        if not self.vectorized:
+            V = torch.stack([
+                solver.simulate_vis_sr(Jsim[f], Csim[f], self.n_stations,
+                                       self.n_chunks)
+                for f in range(self.n_freqs)])
+            Vn, _ = simulate.add_noise(key, V.cpu().numpy(), snr=snr)
+            return torch.as_tensor(Vn, device=self.device)
         V = solver.simulate_vis_multi_sr(Jsim, Csim, self.n_stations,
                                          self.n_chunks)
         # inside the simulate span: counted between episodes
@@ -274,11 +309,18 @@ class RadioBackend:
         return Vn
 
     def _add_shapelet(self, obs, C, coeff, beta, flux):
-        """C with a diffuse shapelet component added to cluster 0, all
-        sub-bands in one expression (cal/shapelets.py)."""
+        """C with a diffuse shapelet component added to cluster 0
+        (cal/shapelets.py): all sub-bands in one expression, or band by
+        band on the host-loop route."""
         uvw = obs.uvw.reshape(-1, 3)
-        add = shapelets.shapelet_coherency_multi_sr(
-            coeff, uvw[:, 0], uvw[:, 1], obs.freqs, beta, flux=flux)
+        if self.vectorized:
+            add = shapelets.shapelet_coherency_multi_sr(
+                coeff, uvw[:, 0], uvw[:, 1], obs.freqs, beta, flux=flux)
+        else:
+            add = torch.stack([
+                shapelets.shapelet_coherency_sr(coeff, uvw[:, 0], uvw[:, 1],
+                                                float(f), beta, flux=flux)
+                for f in obs.freqs.cpu().numpy()])
         C = C.clone()
         C[:, 0] += add
         return C
@@ -509,8 +551,15 @@ class RadioBackend:
 
     def influence_image(self, ep: Episode, result: solver.SolveResult, rho,
                         rho_spatial, npix=None):
-        """Mean Stokes-I influence dirty image over sub-bands."""
+        """Mean Stokes-I influence dirty image over sub-bands: the
+        optimized chain band by band, or with ``vectorized=False`` the
+        host loop on the oracle chain (:meth:`_influence_image_loop`)."""
         npix = npix or self.npix
+        if not self.vectorized:
+            with self._stage("influence", route="host_loop",
+                             bands=self.n_freqs):
+                return self._influence_image_loop(ep, result, rho,
+                                                  rho_spatial, npix)
         statics = self._influence_statics(npix)
         with self._stage("influence", route="per_band", bands=self.n_freqs,
                          precision=self.precision):
@@ -538,6 +587,20 @@ class RadioBackend:
                 n_chunks=self.n_chunks, npix=npix, **statics)
             self._record_kernel_costs(ep.n_dirs, npix, cell, statics)
             return acc / self.n_freqs
+
+    def _influence_image_loop(self, ep, result, rho, rho_spatial, npix):
+        """The JAX backend's host loop (pre-pipeline path): per sub-band the
+        oracle influence chain, f32 and unblocked, imaged by the direct DFT
+        (kernel 1 on the card), then the mean over bands."""
+        hadd_all = influence.consensus_hadd_all(
+            np.asarray(rho, np.float32), np.asarray(rho_spatial, np.float32),
+            ep.obs.freqs, ep.f0, n_poly=self.n_poly, polytype=self.polytype)
+        imgs = influence.influence_images_multi(
+            result.residual, ep.Ccal, result.J, hadd_all,
+            ep.obs.freqs.cpu().numpy(), ep.obs.uvw.reshape(-1, 3),
+            self._cell(ep), self.n_stations, self.n_chunks, npix,
+            optimized=False)
+        return torch.mean(imgs, dim=0)
 
     def _imager_dtype(self):
         """The influence imager's contraction dtype under the backend's

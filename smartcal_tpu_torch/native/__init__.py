@@ -158,6 +158,16 @@ def lib() -> ct.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """True when the library builds and loads (the JAX package's probe;
+    :func:`lib` raises where this says False)."""
+    try:
+        lib()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # SCT store: numpy dict <-> single binary file
 # ---------------------------------------------------------------------------

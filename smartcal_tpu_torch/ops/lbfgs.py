@@ -36,6 +36,11 @@ class LBFGSHistory(NamedTuple):
     count: torch.Tensor
     gamma: torch.Tensor
 
+    @property
+    def size(self) -> int:
+        """The history depth m."""
+        return self.s.shape[-2]
+
 
 class LBFGSResult(NamedTuple):
     x: torch.Tensor          # (L, n)

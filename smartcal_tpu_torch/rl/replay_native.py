@@ -80,6 +80,15 @@ class NativePER:
         self.cntr += 1
         return idx
 
+    def store_batch(self, transitions: dict, errors=None) -> None:
+        """Bulk ingestion (the learner's ``store_transition_from_buffer``
+        role): the transitions enter one by one, each with the priority
+        rule of :meth:`store`."""
+        n = len(next(iter(transitions.values())))
+        for i in range(n):
+            self.store({k: v[i] for k, v in transitions.items()},
+                       None if errors is None else errors[i])
+
     @property
     def filled(self) -> int:
         return min(self.cntr, self.size)

@@ -110,6 +110,14 @@ def test_lbfgs_resume_walks_identical_trajectory():
     assert torch.equal(again.x, conv.x)
 
 
+@pytest.mark.parametrize("m", [1, 7])
+def test_history_size_matches_jax(m):
+    """``LBFGSHistory.size`` is the depth m, as in the JAX package (the
+    port's history carries a lane axis in front)."""
+    assert tlbfgs.history_init(3, 12, history_size=m).size == \
+        jlbfgs.history_init(12, history_size=m).size == m
+
+
 def test_eval_model_matches_jax():
     for vm in (True, False):
         assert tlbfgs.linesearch_phi_evals(vm) == \

@@ -129,6 +129,18 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("native/*.so"))
 
 
+def test_available_matches_jax_and_says_false_on_a_failed_build(
+        tmp_path, monkeypatch):
+    from smartcal_tpu_torch.ops import build as ops_build
+
+    assert native.available() is jnative.available() is True
+    monkeypatch.setattr(ops_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "CXX_FLAGS",
+                        native.CXX_FLAGS + ("-no-such-flag-for-gxx",))
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.available() is False
+
+
 def test_library_is_hash_named_in_the_build_dir():
     path = native.library_path()
     assert path.parent.name == "native"

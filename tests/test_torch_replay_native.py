@@ -112,6 +112,21 @@ def test_priority_rules_and_save_load(tmp_path):
     np.testing.assert_array_equal(w1, w2)
 
 
+@pytest.mark.parametrize("with_errors", [False, True])
+def test_store_batch_matches_jax(with_errors):
+    """``store_batch`` feeds the transitions one by one (max priority, or
+    the error rule), wrapping the ring: the JAX package's buffer bit for
+    bit."""
+    jb, tb = pair(size=8)
+    ts = transitions(11, seed=4)
+    batch = {k: np.stack([np.asarray(t[k]) for t in ts]) for k in ts[0]}
+    errors = np.linspace(0.0, 2.0, 11) if with_errors else None
+    jb.store_batch(batch, errors)
+    tb.store_batch(batch, errors)
+    assert tb.cntr == 11
+    same_buffers(jb, tb)
+
+
 def test_rejects_non_pow2_size():
     with pytest.raises(ValueError):
         tn.NativePER(10, tr.transition_spec(2, 1))
