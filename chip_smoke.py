@@ -69,11 +69,10 @@
    before and read just after; checks the two scores and the saved ring
    (2 transitions, no learn: the agent's learn step is measured on the
    batched trainer's agent, step 6b);
-6. drives the elastic-net slice (M = N = 20, no kernel on its path):
-   one EnetEnv reset, three steps and a hint, timed and broken down
-   (solve, influence state, hint; L-BFGS iterations; CUDA kernels per
-   iteration and per step by torch.profiler, and per iteration with the
-   line search's lane-masked form only, which must give the same x; a
+6. drives the elastic-net slice (M = N = 20; its solves are kernel 4,
+   its eigenvalues kernel 5): one EnetEnv reset, three steps and a hint,
+   timed and broken down (solve, influence state, hint; L-BFGS
+   iterations; CUDA kernels per solve and per step by torch.profiler; a
    step's idle share), held
    against the CPU stage by stage; ``train/enet_sac.py`` (2 episodes of
    3 steps with the hint: 6 transitions, no learn at batch 64), its
@@ -89,6 +88,24 @@
    kernel's launches counted, and one full-width CNN TD3 learn step held
    against the CPU; counts zeroed just before and read just after each
    path;
+6a. drives the whole-episode elastic-net programs (``enet_program_phase``):
+   kernel 4 (``csrc/enet_lbfgs.cu``) against its plain version on one
+   step lane and the hint's 50 weighted lanes, each of the first 5
+   iterations from the kernel's own state and the step's x after 5 (rtol
+   1e-4 / atol 1e-6), the full-depth losses (the step lane at rtol 1e-4,
+   at least 24 hint lanes that stopped early on both sides at rtol 5e-3),
+   the same bits over two launches; kernel 5 (``csrc/sym_eigvals.cu``)
+   against eigvalsh on a step's influence matrix and 64 random symmetric
+   matrices (rtol 1e-5, atol 1e-6 x max); each timed beside its plain
+   version and its dependent-step floor; the episode programs of enet_sac,
+   enet_td3 and enet_ddpg (CUDA-graph replays) against their bodies run
+   eagerly on the card (the same bits), the block of 3 against 3
+   episodes and again after an in-place restore (the same bits); and
+   ``enet_sac --block 20`` and ``--block 1`` at the bench configuration
+   (batch 64, ring 1024, 5 steps), without and with ``--use_hint``:
+   env-steps/s over the timed programs, capture seconds, peak memory, and
+   the runs of kernels 4 and 5 as the kernels count them on the card
+   (graph replays included), held to one per step and hint;
 6b. drives the batched slice at the N=62 scale (M=10, hint actions):
    ``BatchedCalibEnv(n_envs=4)`` reset and two vector steps, counts zeroed
    just before and read just after (the fused route runs no kernel), with
@@ -256,6 +273,11 @@ steady-state compile events), ``tools.serve_fleet`` with 2
 replica processes on the card and a replica kill (replica 1 warm from the
 shared cache with 0 nvcc builds), and ``tools.serve_learn`` with at least
 3 publishes and 0 compile events in its window (DIR/serve_phase.json).
+
+    python3 chip_smoke.py --enet-program [--out DIR]
+
+builds the kernels and runs step 6a alone, over twice the episodes and
+with the plain solves timed 3 times (DIR/enet_program_phase.json).
 
     python3 chip_smoke.py --oracle [--out DIR]
 
@@ -697,14 +719,30 @@ class FirstCall:
 def launch_counters(counters, factored_imager):
     """(zero_counts, read_counts) over the kernel modules' ``launches``
     counts, kernel 2's bf16 launches (``factored_imager.launches_bf16``)
-    read as ``factored_imager_bf16``."""
+    read as ``factored_imager_bf16``.  A kernel that counts its own runs
+    on the card (``device_launches``: kernels 4 and 5, whose episode
+    programs replay CUDA graphs) is read from that count, its host count
+    (the launches made outside a capture) beside it as ``<name>_eager``;
+    the card's count may not be below the host's."""
     def zero_counts():
         for m in counters.values():
             m.launches = 0
+            if hasattr(m, "device_launches"):
+                m.device_launches.reset()
         factored_imager.launches_bf16 = 0
 
     def read_counts():
-        out = {k: m.launches for k, m in counters.items()}
+        out = {}
+        for k, m in counters.items():
+            if hasattr(m, "device_launches"):
+                out[k] = m.device_launches.read()
+                out[k + "_eager"] = m.launches
+                if out[k] < m.launches:
+                    raise AssertionError(
+                        f"{k}: {m.launches} launches from the host but "
+                        f"{out[k]} runs counted on the card")
+            else:
+                out[k] = m.launches
         out["factored_imager_bf16"] = factored_imager.launches_bf16
         return out
 
@@ -1442,45 +1480,27 @@ def enet_step_phase(dev):
 
 
 def enet_profiles(cfg, st, action, noise, step_wall, out):
-    """The enet solve profiled (CUDA kernels per iteration), again with the
-    line search's lane-masked form only (the same x), and a step's idle
-    share against its unprofiled ``step_wall``; into ``out``."""
+    """The enet solve profiled (its CUDA kernels: kernel 4 and the
+    wrapper's few), and a step's idle share against its unprofiled
+    ``step_wall``; into ``out``."""
     from smartcal_tpu_torch.envs import enet
-    from smartcal_tpu_torch.ops import lbfgs
     rho, _ = enet.action_to_rho(action)
     solved = []
     s_wall, s_busy, s_kernels = device_busy_seconds(
         lambda: solved.append(enet._solve(cfg, st.A, st.y, rho)))
     s_iters = int(solved[0].n_iters[0])
-    # the same solve with the search's lane-masked form only (as under
-    # graph capture): the kernels the skips save, and the same steps
-    can_sync = lbfgs._can_sync
-    lbfgs._can_sync = lambda device: False
-    try:
-        m_wall, _, m_kernels = device_busy_seconds(
-            lambda: solved.append(enet._solve(cfg, st.A, st.y, rho)))
-    finally:
-        lbfgs._can_sync = can_sync
-    if not torch.equal(solved[0].x, solved[1].x):
-        raise AssertionError("enet solve: the search's skips changed x")
     step_prof, step_busy, step_kernels = device_busy_seconds(
         lambda: enet.step(cfg, st, action, noise))
     out["profiled_solve"] = {
         "iters": s_iters, "wall_s": s_wall, "busy_s": s_busy,
-        "kernels": s_kernels, "kernels_per_iter": s_kernels / max(s_iters, 1),
-        "masked_wall_s": m_wall,
-        "masked_kernels_per_iter": m_kernels / max(s_iters, 1)}
+        "kernels": s_kernels}
     out["profiled_step"] = {"wall_s": step_wall, "profiled_wall_s": step_prof,
                             "busy_s": step_busy, "kernels": step_kernels}
     out["step_idle_share"] = idle_share("enet step", step_wall, step_busy,
                                         step_prof)
-    print(f"enet solve profiled: {s_kernels} kernels and copies over "
-          f"{s_iters} iterations = "
-          f"{out['profiled_solve']['kernels_per_iter']:.0f} per iteration "
-          f"({out['profiled_solve']['masked_kernels_per_iter']:.0f} and "
-          f"{m_wall:.3f} s profiled with the lane-masked search only, the "
-          f"same x); one step: {step_kernels} kernels and copies",
-          flush=True)
+    print(f"enet solve profiled: {s_kernels} kernels and copies for "
+          f"{s_iters} iterations (kernel 4: the whole loop in one launch); "
+          f"one step: {step_kernels} kernels and copies", flush=True)
 
 
 def enet_sac_phase(dev, out_dir, zero_counts, read_counts):
@@ -1682,6 +1702,485 @@ def enet_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
           flush=True)
     return out
 
+
+# -- the enet episode programs and kernels 4 and 5 ---------------------------
+
+# kernel 4 at full depth: the step lane's final loss at rtol 1e-4; the
+# hint lanes that stopped before the cap on both sides at 5e-3, because
+# the two sides reach a lane's flat minimum along other float32 paths and
+# their stop tests fire at other iterations (up to 1.8e-3 over 24 such
+# lanes in a CPU emulation, 1.2e-3 on the card); at least this many held
+ENET_FULL_LOSS_RTOL = 1e-4
+ENET_FULL_HINT_LOSS_RTOL = 5e-3
+ENET_FULL_HINT_MIN_HELD = 24
+EIG_RTOL, EIG_ATOL_REL = 1e-5, 1e-6     # x max|lambda|
+FMA_LATENCY_CYCLES = 4       # a dependent FP32 FMA on sm_90
+# a dependent FP64 operation on sm_90, taken at the FP64 FMA's latency
+# (8 cycles, as microbenchmarked from Volta on); division and square root
+# take several such operations, so counting each as one keeps a floor
+FP64_LATENCY_CYCLES = 8
+# one Jacobi rotation's chain from a_pp to the next rotation's a_pp:
+# a_qq - a_pp, the division by 2 a_pq, theta^2 + 1, its square root, the
+# sum with |theta|, the division giving t, and a_pp - t a_pq
+JACOBI_CHAIN_OPS = 7
+ENET_BLOCK, ENET_BLOCK_STEPS = 20, 5    # bench.py:87,329,448
+ENET_BLOCK_EPISODES = 60                # 3 programs of 20: 1 untimed
+ENET_BLOCK1_EPISODES = 6                # the episode program: 1 untimed
+ENET_EIG_RANDOM = 64
+
+
+def _enet_problem(enet, cfg, seed):
+    """One env's (A, y) after a reset and a noisy draw, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    st, _ = enet.reset(cfg, *enet.reset_draws(cfg, g, "cpu"))
+    return enet.draw_noise(cfg, st, torch.randn(cfg.N, generator=g))
+
+
+def kernel4_iterations(enet_lbfgs, args, dargs, label, n=5):
+    """Kernel 4's first ``n`` iterations held one by one: from the
+    kernel's own state after k iterations (a launch at max_iters = k), one
+    iteration of the plain version (``lbfgs_resume``) against the kernel's
+    iteration k + 1, x at ENET_ITER_RTOL / ENET_ITER_ATOL and the
+    iteration counts equal.  Returns the max abs error."""
+    from smartcal_tpu_torch.ops import lbfgs
+    from smartcal_tpu_torch.ops.autodiff import lane_value_and_grad
+    A, y, l2, l1, w = args
+    Ae, ye = enet_lbfgs._expand(A, y, l2.shape[0])
+    vag = lane_value_and_grad(lambda x: enet_lbfgs.lane_loss(Ae, ye, x, l2,
+                                                             l1, w))
+    worst = 0.0
+    for k in range(n):
+        prev = _to(enet_lbfgs.solve_cuda(*dargs, max_iters=k), "cpu")
+        nxt = enet_lbfgs.solve_cuda(*dargs, max_iters=k + 1)
+        ref = lbfgs.lbfgs_resume(vag, prev, 1)
+        err = float((nxt.x.cpu() - ref.x).abs().max())
+        ok = bool(torch.allclose(nxt.x.cpu(), ref.x, rtol=ENET_ITER_RTOL,
+                                 atol=ENET_ITER_ATOL))
+        ok = ok and torch.equal(nxt.n_iters.cpu(), ref.n_iters)
+        if not ok:
+            raise AssertionError(f"kernel 4 ({label}): iteration {k + 1} "
+                                 f"disagrees with the plain version's from "
+                                 f"the same state (max abs err {err:.3e})")
+        worst = max(worst, err)
+    print(f"kernel 4 ({label}, {l2.shape[0]} lanes): iterations 1..{n} each "
+          f"held from the kernel's own previous state: max abs err "
+          f"{worst:.3e} (rtol {ENET_ITER_RTOL} / atol {ENET_ITER_ATOL}) -> "
+          "ok", flush=True)
+    return worst
+
+
+def enet_lbfgs_checks(dev, n_sm, plain_reps=1):
+    """Kernel 4 against its plain version on one step lane and on the
+    hint's 50 weighted lanes of one env (M = N = 20): each of the first 5
+    iterations held from the kernel's own state (:func:`kernel4_iterations`),
+    and for the step lane x after 5 iterations from x = 0, at
+    ENET_ITER_RTOL / ENET_ITER_ATOL with equal iteration counts;
+    at full depth (200 / 100 iterations) the step lane's loss held at
+    ENET_FULL_LOSS_RTOL, the hint lanes that stopped before the cap on
+    both sides at ENET_FULL_HINT_LOSS_RTOL (at least
+    ENET_FULL_HINT_MIN_HELD of them), the capped lanes and the x
+    difference printed; CUDA-event
+    times (median of 20; the plain solve on the card, seconds long, median
+    of ``plain_reps``); the bound of this run's work and the dependent-step
+    floor."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.ops import enet_lbfgs
+    cfg = enet.EnetConfig()
+    st = _enet_problem(enet, cfg, 11)
+    rho, _ = enet.action_to_rho(torch.tensor([[0.3, -0.5]]))
+    lams, test = enet.hint_lanes(cfg, "cpu")
+    w = torch.where(test, 0.0, 1.0)
+    A, y = st.A[None], st.y[None]
+    cases = {"step": ((A, y, rho[:, 0].contiguous(), rho[:, 1].contiguous(),
+                       None), cfg.lbfgs_iters),
+             "hint": ((A, y, lams[:, 1].contiguous(),
+                       lams[:, 0].contiguous(), w), enet.HINT_ITERS)}
+    out = {}
+    for label, (args, full) in cases.items():
+        dargs = tuple(None if a is None else a.to(dev) for a in args)
+        err5 = kernel4_iterations(enet_lbfgs, args, dargs, label)
+        got = enet_lbfgs.solve_cuda(*dargs, max_iters=5)
+        want = enet_lbfgs.solve_plain(*args, max_iters=5)
+        if not torch.equal(got.n_iters.cpu(), want.n_iters):
+            raise AssertionError(f"kernel 4 ({label}): iteration counts "
+                                 "differ from the plain version's")
+        x5 = float((got.x.cpu() - want.x).abs().max())
+        if label == "step":
+            err5 = max(err5, _hold("kernel 4 x after 5 iterations (step, 1 "
+                                   "lane)", got.x, want.x, ENET_ITER_RTOL,
+                                   ENET_ITER_ATOL))
+        else:
+            print(f"kernel 4 x after 5 iterations from x = 0 ({label}): "
+                  f"max abs diff {x5:.3e} (printed: a lane whose search "
+                  f"ends on a flat minimum turns float32 round-off into "
+                  f"~1e-5; each iteration is held above)", flush=True)
+        res, evals = enet_lbfgs.solve_cuda(*dargs, max_iters=full,
+                                           with_evals=True)
+        again = enet_lbfgs.solve_cuda(*dargs, max_iters=full)
+        if not all(torch.equal(getattr(res, f), getattr(again, f))
+                   for f in ("x", "loss", "n_iters")):
+            raise AssertionError(f"kernel 4 ({label}): two launches differ")
+        ref = enet_lbfgs.solve_plain(*args, max_iters=full)
+        rel = ((res.loss.cpu() - ref.loss).abs() / ref.loss.abs())
+        if label == "hint":
+            early = (res.n_iters.cpu() < full) & (ref.n_iters < full)
+            held, rtol, least = rel[early], ENET_FULL_HINT_LOSS_RTOL, \
+                ENET_FULL_HINT_MIN_HELD
+        else:
+            early = torch.ones_like(rel, dtype=torch.bool)
+            held, rtol, least = rel, ENET_FULL_LOSS_RTOL, 1
+        loss_ok = (int(held.numel()) >= least
+                   and bool((held <= rtol).all()))
+        capped = rel[~early]
+        x_err = float((res.x.cpu() - ref.x).abs().max())
+        print(f"kernel 4 at full depth ({label}, {full} iterations): loss "
+              f"rel err held on {int(held.numel())} lanes (at least "
+              f"{least}) at rtol {rtol}: max "
+              f"{float(held.max()) if held.numel() else float('nan'):.3e} "
+              f"-> {'ok' if loss_ok else 'FAIL'}; {int(capped.numel())} "
+              f"lanes capped on a side, printed: max "
+              f"{float(capped.max()) if capped.numel() else 0.0:.3e}; x "
+              f"max abs diff {x_err:.3e} (printed: the trajectories are "
+              f"chaotic in float32); iterations kernel "
+              f"{res.n_iters.tolist()[:8]}.. plain "
+              f"{ref.n_iters.tolist()[:8]}..", flush=True)
+        if not loss_ok:
+            raise AssertionError(f"kernel 4 ({label}): full-depth losses "
+                                 "disagree, or too few lanes held")
+        ms = cuda_ms(lambda: enet_lbfgs.solve_cuda(*dargs, max_iters=full),
+                     20, warmup=3)
+        plain_ms = cuda_ms(lambda: enet_lbfgs.solve_plain(
+            *dargs, max_iters=full), plain_reps, warmup=plain_reps // 3)
+        n_ev = int(evals.sum())
+        flops, nbytes = enet_lbfgs.solve_cost(*dargs, n_ev)
+        bound_ms, bound_by = bound(nbytes, flops, 0.0, n_sm)
+        floor_ms = (1e3 * int(evals.max()) * (cfg.M + cfg.N)
+                    * FMA_LATENCY_CYCLES / BOOST_HZ)
+        out[label] = {"lanes": int(args[2].shape[0]), "max_iters": full,
+                      "max_abs_err_5_iters": err5, "x_max_abs_full": x_err,
+                      "loss_rel_full_max": float(rel.max()),
+                      "loss_rel_full_held_max": float(held.max()),
+                      "loss_rel_full_rtol": rtol,
+                      "lanes_held_full": int(held.numel()),
+                      "iters": res.n_iters.tolist(),
+                      "evals_total": n_ev, "evals_max": int(evals.max()),
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "dependent_floor_ms": floor_ms,
+                      "flops": flops, "bytes": nbytes}
+        print(f"kernel 4 ({label}, {out[label]['lanes']} lanes, M=N=20, "
+              f"{full} iterations max): {ms:.4f} ms (median of 20), plain "
+              f"on the card {plain_ms:.1f} ms (median of {plain_reps}), bound "
+              f"{bound_ms:.6f} ms ({bound_by}: {n_ev} evaluations), "
+              f"dependent-step floor {floor_ms:.4f} ms (the slowest lane's "
+              f"{int(evals.max())} evaluations x {cfg.M + cfg.N} dependent "
+              f"FMAs x {FMA_LATENCY_CYCLES} cycles)", flush=True)
+    return out
+
+
+def sym_eigvals_checks(dev, n_sm):
+    """Kernel 5 against eigvalsh (its plain version and the library call)
+    on one step's influence matrix B (M = N = 20, on the card's own solve)
+    and on ENET_EIG_RANDOM random symmetric 20 x 20 matrices, at EIG_RTOL
+    and EIG_ATOL_REL x max|lambda|; bit for bit over two launches; CUDA-event
+    times (median of 20); the bound of the function's work (B read and
+    the eigenvalues written once, ~4/3 n^3 flops per matrix, the work of a
+    symmetric eigensolve, at the FP32 rate) and the dependent-step floor
+    of this run's Jacobi sweeps (the slowest matrix's rotations, each a
+    chain of JACOBI_CHAIN_OPS FP64 operations)."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.ops import sym_eigvals
+    cfg = enet.EnetConfig()
+    st = _to(_enet_problem(enet, cfg, 12), dev)
+    rho, _ = enet.action_to_rho(torch.tensor([[0.3, -0.5]], device=dev))
+    res = enet._solve_lanes(cfg, st.A[None], st.y[None], rho)
+    B_step = enet._influence_matrix_lanes(cfg, st.A[None], st.y[None], rho,
+                                          res)
+    g = torch.Generator().manual_seed(13)
+    R = torch.randn(ENET_EIG_RANDOM, cfg.N, cfg.N, generator=g)
+    cases = {"step B": B_step, "random": (R + R.mT).to(dev)}
+    out = {}
+    for label, Bm in cases.items():
+        sweeps = torch.zeros(Bm.shape[0], dtype=torch.int32, device=dev)
+        got = sym_eigvals.sym_eigvals_cuda(Bm, sweeps=sweeps)
+        if not torch.equal(got, sym_eigvals.sym_eigvals_cuda(Bm)):
+            raise AssertionError(f"kernel 5 ({label}): two launches differ")
+        want = sym_eigvals.sym_eigvals_plain(Bm)
+        scale = float(want.abs().max())
+        err = check_close("sym_eigvals", f"{label} ({Bm.shape[0]} x "
+                          f"{cfg.N} x {cfg.N})", got, want, EIG_RTOL,
+                          EIG_ATOL_REL, scale)
+        ms = cuda_ms(lambda: sym_eigvals.sym_eigvals_cuda(Bm), 20, warmup=3)
+        lib_ms = cuda_ms(lambda: sym_eigvals.sym_eigvals_plain(Bm), 20,
+                         warmup=3)
+        n = cfg.N
+        flops, nbytes = sym_eigvals.eig_cost(Bm)
+        bound_ms, bound_by = bound(nbytes, flops, 0.0, n_sm)
+        floor_ms = (1e3 * int(sweeps.max()) * n * (n - 1) / 2
+                    * JACOBI_CHAIN_OPS * FP64_LATENCY_CYCLES / BOOST_HZ)
+        out[label] = {"matrices": int(Bm.shape[0]), "n": n,
+                      "max_abs_err": err, "max_abs_eig": scale,
+                      "sweeps_max": int(sweeps.max()),
+                      "sweeps_total": int(sweeps.sum()), "ms": ms,
+                      "plain_ms": lib_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "dependent_floor_ms": floor_ms,
+                      "flops": flops, "bytes": nbytes}
+        print(f"kernel 5 ({label}): {ms:.4f} ms (median of 20), eigvalsh "
+              f"(plain version and library call) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}: 4/3 n^3 FP32 flops per "
+              f"matrix, {nbytes:.0f} bytes), dependent-step floor "
+              f"{floor_ms:.4f} ms (the slowest matrix's "
+              f"{int(sweeps.max())} sweeps x {n * (n - 1) // 2} rotations "
+              f"x {JACOBI_CHAIN_OPS} dependent FP64 operations x "
+              f"{FP64_LATENCY_CYCLES} cycles), kernel / floor "
+              f"{ms / floor_ms:.1f}; {int(sweeps.sum())} sweeps in all",
+              flush=True)
+    return out
+
+
+def _program_agents(dev):
+    """(name, episode-program maker, fresh state maker, ring maker) of the
+    three fused trainers at full width (M = N = 20)."""
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.rl import ddpg, sac, td3
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.train import enet_ddpg, enet_sac, enet_td3
+    env = enet.EnetConfig()
+    scfg = enet_sac.agent_config(env, use_hint=True)
+    tcfg = enet_td3.agent_config(env)
+    dcfg = enet_ddpg.agent_config(env)
+    return [
+        ("sac", lambda: enet_sac.make_episode_fn(env, scfg, ENET_BLOCK_STEPS,
+                                                 True),
+         lambda g: sac.sac_init(scfg, g, dev),
+         lambda: _random_ring(rp, scfg, 64, dev, lambda r: 1.0)),
+        ("td3", lambda: enet_td3.make_episode_fn(env, tcfg, 4, True),
+         lambda g: td3.td3_init(tcfg, g, dev),
+         lambda: _random_ring(rp, tcfg, 64, dev,
+                              lambda r: td3.store_priority(tcfg, r))),
+        ("ddpg", lambda: enet_ddpg.make_episode_fn(env, dcfg,
+                                                   ENET_BLOCK_STEPS),
+         lambda g: ddpg.ddpg_init(dcfg, g, dev),
+         lambda: _random_ring(rp, dcfg, 64, dev, lambda r: 1.0))]
+
+
+def _same_run(a, b):
+    """(same bits?, max abs diff) of two (state, ring, generator) runs."""
+    from smartcal_tpu_torch.rl.sac import state_tensors
+    (st_a, buf_a, g_a), (st_b, buf_b, g_b) = a, b
+    ta = state_tensors(st_a) + [buf_a.priority] + list(buf_a.data.values())
+    tb = state_tensors(st_b) + [buf_b.priority] + list(buf_b.data.values())
+    same = all(torch.equal(x, y) for x, y in zip(ta, tb))
+    same = same and torch.equal(g_a.get_state(), g_b.get_state())
+    same = same and (buf_a.cntr, float(buf_a.beta)) == (buf_b.cntr,
+                                                        float(buf_b.beta))
+    diff = max(float((x.detach().float() - y.detach().float()).abs().max())
+               if x.numel() else
+               0.0 for x, y in zip(ta, tb))
+    return same, diff
+
+
+def program_checks(dev, zero_counts, read_counts):
+    """Each trainer's episode program (enet_sac with the hint, enet_td3,
+    enet_ddpg; a 64-transition random ring so the episode learns) replayed
+    against the same body run eagerly on the card from cloned state, ring
+    and generator: the same bits; then enet_sac's make_episode_block_fn(3)
+    against 3 replays of its episode program: the same bits; a replay
+    after the captured state, ring and generator are restored in place
+    (``load_into``) repeats the first replay's bits."""
+    from smartcal_tpu_torch.train import enet_sac
+    from smartcal_tpu_torch.train.blocks import (clone_ring, load_into,
+                                                 load_ring_into)
+    out = {}
+    for name, make, init, ring in _program_agents(dev):
+        gen = torch.Generator(dev).manual_seed(0)
+        st, buf = init(gen), ring()
+        st_e, buf_e = st.copy_to(dev), clone_ring(buf)
+        g_e = torch.Generator(dev)
+        g_e.set_state(gen.get_state())
+        prog = make()
+        zero_counts()
+        t0 = time.perf_counter()
+        score = prog(st, buf, enet_sac.Draws(gen, dev))
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        eager = prog.program._eager(st_e, buf_e, enet_sac.Draws(g_e, dev))
+        same, diff = _same_run((st, buf, gen), (st_e, buf_e, g_e))
+        same = same and float(score) == float(eager[0])
+        print(f"enet_{name} episode program: capture "
+              f"{prog.program.capture_seconds:.3f} s, first call "
+              f"{first_s:.3f} s, score {float(score):.6f}; against its "
+              f"body run eagerly on the card: "
+              f"{'the same bits' if same else f'max abs diff {diff:.3e}'}"
+              f"; launches " + ", ".join(f"{k} {v}" for k, v in
+                                         launches.items() if v), flush=True)
+        if not same:
+            raise AssertionError(f"enet_{name}: the program's replay differs "
+                                 "from its eager body")
+        out[name] = {"capture_s": prog.program.capture_seconds,
+                     "first_call_s": first_s, "launches": launches,
+                     "score": float(score), "same_bits": same}
+    # the block against three chained episodes, and a restore in place
+    name, make, init, ring = _program_agents(dev)[0]
+    from smartcal_tpu_torch.envs import enet
+    env = enet.EnetConfig()
+    cfg = enet_sac.agent_config(env, use_hint=True)
+    gen = torch.Generator(dev).manual_seed(1)
+    st, buf = init(gen), ring()
+    st_b, buf_b = st.copy_to(dev), clone_ring(buf)
+    g_b = torch.Generator(dev)
+    g_b.set_state(gen.get_state())
+    ep = make()
+    chained = [float(ep(st, buf, enet_sac.Draws(gen, dev)))
+               for _ in range(3)]
+    blk = enet_sac.make_episode_block_fn(env, cfg, ENET_BLOCK_STEPS, True, 3)
+    saved = (st_b.copy_to(dev), clone_ring(buf_b), g_b.get_state())
+    blocked = blk(st_b, buf_b, enet_sac.Draws(g_b, dev)).tolist()
+    same, diff = _same_run((st, buf, gen), (st_b, buf_b, g_b))
+    same = same and blocked == chained
+    load_into(st_b, saved[0])
+    load_ring_into(buf_b, saved[1])
+    g_b.set_state(saved[2])
+    again = blk(st_b, buf_b, enet_sac.Draws(g_b, dev)).tolist()
+    same_again, _ = _same_run((st, buf, gen), (st_b, buf_b, g_b))
+    restored = same_again and again == blocked
+    print(f"enet_sac block program (3 episodes) against 3 episode-program "
+          f"replays: {'the same bits' if same else f'max abs diff {diff:.3e}'}"
+          f" (scores {blocked}); replayed again after an in-place restore: "
+          f"{'the same bits' if restored else 'DIFFERENT'}; block capture "
+          f"{blk.capture_seconds:.3f} s", flush=True)
+    if not (same and restored):
+        raise AssertionError("enet_sac: the block program is not the chain "
+                             "of episode programs")
+    out["block3"] = {"same_bits": True, "scores": blocked,
+                     "capture_s": blk.capture_seconds}
+    return out
+
+
+def enet_program_phase(dev, out_dir, zero_counts, read_counts, n_sm,
+                       deep=False):
+    """Kernels 4 and 5 against their plain versions; the episode programs
+    against their eager bodies (:func:`program_checks`); then the bench
+    configuration through the trainer a user calls: ``enet_sac --block
+    20`` and ``--block 1`` (M = N = 20, batch 64, a 1024-slot ring, 5
+    steps; the first program fills the ring past the batch and is not
+    timed), without and with ``--use_hint``, each with --metrics:
+    env-steps/s from the timed programs' spans, capture seconds from the
+    compile events, peak memory, and the runs of kernels 4 and 5 as the
+    kernels count them on the card (counts zeroed just before and read
+    just after), held to what the run asks for: each episode, the
+    capture's eager warm-up episode included, runs kernel 4 once per step
+    and once for the hint, kernel 5 once per step."""
+    from smartcal_tpu_torch.train import enet_sac
+    out = {"kernel4": enet_lbfgs_checks(dev, n_sm, 3 if deep else 1),
+           "kernel5": sym_eigvals_checks(dev, n_sm),
+           "programs": program_checks(dev, zero_counts, read_counts)}
+    for block, hint in ((20, False), (1, False), (20, True), (1, True)):
+        n_ep = (ENET_BLOCK_EPISODES if block > 1
+                else ENET_BLOCK1_EPISODES) * (2 if deep else 1)
+        tag = f"block{block}" + ("_hint" if hint else "")
+        log = os.path.join(out_dir, f"enet_{tag}_run.jsonl")
+        if os.path.exists(log):
+            os.remove(log)
+        args = ["--episodes", str(n_ep), "--steps", str(ENET_BLOCK_STEPS),
+                "--block", str(block), "--seed", "0", "--quiet",
+                "--metrics", log, "--prefix",
+                os.path.join(out_dir, f"enet_{tag}_")]
+        args += ["--use_hint"] if hint else []
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = enet_sac.main(args)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        for f in ("sac_state.pkl", "replaymem_sac.pkl"):
+            os.remove(os.path.join(out_dir, f"enet_{tag}_{f}"))
+        events = _run_events(log)
+        span = "episode_block" if block > 1 else "episode"
+        durs = [e["dur_s"] for e in events
+                if e["event"] == "span" and e["name"] == span]
+        caps = [e["dur_s"] for e in events if e["event"] == "compile"
+                and e["key"].startswith("cuda_graph:enet_sac")]
+        timed = durs[1:]
+        rate = block * ENET_BLOCK_STEPS * len(timed) / sum(timed)
+        scores = summary["final_avg_score"]
+        per_episode = {"enet_lbfgs": ENET_BLOCK_STEPS + int(hint),
+                       "sym_eigvals": ENET_BLOCK_STEPS}
+        want = {k: (n_ep + 1) * v for k, v in per_episode.items()}
+        got = {k: launches[k] for k in want}
+        eager = {k: launches[k + "_eager"] for k in want}
+        replayed = {k: got[k] - eager[k] for k in want}
+        if not (np.isfinite(scores) and len(durs) == n_ep // block
+                and len(caps) == 1 and got == want
+                and eager == per_episode):
+            raise AssertionError(f"enet_sac {' '.join(args)}: {summary}, "
+                                 f"spans {durs}, captures {caps}, kernel "
+                                 f"runs {got} (want {want}), from the host "
+                                 f"outside a capture {eager} (want "
+                                 f"{per_episode}, the warm-up episode)")
+        out[tag] = {
+            "args": args, "summary": summary, "wall_s": wall,
+            "env_steps_per_sec": rate, "program_s": durs,
+            "capture_s": caps[0], "launches": launches,
+            "launches_replayed": replayed, "peak_mem_bytes": peak}
+        print(f"enet_sac --block {block}{' --use_hint' if hint else ''} "
+              f"(M=N=20, batch 64, ring 1024, {ENET_BLOCK_STEPS} steps; "
+              f"{n_ep} episodes): {rate:.2f} env-steps/s over the "
+              f"{len(timed)} timed programs ({np.median(timed):.4f} s "
+              f"each, median), the first (capture {caps[0]:.3f} s) "
+              f"{durs[0]:.3f} s; the trainer's JSON "
+              f"{summary['env_steps_per_sec']} env-steps/s over "
+              f"{wall:.2f} s; peak device memory {peak / 2**20:.0f} MiB; "
+              f"kernel runs counted on the card " + ", ".join(
+                  f"{k} {got[k]} ({replayed[k]} in graph replays, "
+                  f"{eager[k]} eager)" for k in want), flush=True)
+    return out
+
+
+ENET_KERNELS = {
+    "enet_lbfgs": ("smartcal_tpu_torch/csrc/enet_lbfgs.cu",
+                   "no pallas_call: the XLA L-BFGS of the enet step and "
+                   "hint, smartcal_tpu/envs/enet.py:125 and :208"),
+    "sym_eigvals": ("smartcal_tpu_torch/csrc/sym_eigvals.cu",
+                    "no pallas_call: jnp.linalg.eigvalsh of the enet "
+                    "state, smartcal_tpu/envs/enet.py:112")}
+
+
+def enet_kernel_entry(name, report):
+    """The ``kernels`` line's entry of kernel 4 or 5: its runs on the
+    bench configuration's path (``enet_sac --block 20``) as the kernel
+    counts them on the card, how many of them graph replays made, its runs
+    on every other path that counted them, the checks' errors and times,
+    the bound and the dependent-step floor."""
+    ep = report["enet_program"]
+    cases = ep["kernel4"] if name == "enet_lbfgs" else ep["kernel5"]
+    main = cases["step"] if name == "enet_lbfgs" else cases["step B"]
+    by_path = {}
+    for k, v in report.items():
+        if isinstance(v, dict):
+            for sub, w in [(k, v)] + [(f"{k}.{a}", b) for a, b in v.items()
+                                      if isinstance(b, dict)]:
+                if isinstance(w.get("launches"), dict) \
+                        and name in w["launches"]:
+                    by_path[sub] = w["launches"][name]
+    err_key = "max_abs_err_5_iters" if name == "enet_lbfgs" \
+        else "max_abs_err"
+    source, replaces = ENET_KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": ep["block20"]["launches"][name],
+            "launches_replayed": ep["block20"]["launches_replayed"][name],
+            "launches_by_path": by_path,
+            "max_abs_err": max(c[err_key] for c in cases.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "dependent_floor_ms": main["dependent_floor_ms"],
+            "library_ms": main.get("library_ms"),
+            "shapes": ("M=N=20, 1 lane, 200 iterations max"
+                       if name == "enet_lbfgs" else "1 x 20 x 20"),
+            "cases": cases}
 
 def calib_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
     """Drive train/calib_td3.py and train/calib_ddpg.py on the N=62 backend
@@ -4913,7 +5412,7 @@ def bf16_ablation(out_dir, card, parent_src, reps=5, npix=1024, R=652800,
 # -- the distributed-training slice (fleet_phase) ---------------------------
 FLEET_ENET = {"M": 20, "N": 20}        # full width; the inner solve's depth
 FLEET_LBFGS = 30                       # default run (200 under --fleet)
-FLEET_ROUNDS = 4                       # thread fleet rounds (8 under --fleet)
+FLEET_ROUNDS = 6                       # thread fleet rounds (8 under --fleet)
 FLEET_PROC_ROUNDS = 4                  # process fleet rounds, 2 past warm-up
 FLEET_LANES = 16                       # make_parallel_sac lanes
 FLEET_PAR_STEPS = 3                    # its timed vector steps
@@ -5113,7 +5612,8 @@ def fleet_phase(dev, out_dir, zero_counts, read_counts, n_sm, deep=False):
     1. the enet thread fleet (``parallel/learner.train_supervised``) at
        M = N = 20: 2 actor threads x 4 env lanes, IS-clip 2.0, ERE 0.98,
        publish every 2 rounds, a fault plan killing actor 1 at iteration
-       1: at least one restart, learning past the kill, staleness > 0;
+       1, restarted with no backoff: at least one restart, learning past
+       the kill, staleness > 0;
     2. the process fleet: 2 spawned workers on the card for 4 rounds
        (env-steps/s over the 2 past warm-up), every worker joined at
        stop;
@@ -5151,14 +5651,22 @@ def fleet_phase(dev, out_dir, zero_counts, read_counts, n_sm, deep=False):
                     restart_backoff=backoff, device=dev)
     out = {"enet": dict(env_kw), "deep": deep}
 
-    # 1. the thread fleet with a kill
+    # 1. the thread fleet with a kill.  The learner restarts a dead actor
+    # only in a supervision pass (one per round) once its backoff is over;
+    # a round takes tens of ms on the card, so a backoff of 0.05 s could
+    # outlast the run's last rounds and leave the kill unrestarted.  With
+    # no backoff the pass that sees the death restarts the actor, and the
+    # rounds after actor 1's first block leave room for it and for
+    # learning past it.
     run = os.path.join(out_dir, "fleet_thread_run.jsonl")
     install_faults(FaultPlan(kill_actor=1, kill_at=1))
     zero_counts()
     t0 = time.perf_counter()
     try:
         (st, buf), scores, summ = learner.train_supervised(
-            episodes=rounds, metrics=run, **fleet_kw)
+            episodes=rounds, metrics=run, **dict(
+                fleet_kw, restart_backoff=BackoffPolicy(
+                    base_s=0.0, factor=2.0, max_s=0.0, jitter=0.0)))
     finally:
         clear_faults()
     wall = time.perf_counter() - t0
@@ -5982,6 +6490,13 @@ def main():
                     help="build the kernels and run CalibEnv(M=10) at N=62, "
                          "reset + 1 step, on the host-loop backend (the "
                          "oracle chain) beside the vectorized one")
+    ap.add_argument("--enet-program", dest="enet_program",
+                    action="store_true",
+                    help="build the kernels and run the elastic-net "
+                         "programs' phase alone, deeper (kernels 4 and 5, "
+                         "the programs against their eager bodies, "
+                         "enet_sac at --block 20 and 1 over twice the "
+                         "episodes)")
     ap.add_argument("--diag-determinism", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--hessian-split", metavar="PARENT_CU",
@@ -6000,18 +6515,24 @@ def main():
         return diag_determinism_main()
     if (args.runtime or args.runtime_rest or args.supervised or args.bf16
             or args.deterministic_sweep or args.fleet or args.serve
-            or args.oracle):
-        from smartcal_tpu_torch.ops import (build, dft_imager,
-                                            factored_imager, hessian_blocks)
+            or args.oracle or args.enet_program):
+        from smartcal_tpu_torch.ops import (build, dft_imager, enet_lbfgs,
+                                            factored_imager, hessian_blocks,
+                                            sym_eigvals)
         card = card_line()
         print(card, flush=True)
         BUILD_LOGS.update({n: log for n, (_, log) in build.build().items()})
         os.makedirs(args.out, exist_ok=True)
         zero, read = launch_counters(
             {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
-             "factored_imager": factored_imager}, factored_imager)
+             "factored_imager": factored_imager, "enet_lbfgs": enet_lbfgs,
+             "sym_eigvals": sym_eigvals}, factored_imager)
         dev = torch.device("cuda", 0)
-        if args.runtime:
+        if args.enet_program:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            name, out = "enet_program_phase", enet_program_phase(
+                dev, args.out, zero, read, n_sm, deep=True)
+        elif args.runtime:
             name, out = "runtime_phase", runtime_phase(dev, args.out, zero,
                                                        read)
         elif args.runtime_rest:
@@ -6056,12 +6577,14 @@ def main():
     from smartcal_tpu_torch.cal import imager, influence, kernels
     from smartcal_tpu_torch.envs.calib import CalibEnv
     from smartcal_tpu_torch.envs.radio import RadioBackend
-    from smartcal_tpu_torch.ops import (build, dft_imager, factored_imager,
-                                        hessian_blocks)
+    from smartcal_tpu_torch.ops import (build, dft_imager, enet_lbfgs,
+                                        factored_imager, hessian_blocks,
+                                        sym_eigvals)
 
     t_start = time.perf_counter()
     counters = {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
-                "factored_imager": factored_imager}
+                "factored_imager": factored_imager, "enet_lbfgs": enet_lbfgs,
+                "sym_eigvals": sym_eigvals}
     zero_counts, read_counts = launch_counters(counters, factored_imager)
 
     report = {}
@@ -6200,6 +6723,8 @@ def main():
                                         read_counts)
     report["enet_td3_ddpg"] = enet_td3_ddpg_phase(dev, args.out, zero_counts,
                                                   read_counts)
+    report["enet_program"] = enet_program_phase(dev, args.out, zero_counts,
+                                                read_counts, n_sm)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     report["calib_td3_ddpg"] = calib_td3_ddpg_phase(dev, args.out,
                                                     zero_counts, read_counts)
@@ -6608,7 +7133,9 @@ def main():
          "plain_ms": bfk["plain_ms"], "bound_ms": bfk["bound_ms"],
          "bound_by": bfk["bound_by"], "library_ms": bfk["library_ms"],
          "shapes": bfk["shapes"], "bit_identical": bfk["bit_identical"],
-         "ptxas": bfk["ptxas"], **new_paths("factored_imager_bf16")}]
+         "ptxas": bfk["ptxas"], **new_paths("factored_imager_bf16")},
+        enet_kernel_entry("enet_lbfgs", report),
+        enet_kernel_entry("sym_eigvals", report)]
     report.update(kernels=kernels_line, card=card, tiny_rel=tiny_rel,
                   tiny_blocked_rel=tiny_blk_rel,
                   kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],

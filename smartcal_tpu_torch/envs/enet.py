@@ -7,18 +7,25 @@ functions on tensors, semantics line by line:
 * problem: ``min_x ||y - Ax||^2 + rho0 ||x||_2^2 + rho1 ||x||_1``; action
   -> rho affine map with a -0.1 penalty per out-of-range component; fresh
   noise at a fixed SNR per step;
-* inner solve: one lane of :func:`~smartcal_tpu_torch.ops.lbfgs.lbfgs_solve`
-  with ``max_iters=cfg.lbfgs_iters`` and a 7-pair history, its gradient by
-  autograd.  The slope of ``|x|`` at 0 is +1, as JAX's derivative rule for
+* inner solve: one lane of the elastic-net L-BFGS
+  (:func:`~smartcal_tpu_torch.ops.enet_lbfgs.solve`: kernel 4 on CUDA, on
+  the CPU :func:`~smartcal_tpu_torch.ops.lbfgs.lbfgs_solve` with its
+  gradient by autograd) with ``max_iters=cfg.lbfgs_iters`` and a 7-pair
+  history.  The slope of ``|x|`` at 0 is +1, as JAX's derivative rule for
   ``abs`` (``select(x >= 0, g, -g)``) gives in both ``jax.grad`` and
   ``jax.jvp``; torch's ``abs`` would give 0 there, and every solve starts
   at x = 0, so :func:`_abs` writes JAX's rule as a ``where``;
 * influence state: ``B = A @ H^{-1} (d(dL/dx)/dy)`` with the inverse
-  Hessian of the solve's own curvature pairs, state ``1 + eig(B)``;
+  Hessian of the solve's own curvature pairs, state ``1 + eig(B)`` (the
+  symmetric part's eigenvalues by ``ops/sym_eigvals``: kernel 5 on CUDA,
+  ``eigvalsh`` on the CPU);
 * reward ``||y|| / ||Ax - y|| + min(E) / max(E) + penalty``;
 * hint: 5x5 grid over (lambda1, lambda2) with 2-fold cross-validation, the
-  25 x 2 solves as 50 lanes of ONE ``lbfgs_solve`` (the JAX package's
+  25 x 2 solves as 50 lanes of ONE solve (the JAX package's
   ``vmap(vmap(...))``), each lane with its own lambdas and fold mask.
+
+On CUDA nothing of a step or a hint asks the host anything, so the
+episode programs of ``train/enet_sac`` capture it into a CUDA graph.
 
 Randomness is explicit: :func:`reset` takes the raw draws (A, the nonzero
 count Mo, the values z and indices idx), :func:`step` and
@@ -27,7 +34,7 @@ own ``torch.Generator`` on the env's device.
 
 The step and the hint are written once, over E envs as one program (the
 JAX package's ``vmap`` of its one-env functions): each lane keeps its own
-A, y and noise, the E inner solves are the lanes of ONE ``lbfgs_solve``
+A, y and noise, the E inner solves are the lanes of ONE solve
 (:func:`step_lanes`), and the E hints its E x 50 lanes
 (:func:`get_hint_lanes`).  :func:`step`, :func:`get_hint` and the other
 one-env functions run them at E = 1.
@@ -41,9 +48,11 @@ import torch
 from torch import func
 
 from smartcal_tpu_torch import resolve_device
-from smartcal_tpu_torch.ops.autodiff import lane_value_and_grad
-from smartcal_tpu_torch.ops.lbfgs import (LBFGSResult, inv_hessian_mult,
-                                          lbfgs_solve)
+from smartcal_tpu_torch.ops import enet_lbfgs
+from smartcal_tpu_torch.ops.enet_lbfgs import abs_jax as _abs
+from smartcal_tpu_torch.ops.enet_lbfgs import lane_loss as _lane_loss
+from smartcal_tpu_torch.ops.lbfgs import LBFGSResult, inv_hessian_mult
+from smartcal_tpu_torch.ops.sym_eigvals import sym_eigvals
 
 LOW = 1e-3   # enetenv.py:21
 HIGH = 1e-1  # enetenv.py:22
@@ -108,45 +117,26 @@ def action_to_rho(action):
 
 
 def _eig_state(cfg: EnetConfig, B):
-    """``1 + eig(B)``: eigvalsh of the symmetric part on the device
-    (ascending; on CUDA it syncs once for its error check), or host
-    ``numpy.linalg.eigvals`` real parts in ``eig_mode='exact'``, as the
-    JAX package's host callback does."""
+    """``1 + eig(B)``: the ascending eigenvalues of the symmetric part on
+    the device (``ops/sym_eigvals``: kernel 5 on CUDA, ``eigvalsh`` on the
+    CPU), or host ``numpy.linalg.eigvals`` real parts in
+    ``eig_mode='exact'``, as the JAX package's host callback does."""
     if cfg.eig_mode == "exact":
         E = np.real(np.linalg.eigvals(B.detach().cpu().numpy())).astype(
             np.float32)
         E = torch.from_numpy(E).to(B.device)
     else:
-        E = torch.linalg.eigvalsh(0.5 * (B + B.transpose(-1, -2)))
+        E = sym_eigvals(B)
     return 1.0 + E
-
-
-def _abs(x):
-    """``|x|`` whose derivative at 0 is +1 (JAX's rule, see the module
-    docstring)."""
-    return torch.where(x >= 0, x, -x)
-
-
-def _lane_loss(A, y, x, l2, l1, w=None):
-    """Per-lane elastic-net loss of x (L, M): ``sum(((y - A x) w)^2) +
-    l2 ||x||^2 + l1 ||x||_1`` with A (N, M) shared by the lanes or (L, N,
-    M) per lane, y (N,) or (L, N), (L,) or scalar l2, l1 and an optional
-    (L, N) row weight w."""
-    err = y - (A @ x[..., None]).squeeze(-1)
-    if w is not None:
-        err = err * w
-    return (torch.sum(err ** 2, dim=-1) + l2 * torch.sum(x ** 2, dim=-1)
-            + l1 * torch.sum(_abs(x), dim=-1))
 
 
 def _solve_lanes(cfg: EnetConfig, A, y, rho) -> LBFGSResult:
     """The step's inner solves (enetenv.py:96-114) of E envs as the lanes
-    of one L-BFGS solve from x = 0: A (E, N, M), y (E, N), rho (E, 2)."""
-    x0 = torch.zeros((A.shape[0], cfg.M), dtype=A.dtype, device=A.device)
-    return lbfgs_solve(
-        lane_value_and_grad(lambda x: _lane_loss(A, y, x, rho[:, 0],
-                                                 rho[:, 1])),
-        x0, max_iters=cfg.lbfgs_iters, history_size=cfg.history_size)
+    of one L-BFGS solve from x = 0: A (E, N, M), y (E, N), rho (E, 2)
+    (``ops/enet_lbfgs``: kernel 4 on CUDA, the plain solve on the CPU)."""
+    return enet_lbfgs.solve(A, y, rho[:, 0], rho[:, 1],
+                            max_iters=cfg.lbfgs_iters,
+                            history_size=cfg.history_size)
 
 
 def _solve(cfg: EnetConfig, A, y, rho) -> LBFGSResult:
@@ -154,18 +144,23 @@ def _solve(cfg: EnetConfig, A, y, rho) -> LBFGSResult:
     return _solve_lanes(cfg, A[None], y[None], rho[None])
 
 
-def _influence_lanes(cfg: EnetConfig, A, y, rho, res: LBFGSResult):
-    """Influence eigen-states (enetenv.py:117-139) at the solves' x: the
+def _influence_matrix_lanes(cfg: EnetConfig, A, y, rho, res: LBFGSResult):
+    """The influence matrices (enetenv.py:117-139) at the solves' x: the
     model Jacobian is A; ``ll`` = d(dL/dx)/dy at y = ones (it equals
     -2 A^T), by ``torch.func`` over the lanes, through each lane's inverse
-    Hessian, ``B = A @ mm``.  Returns (E, N)."""
+    Hessian, ``B = A @ mm``.  Returns (E, N, N)."""
     def lossfn(xv, yv, Av, rv):
         return _lane_loss(Av, yv, xv[None], rv[0], rv[1])[0]
 
     ll = func.vmap(func.jacrev(func.grad(lossfn, argnums=0), argnums=1))(
         res.x, torch.ones_like(y), A, rho)                    # (E, M, N)
-    mm = inv_hessian_mult(res.hist, ll)
-    return _eig_state(cfg, A @ mm)
+    return A @ inv_hessian_mult(res.hist, ll)
+
+
+def _influence_lanes(cfg: EnetConfig, A, y, rho, res: LBFGSResult):
+    """Influence eigen-states ``1 + eig(B)`` of
+    :func:`_influence_matrix_lanes`.  Returns (E, N)."""
+    return _eig_state(cfg, _influence_matrix_lanes(cfg, A, y, rho, res))
 
 
 def _influence(cfg: EnetConfig, A, y, rho, res: LBFGSResult):
@@ -228,10 +223,20 @@ def draw_noise(cfg: EnetConfig, st: EnetState, noise) -> EnetState:
     return st._replace(y=_noisy(cfg, st.y0, noise))
 
 
+_GRIDS = {}
+
+
 def _grid(device):
-    """The (25, 2) (lambda1, lambda2) candidates, lambda1-major."""
-    return torch.tensor([(l1, l2) for l1 in HINT_GRID for l2 in HINT_GRID],
-                        dtype=torch.float32, device=device)
+    """The (25, 2) (lambda1, lambda2) candidates, lambda1-major; made once
+    per device, so a CUDA graph that captures the hint copies nothing from
+    the host."""
+    key = str(torch.device(device))
+    g = _GRIDS.get(key)
+    if g is None:
+        g = _GRIDS[key] = torch.tensor(
+            [(l1, l2) for l1 in HINT_GRID for l2 in HINT_GRID],
+            dtype=torch.float32, device=device)
+    return g
 
 
 def hint_lanes(cfg: EnetConfig, device):
@@ -266,16 +271,11 @@ def hint_solve_lanes(cfg: EnetConfig, st: EnetState):
     result."""
     E = st.A.shape[0]
     lams, test = hint_lanes(cfg, st.A.device)
-    n = lams.shape[0]
     lams, test = lams.repeat(E, 1), test.repeat(E, 1)
-    A = st.A.repeat_interleave(n, dim=0)
-    y = st.y.repeat_interleave(n, dim=0)
     w = torch.where(test, 0.0, 1.0)
-    x0 = torch.zeros((E * n, cfg.M), dtype=st.A.dtype, device=st.A.device)
-    res = lbfgs_solve(
-        lane_value_and_grad(lambda x: _lane_loss(A, y, x, lams[:, 1],
-                                                 lams[:, 0], w)),
-        x0, max_iters=HINT_ITERS, history_size=cfg.history_size)
+    res = enet_lbfgs.solve(st.A, st.y, lams[:, 1], lams[:, 0], w,
+                           max_iters=HINT_ITERS,
+                           history_size=cfg.history_size)
     return hint_mses(cfg, st, res.x), res
 
 

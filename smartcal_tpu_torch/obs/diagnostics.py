@@ -99,8 +99,9 @@ def make_diag(device=None, **fields: object) -> UpdateDiag:
         if isinstance(v, torch.Tensor):
             vals[k] = v.detach().to(device=device, dtype=torch.float32)
         else:
-            vals[k] = torch.tensor(float(v), dtype=torch.float32,
-                                   device=device)
+            # a fill, not a host-to-device copy: a CUDA graph captures it
+            vals[k] = torch.full((), float(v), dtype=torch.float32,
+                                 device=device)
     if fields:
         raise TypeError(f"unknown UpdateDiag field(s) {sorted(fields)}")
     return UpdateDiag(**vals)

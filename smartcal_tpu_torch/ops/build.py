@@ -112,3 +112,46 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+class DeviceLaunchCount:
+    """A kernel's count of its own runs, kept on the card: one int64 per
+    device, which the kernel's first thread increments each time it runs.
+    A launch replayed from a CUDA graph counts as an eager one does, and a
+    capture, which runs nothing, adds nothing.  The wrapper passes
+    :meth:`pointer` to every launch; :meth:`read` sums the devices and
+    :meth:`reset` zeroes them (each synchronises the devices first)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._counts = {}
+
+    def pointer(self, device) -> int:
+        """The device address of ``device``'s count, made (zeroed) on first
+        use; the first use may not be inside a CUDA graph capture, where a
+        zeroing would be recorded and replayed."""
+        import torch
+        t = self._counts.get(device)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{self.name}: first launch on {device} inside a CUDA "
+                    "graph capture; launch it once before capturing")
+            t = torch.zeros((), dtype=torch.int64, device=device)
+            self._counts[device] = t
+        return t.data_ptr()
+
+    def _sync(self):
+        import torch
+        for d in self._counts:
+            torch.cuda.synchronize(d)
+
+    def read(self) -> int:
+        self._sync()
+        return sum(int(t) for t in self._counts.values())
+
+    def reset(self) -> None:
+        self._sync()
+        for t in self._counts.values():
+            t.zero_()
+        self._sync()

@@ -10,7 +10,9 @@ reference's ``T.norm(...)**2``, ``:281-284``), actor loss
 
 Randomness is explicit: :func:`choose_action` takes the OU step's unit
 normal draw, :func:`learn` the replay's Gumbel noise; :class:`DDPGAgent`
-draws them from its own ``torch.Generator``.
+draws them from its own ``torch.Generator``.  Inside an episode program
+the counters are 0-d device tensors and "learn or not" is a select
+(``rl/sac``'s module doc); the OU state is then written in place.
 """
 
 import copy
@@ -23,9 +25,10 @@ import torch
 from smartcal_tpu_torch import obs, resolve_device
 from smartcal_tpu_torch.obs import diagnostics as dg
 from smartcal_tpu_torch.rl import replay as rp
-from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, _host, _params,
-                                       adam_init, adam_update,
-                                       record_update_cost, soft_update)
+from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, Kept, _host,
+                                       _params, adam_init, adam_update,
+                                       gate_metrics, record_update_cost,
+                                       soft_update, state_tensors)
 from smartcal_tpu_torch.rl.td3 import _grads, build_nets
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
 
@@ -61,8 +64,8 @@ def ou_sample(cfg: DDPGConfig, st: OUState, noise) -> Tuple[torch.Tensor,
     """One Ornstein-Uhlenbeck step (enet_ddpg.py:30-35), mu = 0, from the
     unit normal ``noise``."""
     x_prev = st.x_prev
-    sqrt_dt = torch.sqrt(torch.tensor(cfg.ou_dt, dtype=x_prev.dtype,
-                                      device=x_prev.device))
+    sqrt_dt = torch.sqrt(torch.full((), cfg.ou_dt, dtype=x_prev.dtype,
+                                    device=x_prev.device))
     x = (x_prev - cfg.ou_theta * x_prev * cfg.ou_dt
          + cfg.ou_sigma * sqrt_dt * noise)
     return x, OUState(x_prev=x)
@@ -111,7 +114,10 @@ def choose_action(cfg: DDPGConfig, st: DDPGState, obs, noise):
     in the reference (the env clamps and penalises); advances the OU
     state."""
     n, ou = ou_sample(cfg, OUState(st.noise), noise)
-    st.noise = ou.x_prev
+    if st.carried:
+        st.noise.copy_(ou.x_prev)       # device form: the captured tensor
+    else:
+        st.noise = ou.x_prev
     return st.actor(obs) + n
 
 
@@ -165,16 +171,29 @@ def learn(cfg: DDPGConfig, st: DDPGState, buf: rp.ReplayState,
     """One DDPG learn step (enet_ddpg.py:251-302) on a uniform sample
     (``sample_noise``: its Gumbel noise, default from ``generator``); a
     no-op while the ring holds fewer than ``batch_size`` transitions (with
-    ``collect_diag``, a zero ``diag`` then)."""
+    ``collect_diag``, a zero ``diag`` then; a select on the device form)."""
+    if torch.is_tensor(buf.cntr):
+        learn_on = buf.cntr >= cfg.batch_size
+        batch, _ = rp.replay_sample_uniform(buf, cfg.batch_size, generator,
+                                            gumbel_noise=sample_noise)
+        kept = Kept(state_tensors(st) + [buf.priority])
+        m = learn_from_batch(cfg, st, batch, collect_diag=collect_diag)
+        kept.restore_where(~learn_on)
+        return gate_metrics(learn_on, m)
     if buf.cntr < cfg.batch_size:
-        zero = torch.zeros((), device=buf.device)
-        out = {"critic_loss": zero, "actor_loss": zero}
-        if collect_diag:
-            out["diag"] = dg.zero_diag(buf.device)
-        return out
+        return _no_learn(buf, collect_diag)
     batch, _ = rp.replay_sample_uniform(buf, cfg.batch_size, generator,
                                         gumbel_noise=sample_noise)
     return learn_from_batch(cfg, st, batch, collect_diag=collect_diag)
+
+
+def _no_learn(buf, collect_diag):
+    """The metrics of a learn step that did not learn."""
+    zero = torch.zeros((), device=buf.device)
+    out = {"critic_loss": zero, "actor_loss": zero}
+    if collect_diag:
+        out["diag"] = dg.zero_diag(buf.device)
+    return out
 
 
 class DDPGAgent:

@@ -7,6 +7,14 @@ exponent ``beta``.  Both evolve deterministically (one per store, one per
 prioritized sample), so keeping them on the host lets every decision
 (ring slot, fill level, "enough to learn?") be made with no device sync.
 
+The episode programs (``train/blocks.make_block_fn``) carry both as 0-d
+device tensors instead, as the JAX state does: a CUDA graph bakes host
+numbers in at capture.  Every function here takes either form; on the
+device form a store writes its slot with ``index_copy_`` and bumps
+``cntr`` in place, the uniform sampler draws Gumbel noise over the whole
+ring and masks the unfilled slots (the JAX package's draw), and ``beta``
+anneals in place.
+
 * uniform sampling without replacement: Gumbel-top-k over the filled
   prefix, an exact draw of a uniform subset;
 * prioritized sampling: stratified prefix-sum search, ``searchsorted(
@@ -53,8 +61,18 @@ class ReplayState:
         return self.priority.shape[0]
 
     @property
-    def filled(self) -> int:
+    def filled(self):
+        """Stored transitions held: a host int, or a 0-d tensor on the
+        device form."""
+        if torch.is_tensor(self.cntr):
+            return torch.clamp(self.cntr, max=self.size)
         return min(self.cntr, self.size)
+
+    @property
+    def on_device(self) -> bool:
+        """True when ``cntr`` and ``beta`` are 0-d device tensors (the
+        form inside an episode program)."""
+        return torch.is_tensor(self.cntr)
 
     @property
     def device(self) -> torch.device:
@@ -163,6 +181,33 @@ def replay_init(size: int, spec: dict, device="cuda") -> ReplayState:
                                          device=device))
 
 
+def _device_add(buf, transition, priority, error, error_clip):
+    """:func:`replay_add` on the device form: slot ``cntr % size`` written
+    with ``index_copy_`` (Python numbers by a fill), ``cntr`` bumped in
+    place; no host number depends on the device."""
+    idx = torch.remainder(buf.cntr, buf.size).reshape(1)
+    for k, v in buf.data.items():
+        val = transition[k]
+        if torch.is_tensor(val):
+            val = val.to(device=v.device, dtype=v.dtype)
+        else:
+            val = torch.full(v.shape[1:], val, dtype=v.dtype,
+                             device=v.device)
+        v.index_copy_(0, idx, val.reshape((1,) + v.shape[1:]))
+    if priority is None:
+        if error is None:
+            pmax = buf.priority.max()
+            priority = torch.where(pmax == 0.0, error_clip, pmax)
+        else:
+            priority = priority_from_errors(error, error_clip).to(buf.device)
+    if torch.is_tensor(priority):
+        buf.priority.index_copy_(0, idx, priority.to(torch.float32)
+                                 .reshape(1))
+    else:
+        buf.priority.index_fill_(0, idx, float(priority))
+    buf.cntr += 1
+
+
 def _store_priority(buf, idx, priority, errors, error_clip):
     if priority is None:
         if errors is None:
@@ -180,6 +225,8 @@ def replay_add(buf: ReplayState, transition: dict, priority=None,
     Priority: ``priority`` when given; else min((|error|+eps)^alpha, clip);
     else the current max priority (``clip`` while the buffer is
     untouched), as ``PER.store_transition`` does."""
+    if buf.on_device:
+        return _device_add(buf, transition, priority, error, error_clip)
     idx = buf.cntr % buf.size
     for k, v in buf.data.items():
         v[idx] = torch.as_tensor(transition[k], dtype=v.dtype,
@@ -215,7 +262,17 @@ def replay_sample_uniform(buf: ReplayState, batch_size: int,
                           generator=None, gumbel_noise=None):
     """Uniform sample without replacement over the filled prefix:
     Gumbel-top-k.  ``gumbel_noise``: (size,) or (filled,) Gumbel draws
-    (default: drawn from ``generator``).  Returns (batch, idx)."""
+    (default: drawn from ``generator``; over the whole ring on the device
+    form, whose unfilled slots score -inf).  Returns (batch, idx)."""
+    if buf.on_device:
+        n = buf.size
+        if gumbel_noise is None:
+            gumbel_noise = gumbel(n, generator, buf.device)
+        slots = torch.arange(n, device=buf.device)
+        score = torch.where(slots < buf.filled, gumbel_noise[:n],
+                            float("-inf"))
+        _, idx = torch.topk(score, batch_size)
+        return _gather(buf, idx), idx
     filled = buf.filled
     if gumbel_noise is None:
         gumbel_noise = gumbel(filled, generator, buf.device)
@@ -246,12 +303,20 @@ def replay_sample_per(buf: ReplayState, batch_size: int, generator=None,
     priority = buf.priority
     if recency_eta is not None and recency_eta < 1.0:
         priority = priority * ere_weights(buf, recency_eta)
-    beta = np.minimum(np.float32(1.0),
-                      buf.beta + np.float32(PER_BETA_INCREMENT))
+    if buf.on_device:
+        beta = torch.clamp(buf.beta + np.float32(PER_BETA_INCREMENT),
+                           max=1.0)
+    else:
+        beta = np.minimum(np.float32(1.0),
+                          buf.beta + np.float32(PER_BETA_INCREMENT))
     idx, total = _stratified(priority, batch_size, generator, u)
     probs = priority[idx] / total
-    is_w = (batch_size * probs) ** (-float(beta))
-    buf.beta = beta
+    if buf.on_device:
+        is_w = torch.pow(batch_size * probs, -beta)
+        buf.beta.copy_(beta)
+    else:
+        is_w = (batch_size * probs) ** (-float(beta))
+        buf.beta = beta
     return _gather(buf, idx), idx, is_w / is_w.max()
 
 
@@ -263,7 +328,10 @@ def ere_weights(buf: ReplayState, eta: float):
     n, filled = buf.size, buf.filled
     slots = torch.arange(n, device=buf.device)
     ages = torch.remainder(buf.cntr - 1 - slots, max(n, 1))
-    x = ages.to(torch.float32) / max(filled - 1, 1)
+    if buf.on_device:
+        x = ages.to(torch.float32) / torch.clamp(filled - 1, min=1)
+    else:
+        x = ages.to(torch.float32) / max(filled - 1, 1)
     # a Python base: no host-to-device copy (the same float32 bits)
     w = torch.pow(float(eta), ERE_SPAN * x)
     return torch.where(slots < filled, w, 0.0)

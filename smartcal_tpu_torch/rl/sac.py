@@ -29,6 +29,16 @@ normal draws ``(n_next, n_pi, n_dual)``, :func:`learn` the replay draws
 "learn or not" and "dual update or not" are decided without a device
 sync.
 
+Inside an episode program (``train/blocks.make_block_fn``) the counters
+are 0-d device tensors instead (the learn counter, the Adam counts and the
+ring's ``cntr`` and ``beta``), as the JAX state carries them: a CUDA graph
+bakes host numbers in at capture.  There each decision is a select, as
+the JAX package's ``lax.cond`` is under ``vmap``: the learn step always
+runs, and where the ring holds fewer than ``batch_size`` transitions
+:class:`Kept` puts every tensor it changed back (the dual update likewise
+off its cadence); Adam's bias correction is taken in float64 from the
+device count and rounded to float32, as the host form's Python float is.
+
 ``SACConfig(prioritized=True, replay_backend="native")`` keeps the ring on
 the host (:class:`~smartcal_tpu_torch.rl.replay_native.NativePER`, the C++
 sum tree), sampled with a numpy generator seeded ``seed + 1`` as in the
@@ -120,6 +130,16 @@ def adam_init(params: dict) -> AdamState:
                      {k: torch.zeros_like(v) for k, v in params.items()})
 
 
+def _bias_correction(beta: float, count):
+    """``1 - beta ** count``: a Python float of the host count, or a 0-d
+    float32 tensor of a device count, taken in float64 and rounded once,
+    as the host form's float is where the update reads it."""
+    if torch.is_tensor(count):
+        return (1.0 - torch.pow(beta, count.to(torch.float64))).to(
+            torch.float32)
+    return 1.0 - beta ** count
+
+
 @torch.no_grad()
 def adam_update(opt: AdamState, params: dict, grads, lr: float) -> list:
     """One ``optax.adam(lr)`` step applied in place: ``p -= lr * mu_hat /
@@ -139,13 +159,67 @@ def adam_update(opt: AdamState, params: dict, grads, lr: float) -> list:
     torch._foreach_add_(mu, grads, alpha=1.0 - ADAM_B1)
     torch._foreach_mul_(nu, ADAM_B2)
     torch._foreach_addcmul_(nu, grads, grads, value=1.0 - ADAM_B2)
-    den = torch._foreach_div(nu, 1.0 - ADAM_B2 ** opt.count)
+    den = torch._foreach_div(nu, _bias_correction(ADAM_B2, opt.count))
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, ADAM_EPS)
-    step = torch._foreach_div(mu, 1.0 - ADAM_B1 ** opt.count)
+    step = torch._foreach_div(mu, _bias_correction(ADAM_B1, opt.count))
     torch._foreach_div_(step, den)
     torch._foreach_add_(p, step, alpha=-lr)
     return step
+
+
+def state_tensors(st, names=None) -> list:
+    """The tensors of agent state ``st`` that an update changes in place:
+    the parameters of its modules, its Adam moments and (device form)
+    counts, its other tensors and (device form) its counters; ``names``
+    picks the fields (default: all)."""
+    names = names or (st.NETS + st.OPTS + st.TENSORS + st.INTS)
+    out = []
+    for k in names:
+        v = getattr(st, k)
+        if k in st.NETS:
+            out += list(v.parameters())
+        elif k in st.OPTS:
+            out += list(v.mu.values()) + list(v.nu.values())
+            if torch.is_tensor(v.count):
+                out.append(v.count)
+        elif torch.is_tensor(v):
+            out.append(v)
+    return out
+
+
+class Kept:
+    """Copies of tensors taken before an update that a device-side
+    decision gates: :meth:`restore_where` puts them back where the gate is
+    off, leaving every tensor as it was, bit for bit (the select form of
+    the JAX package's ``lax.cond``)."""
+
+    def __init__(self, tensors):
+        self.live = list(tensors)
+        with torch.no_grad():
+            self.saved = [t.clone() for t in self.live]
+
+    def restore_where(self, off) -> None:
+        with torch.no_grad():
+            for t, c in zip(self.live, self.saved):
+                torch.where(off, c, t, out=t)
+
+
+def gate_metrics(on, metrics: dict) -> dict:
+    """``metrics`` where ``on``, else the no-learn branch's zeros (a diag
+    field by field; the tensors the state holds, such as alpha, are
+    returned as they are)."""
+    out = {}
+    for k, v in metrics.items():
+        if isinstance(v, dg.UpdateDiag):
+            out[k] = dg.UpdateDiag(*(torch.where(on, f, 0.0) for f in v))
+        elif k in ("alpha", "rho") or not torch.is_tensor(v):
+            out[k] = v
+        elif k == "is_clip_mean":
+            out[k] = torch.where(on, v, 1.0)
+        else:
+            out[k] = torch.where(on, v, 0.0)
+    return out
 
 
 def soft_update(target, source, tau: float) -> None:
@@ -194,6 +268,14 @@ class AgentState:
     @staticmethod
     def build(cfg, name: str, device) -> torch.nn.Module:
         raise NotImplementedError
+
+    @property
+    def carried(self) -> bool:
+        """True while the counters are 0-d device tensors (inside an
+        episode program, ``train/blocks.make_block_fn``)."""
+        return (any(torch.is_tensor(getattr(self, k)) for k in self.INTS)
+                or any(torch.is_tensor(getattr(self, k).count)
+                       for k in self.OPTS))
 
     def to_host(self) -> dict:
         """Everything as numpy arrays and Python numbers (the pickle of
@@ -435,9 +517,17 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
     ua = adam_update(st.actor_opt, pa, ga, cfg.lr_a)
 
     # -- dual/temperature updates every 10 learn calls
-    # (enet_sac.py:608-617), on the updated actor
-    if (cfg.use_hint or cfg.learn_alpha) \
-            and st.learn_counter % DUAL_EVERY == 0:
+    # (enet_sac.py:608-617), on the updated actor; on a device counter
+    # always computed, then kept where the cadence says so
+    on_device = torch.is_tensor(st.learn_counter)
+    if on_device:
+        dual_on = torch.remainder(st.learn_counter, DUAL_EVERY) == 0
+    if (cfg.use_hint or cfg.learn_alpha) and (
+            on_device or st.learn_counter % DUAL_EVERY == 0):
+        if on_device:
+            alpha_t, rho_t = st.alpha, st.rho
+            kept = Kept(state_tensors(st, ("alpha", "rho", "log_alpha",
+                                           "alpha_opt")))
         with torch.no_grad():
             acts_d, lp_d = gaussian_sample(*st.actor(s), n_dual)
             if cfg.learn_alpha:
@@ -453,6 +543,13 @@ def learn_from_batch(cfg: SACConfig, st: SACState, batch: dict, is_w,
                     st.alpha = torch.exp(st.log_alpha)
             if cfg.use_hint:
                 st.rho = rho + cfg.admm_rho * _hint_gap(cfg, acts_d, hint)
+        if on_device:
+            # the new values into the captured tensors, then the cadence
+            with torch.no_grad():
+                alpha_t.copy_(st.alpha)
+                rho_t.copy_(st.rho)
+            st.alpha, st.rho = alpha_t, rho_t
+            kept.restore_where(~dual_on)
 
     # -- soft target update (enet_sac.py:523-542)
     soft_update(st.t1, st.c1, cfg.tau)
@@ -511,16 +608,39 @@ def learn(cfg: SACConfig, st: SACState, buf, generator=None,
     ``buf`` is the flat ring or the sharded one (``rl/replay_sharded``):
     the sample and priority update dispatch on its type, and nothing of
     the sampled batch crosses to the host.  ``learner_version`` arms the
-    staleness weighting when ``cfg.is_clip`` is set."""
+    staleness weighting when ``cfg.is_clip`` is set.
+
+    On the device form of ``st`` and ``buf`` (an episode program's) the
+    step always runs and "learn or not" is a select (:class:`Kept`)."""
+    if torch.is_tensor(buf.cntr):
+        learn_on = buf.cntr >= cfg.batch_size
+        kept = Kept(state_tensors(st) + [buf.priority, buf.beta])
+        m = _learn_step(cfg, st, buf, generator, sample_noise, noise,
+                        collect_diag, learner_version)
+        kept.restore_where(~learn_on)
+        return gate_metrics(learn_on, m)
     if buf.cntr < cfg.batch_size:
-        zero = torch.zeros((), device=st.alpha.device)
-        out = {"critic_loss": zero, "actor_loss": zero, "alpha": st.alpha,
-               "rho": st.rho}
-        if cfg.is_clip > 0:
-            out.update(rp.zero_clip_aux(st.alpha.device))
-        if collect_diag:
-            out["diag"] = dg.zero_diag(st.alpha.device)
-        return out
+        return _no_learn(cfg, st, collect_diag)
+    return _learn_step(cfg, st, buf, generator, sample_noise, noise,
+                       collect_diag, learner_version)
+
+
+def _no_learn(cfg, st, collect_diag):
+    """The metrics of a learn step that did not learn."""
+    zero = torch.zeros((), device=st.alpha.device)
+    out = {"critic_loss": zero, "actor_loss": zero, "alpha": st.alpha,
+           "rho": st.rho}
+    if cfg.is_clip > 0:
+        out.update(rp.zero_clip_aux(st.alpha.device))
+    if collect_diag:
+        out["diag"] = dg.zero_diag(st.alpha.device)
+    return out
+
+
+def _learn_step(cfg, st, buf, generator, sample_noise, noise, collect_diag,
+                learner_version):
+    """Sample, :func:`learn_from_batch`, re-prioritise: :func:`learn`
+    past its gate."""
     batch, idx, is_w = sample_batch(cfg, buf, generator, sample_noise)
     if noise is None:
         noise = tuple(torch.randn((cfg.batch_size, cfg.n_actions),

@@ -22,6 +22,12 @@ Randomness is explicit: :func:`choose_action` takes its two normal draws,
 :func:`learn` the replay draws and the smoothing normal; :class:`TD3Agent`
 draws them from its own ``torch.Generator``.  Adam is optax's, in place
 (``rl/sac.adam_update``).
+
+Inside an episode program the counters (``learn_counter``, ``time_step``,
+the Adam counts and the ring's) are 0-d device tensors, and each decision
+they make is a select (``rl/sac``'s module doc): the warmup choice, the
+learn gate and the delayed actor update, whose changes :class:`Kept` puts
+back off its cadence.
 """
 
 import copy
@@ -37,10 +43,11 @@ from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl.networks import (MLPCritic, MLPDeterministicActor,
                                             SplitImageMetaCritic,
                                             SplitImageMetaDeterministicActor)
-from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, _host, _params,
-                                       adam_init, adam_update,
-                                       record_update_cost, sample_batch,
-                                       soft_update, weighted_critic_loss)
+from smartcal_tpu_torch.rl.sac import (AdamState, AgentState, Kept, _host,
+                                       _params, adam_init, adam_update,
+                                       gate_metrics, record_update_cost,
+                                       sample_batch, soft_update,
+                                       state_tensors, weighted_critic_loss)
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle, safe_pickle_load
 
 
@@ -144,7 +151,10 @@ def choose_action(cfg: TD3Config, st: TD3State, obs, noise):
     both used every call as in the JAX package; the warmup branch is taken
     on the host counter."""
     n_random, n_explore = noise
-    if st.time_step < cfg.warmup:
+    if torch.is_tensor(st.time_step):          # device form: a select
+        mu = torch.where(st.time_step < cfg.warmup, cfg.noise * n_random,
+                         st.actor(obs))
+    elif st.time_step < cfg.warmup:
         mu = cfg.noise * n_random
     else:
         mu = st.actor(obs)
@@ -179,7 +189,7 @@ def _actor_admm_update(cfg: TD3Config, st: TD3State, s, hint, is_w):
     numel = float(B * cfg.n_actions)
     y = torch.zeros(B * cfg.n_actions, device=s.device)
     y0, a0 = y, torch.zeros_like(y)
-    rho = torch.tensor(cfg.admm_rho, dtype=torch.float32, device=s.device)
+    rho = torch.full((), cfg.admm_rho, dtype=torch.float32, device=s.device)
     for admm in range(cfg.n_admm):
         actions = st.actor(s)
         q1 = st.c1(s, actions)
@@ -256,7 +266,14 @@ def learn_from_batch(cfg: TD3Config, st: TD3State, batch: dict, is_w,
 
     st.learn_counter += 1
     actor_diag = {}
-    if st.learn_counter % cfg.update_actor_interval == 0:
+    on_device = torch.is_tensor(st.learn_counter)
+    if on_device:
+        actor_on = torch.remainder(st.learn_counter,
+                                   cfg.update_actor_interval) == 0
+    if on_device or st.learn_counter % cfg.update_actor_interval == 0:
+        if on_device:
+            kept = Kept(state_tensors(st, ("actor", "actor_opt", "t_actor",
+                                           "t1", "t2")))
         if collect_diag:
             old = [p.detach().clone() for p in st.actor.parameters()]
         if cfg.use_hint:
@@ -278,6 +295,10 @@ def learn_from_batch(cfg: TD3Config, st: TD3State, batch: dict, is_w,
                 hint_residual=hres)
         for t, o in ((st.t_actor, st.actor), (st.t1, st.c1), (st.t2, st.c2)):
             soft_update(t, o, cfg.tau)
+        if on_device:
+            kept.restore_where(~actor_on)
+            actor_diag = {k: torch.where(actor_on, v, 0.0)
+                          for k, v in actor_diag.items()}
     out["critic_loss"] = closs.detach()
     if collect_diag:
         q = q1.detach()
@@ -311,14 +332,35 @@ def learn(cfg: TD3Config, st: TD3State, buf, generator=None,
     Updates ``st`` and ``buf`` (flat or sharded) in place; returns the
     metrics (with ``collect_diag``, ``diag``: a zero one when no learn
     happened).  ``cfg.is_clip`` with ``learner_version`` weights the critic
-    loss by :func:`staleness_weights`."""
+    loss by :func:`staleness_weights`.  On the device form (an episode
+    program's) the step always runs and "learn or not" is a select."""
+    if torch.is_tensor(buf.cntr):
+        learn_on = buf.cntr >= cfg.batch_size
+        kept = Kept(state_tensors(st) + [buf.priority, buf.beta])
+        m = _learn_step(cfg, st, buf, generator, sample_noise, smooth_noise,
+                        collect_diag, learner_version)
+        kept.restore_where(~learn_on)
+        return gate_metrics(learn_on, m)
     if buf.cntr < cfg.batch_size:
-        out = {"critic_loss": torch.zeros((), device=buf.device)}
-        if cfg.is_clip > 0:
-            out.update(rp.zero_clip_aux(buf.device))
-        if collect_diag:
-            out["diag"] = dg.zero_diag(buf.device)
-        return out
+        return _no_learn(cfg, buf, collect_diag)
+    return _learn_step(cfg, st, buf, generator, sample_noise, smooth_noise,
+                       collect_diag, learner_version)
+
+
+def _no_learn(cfg, buf, collect_diag):
+    """The metrics of a learn step that did not learn."""
+    out = {"critic_loss": torch.zeros((), device=buf.device)}
+    if cfg.is_clip > 0:
+        out.update(rp.zero_clip_aux(buf.device))
+    if collect_diag:
+        out["diag"] = dg.zero_diag(buf.device)
+    return out
+
+
+def _learn_step(cfg, st, buf, generator, sample_noise, smooth_noise,
+                collect_diag, learner_version):
+    """Sample, :func:`learn_from_batch`, re-prioritise: :func:`learn`
+    past its gate."""
     batch, idx, is_w = sample_batch(cfg, buf, generator, sample_noise)
     clip_aux = {}
     if cfg.is_clip > 0:

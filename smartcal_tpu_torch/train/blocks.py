@@ -787,3 +787,203 @@ def run_batched_agent_loop(env, agent, agent_cfg, args, tob, rt,
     finally:
         tob.close()
     return scores
+
+
+# ---------------------------------------------------------------------------
+# The episode programs (the JAX trainers' jitted episode and its block scan)
+# ---------------------------------------------------------------------------
+
+class CarriedCounters:
+    """The host counters of an agent state and its ring (the state's
+    ``INTS``, its Adam counts, the ring's ``cntr`` and ``beta``) as 0-d
+    device tensors, the form the JAX state carries and a program needs: a
+    CUDA graph bakes host numbers in at capture.  :meth:`carry` fills the
+    tensors from the host values and puts them in their place;
+    :meth:`release` puts host values back from one read-back of
+    :meth:`exported`."""
+
+    def __init__(self, st, buf):
+        self.slots = ([(st, k) for k in st.INTS]
+                      + [(getattr(st, k), "count") for k in st.OPTS]
+                      + [(buf, "cntr"), (buf, "beta")])
+        self.tensors = [torch.zeros((), device=buf.device,
+                                    dtype=torch.float32 if a == "beta"
+                                    else torch.int64)
+                        for _, a in self.slots]
+
+    def host_values(self) -> list:
+        return [getattr(o, a) for o, a in self.slots]
+
+    def carry(self) -> None:
+        for (o, a), t in zip(self.slots, self.tensors):
+            v = getattr(o, a)
+            if not torch.is_tensor(v):
+                t.fill_(float(v) if a == "beta" else int(v))
+            setattr(o, a, t)
+
+    def exported(self):
+        """The counters as one (n,) float64 tensor (exact for the int64
+        counts up to 2^53 and for float32 beta)."""
+        return torch.stack([t.to(torch.float64) for t in self.tensors])
+
+    def release(self, values) -> None:
+        for (o, a), v in zip(self.slots, list(values)):
+            setattr(o, a, np.float32(v) if a == "beta" else int(v))
+
+
+def clone_ring(buf):
+    """An independent copy of a flat ring (host counters)."""
+    from smartcal_tpu_torch.rl import replay as rp
+    return rp.ReplayState({k: v.clone() for k, v in buf.data.items()},
+                          buf.priority.clone(), buf.cntr, buf.beta)
+
+
+class EpisodeProgram:
+    """``block`` episodes of ``body(agent_state, buf, draws) -> score``
+    (or ``(score, diag)``) as one program, the JAX package's jitted
+    episode (block 1) and its ``lax.scan`` of episodes.  A call updates
+    the state, the ring and the draws' generator in place and returns the
+    (block,) scores (with a diag body, also the per-episode diags).
+
+    On CUDA the first call warms the body up on a side stream, on copies
+    of the state, the ring and the generator (the real chain does not
+    move), then captures the ``block`` episodes into one
+    ``torch.cuda.CUDAGraph`` under ``cal/solver._CAPTURE_LOCK``, the
+    generator registered with it, the counters carried as device tensors
+    (:class:`CarriedCounters`) and every update written in place; each
+    call is then one replay and one read-back of the counters.  A call
+    with another state, ring or generator object captures again (an LR
+    change builds new programs, as the JAX trainer re-jits), and a restore
+    that copies into the captured tensors (:func:`load_into`) does not.
+    A capture launches nothing, so the kernel wrappers' host ``launches``
+    skip it; kernels that count their own runs on the card
+    (``device_launches``) count each replay's.
+
+    On the CPU the body runs ``block`` times eagerly on the host
+    counters, the eager trainers' route (a gate that is off skips its
+    work); on CUDA while ``obs.costs`` counts (a replay is no op it can
+    see), eagerly on the device-form counters the graph would carry."""
+
+    def __init__(self, body, block: int, name: str = "episode_program"):
+        self.body, self.block, self.name = body, int(block), name
+        self.graph = None
+        self.capture_seconds = None
+        self.replays = 0
+
+    def _stack(self, outs):
+        if isinstance(outs[0], tuple):
+            return torch.stack([o[0] for o in outs]), [o[1] for o in outs]
+        return torch.stack(outs)
+
+    def _eager(self, st, buf, draws, episodes=None):
+        def run():
+            return self._stack([self.body(st, buf, draws)
+                                for _ in range(episodes or self.block)])
+        if buf.device.type != "cuda":
+            return run()
+        counters = CarriedCounters(st, buf)
+        counters.carry()
+        try:
+            return run()
+        finally:
+            counters.release(counters.exported().cpu().tolist())
+
+    def _capture(self, st, buf, draws):
+        from smartcal_tpu_torch.cal.solver import _CAPTURE_LOCK
+        dev = buf.device
+        gen = draws.generator
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                g_w = torch.Generator(device=dev)
+                g_w.set_state(gen.get_state())
+                st_w, buf_w = st.copy_to(dev), clone_ring(buf)
+                self._eager(st_w, buf_w, type(draws)(g_w, dev), 1)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            del st_w, buf_w, g_w
+            counters = CarriedCounters(st, buf)
+            host = counters.host_values()
+            counters.carry()
+            graph = torch.cuda.CUDAGraph()
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "this torch cannot capture the draws of a generator of "
+                    "the program's own (no CUDAGraph.register_generator_"
+                    "state)")
+            graph.register_generator_state(gen)
+            try:
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    out = self._stack([self.body(st, buf, draws)
+                                       for _ in range(self.block)])
+                    export = counters.exported()
+            finally:
+                counters.release(host)
+        self.graph, self.out, self.export = graph, out, export
+        self.counters = counters
+        self.bound = (st, buf, gen)
+        self.capture_seconds = time.perf_counter() - t0
+        obs.record_compile(f"cuda_graph:{self.name}", self.capture_seconds,
+                           block=self.block)
+
+    def __call__(self, st, buf, draws):
+        if buf.device.type != "cuda" or costs.counting():
+            return self._eager(st, buf, draws)
+        if self.graph is None or any(
+                a is not b for a, b in zip(self.bound,
+                                           (st, buf, draws.generator))):
+            self._capture(st, buf, draws)
+        self.counters.carry()
+        self.graph.replay()
+        self.counters.release(self.export.cpu().tolist())
+        self.replays += 1
+        if isinstance(self.out, tuple):
+            scores, diags = self.out
+            return scores.clone(), [type(d)(*(f.clone() for f in d))
+                                    for d in diags]
+        return self.out.clone()
+
+
+def make_block_fn(episode_body, block: int, name: str = "episode_block"):
+    """The program of ``block`` successive episodes of ``episode_body(
+    agent_state, buf, draws) -> score`` (:class:`EpisodeProgram`): a call
+    ``run_block(agent_state, buf, draws)`` plays them in place, one CUDA
+    graph replay on the card, and returns the (block,) scores.  The same
+    learning dynamics as ``block`` calls of the episode program: agent
+    state, ring and generator chain from episode to episode (the JAX
+    package's ``make_block_fn``, whose scan carries the key)."""
+    return EpisodeProgram(episode_body, block, name)
+
+
+def load_into(dst, src) -> None:
+    """Copy agent state ``src`` into ``dst`` in place (modules through
+    ``load_state_dict``, Adam moments and tensors with ``copy_``, counts
+    and counters as host values), so a program captured on ``dst`` replays
+    the restored state."""
+    with torch.no_grad():
+        for k in dst.NETS:
+            getattr(dst, k).load_state_dict(getattr(src, k).state_dict())
+        for k in dst.OPTS:
+            d, s = getattr(dst, k), getattr(src, k)
+            for n in d.mu:
+                d.mu[n].copy_(s.mu[n])
+                d.nu[n].copy_(s.nu[n])
+            d.count = int(s.count)
+        for k in dst.TENSORS:
+            getattr(dst, k).copy_(getattr(src, k))
+        for k in dst.INTS:
+            setattr(dst, k, int(getattr(src, k)))
+
+
+def load_ring_into(dst, src) -> None:
+    """Copy flat ring ``src`` into ``dst`` in place (same size)."""
+    if dst.size != src.size:
+        raise ValueError(f"ring of {src.size} slots into one of {dst.size}")
+    with torch.no_grad():
+        for k, v in dst.data.items():
+            v.copy_(src.data[k])
+        dst.priority.copy_(src.priority)
+    dst.cntr, dst.beta = int(src.cntr), np.float32(src.beta)

@@ -1,7 +1,8 @@
 """Elastic-net DDPG trainer (counterpart of
 smartcal_tpu/train/enet_ddpg.py; reference ``elasticnet/main_ddpg.py``):
 episodes of 5 steps with a fresh noisy draw per step and no hint, each run
-fused as ``train/enet_sac.py`` describes.
+fused as a program, one CUDA-graph replay on the card
+(:func:`make_episode_fn`), as ``train/enet_sac.py`` describes.
 
 Usage:
     python -m smartcal_tpu_torch.train.enet_ddpg --episodes 1000 --steps 5
@@ -21,9 +22,10 @@ from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.obs import stack_diags
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
 from smartcal_tpu_torch.train.blocks import add_obs_args, add_runtime_args
-from smartcal_tpu_torch.train.enet_sac import (Draws, add_size_args,
+from smartcal_tpu_torch.train.enet_sac import (add_size_args, episode_fn,
                                                fused_handles, fused_loop,
-                                               runtime_kwargs, summary)
+                                               program_env, runtime_kwargs,
+                                               summary)
 
 
 def run_episode(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
@@ -53,6 +55,34 @@ def run_episode(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
     return (score, stack_diags(diags)) if collect_diag else score
 
 
+def episode_body(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
+                 steps: int, collect_diag: bool = False):
+    """The one-episode body ``(agent_state, buf, draws) -> score`` of the
+    programs (the JAX package's ``_make_episode_body``)."""
+    program_env(env_cfg)
+
+    def body(st, buf, draws):
+        return run_episode(env_cfg, cfg, st, buf, draws, steps, collect_diag)
+    return body
+
+
+def make_episode_fn(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
+                    steps: int, collect_diag: bool = False):
+    """One fused episode as a program (``enet_sac.make_episode_fn``)."""
+    return episode_fn(episode_body(env_cfg, cfg, steps, collect_diag),
+                      collect_diag, "enet_ddpg_episode")
+
+
+def make_episode_block_fn(env_cfg: enet.EnetConfig, cfg: ddpg.DDPGConfig,
+                          steps: int, block: int):
+    """``block`` sequential episodes per program call (see
+    ``train/blocks.make_block_fn``)."""
+    from smartcal_tpu_torch.train.blocks import make_block_fn
+
+    return make_block_fn(episode_body(env_cfg, cfg, steps), block,
+                         f"enet_ddpg_block{block}")
+
+
 def agent_config(env_cfg: enet.EnetConfig) -> ddpg.DDPGConfig:
     """The trainer's agent: 2 actions, batch 64, a 1024-slot ring."""
     return ddpg.DDPGConfig(obs_dim=env_cfg.obs_dim, n_actions=2,
@@ -76,7 +106,6 @@ def train_fused(seed=0, episodes=1000, steps=5, M=20, N=20, log_every=1,
     agent_state = ddpg.ddpg_init(cfg, generator, dev)
     buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
                                                           cfg.n_actions), dev)
-    draws = Draws(generator, dev)
     tob, rt = fused_handles(
         "enet_ddpg", tob, seed, quiet, metrics_path, run_id, trace, diag,
         watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
@@ -84,8 +113,7 @@ def train_fused(seed=0, episodes=1000, steps=5, M=20, N=20, log_every=1,
         deterministic=deterministic)
     return fused_loop(
         "enet_ddpg", seed, episodes, cfg, agent_state, buf, generator, dev,
-        lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,
-                                              steps, collect),
+        lambda c, collect: episode_body(env_cfg, c, steps, collect),
         lambda st, b, sc: atomic_pickle(sc, f"{prefix}scores_ddpg.pkl"), 0,
         tob, rt, log_every)
 

@@ -7,19 +7,26 @@ average of scores) in two modes:
 * ``--mode fused`` (default): each episode is reset, one noisy draw, the
   hint from that draw (zeros without ``--use_hint``), then per step: choose
   an action, step the env (the first step keeps the draw), store the
-  transition and learn, all on tensors that stay on the device (the JAX
-  package's one-XLA-program episode, run eagerly in the same order);
+  transition and learn, all on tensors that stay on the device: the JAX
+  package's one-XLA-program episode (:func:`make_episode_fn`) and its scan
+  of ``--block`` episodes (:func:`make_episode_block_fn`), each on CUDA one
+  CUDA-graph replay (``train/blocks.EpisodeProgram``; the env's solves and
+  eigenvalues are kernels 4 and 5, so nothing in an episode asks the
+  host), on the CPU the same body run eagerly;
 * ``--mode loop``: the reference's host loop through ``EnetEnv`` and
   ``SACAgent``.
 
 The fused mode takes the JAX trainer's obs and runtime flags
-(:func:`fused_loop`): ``--metrics``, ``--diag``, ``--watchdog``,
-``--ckpt-every``, ``--resume`` (bit for bit), ``--max-recoveries``.
+(:func:`fused_loop`): ``--metrics``, ``--diag``, ``--watchdog`` (both
+force block 1), ``--ckpt-every``, ``--resume`` (bit for bit),
+``--max-recoveries``.  The programs refuse ``eig_mode="exact"``: its host
+eigensolver cannot be captured.
 
 Usage:
     python -m smartcal_tpu_torch.train.enet_sac --episodes 1000 --steps 5
-        [--seed 0] [--use_hint] [--mode fused|loop] [--device cuda|cpu]
-        [--metrics run.jsonl] [--ckpt-every 10] [--resume]
+        [--seed 0] [--use_hint] [--mode fused|loop] [--block 20]
+        [--device cuda|cpu] [--metrics run.jsonl] [--ckpt-every 10]
+        [--resume]
 """
 
 import argparse
@@ -102,6 +109,71 @@ def run_episode(env_cfg: enet.EnetConfig, cfg: sac.SACConfig,
     return (score, stack_diags(diags)) if collect_diag else score
 
 
+def program_env(env_cfg: enet.EnetConfig) -> enet.EnetConfig:
+    """``env_cfg`` checked for the episode programs: ``eig_mode="exact"``
+    takes its eigenvalues on the host (numpy, the JAX package's host
+    callback), which a CUDA graph cannot capture."""
+    if env_cfg.eig_mode != "symmetric":
+        raise ValueError(
+            f"eig_mode={env_cfg.eig_mode!r}: the episode programs run on "
+            "the device only, and the exact mode's host eigensolver cannot "
+            "be captured into a CUDA graph; use eig_mode='symmetric', or "
+            "the host loop (--mode loop, EnetEnv)")
+    return env_cfg
+
+
+def episode_body(env_cfg: enet.EnetConfig, cfg: sac.SACConfig, steps: int,
+                 use_hint: bool, collect_diag: bool = False):
+    """The one-episode body ``(agent_state, buf, draws) -> score`` of the
+    programs (the JAX package's ``_make_episode_body``): :func:`run_episode`
+    in the same draw order."""
+    program_env(env_cfg)
+
+    def body(st, buf, draws):
+        return run_episode(env_cfg, cfg, st, buf, draws, steps, use_hint,
+                           collect_diag)
+    return body
+
+
+def episode_fn(body, collect_diag, name):
+    """The one-episode program of ``body`` as a call ``(agent_state, buf,
+    draws) -> score`` (0-d), with ``collect_diag`` ``(score, diag)``; its
+    :class:`~smartcal_tpu_torch.train.blocks.EpisodeProgram` is
+    ``.program``."""
+    from smartcal_tpu_torch.train.blocks import make_block_fn
+
+    prog = make_block_fn(body, 1, name)
+
+    def run(st, buf, draws):
+        out = prog(st, buf, draws)
+        return (out[0][0], out[1][0]) if collect_diag else out[0]
+
+    run.program = prog
+    return run
+
+
+def make_episode_fn(env_cfg: enet.EnetConfig, agent_cfg: sac.SACConfig,
+                    steps: int, use_hint: bool, collect_diag: bool = False):
+    """One fused episode (reset, hint, ``steps`` steps) as a program: on
+    CUDA one CUDA-graph replay per call.  ``run(agent_state, buf, draws)``
+    updates the state, the ring and the draws' generator in place."""
+    return episode_fn(episode_body(env_cfg, agent_cfg, steps, use_hint,
+                                   collect_diag), collect_diag,
+                      "enet_sac_episode")
+
+
+def make_episode_block_fn(env_cfg: enet.EnetConfig, agent_cfg: sac.SACConfig,
+                          steps: int, use_hint: bool, block: int):
+    """``block`` strictly sequential episodes as one program: the same
+    learning dynamics as ``block`` calls of :func:`make_episode_fn` (agent,
+    ring and generator chain from episode to episode), one replay per call
+    on CUDA; returns the (block,) scores.  Not a batched-env mode."""
+    from smartcal_tpu_torch.train.blocks import make_block_fn
+
+    return make_block_fn(episode_body(env_cfg, agent_cfg, steps, use_hint),
+                         block, f"enet_sac_block{block}")
+
+
 def agent_config(env_cfg: enet.EnetConfig, use_hint) -> sac.SACConfig:
     """The trainer's agent (enet main_sac.py): 2 actions, batch 64, a
     1024-slot ring, reward scale N, alpha 0.03."""
@@ -111,32 +183,65 @@ def agent_config(env_cfg: enet.EnetConfig, use_hint) -> sac.SACConfig:
         reward_scale=float(env_cfg.N), alpha=0.03, use_hint=use_hint)
 
 
+def make_programs(body, cfg, block, episodes, collect, entry):
+    """(block program or None, episode program or None) of ``body(cfg,
+    collect)``, the JAX trainers' ``build_fns``: the block program when
+    ``block`` > 1, the episode program when ``block`` is 1 or does not
+    divide ``episodes`` (the remainder)."""
+    from smartcal_tpu_torch.train.blocks import make_block_fn
+
+    bf = (make_block_fn(body(cfg, False), block, f"{entry}_block{block}")
+          if block > 1 else None)
+    ef = (make_block_fn(body(cfg, collect), 1, f"{entry}_episode")
+          if block == 1 or episodes % block else None)
+    return bf, ef
+
+
 def fused_loop(entry, seed, episodes, cfg, state, buf, generator, device,
-               run, save, save_every, tob, rt, log_every=1, **tags):
+               body, save, save_every, tob, rt, log_every=1, block=1,
+               **tags):
     """The episode loop of the fused elastic-net trainers (the JAX
-    trainers' ``train_fused`` loop): ``run(cfg, state, buf, collect_diag)``
-    plays one episode in place and returns its mean reward (and its
-    step-stacked UpdateDiag when diagnostics are on).  ``--resume``
-    restores ``state``, ``buf``, the generator, scores and the episode from
-    the newest checkpoint; the cadence checkpoints after episodes; a
-    watchdog trip rolls back and retries (the LR shrink replaces ``cfg``
-    for the episodes that follow).  ``save(state, buf, scores)`` runs every
-    ``save_every`` episodes and at the end.  Returns (scores, wall
-    seconds, agent state, ring)."""
-    from smartcal_tpu_torch.train.blocks import (fused_payload,
+    trainers' ``train_fused`` loop) over the episode programs:
+    ``body(cfg, collect_diag)`` is the trainer's episode body
+    ``(agent_state, buf, draws) -> score`` (with the step-stacked
+    UpdateDiag when diagnostics are on), run as programs of ``block``
+    episodes and one-episode programs for the remainder
+    (:func:`make_programs`); ``--diag`` and ``--watchdog`` force block 1.
+    ``--resume`` restores ``state``, ``buf``, the generator, scores and
+    the episode from the newest checkpoint, in place; the cadence
+    checkpoints after each program call; a watchdog trip rolls back and
+    retries (the LR shrink builds new programs for the episodes that
+    follow).  ``save(state, buf, scores)`` runs when a ``save_every``
+    multiple was crossed and at the end.  Returns (scores, wall seconds,
+    agent state, ring)."""
+    from smartcal_tpu_torch.train.blocks import (fused_payload, load_into,
+                                                 load_ring_into,
                                                  restore_fused,
                                                  rollback_fused,
                                                  scaled_config)
 
     state_cls = type(state)
-    run_cfg = cfg
     collect = tob.collect_diag
+    block = max(1, min(int(block), episodes))
+    if collect and block > 1:
+        # diagnostics stream at per-episode cadence: the watchdog must see
+        # updates before committing to a whole block's compute
+        tob.echo("diag/watchdog: forcing block=1")
+        block = 1
+    draws = Draws(generator, device)
+    progs = make_programs(body, cfg, block, episodes, collect, entry)
     scores = []
     i, saved_marker = 0, 0
+
+    def restore_in_place(restored_state, restored_buf):
+        load_into(state, restored_state)
+        load_ring_into(buf, restored_buf)
+
     restored = rt.restore()
     if restored is not None:
-        state, buf, scores, i = restore_fused(restored, state_cls, cfg,
-                                              generator, device)
+        st2, buf2, scores, i = restore_fused(restored, state_cls, cfg,
+                                             generator, device)
+        restore_in_place(st2, buf2)
         saved_marker = int(restored.get("saved_marker", 0))
 
     def payload():
@@ -149,34 +254,45 @@ def fused_loop(entry, seed, episodes, cfg, state, buf, generator, device,
                     seed=seed, **tags)
 
     def rebuild(lr_scale):
-        nonlocal run_cfg
-        run_cfg = scaled_config(cfg, lr_scale)
+        nonlocal progs
+        progs = make_programs(body, scaled_config(cfg, lr_scale), block,
+                              episodes, collect, entry)
 
     t0 = time.time()
     try:
         while i < episodes:
-            with tob.span("episode", episode=i):
-                out = run(run_cfg, state, buf, collect)
-            if collect:
-                score, ep_diag = out
-                halted = tob.record_diag(ep_diag, episode=i)
-                tob.log_replay_health(buf, episode=i)
-                if halted or tob.tripped:
-                    act = rt.on_trip()
-                    if act is None:
-                        log_one(score)
-                        i += 1
-                        break
-                    # rollback-and-retry: the poisoned episodes since the
-                    # checkpoint are discarded (not logged)
-                    state, buf, scores, i = rollback_fused(
-                        act, state_cls, cfg, generator, device, rebuild)
-                    saved_marker = int(act.payload.get("saved_marker", 0))
-                    continue
+            block_fn, episode_fn = progs
+            if block_fn is not None and episodes - i >= block:
+                with tob.span("episode_block", episodes=block):
+                    blk = block_fn(state, buf, draws).tolist()
+                for sc in blk:
+                    log_one(sc)
+                    i += 1
             else:
-                score = out
-            log_one(score)
-            i += 1
+                with tob.span("episode", episode=i):
+                    out = episode_fn(state, buf, draws)
+                if collect:
+                    score, ep_diag = out[0][0], out[1][0]
+                    halted = tob.record_diag(ep_diag, episode=i)
+                    tob.log_replay_health(buf, episode=i)
+                    if halted or tob.tripped:
+                        act = rt.on_trip()
+                        if act is None:
+                            log_one(score)
+                            i += 1
+                            break
+                        # rollback-and-retry: the poisoned episodes since
+                        # the checkpoint are discarded (not logged)
+                        st2, buf2, scores, i = rollback_fused(
+                            act, state_cls, cfg, generator, device, rebuild)
+                        restore_in_place(st2, buf2)
+                        saved_marker = int(act.payload.get("saved_marker",
+                                                           0))
+                        continue
+                else:
+                    score = out[0]
+                log_one(score)
+                i += 1
             rt.maybe_checkpoint(i, payload)
             if save_every and i < episodes and i // save_every > saved_marker:
                 save(state, buf, scores)
@@ -247,10 +363,10 @@ def train_fused(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
                 compile_cache=None, deterministic=False, tob=None,
                 device="cuda"):
     """Fused episodes on ``device`` with the JAX ``train_fused``'s
-    observability and fault-tolerance arguments (``block`` episodes run
-    one after another: the same dynamics); saves every ``save_every``
-    episodes and at the end.  Returns (scores, wall seconds, agent state,
-    ring)."""
+    observability and fault-tolerance arguments: programs of ``block``
+    episodes (one CUDA-graph replay each on the card), one-episode
+    programs for the remainder; saves every ``save_every`` episodes and at
+    the end.  Returns (scores, wall seconds, agent state, ring)."""
     dev = resolve_device(device)
     env_cfg = enet.EnetConfig(M=M, N=N)
     cfg = agent_config(env_cfg, use_hint)
@@ -258,7 +374,6 @@ def train_fused(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
     agent_state = sac.sac_init(cfg, generator, dev)
     buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
                                                           cfg.n_actions), dev)
-    draws = Draws(generator, dev)
     tob, rt = fused_handles(
         "enet_sac", tob, seed, quiet, metrics_path, run_id, trace, diag,
         watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
@@ -266,10 +381,10 @@ def train_fused(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
         deterministic=deterministic, block=block)
     return fused_loop(
         "enet_sac", seed, episodes, cfg, agent_state, buf, generator, dev,
-        lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,
-                                              steps, use_hint, collect),
+        lambda c, collect: episode_body(env_cfg, c, steps, use_hint,
+                                        collect),
         lambda st, b, sc: save(st, b, sc, prefix), save_every, tob, rt,
-        log_every, use_hint=use_hint)
+        log_every, block=block, use_hint=use_hint)
 
 
 def train_loop(seed=0, episodes=1000, steps=5, use_hint=False, M=20, N=20,
@@ -335,9 +450,10 @@ def main(argv=None):
     p.add_argument("--use_hint", action="store_true", default=False)
     p.add_argument("--mode", default="fused", choices=["fused", "loop"])
     p.add_argument("--block", default=1, type=int,
-                   help="episodes per block; the port runs a block's "
-                        "episodes one after another, the same learning "
-                        "dynamics as --block 1")
+                   help="episodes per program call (one CUDA-graph replay "
+                        "of whole episodes on the card; the same learning "
+                        "dynamics as --block 1, the reference's "
+                        "per-episode cadence)")
     p.add_argument("--prefix", type=str, default="",
                    help="path prefix of the saved agent, ring and scores")
     p.add_argument("--device", type=str, default="cuda",

@@ -1,7 +1,8 @@
 """Elastic-net TD3 trainer (counterpart of
 smartcal_tpu/train/enet_td3.py; reference ``elasticnet/main_td3.py``):
 prioritized replay and hint-constrained adaptive-ADMM actor updates by
-default, episodes of 4 steps, warmup 100.  Each episode runs fused, as
+default, episodes of 4 steps, warmup 100.  Each episode runs fused as a
+program, one CUDA-graph replay on the card (:func:`make_episode_fn`), as
 ``train/enet_sac.py`` describes.
 
 Usage:
@@ -22,10 +23,10 @@ from smartcal_tpu_torch.rl import td3
 from smartcal_tpu_torch.obs import stack_diags
 from smartcal_tpu_torch.runtime.atomic import atomic_pickle
 from smartcal_tpu_torch.train.blocks import add_obs_args, add_runtime_args
-from smartcal_tpu_torch.train.enet_sac import (Draws, add_size_args,
+from smartcal_tpu_torch.train.enet_sac import (add_size_args, episode_fn,
                                                fused_handles, fused_loop,
-                                               runtime_kwargs, start_episode,
-                                               summary)
+                                               program_env, runtime_kwargs,
+                                               start_episode, summary)
 
 
 def run_episode(env_cfg: enet.EnetConfig, cfg: td3.TD3Config,
@@ -57,6 +58,36 @@ def run_episode(env_cfg: enet.EnetConfig, cfg: td3.TD3Config,
         obs = obs2
     score = torch.stack(rewards).mean()
     return (score, stack_diags(diags)) if collect_diag else score
+
+
+def episode_body(env_cfg: enet.EnetConfig, cfg: td3.TD3Config, steps: int,
+                 use_hint: bool, collect_diag: bool = False):
+    """The one-episode body ``(agent_state, buf, draws) -> score`` of the
+    programs (the JAX package's ``_make_episode_body``)."""
+    program_env(env_cfg)
+
+    def body(st, buf, draws):
+        return run_episode(env_cfg, cfg, st, buf, draws, steps, use_hint,
+                           collect_diag)
+    return body
+
+
+def make_episode_fn(env_cfg: enet.EnetConfig, cfg: td3.TD3Config,
+                    steps: int, use_hint: bool, collect_diag: bool = False):
+    """One fused episode as a program (``enet_sac.make_episode_fn``)."""
+    return episode_fn(episode_body(env_cfg, cfg, steps, use_hint,
+                                   collect_diag), collect_diag,
+                      "enet_td3_episode")
+
+
+def make_episode_block_fn(env_cfg: enet.EnetConfig, cfg: td3.TD3Config,
+                          steps: int, use_hint: bool, block: int):
+    """``block`` sequential episodes per program call (see
+    ``train/blocks.make_block_fn``)."""
+    from smartcal_tpu_torch.train.blocks import make_block_fn
+
+    return make_block_fn(episode_body(env_cfg, cfg, steps, use_hint), block,
+                         f"enet_td3_block{block}")
 
 
 def agent_config(env_cfg: enet.EnetConfig, use_hint=True,
@@ -94,7 +125,6 @@ def train_fused(seed=0, episodes=1000, steps=4, use_hint=True,
     agent_state = td3.td3_init(cfg, generator, dev)
     buf = rp.replay_init(cfg.mem_size, rp.transition_spec(cfg.obs_dim,
                                                           cfg.n_actions), dev)
-    draws = Draws(generator, dev)
     tob, rt = fused_handles(
         "enet_td3", tob, seed, quiet, metrics_path, run_id, trace, diag,
         watchdog, ckpt_dir, ckpt_every, keep_ckpts, resume, max_recoveries,
@@ -102,8 +132,8 @@ def train_fused(seed=0, episodes=1000, steps=4, use_hint=True,
         deterministic=deterministic)
     return fused_loop(
         "enet_td3", seed, episodes, cfg, agent_state, buf, generator, dev,
-        lambda c, st, b, collect: run_episode(env_cfg, c, st, b, draws,
-                                              steps, use_hint, collect),
+        lambda c, collect: episode_body(env_cfg, c, steps, use_hint,
+                                        collect),
         lambda st, b, sc: save(st, b, sc, prefix), save_every, tob, rt,
         log_every, use_hint=use_hint)
 

@@ -579,3 +579,130 @@ def test_policy_publication_on_gpu_compiles_nothing(tmp_path):
             c0.get("export_cache_miss", 0.0)
         assert srv.policy_version == 3
         assert wave() == before
+
+
+@pytest.mark.cuda
+def test_enet_lbfgs_kernel_matches_plain_on_gpu():
+    """Kernel 4 (``csrc/enet_lbfgs.cu``) against its plain version at full
+    width (M = N = 20): on one step lane x after 5 iterations from x = 0,
+    and on the hint's 50 weighted lanes each of the first 5 iterations from
+    the kernel's own previous state (rtol 1e-4 / atol 1e-6, equal
+    iteration counts; from x = 0 a lane whose search ends on a flat
+    minimum turns float32 round-off into ~1e-5); the same bits over two
+    launches; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.ops import enet_lbfgs, lbfgs
+    from smartcal_tpu_torch.ops.autodiff import lane_value_and_grad
+    cfg = enet.EnetConfig()
+    g = torch.Generator().manual_seed(11)
+    st, _ = enet.reset(cfg, *enet.reset_draws(cfg, g, "cpu"))
+    st = enet.draw_noise(cfg, st, torch.randn(cfg.N, generator=g))
+    A, y = st.A[None], st.y[None]
+    rho, _ = enet.action_to_rho(torch.tensor([[0.3, -0.5]]))
+    step = (A, y, rho[:, 0].contiguous(), rho[:, 1].contiguous(), None)
+    dstep = tuple(None if a is None else a.cuda() for a in step)
+    before = (enet_lbfgs.launches, enet_lbfgs.device_launches.read())
+    got = enet_lbfgs.solve(*dstep[:4], max_iters=5)
+    assert (enet_lbfgs.launches,
+            enet_lbfgs.device_launches.read()) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = enet_lbfgs.solve_plain(*step, max_iters=5)
+    np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(),
+                               rtol=1e-4, atol=1e-6)
+    assert torch.equal(got.n_iters.cpu(), want.n_iters)
+    lams, test = enet.hint_lanes(cfg, "cpu")
+    w = torch.where(test, 0.0, 1.0)
+    hint = (A, y, lams[:, 1].contiguous(), lams[:, 0].contiguous(), w)
+    dhint = tuple(a.cuda() for a in hint)
+    Ae, ye = enet_lbfgs._expand(A, y, 50)
+    vag = lane_value_and_grad(lambda x: enet_lbfgs.lane_loss(
+        Ae, ye, x, hint[2], hint[3], w))
+    for k in range(5):
+        prev = enet_lbfgs.solve_cuda(*dhint, max_iters=k)
+        prev = type(prev)(*(type(v)(*(u.cpu() for u in v))
+                            if isinstance(v, tuple) else v.cpu()
+                            for v in prev))
+        nxt = enet_lbfgs.solve_cuda(*dhint, max_iters=k + 1)
+        ref = lbfgs.lbfgs_resume(vag, prev, 1)
+        np.testing.assert_allclose(nxt.x.cpu().numpy(), ref.x.numpy(),
+                                   rtol=1e-4, atol=1e-6)
+        assert torch.equal(nxt.n_iters.cpu(), ref.n_iters)
+    a = enet_lbfgs.solve_cuda(*dhint, max_iters=100)
+    b = enet_lbfgs.solve_cuda(*dhint, max_iters=100)
+    assert torch.equal(a.x, b.x) and torch.equal(a.n_iters, b.n_iters)
+
+
+@pytest.mark.cuda
+def test_sym_eigvals_kernel_matches_eigvalsh_on_gpu():
+    """Kernel 5 (``csrc/sym_eigvals.cu``) against ``eigvalsh`` of the
+    symmetric part on 64 random 20 x 20 matrices (rtol 1e-5, atol 1e-6 x
+    max|lambda|), ascending, the same bits over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from smartcal_tpu_torch.ops import sym_eigvals
+    g = torch.Generator().manual_seed(13)
+    B = torch.randn(64, 20, 20, generator=g).cuda()
+    before = (sym_eigvals.launches, sym_eigvals.device_launches.read())
+    got = sym_eigvals.sym_eigvals(B)
+    assert (sym_eigvals.launches,
+            sym_eigvals.device_launches.read()) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = sym_eigvals.sym_eigvals_plain(B)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6 * scale)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    assert torch.equal(got, sym_eigvals.sym_eigvals(B))
+
+
+@pytest.mark.cuda
+def test_enet_episode_program_replays_its_eager_body():
+    """The enet_sac episode program (M = N = 8, 2 steps, a ring of 16,
+    batch 4, the hint) as a CUDA-graph replay against its body run
+    eagerly on the card from cloned state, ring and generator: the same
+    bits, twice (the second call replays the captured graph).  Kernels 4
+    and 5 count their runs on the card: a replay adds as many as the eager
+    body's run, and nothing to the host's count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from smartcal_tpu_torch.envs import enet
+    from smartcal_tpu_torch.rl import replay as rp
+    from smartcal_tpu_torch.rl import sac
+    from smartcal_tpu_torch.train import enet_sac
+    from smartcal_tpu_torch.train.blocks import clone_ring
+    env = enet.EnetConfig(M=8, N=8)
+    cfg = sac.SACConfig(obs_dim=env.obs_dim, n_actions=2, batch_size=4,
+                        mem_size=16, use_hint=True)
+    gen = torch.Generator("cuda").manual_seed(0)
+    st = sac.sac_init(cfg, gen, "cuda")
+    buf = rp.replay_init(16, rp.transition_spec(env.obs_dim, 2), "cuda")
+    st_e, buf_e = st.copy_to("cuda"), clone_ring(buf)
+    g_e = torch.Generator("cuda")
+    g_e.set_state(gen.get_state())
+    from smartcal_tpu_torch.ops import enet_lbfgs, sym_eigvals
+    prog = enet_sac.make_episode_fn(env, cfg, 2, True)
+    kernels = (enet_lbfgs, sym_eigvals)
+
+    def counts():
+        return [(m.launches, m.device_launches.read()) for m in kernels]
+
+    for i in range(3):
+        c0 = counts()
+        score = prog(st, buf, enet_sac.Draws(gen, "cuda"))
+        c1 = counts()
+        eager = prog.program._eager(st_e, buf_e, enet_sac.Draws(g_e, "cuda"))
+        c2 = counts()
+        for (h0, d0), (h1, d1), (h2, d2) in zip(c0, c1, c2):
+            # the first call also warms the body up eagerly: one episode
+            replayed = d1 - d0 - (h1 - h0)
+            assert h1 - h0 == (h2 - h1 if i == 0 else 0)
+            assert replayed == d2 - d1 == h2 - h1 > 0
+        assert float(score) == float(eager[0])
+        for a, b in zip(sac.state_tensors(st) + [buf.priority],
+                        sac.state_tensors(st_e) + [buf_e.priority]):
+            assert torch.equal(a, b)
+        assert buf.cntr == buf_e.cntr and st.learn_counter == \
+            st_e.learn_counter
+    assert prog.program.replays == 3 and st.learn_counter == 3

@@ -58,6 +58,7 @@ def test_port_has_modules():
                 "train/evaluate", "train/evaluate_models", "train/plots",
                 "obs/baselines", "obs/regress", "obs/costs",
                 "rl/replay_native", "tools/__init__", "tools/perf_gate",
+                "ops/enet_lbfgs", "ops/sym_eigvals",
                 "prng", "rl/replay_sharded", "rl/sac_discrete",
                 "runtime/ipc", "runtime/supervisor", "parallel/__init__",
                 "parallel/mesh", "parallel/multihost", "parallel/trainer",
