@@ -96,8 +96,11 @@
    at least 24 hint lanes that stopped early on both sides at rtol 5e-3),
    the same bits over two launches; kernel 5 (``csrc/sym_eigvals.cu``)
    against eigvalsh on a step's influence matrix and 64 random symmetric
-   matrices (rtol 1e-5, atol 1e-6 x max); each timed beside its plain
-   version and its dependent-step floor; the episode programs of enet_sac,
+   matrices (rtol 1e-5, atol 1e-6 x max), then on harder inputs
+   (diagonal, a fivefold eigenvalue, rank 1, zero, eigenvalues from 1e-4
+   to 1e4) at the same tolerances and with one NaN, ranked last; each
+   timed beside its plain version and its dependent-step floor; the
+   episode programs of enet_sac,
    enet_td3 and enet_ddpg (CUDA-graph replays) against their bodies run
    eagerly on the card (the same bits), the block of 3 against 3
    episodes and again after an in-place restore (the same bits); and
@@ -310,6 +313,21 @@ R=652,800 on ``--ablation``'s random operands and on a coherent image,
 and times each in two turns (forward, then reversed) beside the cuBLAS
 BF16 GEMM of the planes; one JSON line per variant (ms, errors,
 registers), details in DIR/bf16_ablation.json.
+
+    python3 chip_smoke.py --enet-kernel-ablation PARENT_DIR [--out DIR]
+
+instead builds kernels 4 and 5 of a parent checkout (PARENT_DIR, e.g.
+``git archive 0d05980 smartcal_tpu_torch/csrc | tar -x -C DIR``; its
+smartcal_tpu_torch/csrc/), the shipped ones and a copy of the shipped
+kernel 4 with A in shared memory (``ENET_LEVERS``); holds every kernel 4
+as step 6a does, printing each verdict and whether it gives the parent's
+bits, then on 32 seeded step lanes each lane's full-depth loss against
+the plain version, its iterations and its evaluations; holds kernel 5
+against eigvalsh; then times each on the same operands in two turns
+(forward, then backward): kernel 4 on the step lane, the hint's 50 lanes
+and the seeded lanes (also per evaluation), kernel 5 and eigvalsh on one
+and on 64 random 20 x 20 matrices; details in
+DIR/enet_kernel_ablation.json.
 
     python3 chip_smoke.py --hessian-split PARENT_CU [--out DIR]
 
@@ -1719,14 +1737,28 @@ FMA_LATENCY_CYCLES = 4       # a dependent FP32 FMA on sm_90
 # (8 cycles, as microbenchmarked from Volta on); division and square root
 # take several such operations, so counting each as one keeps a floor
 FP64_LATENCY_CYCLES = 8
-# one Jacobi rotation's chain from a_pp to the next rotation's a_pp:
-# a_qq - a_pp, the division by 2 a_pq, theta^2 + 1, its square root, the
-# sum with |theta|, the division giving t, and a_pp - t a_pq
-JACOBI_CHAIN_OPS = 7
+# one parallel Jacobi round's chain, from the entries a round reads to the
+# entries the next round reads, each step counted once at the FP64 rate
+# (the kernel takes the angle's steps in float32): a_qq - a_pp, d^2 + e^2
+# (2), its square root, |d| + it, the division giving t, 1 + t^2, its
+# reciprocal square root, the Newton step, s = t c, then the column mix
+# (2) and the row mix (2)
+JACOBI_ROUND_CHAIN_OPS = 14
+# kernel 4's chain on its fast path, dependent FP32 operations: one
+# objective evaluation it performs takes z = x + alpha d, A z (N FMAs in
+# a row), the residual and its weights (2), A^T r (M FMAs), the gradient
+# element (2), the merged butterfly (5) and the value (2): M + N +
+# K4_EVAL_OPS; an iteration's own steps take, per pair in the ring, one
+# dot's product, five butterfly adds, rho times it and the update, in
+# each of the two loops, then g . d and the step: K4_PAIR_OPS a pair and
+# K4_ITER_OPS (see k4_chain_ops)
+K4_EVAL_OPS, K4_PAIR_OPS, K4_ITER_OPS = 12, 16, 8
+LBFGS_HISTORY = 7                       # ops/lbfgs.LBFGS_HISTORY_DEFAULT
 ENET_BLOCK, ENET_BLOCK_STEPS = 20, 5    # bench.py:87,329,448
 ENET_BLOCK_EPISODES = 60                # 3 programs of 20: 1 untimed
 ENET_BLOCK1_EPISODES = 6                # the episode program: 1 untimed
 ENET_EIG_RANDOM = 64
+ENET_SEED_LANES = 32                    # the ablation's seeded step lanes
 
 
 def _enet_problem(enet, cfg, seed):
@@ -1769,6 +1801,50 @@ def kernel4_iterations(enet_lbfgs, args, dargs, label, n=5):
     return worst
 
 
+def k4_chain_ops(evals, n_iters, M, N, m):
+    """Kernel 4's dependent-step chain of one lane, in operations: its
+    performed evaluations at M + N + K4_EVAL_OPS each, and each iteration
+    i's own steps over the pairs its two-loop reads, at most min(i, m)
+    (the ring gains at most one pair an iteration; the count is exact when
+    every pair is accepted)."""
+    pairs = sum(min(i, m) for i in range(int(n_iters)))
+    return (int(evals) * (M + N + K4_EVAL_OPS) + K4_PAIR_OPS * pairs
+            + K4_ITER_OPS * int(n_iters))
+
+
+def _kernel4_cases():
+    """Kernel 4's operands on the CPU, {label: ((A, y, l2, l1, w),
+    max_iters)}: one step lane and the hint's 50 weighted lanes of one env
+    (M = N = 20)."""
+    from smartcal_tpu_torch.envs import enet
+    cfg = enet.EnetConfig()
+    st = _enet_problem(enet, cfg, 11)
+    rho, _ = enet.action_to_rho(torch.tensor([[0.3, -0.5]]))
+    lams, test = enet.hint_lanes(cfg, "cpu")
+    w = torch.where(test, 0.0, 1.0)
+    A, y = st.A[None], st.y[None]
+    return {"step": ((A, y, rho[:, 0].contiguous(), rho[:, 1].contiguous(),
+                      None), cfg.lbfgs_iters),
+            "hint": ((A, y, lams[:, 1].contiguous(),
+                      lams[:, 0].contiguous(), w), enet.HINT_ITERS)}
+
+
+def _full_depth_hold(label, res, ref, full):
+    """Kernel 4's full-depth hold of ``res`` against the plain ``ref``:
+    (loss rel err, lanes that stopped early on both sides, the held rel
+    errs, their rtol, the least number held, whether it holds)."""
+    rel = ((res.loss.cpu() - ref.loss).abs() / ref.loss.abs())
+    if label == "hint":
+        early = (res.n_iters.cpu() < full) & (ref.n_iters < full)
+        held, rtol, least = rel[early], ENET_FULL_HINT_LOSS_RTOL, \
+            ENET_FULL_HINT_MIN_HELD
+    else:
+        early = torch.ones_like(rel, dtype=torch.bool)
+        held, rtol, least = rel, ENET_FULL_LOSS_RTOL, 1
+    ok = int(held.numel()) >= least and bool((held <= rtol).all())
+    return rel, early, held, rtol, least, ok
+
+
 def enet_lbfgs_checks(dev, n_sm, plain_reps=1):
     """Kernel 4 against its plain version on one step lane and on the
     hint's 50 weighted lanes of one env (M = N = 20): each of the first 5
@@ -1781,22 +1857,14 @@ def enet_lbfgs_checks(dev, n_sm, plain_reps=1):
     ENET_FULL_HINT_MIN_HELD of them), the capped lanes and the x
     difference printed; CUDA-event
     times (median of 20; the plain solve on the card, seconds long, median
-    of ``plain_reps``); the bound of this run's work and the dependent-step
-    floor."""
+    of ``plain_reps``), and per evaluation of the slowest lane; the bound
+    of this run's work (the evaluations the kernel performed) and the
+    dependent-step floor (:func:`k4_chain_ops`)."""
     from smartcal_tpu_torch.envs import enet
     from smartcal_tpu_torch.ops import enet_lbfgs
     cfg = enet.EnetConfig()
-    st = _enet_problem(enet, cfg, 11)
-    rho, _ = enet.action_to_rho(torch.tensor([[0.3, -0.5]]))
-    lams, test = enet.hint_lanes(cfg, "cpu")
-    w = torch.where(test, 0.0, 1.0)
-    A, y = st.A[None], st.y[None]
-    cases = {"step": ((A, y, rho[:, 0].contiguous(), rho[:, 1].contiguous(),
-                       None), cfg.lbfgs_iters),
-             "hint": ((A, y, lams[:, 1].contiguous(),
-                       lams[:, 0].contiguous(), w), enet.HINT_ITERS)}
     out = {}
-    for label, (args, full) in cases.items():
+    for label, (args, full) in _kernel4_cases().items():
         dargs = tuple(None if a is None else a.to(dev) for a in args)
         err5 = kernel4_iterations(enet_lbfgs, args, dargs, label)
         got = enet_lbfgs.solve_cuda(*dargs, max_iters=5)
@@ -1821,16 +1889,8 @@ def enet_lbfgs_checks(dev, n_sm, plain_reps=1):
                    for f in ("x", "loss", "n_iters")):
             raise AssertionError(f"kernel 4 ({label}): two launches differ")
         ref = enet_lbfgs.solve_plain(*args, max_iters=full)
-        rel = ((res.loss.cpu() - ref.loss).abs() / ref.loss.abs())
-        if label == "hint":
-            early = (res.n_iters.cpu() < full) & (ref.n_iters < full)
-            held, rtol, least = rel[early], ENET_FULL_HINT_LOSS_RTOL, \
-                ENET_FULL_HINT_MIN_HELD
-        else:
-            early = torch.ones_like(rel, dtype=torch.bool)
-            held, rtol, least = rel, ENET_FULL_LOSS_RTOL, 1
-        loss_ok = (int(held.numel()) >= least
-                   and bool((held <= rtol).all()))
+        rel, early, held, rtol, least, loss_ok = _full_depth_hold(
+            label, res, ref, full)
         capped = rel[~early]
         x_err = float((res.x.cpu() - ref.x).abs().max())
         print(f"kernel 4 at full depth ({label}, {full} iterations): loss "
@@ -1854,8 +1914,11 @@ def enet_lbfgs_checks(dev, n_sm, plain_reps=1):
         n_ev = int(evals.sum())
         flops, nbytes = enet_lbfgs.solve_cost(*dargs, n_ev)
         bound_ms, bound_by = bound(nbytes, flops, 0.0, n_sm)
-        floor_ms = (1e3 * int(evals.max()) * (cfg.M + cfg.N)
-                    * FMA_LATENCY_CYCLES / BOOST_HZ)
+        chain = max(k4_chain_ops(e, it, cfg.M, cfg.N, LBFGS_HISTORY)
+                    for e, it in zip(evals.tolist(), res.n_iters.tolist()))
+        floor_ms = (1e3 * chain * FMA_LATENCY_CYCLES / BOOST_HZ)
+        # the slowest lane's time per evaluation it performed
+        us_per_eval = 1e3 * ms / int(evals.max())
         out[label] = {"lanes": int(args[2].shape[0]), "max_iters": full,
                       "max_abs_err_5_iters": err5, "x_max_abs_full": x_err,
                       "loss_rel_full_max": float(rel.max()),
@@ -1864,17 +1927,48 @@ def enet_lbfgs_checks(dev, n_sm, plain_reps=1):
                       "lanes_held_full": int(held.numel()),
                       "iters": res.n_iters.tolist(),
                       "evals_total": n_ev, "evals_max": int(evals.max()),
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "ms": ms, "us_per_eval": us_per_eval,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "dependent_floor_ms": floor_ms,
+                      "dependent_chain_ops": chain,
                       "flops": flops, "bytes": nbytes}
         print(f"kernel 4 ({label}, {out[label]['lanes']} lanes, M=N=20, "
-              f"{full} iterations max): {ms:.4f} ms (median of 20), plain "
-              f"on the card {plain_ms:.1f} ms (median of {plain_reps}), bound "
-              f"{bound_ms:.6f} ms ({bound_by}: {n_ev} evaluations), "
-              f"dependent-step floor {floor_ms:.4f} ms (the slowest lane's "
-              f"{int(evals.max())} evaluations x {cfg.M + cfg.N} dependent "
-              f"FMAs x {FMA_LATENCY_CYCLES} cycles)", flush=True)
+              f"{full} iterations max): {ms:.4f} ms (median of 20; "
+              f"{us_per_eval:.3f} us per evaluation of the slowest lane's "
+              f"{int(evals.max())}), plain on the card {plain_ms:.1f} ms "
+              f"(median of {plain_reps}), bound {bound_ms:.6f} ms "
+              f"({bound_by}: {n_ev} evaluations performed), dependent-step "
+              f"floor {floor_ms:.4f} ms (the longest lane's chain: "
+              f"{cfg.M + cfg.N + K4_EVAL_OPS} dependent operations per "
+              f"evaluation, {K4_PAIR_OPS} per pair in the ring and "
+              f"{K4_ITER_OPS} per iteration, {chain} in all x "
+              f"{FMA_LATENCY_CYCLES} cycles), kernel / floor "
+              f"{ms / floor_ms:.1f}", flush=True)
     return out
+
+
+def _eig_hard_cases(n, seed=17):
+    """The harder inputs of kernel 5, each one n x n matrix: diagonal, a
+    fivefold eigenvalue, rank 1, zero, eigenvalues from 1e-4 to 1e4, and
+    a random matrix with one NaN on the diagonal."""
+    g = torch.Generator().manual_seed(seed)
+    Q, _ = torch.linalg.qr(torch.randn(n, n, generator=g,
+                                       dtype=torch.float64))
+
+    def spectrum(ev):
+        return (Q @ torch.diag(ev.double()) @ Q.T).float()
+
+    v = torch.randn(n, generator=g)
+    R = torch.randn(n, n, generator=g)
+    nan = R + R.T
+    nan[n // 3, n // 3] = float("nan")
+    return {"diagonal": torch.diag(torch.randn(n, generator=g)),
+            "repeated": spectrum(torch.cat([torch.ones(5),
+                                            torch.arange(2.0, n - 3)])),
+            "rank 1": torch.outer(v, v),
+            "zero": torch.zeros(n, n),
+            "span 1e-4..1e4": spectrum(torch.logspace(-4, 4, n)),
+            "one NaN": nan}
 
 
 def sym_eigvals_checks(dev, n_sm):
@@ -1882,11 +1976,14 @@ def sym_eigvals_checks(dev, n_sm):
     on one step's influence matrix B (M = N = 20, on the card's own solve)
     and on ENET_EIG_RANDOM random symmetric 20 x 20 matrices, at EIG_RTOL
     and EIG_ATOL_REL x max|lambda|; bit for bit over two launches; CUDA-event
-    times (median of 20); the bound of the function's work (B read and
-    the eigenvalues written once, ~4/3 n^3 flops per matrix, the work of a
-    symmetric eigensolve, at the FP32 rate) and the dependent-step floor
-    of this run's Jacobi sweeps (the slowest matrix's rotations, each a
-    chain of JACOBI_CHAIN_OPS FP64 operations)."""
+    times (median of 20; over 20 back-to-back launches too); the bound of
+    the function's work (B read and the eigenvalues written once, ~4/3 n^3
+    flops per matrix, the work of a symmetric eigensolve, at the FP32 rate)
+    and the dependent-step floor of this run's sweeps (the slowest
+    matrix's rounds, each a chain of JACOBI_ROUND_CHAIN_OPS FP64
+    operations).  Then the harder inputs (:func:`_eig_hard_cases`) at the
+    same tolerances, two launches each, and the NaN case's NaN ranked last
+    (eigvalsh is not asked about a NaN)."""
     from smartcal_tpu_torch.envs import enet
     from smartcal_tpu_torch.ops import sym_eigvals
     cfg = enet.EnetConfig()
@@ -1899,6 +1996,8 @@ def sym_eigvals_checks(dev, n_sm):
     R = torch.randn(ENET_EIG_RANDOM, cfg.N, cfg.N, generator=g)
     cases = {"step B": B_step, "random": (R + R.mT).to(dev)}
     out = {}
+    n = cfg.N
+    rounds = n + n % 2 - 1
     for label, Bm in cases.items():
         sweeps = torch.zeros(Bm.shape[0], dtype=torch.int32, device=dev)
         got = sym_eigvals.sym_eigvals_cuda(Bm, sweeps=sweeps)
@@ -1912,29 +2011,57 @@ def sym_eigvals_checks(dev, n_sm):
         ms = cuda_ms(lambda: sym_eigvals.sym_eigvals_cuda(Bm), 20, warmup=3)
         lib_ms = cuda_ms(lambda: sym_eigvals.sym_eigvals_plain(Bm), 20,
                          warmup=3)
-        n = cfg.N
+        ms_b2b = cuda_ms_batched(lambda: sym_eigvals.sym_eigvals_cuda(Bm))
         flops, nbytes = sym_eigvals.eig_cost(Bm)
         bound_ms, bound_by = bound(nbytes, flops, 0.0, n_sm)
-        floor_ms = (1e3 * int(sweeps.max()) * n * (n - 1) / 2
-                    * JACOBI_CHAIN_OPS * FP64_LATENCY_CYCLES / BOOST_HZ)
+        floor_ms = (1e3 * int(sweeps.max()) * rounds
+                    * JACOBI_ROUND_CHAIN_OPS * FP64_LATENCY_CYCLES / BOOST_HZ)
         out[label] = {"matrices": int(Bm.shape[0]), "n": n,
                       "max_abs_err": err, "max_abs_eig": scale,
                       "sweeps_max": int(sweeps.max()),
                       "sweeps_total": int(sweeps.sum()), "ms": ms,
+                      "ms_back_to_back": ms_b2b,
                       "plain_ms": lib_ms, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "dependent_floor_ms": floor_ms,
                       "flops": flops, "bytes": nbytes}
-        print(f"kernel 5 ({label}): {ms:.4f} ms (median of 20), eigvalsh "
+        print(f"kernel 5 ({label}): {ms:.4f} ms (median of 20; "
+              f"{ms_b2b:.4f} ms each over 20 back to back), eigvalsh "
               f"(plain version and library call) {lib_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}: 4/3 n^3 FP32 flops per "
               f"matrix, {nbytes:.0f} bytes), dependent-step floor "
               f"{floor_ms:.4f} ms (the slowest matrix's "
-              f"{int(sweeps.max())} sweeps x {n * (n - 1) // 2} rotations "
-              f"x {JACOBI_CHAIN_OPS} dependent FP64 operations x "
+              f"{int(sweeps.max())} sweeps x {rounds} rounds x "
+              f"{JACOBI_ROUND_CHAIN_OPS} dependent FP64 operations x "
               f"{FP64_LATENCY_CYCLES} cycles), kernel / floor "
               f"{ms / floor_ms:.1f}; {int(sweeps.sum())} sweeps in all",
               flush=True)
+    hard = {}
+    for label, Bh in _eig_hard_cases(n).items():
+        Bh = Bh[None].to(dev)
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = sym_eigvals.sym_eigvals_cuda(Bh, sweeps=sweeps)
+        again = sym_eigvals.sym_eigvals_cuda(Bh)
+        if not torch.equal(got.nan_to_num(7.0), again.nan_to_num(7.0)):
+            raise AssertionError(f"kernel 5 ({label}): two launches differ")
+        if label == "one NaN":
+            v = got[0].cpu()
+            ok = (bool(torch.isnan(v[-1])) and bool(torch.isfinite(v[:-1])
+                                                    .all())
+                  and bool((v[1:-1] >= v[:-2]).all()))
+            print(f"kernel 5 ({label}): {v.tolist()} -> NaN ranked last, "
+                  f"the rest ascending: {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("kernel 5: the NaN is not ranked last")
+            hard[label] = {"nan_last": True, "sweeps": int(sweeps[0])}
+            continue
+        want = sym_eigvals.sym_eigvals_plain(Bh)
+        scale = float(want.abs().max())
+        hard[label] = {"max_abs_err": check_close(
+            "sym_eigvals", label, got, want, EIG_RTOL, EIG_ATOL_REL, scale),
+            "max_abs_eig": scale, "sweeps": int(sweeps[0])}
+    out["hard"] = hard
     return out
 
 
@@ -2173,7 +2300,10 @@ def enet_kernel_entry(name, report):
             "launches": ep["block20"]["launches"][name],
             "launches_replayed": ep["block20"]["launches_replayed"][name],
             "launches_by_path": by_path,
-            "max_abs_err": max(c[err_key] for c in cases.values()),
+            "max_abs_err": max(
+                [c[err_key] for c in cases.values() if err_key in c]
+                + [c["max_abs_err"] for c in cases.get("hard", {}).values()
+                   if "max_abs_err" in c]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "dependent_floor_ms": main["dependent_floor_ms"],
@@ -5410,6 +5540,271 @@ def bf16_ablation(out_dir, card, parent_src, reps=5, npix=1024, R=652800,
 
 
 # -- the distributed-training slice (fleet_phase) ---------------------------
+#: copies of the shipped kernel 4 (csrc/enet_lbfgs.cu) with a switch
+#: changed: A back in shared memory
+ENET_LEVERS = {"smem_a": {"ENET_A_REGISTERS": 0}}
+
+
+def _kernel4_seed_lanes(n=ENET_SEED_LANES, seed=21):
+    """``n`` step lanes, each its own env problem (seeds 1000..) and a
+    uniform random action: ((A, y, l2, l1, None), max_iters), on the
+    CPU."""
+    from smartcal_tpu_torch.envs import enet
+    cfg = enet.EnetConfig()
+    sts = [_enet_problem(enet, cfg, 1000 + s) for s in range(n)]
+    act = torch.rand(n, 2, generator=torch.Generator().manual_seed(seed))
+    rho, _ = enet.action_to_rho(act * 2 - 1)
+    return ((torch.stack([st.A for st in sts]),
+             torch.stack([st.y for st in sts]), rho[:, 0].contiguous(),
+             rho[:, 1].contiguous(), None), cfg.lbfgs_iters)
+
+
+def _parent_eig(lib, B):
+    """One launch of the parent kernel 5 (no schedule argument) on a
+    contiguous float32 (L, n, n) B; returns (L, n)."""
+    L, n = B.shape[0], B.shape[-1]
+    out = torch.empty((L, n), dtype=torch.float32, device=B.device)
+    rc = lib.sym_eigvals_launch(B.data_ptr(), L, n, out.data_ptr(), 0, 0,
+                                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"parent sym_eigvals launch failed: {rc}")
+    return out
+
+
+class _Kernel4Lib:
+    """Within the block, ``enet_lbfgs``'s wrappers launch ``lib``."""
+
+    def __init__(self, enet_lbfgs, lib):
+        self.mod, self.lib = enet_lbfgs, lib
+
+    def __enter__(self):
+        self.saved = self.mod._lib
+        self.mod._lib = lambda: self.lib
+
+    def __exit__(self, *exc):
+        self.mod._lib = self.saved
+
+
+def enet_kernel_ablation(out_dir, card, parent_dir, reps=20):
+    """Kernels 4 and 5 of the parent checkout ``parent_dir`` (its
+    smartcal_tpu_torch/csrc/), the shipped ones and copies of the shipped
+    kernel 4 with a switch changed (ENET_LEVERS), one nvcc each, all at
+    once.  Every kernel 4 copy is held as enet_lbfgs_checks holds the
+    shipped one (the first 5 iterations from its own state, the full-depth
+    losses), printed and not raised, and its full-depth results compared
+    bit for bit with the parent's; then on ENET_SEED_LANES seeded step
+    lanes (:func:`_kernel4_seed_lanes`, one launch) each lane's full-depth
+    loss against the plain version run lane by lane, and its iterations
+    and evaluations beside the plain version's; then each is timed at the
+    step lane, the hint's 50 lanes and the seeded lanes (at their depths
+    and at max_iters = 0, and per evaluation the slowest lane performed),
+    and kernel 5 (parent, shipped, eigvalsh) on one random 20 x 20 matrix
+    and on 64, all on the same operands, in two turns (forward, then
+    backward), CUDA events, median of ``reps`` (kernel 5 also per launch
+    over 20 back to back).  DIR/enet_kernel_ablation.json."""
+    from smartcal_tpu_torch.ops import build, enet_lbfgs, sym_eigvals
+    parent = Path(parent_dir) / "smartcal_tpu_torch" / "csrc"
+    k4 = (build.CSRC / "enet_lbfgs.cu").read_text()
+    sources = {"k4_parent": (parent / "enet_lbfgs.cu").read_text(),
+               "k4_shipped": k4,
+               "k5_parent": (parent / "sym_eigvals.cu").read_text(),
+               "k5_shipped": (build.CSRC / "sym_eigvals.cu").read_text()}
+    for name, switches in ENET_LEVERS.items():
+        sources[f"k4_{name}"] = "".join(
+            f"#define {k} {v}\n" for k, v in switches.items()) + k4
+    libs = build_split_libs(sources, "enet_kernel_ablation")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, (lib, _) in libs.items():
+        if name.startswith("k4_"):
+            enet_lbfgs.bind(lib)
+        elif name == "k5_shipped":
+            sym_eigvals.bind(lib)
+        else:
+            lib.sym_eigvals_launch.argtypes = [p, i, i, p, p, p, p]
+            lib.sym_eigvals_launch.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    report = {"card": card, "parent": str(parent_dir), "registers": {
+        n: r for n, (_, r) in libs.items()}, "kernel4": {}, "kernel5": {}}
+    k4_names = [n for n in libs if n.startswith("k4_")]
+    cases = _kernel4_cases()
+    refs = {label: enet_lbfgs.solve_plain(*args, max_iters=full)
+            for label, (args, full) in cases.items()}
+    holds, parent_runs = {}, {}
+    for name in k4_names:
+        holds[name] = {}
+        with _Kernel4Lib(enet_lbfgs, libs[name][0]):
+            for label, (args, full) in cases.items():
+                dargs = tuple(None if a is None else a.to(dev) for a in args)
+                try:
+                    kernel4_iterations(enet_lbfgs, args, dargs,
+                                       f"{name}, {label}")
+                    iters_ok = True
+                except AssertionError as e:
+                    print(f"{name}: {e}", flush=True)
+                    iters_ok = False
+                res, evals = enet_lbfgs.solve_cuda(*dargs, max_iters=full,
+                                                   with_evals=True)
+                again = enet_lbfgs.solve_cuda(*dargs, max_iters=full)
+                same = torch.equal(res.x, again.x)
+                # the algorithm's results; the evaluation counts differ
+                # where the phi(0) of a search is reused
+                run = [res.x, res.loss, res.grad, res.n_iters, res.hist.s,
+                       res.hist.y, res.hist.gamma]
+                if name == "k4_parent":
+                    parent_runs[label] = run
+                as_parent = all(torch.equal(a, b) for a, b in
+                                zip(run, parent_runs[label]))
+                _, _, held, rtol, least, loss_ok = _full_depth_hold(
+                    label, res, refs[label], full)
+                holds[name][label] = {
+                    "iterations_held": iters_ok, "full_depth_held": loss_ok,
+                    "same_bits": same, "parent_bits": as_parent,
+                    "lanes_held": int(held.numel()),
+                    "held_rel_max": float(held.max()) if held.numel()
+                    else None, "iters": res.n_iters.tolist(),
+                    "evals_max": int(evals.max()),
+                    "evals_total": int(evals.sum())}
+                print(f"{name} ({label}): first 5 iterations "
+                      f"{'held' if iters_ok else 'NOT held'}; full depth "
+                      f"{'held' if loss_ok else 'NOT held'} "
+                      f"({int(held.numel())} lanes, max "
+                      f"{holds[name][label]['held_rel_max']} at rtol "
+                      f"{rtol}); two launches "
+                      f"{'the same bits' if same else 'DIFFER'}; "
+                      f"{'the' if as_parent else 'NOT the'} parent's bits; "
+                      f"iterations {res.n_iters.tolist()[:6]}, evaluations "
+                      f"max {int(evals.max())}", flush=True)
+    # the seeded step lanes: the plain version lane by lane (as the step
+    # lane is held), every kernel 4 on all of them in one launch
+    seed_args, seed_full = _kernel4_seed_lanes()
+    A, y, l2, l1, _ = seed_args
+    plain = [enet_lbfgs.solve_plain(A[k:k + 1], y[k:k + 1], l2[k:k + 1],
+                                    l1[k:k + 1], max_iters=seed_full)
+             for k in range(A.shape[0])]
+    p_loss = torch.cat([r.loss for r in plain])
+    p_iters = torch.cat([r.n_iters for r in plain])
+    dseed = tuple(None if a is None else a.to(dev) for a in seed_args)
+    seeds = {}
+    for name in k4_names:
+        with _Kernel4Lib(enet_lbfgs, libs[name][0]):
+            res, evals = enet_lbfgs.solve_cuda(*dseed, max_iters=seed_full,
+                                               with_evals=True)
+        rel = ((res.loss.cpu() - p_loss).abs() / p_loss.abs())
+        its, ev = res.n_iters.cpu(), evals.cpu()
+        seeds[name] = {
+            "loss_rel": rel.tolist(), "iters": its.tolist(),
+            "evals": ev.tolist(), "plain_iters": p_iters.tolist(),
+            "held": int((rel <= ENET_FULL_LOSS_RTOL).sum()),
+            "loss_rel_max": float(rel.max()),
+            "loss_rel_median": float(rel.median()),
+            "iters_mean": float(its.float().mean()),
+            "plain_iters_mean": float(p_iters.float().mean()),
+            "fewer_iters": int((its < p_iters).sum()),
+            "more_iters": int((its > p_iters).sum()),
+            "evals_mean": float(ev.float().mean()),
+            "evals_per_iter": float(ev.sum() / its.sum().clamp(min=1))}
+        z = seeds[name]
+        print(f"{name} (seeded step lanes, {A.shape[0]} problems): loss "
+              f"within rtol {ENET_FULL_LOSS_RTOL} of the plain version's on "
+              f"{z['held']} lanes, rel err max {z['loss_rel_max']:.3e} "
+              f"median {z['loss_rel_median']:.3e}; iterations mean "
+              f"{z['iters_mean']:.2f} (plain {z['plain_iters_mean']:.2f}; "
+              f"fewer on {z['fewer_iters']} lanes, more on "
+              f"{z['more_iters']}); evaluations performed mean "
+              f"{z['evals_mean']:.2f}, {z['evals_per_iter']:.3f} an "
+              f"iteration", flush=True)
+    report["kernel4_seeds"] = seeds
+    cases = dict(cases, seeds=(seed_args, seed_full))
+    # the wide path (N > 32, or a history above 8): x after 5 iterations
+    g = torch.Generator().manual_seed(3)
+    with _Kernel4Lib(enet_lbfgs, libs["k4_shipped"][0]):
+        for N, M, m in ((40, 24, 7), (20, 20, 10)):
+            args = (torch.randn(1, N, M, generator=g) / N ** 0.5,
+                    torch.randn(1, N, generator=g), torch.tensor([0.05]),
+                    torch.tensor([0.01]))
+            got = enet_lbfgs.solve_cuda(*(a.to(dev) for a in args),
+                                        max_iters=5, history_size=m)
+            want = enet_lbfgs.solve_plain(*args, max_iters=5,
+                                          history_size=m)
+            if not torch.equal(got.n_iters.cpu(), want.n_iters):
+                raise AssertionError("kernel 4's wide path: iteration "
+                                     "counts differ")
+            report["wide_path_" + f"{N}x{M}_m{m}"] = _hold(
+                f"kernel 4's wide path (N={N}, M={M}, history {m}) x after "
+                "5 iterations", got.x, want.x, ENET_ITER_RTOL,
+                ENET_ITER_ATOL)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # each case at its depth, and at max_iters = 0: the launch, the
+    # wrapper's host work and one evaluation
+    runs = [(label, full) for label, (_, full) in cases.items()] + [
+        (label, 0) for label in cases]
+    times = {n: {f"{label}@{it}": [] for label, it in runs}
+             for n in k4_names}
+    for turn in (k4_names, k4_names[::-1]):
+        for name in turn:
+            lib = libs[name][0]
+            for label, it in runs:
+                A, y, l2, l1, w = (None if a is None else
+                                   a.to(dev).contiguous()
+                                   for a in cases[label][0])
+                times[name][f"{label}@{it}"].append(cuda_ms(
+                    lambda: enet_lbfgs.launch(
+                        lib, A, y, l2, l1, w, it, 7, 1e-5, 1e-9, stream),
+                    reps, warmup=3))
+    for name in k4_names:
+        # per evaluation the slowest lane performed
+        most = {label: h["evals_max"] for label, h in holds[name].items()}
+        most["seeds"] = max(seeds[name]["evals"])
+        per_eval = {label: [1e3 * t / most[label] for t in
+                            times[name][f"{label}@{full}"]]
+                    for label, (_, full) in cases.items()}
+        report["kernel4"][name] = {"holds": holds[name],
+                                   "ms": times[name],
+                                   "us_per_eval": per_eval,
+                                   "evals_slowest_lane": most}
+        print(f"kernel 4 {name}: " + "; ".join(
+            f"{label} {', '.join(f'{t:.4f}' for t in ts)} ms"
+            for label, ts in times[name].items()) + "; per evaluation "
+            "of the slowest lane: " + "; ".join(
+            f"{label} {', '.join(f'{t:.3f}' for t in ts)} us "
+            f"({most[label]})" for label, ts in per_eval.items()),
+            flush=True)
+    g = torch.Generator().manual_seed(13)
+    R = torch.randn(ENET_EIG_RANDOM, 20, 20, generator=g)
+    eig_cases = {"1 x 20 x 20": (R[:1] + R[:1].mT).to(dev),
+                 "64 x 20 x 20": (R + R.mT).to(dev)}
+    sched = sym_eigvals.round_robin(20).to(dev)
+    eig_fns = {
+        "k5_parent": lambda B: _parent_eig(libs["k5_parent"][0], B),
+        "k5_shipped": lambda B: sym_eigvals.launch(libs["k5_shipped"][0],
+                                                   B, sched, stream),
+        "eigvalsh": sym_eigvals.sym_eigvals_plain}
+    for label, B in eig_cases.items():
+        want = sym_eigvals.sym_eigvals_plain(B)
+        for name in ("k5_parent", "k5_shipped"):
+            check_close(name, label, eig_fns[name](B), want, EIG_RTOL,
+                        EIG_ATOL_REL, float(want.abs().max()))
+    t5 = {n: {label: [] for label in eig_cases} for n in eig_fns}
+    b2b = {n: {label: [] for label in eig_cases} for n in eig_fns}
+    names5 = list(eig_fns)
+    for turn in (names5, names5[::-1]):
+        for name in turn:
+            for label, B in eig_cases.items():
+                fn = functools.partial(eig_fns[name], B)
+                t5[name][label].append(cuda_ms(fn, reps, warmup=3))
+                b2b[name][label].append(cuda_ms_batched(fn))
+    for name in names5:
+        report["kernel5"][name] = {"ms": t5[name],
+                                   "ms_back_to_back": b2b[name]}
+        print(f"kernel 5 {name}: " + "; ".join(
+            f"{label} {', '.join(f'{t:.4f}' for t in t5[name][label])} ms "
+            f"({', '.join(f'{t:.4f}' for t in b2b[name][label])} back to "
+            f"back)" for label in eig_cases), flush=True)
+    with open(os.path.join(out_dir, "enet_kernel_ablation.json"), "w") as fh:
+        json.dump(report, fh, indent=1, default=float)
+    return report
+
+
 FLEET_ENET = {"M": 20, "N": 20}        # full width; the inner solve's depth
 FLEET_LBFGS = 30                       # default run (200 under --fleet)
 FLEET_ROUNDS = 6                       # thread fleet rounds (8 under --fleet)
@@ -6503,6 +6898,12 @@ def main():
                     help="time the Hessian kernels' launches apart instead: "
                          "PARENT_CU is the two-pass hessian_blocks.cu of "
                          "commit dc0ef65")
+    ap.add_argument("--enet-kernel-ablation", dest="enet_kernel_ablation",
+                    metavar="PARENT_DIR",
+                    help="time kernels 4 and 5 against a parent checkout's "
+                         "and kernel 4's copies with one lever off "
+                         "instead: PARENT_DIR holds the parent's "
+                         "smartcal_tpu_torch/csrc/")
     ap.add_argument("--bf16-ablation", metavar="PARENT_CU",
                     help="time kernel 2's bf16 mode against its parent "
                          "and its ceilings instead: PARENT_CU is the "
@@ -6563,11 +6964,15 @@ def main():
             json.dump(out, fh, indent=1, default=float)
         print(card)
         return 0
-    if args.ablation or args.hessian_split or args.bf16_ablation:
+    if (args.ablation or args.hessian_split or args.bf16_ablation
+            or args.enet_kernel_ablation):
         card = card_line()
         print(card, flush=True)
+        os.makedirs(args.out, exist_ok=True)
         if args.ablation:
             ablation(args.out, card)
+        elif args.enet_kernel_ablation:
+            enet_kernel_ablation(args.out, card, args.enet_kernel_ablation)
         elif args.hessian_split:
             hessian_split(args.out, card, args.hessian_split)
         else:

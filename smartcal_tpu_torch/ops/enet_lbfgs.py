@@ -66,10 +66,27 @@ def lane_loss(A, y, x, l2, l1, w=None):
             + l1 * torch.sum(abs_jax(x), dim=-1))
 
 
+#: the kernel's fast path (csrc ``fast_path``): one thread per element and
+#: a history held in registers; the CUDA tests hold :func:`smem_bytes` to
+#: the kernel's own ``enet_lbfgs_smem_bytes``
+FAST_WIDTH, FAST_HISTORY = 32, 8
+
+
+def fast_path(N, M, history_size) -> bool:
+    """Whether (N, M, history_size) takes the kernel's fast path: one
+    thread per element of x and of the residual, A and the history in
+    registers (see the source); wider problems take its wide path."""
+    return N <= FAST_WIDTH and M <= FAST_WIDTH and history_size <= \
+        FAST_HISTORY
+
+
 def smem_bytes(N, M, history_size):
     """Shared memory of one lane's block (csrc ``enet_lbfgs_smem_bytes``):
-    A and its transpose, y, w, the residual, six M-vectors and the
-    curvature pairs."""
+    on the fast path two 32-wide operand buffers; on the wide path A and
+    its transpose, y, w, the residual, six M-vectors and the curvature
+    pairs."""
+    if fast_path(N, M, history_size):
+        return 4 * 2 * FAST_WIDTH
     return 4 * (2 * N * M + 3 * N + 6 * M + 2 * history_size * M
                 + 2 * history_size)
 
@@ -115,6 +132,8 @@ def bind(lib):
     lib.enet_lbfgs_launch.restype = ctypes.c_int
     lib.enet_lbfgs_error_string.argtypes = [ctypes.c_int]
     lib.enet_lbfgs_error_string.restype = ctypes.c_char_p
+    lib.enet_lbfgs_smem_bytes.argtypes = [i, i, i]
+    lib.enet_lbfgs_smem_bytes.restype = ctypes.c_size_t
 
 
 def launch(lib, A, y, l2, l1, w, max_iters, history_size, tolerance_grad,
@@ -122,19 +141,22 @@ def launch(lib, A, y, l2, l1, w, max_iters, history_size, tolerance_grad,
     """One launch of ``lib``'s kernel on checked, contiguous operands, on
     ``stream`` (an int); ``counter`` the device address of an int64 the
     kernel increments, or 0.  Returns (LBFGSResult, per-lane
-    evaluations)."""
+    evaluations the kernel performed: on its fast path the search's
+    phi(0) is the accepted point's loss and g . d, not evaluated again)."""
     G, N, M = A.shape
     L, m = l2.shape[0], int(history_size)
     dev = A.device
-
-    def empty(*shape, dtype=F32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    x, grad = empty(L, M), empty(L, M)
-    loss, gamma = empty(L), empty(L)
-    S, Y = empty(L, m, M), empty(L, m, M)
-    count, n_iters, evals = (empty(L, dtype=torch.int32) for _ in range(3))
-    conv, stop, div = (empty(L, dtype=torch.bool) for _ in range(3))
+    # three allocations, the outputs views into them: a lone launch's time
+    # is mostly the host's
+    fl = torch.empty(L * (2 * M + 2 + 2 * m * M), dtype=F32, device=dev)
+    x, grad, loss, gamma, S, Y = torch.split(
+        fl, [L * M, L * M, L, L, L * m * M, L * m * M])
+    x, grad = x.view(L, M), grad.view(L, M)
+    S, Y = S.view(L, m, M), Y.view(L, m, M)
+    count, n_iters, evals = torch.empty(
+        (3, L), dtype=torch.int32, device=dev).unbind(0)
+    conv, stop, div = torch.empty((3, L), dtype=torch.bool,
+                                  device=dev).unbind(0)
     rc = lib.enet_lbfgs_launch(
         A.data_ptr(), y.data_ptr(), 0 if w is None else w.data_ptr(),
         l2.data_ptr(), l1.data_ptr(), L, G, N, M, m, int(max_iters),
@@ -187,7 +209,7 @@ def solve_cuda(A, y, l2, l1, w=None, max_iters=200,
                tolerance_change=1e-9, with_evals=False):
     """Launch the kernel on CUDA tensors on the current stream; returns
     the :class:`LBFGSResult` (and with ``with_evals`` the (L,) int32
-    objective evaluations of each lane)."""
+    objective evaluations each lane performed)."""
     global launches
     if A.device.type != "cuda":
         raise ValueError(f"enet_lbfgs: the kernel needs CUDA tensors, got "

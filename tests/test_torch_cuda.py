@@ -5,6 +5,9 @@ machine with the GPU and no JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -635,10 +638,54 @@ def test_enet_lbfgs_kernel_matches_plain_on_gpu():
 
 
 @pytest.mark.cuda
+def test_enet_lbfgs_wide_path_matches_plain_on_gpu():
+    """Kernel 4's wide path (N = 40 > 32, and a history of 10 > 8): x
+    after 5 iterations from x = 0 against the plain version (rtol 1e-4 /
+    atol 1e-6, equal iteration counts), the same bits over two
+    launches; the wrapper's shared-memory sizes are the kernel's own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from smartcal_tpu_torch.ops import enet_lbfgs
+    lib = enet_lbfgs._lib()
+    for N, M, m in ((20, 20, 7), (32, 1, 8), (33, 20, 7), (20, 20, 9),
+                    (100, 100, 7)):
+        assert lib.enet_lbfgs_smem_bytes(N, M, m) == \
+            enet_lbfgs.smem_bytes(N, M, m)
+    g = torch.Generator().manual_seed(3)
+    for N, M, m in ((40, 24, 7), (20, 20, 10)):
+        assert not enet_lbfgs.fast_path(N, M, m)
+        args = (torch.randn(1, N, M, generator=g) / N ** 0.5,
+                torch.randn(1, N, generator=g), torch.tensor([0.05]),
+                torch.tensor([0.01]))
+        dargs = tuple(a.cuda() for a in args)
+        got = enet_lbfgs.solve(*dargs, max_iters=5, history_size=m)
+        want = enet_lbfgs.solve_plain(*args, max_iters=5, history_size=m)
+        np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(),
+                                   rtol=1e-4, atol=1e-6)
+        assert torch.equal(got.n_iters.cpu(), want.n_iters)
+        again = enet_lbfgs.solve(*dargs, max_iters=5, history_size=m)
+        assert torch.equal(got.x, again.x)
+
+
+def _chip_smoke():
+    """The repository's chip_smoke.py as a module: its inputs for the
+    kernels' checks are the ones these tests hold."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
 def test_sym_eigvals_kernel_matches_eigvalsh_on_gpu():
     """Kernel 5 (``csrc/sym_eigvals.cu``) against ``eigvalsh`` of the
-    symmetric part on 64 random 20 x 20 matrices (rtol 1e-5, atol 1e-6 x
-    max|lambda|), ascending, the same bits over two launches."""
+    symmetric part on 64 random 20 x 20 matrices and on harder inputs
+    (diagonal, a repeated eigenvalue, rank 1, zero, eigenvalues from 1e-4
+    to 1e4; rtol 1e-5, atol 1e-6 x max|lambda|), ascending, the same bits
+    over two launches; one NaN on the diagonal ranks last; odd and the
+    largest sizes run too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from smartcal_tpu_torch.ops import sym_eigvals
@@ -655,6 +702,25 @@ def test_sym_eigvals_kernel_matches_eigvalsh_on_gpu():
                                rtol=1e-5, atol=1e-6 * scale)
     assert bool((got[:, 1:] >= got[:, :-1]).all())
     assert torch.equal(got, sym_eigvals.sym_eigvals(B))
+    for label, Bh in _chip_smoke()._eig_hard_cases(20).items():
+        got = sym_eigvals.sym_eigvals(Bh.cuda()).cpu()
+        again = sym_eigvals.sym_eigvals(Bh.cuda()).cpu()
+        assert torch.equal(got.nan_to_num(7.0), again.nan_to_num(7.0))
+        if label == "one NaN":
+            assert bool(torch.isnan(got[-1]))
+            assert bool(torch.isfinite(got[:-1]).all())
+            assert bool((got[1:-1] >= got[:-2]).all())
+            continue
+        want = sym_eigvals.sym_eigvals_plain(Bh)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()),
+                                   err_msg=label)
+    for n in (1, 7, sym_eigvals.MAX_N):      # against float64 eigvalsh
+        Bn = torch.randn(3, n, n, generator=g)
+        want = sym_eigvals.sym_eigvals_plain(Bn.double()).float()
+        np.testing.assert_allclose(
+            sym_eigvals.sym_eigvals(Bn.cuda()).cpu().numpy(), want.numpy(),
+            rtol=1e-5, atol=1e-6 * float(want.abs().max()))
 
 
 @pytest.mark.cuda

@@ -16,7 +16,9 @@ float64 from the device count and rounded to float32 once, as the host
 form's Python float is), with and without the update diagnostics.  On the
 device form every gate is the select a CUDA graph replays, on the CPU as
 on the card.  Then the wrappers of kernels 4 and 5 route CPU tensors to
-their plain versions.
+their plain versions, and the kernels' host-side pieces hold: kernel 5's
+round-robin order of rotations, kernel 4's choice of path and its shared
+memory.
 """
 
 import numpy as np
@@ -180,3 +182,38 @@ def test_kernel_wrappers_route_cpu_tensors_to_plain_versions():
     with pytest.raises(ValueError, match="shared memory"):
         enet_lbfgs.check(torch.zeros(1, 200, 200), torch.zeros(1, 200),
                          l2[:1], l1[:1], None, 7)
+
+
+# -- the kernels' host-side pieces ------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 20, 21, 78, sym_eigvals.MAX_N])
+def test_round_robin_pairs_every_index_once_a_round_each_pair_once_a_sweep(
+        n):
+    sched = sym_eigvals.round_robin(n)
+    n_p = n + n % 2
+    assert sched.dtype == torch.int32
+    assert tuple(sched.shape) == (n_p - 1, n_p // 2, 2)
+    assert bool((sched[..., 0] < sched[..., 1]).all())
+    for rnd in sched:
+        assert sorted(rnd.flatten().tolist()) == list(range(n_p))
+    pairs = {tuple(p) for p in sched.reshape(-1, 2).tolist()}
+    assert len(pairs) == n_p * (n_p - 1) // 2
+    # the kernel's threads: one per 2 x 2 block of the upper triangle
+    assert (n_p // 2) * (n_p // 2 + 1) // 2 <= 1024
+
+
+def test_enet_lbfgs_paths_and_shared_memory():
+    # the sizes the enet env runs take the fast path, within the 48 KB a
+    # block gets without opting in
+    for N, M in ((20, 20), (5, 5), (32, 32), (32, 1)):
+        assert enet_lbfgs.fast_path(N, M, 7)
+        assert enet_lbfgs.smem_bytes(N, M, 7) <= 48 * 1024
+    # wider problems or a deeper history take the wide path, A and A^T in
+    # shared memory
+    for N, M, m in ((33, 20, 7), (20, 33, 7), (20, 20, 9), (100, 100, 7)):
+        assert not enet_lbfgs.fast_path(N, M, m)
+        assert enet_lbfgs.smem_bytes(N, M, m) >= 4 * 2 * N * M
+    A = torch.zeros(1, 170, 170)
+    with pytest.raises(ValueError, match="shared memory"):
+        enet_lbfgs.check(A, torch.zeros(1, 170), torch.ones(1),
+                         torch.ones(1), None, 7)

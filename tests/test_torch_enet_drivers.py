@@ -65,6 +65,17 @@ TD3 = dict(obs_dim=OBS, n_actions=NA, gamma=0.99, tau=0.005, batch_size=B,
            admm_rho=1.0)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread (the suite runs six
+    workers on the host's cores, and their oversubscribed thread pools
+    slowed the full-width trainers' run several times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x):
     return torch.from_numpy(np.array(x))
 
