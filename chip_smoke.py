@@ -16,8 +16,8 @@
    and the hint, stage seconds, L-BFGS iterations and peak memory, the
    hint's shape and range, and the sweep of all 32 selections one mask at
    a time, 8 and 32 at a time, held at rtol 1e-3 at 4 L-BFGS iterations
-   (and 8 against 32 at a time printed beside the 1-ulp spread at
-   admm_iters=2: chaotic there);
+   (and the 1-ulp spread at admm_iters=2, 32 at a time, printed: chaotic
+   there);
    BatchedDemixingEnv(E=4) fused and through its fused=False oracle,
    reset and one step, its stages held on the oracle's own solves and the
    end-to-end differences printed beside a 1-ulp spread; FuzzyDemixingEnv
@@ -40,16 +40,18 @@
    against the CPU, a demixing episode written as TABLE.sct Measurement
    Sets and ``evaluate.recommend`` on them (kernel 1 x 6, 5 probabilities),
    the hint dataset with the MLP and TSK regressors and their live
-   comparison, the TSK influence and the transformer influence (reduced
+   comparison (the hint backend at ADMM 10 of 30, 250 / 500 iterations),
+   the TSK influence (one input) and the transformer influence (reduced
    width), ``evaluate_models`` with an untrained SAC agent; counts zeroed
    just before and read just after each path;
 3. drives the reference-scale path: CalibEnv(M=10) on RadioBackend (N=62
-   stations, Nf=3, T=20, tdelta=10, npix=128), reset and two steps with the
+   stations, Nf=3, T=20, tdelta=10, npix=128; ADMM 5 of its default 10,
+   as every N=62 backend the script builds), reset and two steps with the
    analytic hint, random sky from seed 0, with the kernel launch counts
    zeroed just before and read just after; times one more solve, and
-   queues a third step and that solve under torch.profiler for the
-   device's idle share (1 - busy device seconds / unprofiled wall seconds)
-   and the solve's CUDA kernels per L-BFGS iteration;
+   queues a third step under torch.profiler for the device's idle share
+   (1 - busy device seconds / unprofiled wall seconds) and its CUDA
+   kernels per L-BFGS iteration;
 3b. on that path's own episode and the solve it timed (no new solve):
    the host-loop backend's (``vectorized=False``) influence map, the
    oracle chain band by band with kernel 1 imaging each band (counts
@@ -64,10 +66,10 @@
    at ragged npix and R that cross the engine's tile and stage edges, and
    times kernel, plain version and the plain factored-imager yardstick with
    CUDA events;
-5. drives the train path: ``train/calib_sac.py`` (2 episodes of 1 step
+5. drives the train path: ``train/calib_sac.py`` (1 episode of 1 step
    with the hint, seed 0) on the same N=62 backend, counts zeroed just
-   before and read just after; checks the two scores and the saved ring
-   (2 transitions, no learn: the agent's learn step is measured on the
+   before and read just after; checks the score and the saved ring
+   (1 transition, no learn: the agent's learn step is measured on the
    batched trainer's agent, step 6b);
 6. drives the elastic-net slice (M = N = 20; its solves are kernel 4,
    its eigenvalues kernel 5): one EnetEnv reset, three steps and a hint,
@@ -113,17 +115,15 @@
    ``BatchedCalibEnv(n_envs=4)`` reset and two vector steps, counts zeroed
    just before and read just after (the fused route runs no kernel), with
    stage seconds, L-BFGS iterations (slowest lane and lane mean) per
-   vector step, a third step profiled for the idle share, and one batched
-   solve profiled for CUDA kernels per L-BFGS iteration (beside the N=62
-   path's single solve, profiled in step 3); the same 4 lanes through
+   vector step, a third step profiled for the idle share and CUDA kernels
+   per L-BFGS iteration (beside the N=62 path's single step, profiled in
+   step 3); the same 4 lanes through
    the ``fused=False`` oracle (reset and one step): the largest end-to-end
    error against each of the JAX package's batched tolerances is printed
    beside a 1-ulp change of V's effect on lane 0's solve (the solve is
    chaotic in float32), and held are the fused influence, sigmas and
    reward on the oracle's own step solves (those tolerances) and lane 0's
-   step solve through the batched route at E=1 (bit for bit); the E sweep
-   (E = 8 beside the E=4 path, reset and one step: env-steps/s and peak
-   memory);
+   step solve through the batched route at E=1 (bit for bit);
    ``CalibEnv(prefetch=True)`` against ``prefetch=False`` over 2 resets
    (equal observations, reset seconds, each prefetch taken ready or
    waited on, a solve running while the next episode builds);
@@ -182,10 +182,11 @@
    copy to the card, priority update), SACAgent(prioritized,
    replay_backend="native") 20 learns beside the device-ring agent's and
    a save_models / load_models round trip bit for bit; the port's perf
-   gate (bless, a clean gate, a gate_solve delay and a
-   gate_numeric_imager perturbation each firing on its own stage);
+   gate at 3 samples a stage (bless, a clean gate, a gate_solve delay and
+   a gate_numeric_imager perturbation each firing on its own stage, over
+   the solve, influence and imager stages);
    ``train/demix_fuzzy_sac.py --deterministic`` 2 episodes straight
-   against 1 + --resume to 2, bit for bit with 3 learns before the kill,
+   against 1 + --resume to 2, bit for bit with 2 learns before the kill,
    the straight run with --diag --metrics holding the card's
    roofline_peak and cost events (flops, bytes) of solve, influence and
    agent_update_sac; the device-ring agent's learn timed with
@@ -215,7 +216,7 @@
    sky, maxiter None/9/12, 2 pinned-rho and 2 policy jobs) with 0 compile
    events, each lane bit for bit ``calibrate_batched`` +
    ``influence_images_batched`` + ``image_sigmas_batched`` on the serving
-   buffer; the supervised worker on 12 submitted jobs (3 batches) while
+   buffer; the supervised worker on 8 submitted jobs (2 batches) while
    the breaker thread replays each batch's sentinel lane beside the next
    batch (the overlap read from the run log; no compile event from a
    thread but the breaker's); ``swap_policy`` to version 1 with the same
@@ -240,10 +241,12 @@
    on/off bit identity; last, a 1-step ``--trace`` run (``--small``) whose
    Chrome trace must hold the spans;
 9c. runs the profiled measurements the phases queued (step 3's, the
-   enet step's and solve's, the learn steps', the batched step's and
-   solve's, the SKA step's, the factored kernel's capture count and the
-   demixing step's): a torch.profiler session slows every later launch of
-   the process, so none runs before the last timed phase;
+   enet step's and solve's, the learn steps', the batched step's, the SKA
+   step's, the factored kernel's capture count and the demixing step's):
+   a torch.profiler session slows every later launch of the process, so
+   none runs before the last timed phase; they hold nothing, and one that
+   would start more than ``PROFILE_DEADLINE_S`` into the run (a slower
+   host) is skipped and says so;
 10. prints the kernel table as one JSON line (with each kernel's launches
    on the diffuse, demixing, supervised and bf16 paths; kernel 2's bf16
    mode is an entry of its own), the card line, and last
@@ -641,6 +644,10 @@ def profiler_capture(fn, name_part, reps=3):
 # 1.2-1.3x, TEARDOWN_CUPTI=1 or not (PERF.md section 7), so the default run
 # queues its profiled measurements and runs them after its timed phases.
 DEFERRED = []
+# They measure and hold nothing: one that would start later than this
+# into the run (a slower host) is skipped, and says so, so that the run
+# stays inside its 1200 s.
+PROFILE_DEADLINE_S = 800.0
 
 
 def defer(fn, *args):
@@ -649,10 +656,25 @@ def defer(fn, *args):
     DEFERRED.append((fn, args))
 
 
-def run_deferred():
+def run_deferred(t_start):
+    """Run the queued measurements in order, each only while the run is
+    less than ``PROFILE_DEADLINE_S`` past ``t_start``."""
     while DEFERRED:
         fn, args = DEFERRED.pop(0)
+        spent = time.perf_counter() - t_start
+        if spent > PROFILE_DEADLINE_S:
+            print(f"{fn.__name__} skipped: {spent:.1f} s into the run, past "
+                  f"the profiles' {PROFILE_DEADLINE_S:g} s", flush=True)
+            continue
         fn(*args)
+
+
+def stamp(t_start):
+    """The run's elapsed seconds, on standard output and on standard error
+    (whose end is what a run cut at its time limit shows)."""
+    line = f"elapsed {time.perf_counter() - t_start:.1f} s"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
 
 
 def learn_profile(label, agent, out):
@@ -668,34 +690,33 @@ def learn_profile(label, agent, out):
 
 def step_profile(label, env, out):
     """One more step of ``env`` on its hint profiled: the idle share against
-    the unprofiled ``out["step_wall_s"]``, into ``out``."""
-    prof_s, busy, _ = device_busy_seconds(lambda: env.step(env.hint))
+    the unprofiled ``out["step_wall_s"]`` and its device kernels, into
+    ``out``."""
+    prof_s, busy, kernels = device_busy_seconds(lambda: env.step(env.hint))
     out.update(step_wall_profiled_s=prof_s, step_device_busy_s=busy,
+               step_kernels=kernels,
                step_idle_share=idle_share(label, out["step_wall_s"], busy,
                                           prof_s))
 
 
-def n62_profiles(env, backend, rho, mask, out):
-    """The N=62 path's third step and one solve profiled: idle shares
-    against the unprofiled ``out["step_wall_s"]`` / ``out["solve_wall_s"]``
-    and the solve's CUDA kernels per L-BFGS iteration, into ``out``."""
-    step_profile("N=62 step", env, out)
+def n62_profiles(env, out):
+    """The N=62 path's third step profiled: its idle share against the
+    unprofiled ``out["step_wall_s"]`` and its CUDA kernels per L-BFGS
+    iteration of its solve (the step's influence and images counted in),
+    into ``out``."""
     iters = LbfgsIters()
     try:
-        prof_s, busy, kernels = device_busy_seconds(
-            lambda: backend.calibrate(env.ep, rho, mask=mask))
+        step_profile("N=62 step", env, out)
     finally:
         iters.restore()
     its = iters.since(0)
-    out.update(solve_wall_profiled_s=prof_s, solve_device_busy_s=busy,
-               solve_idle_share=idle_share("N=62 solve", out["solve_wall_s"],
-                                           busy, prof_s),
-               solve_kernels=kernels, **its,
-               solve_kernels_per_iter=kernels / max(its["iters_max"], 1))
-    print(f"N=62 solve profiled: {kernels} kernels and copies over "
-          f"{its['iters_max']} L-BFGS iterations (slowest lane; lane mean "
-          f"{its['iters_mean']:.1f}) = {out['solve_kernels_per_iter']:.0f} "
-          "per iteration", flush=True)
+    out.update(**its, step_kernels_per_iter=out["step_kernels"]
+               / max(its["iters_max"], 1))
+    print(f"N=62 step profiled: {out['step_kernels']} kernels and copies "
+          f"over {its['iters_max']} L-BFGS iterations (slowest lane; lane "
+          f"mean {its['iters_mean']:.1f}) = "
+          f"{out['step_kernels_per_iter']:.0f} per iteration, the step's "
+          "influence and images counted in", flush=True)
 
 
 def capture_profile(fn, out, event_ms):
@@ -1118,7 +1139,7 @@ def oracle_phase(dev, out_dir, zero_counts, read_counts, n_sm):
 
 # -- the train path: train/calib_sac.py on the N=62 backend ----------------
 
-TRAIN_EPISODES = 2
+TRAIN_EPISODES = 1      # the runtime phase runs 2 under --metrics --diag
 TRAIN_ARGS = ["--stations", "62", "--episodes", str(TRAIN_EPISODES),
               "--steps", "1", "--use_hint", "--seed", "0", "--quiet"]
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5     # tests/test_torch_sac.py
@@ -1210,8 +1231,8 @@ def learn_gpu_vs_cpu(sac, cfg, state, buf, dev, n_steps=3):
 
 
 def train_path(dev, out_dir, zero_counts, read_counts):
-    """Drive train/calib_sac.py on the card (2 episodes of 1 step at the
-    N=62 backend: 2 transitions, fewer than a batch of 32, so no learn),
+    """Drive train/calib_sac.py on the card (1 episode of 1 step at the
+    N=62 backend: 1 transition, fewer than a batch of 32, so no learn),
     with the kernel counts zeroed just before and read just after; check
     the scores and the saved ring.  The agent's learn step is measured on
     the batched trainer's agent (:func:`batched_train_phase`).  Returns
@@ -2373,12 +2394,15 @@ def calib_td3_ddpg_phase(dev, out_dir, zero_counts, read_counts):
 
 # -- --ablation: the engine with one design choice undone -----------------
 
-# -- the batched slice: BatchedCalibEnv, the E sweep, prefetch, the
+# -- the batched slice: BatchedCalibEnv, prefetch, the
 # batched trainer (all at the N=62 reference scale) ------------------------
 
+# RadioBackend's N=62 defaults at half their ADMM depth (10): 70 L-BFGS
+# iterations a solve instead of 110, to keep the script inside its limit
+# (the trainers' runs keep their own backends' full depth)
 N62 = dict(n_stations=62, n_freqs=3, n_times=20, tdelta=10, n_poly=2,
-           admm_iters=10, lbfgs_iters=8, init_iters=30, npix=128)
-BATCH_M, BATCH_E, E_SWEEP = 10, 4, (8,)
+           admm_iters=5, lbfgs_iters=8, init_iters=30, npix=128)
+BATCH_M, BATCH_E = 10, 4
 # 2 vector episodes of 4 steps: 32 transitions, learning at the 32nd (1
 # learn, the Adam history the agent checks start from)
 BATCH_TRAIN_EPISODES, BATCH_TRAIN_STEPS = 8, 4
@@ -2445,11 +2469,10 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s, n62_idle):
     """BatchedCalibEnv(M=10, n_envs=4) at N=62: reset and two vector steps
     on the hint, counts zeroed just before and read just after; stage
     seconds, L-BFGS iterations (slowest lane and mean) per vector step;
-    queued, a third step profiled for the idle share and one batched solve
-    profiled for CUDA kernels per L-BFGS iteration (beside the N=62 path's
-    single solve, in ``n62_idle``); then the same 4 lanes through the
-    fused=False oracle, reset and one step, held at the JAX package's
-    tolerances; then the E sweep."""
+    queued, a third step profiled for the idle share and CUDA kernels per
+    L-BFGS iteration (beside the N=62 path's single step, in
+    ``n62_idle``); then the same 4 lanes through the fused=False oracle,
+    reset and one step, held at the JAX package's tolerances."""
     from smartcal_tpu_torch.cal import solver
     from smartcal_tpu_torch.envs import calib, radio
     from smartcal_tpu_torch.envs.calib import BatchedCalibEnv
@@ -2516,7 +2539,7 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s, n62_idle):
           f"peak device memory {peak / 2**20:.0f} MiB ({held / 2**20:.0f} MiB "
           "of it held by earlier phases); launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
-    defer(batched_profiles, env, backend, step_wall, n62_idle, out)
+    defer(batched_profiles, env, step_wall, n62_idle, out)
 
     # -- the same lanes through the fused=False oracle: reset + one step.
     # The N=62 solve is chaotic in float32 (a 1-ulp change of V moves
@@ -2627,87 +2650,33 @@ def batched_env_phase(dev, zero_counts, read_counts, n62_step_s, n62_idle):
     del env, oracle, backend, first, obs0, obs, o_obs0, o_obs, stacked, bep_o
     torch.cuda.empty_cache()
 
-    # -- the E sweep: reset + one vector step at each E (E=4 is above)
-    sweep = {E: {"reset_seconds": t_reset, "step_seconds": steps[0]["seconds"],
-                 "env_steps_per_s": E / steps[0]["seconds"],
-                 "peak_mem_bytes": peak, "held_mem_bytes": held,
-                 "launches": launches,
-                 **{k: steps[0][k] for k in ("iters_max", "iters_mean")}}}
-    for e_n in E_SWEEP:
-        held = held_bytes(dev)
-        be = RadioBackend(device=dev, **N62)
-        env = BatchedCalibEnv(M=BATCH_M, n_envs=e_n, backend=be, seed=0,
-                              provide_hint=True, device=dev)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        iters = LbfgsIters()
-        zero_counts()
-        try:
-            t0 = time.perf_counter()
-            env.reset()
-            t_r = time.perf_counter() - t0
-            n0 = len(iters.calls)
-            t0 = time.perf_counter()
-            obs, rew, _, _, info = env.step(env.hint)
-            t_s = time.perf_counter() - t0
-            its = iters.since(n0)
-        finally:
-            iters.restore()
-        check_batched(obs, rew, info, e_n, N62["npix"], BATCH_M)
-        sweep[e_n] = {"reset_seconds": t_r, "step_seconds": t_s,
-                      "env_steps_per_s": e_n / t_s,
-                      "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                      "held_mem_bytes": held, "launches": read_counts(),
-                      **{k: its[k] for k in ("iters_max", "iters_mean")},
-                      "stage_seconds": dict(be.stage_seconds)}
-        del env, be, obs
-        torch.cuda.empty_cache()
-    out["e_sweep"] = {str(k): sweep[k] for k in sorted(sweep)}
-    print("  E sweep (reset + 1 vector step): " + "; ".join(
-        f"E={k}: reset {v['reset_seconds']:.3f} s, step "
-        f"{v['step_seconds']:.3f} s, {v['env_steps_per_s']:.4f} env-steps/s, "
-        f"L-BFGS iterations {v['iters_max']} slowest lane / "
-        f"{v['iters_mean']:.1f} mean, peak {v['peak_mem_bytes'] / 2**20:.0f} "
-        f"MiB ({v['held_mem_bytes'] / 2**20:.0f} held by earlier phases)"
-        for k, v in sorted(sweep.items())), flush=True)
     return out
 
 
-def batched_profiles(env, backend, step_wall, n62_idle, out):
-    """A third vector step of ``env`` profiled (idle share against the
-    unprofiled ``step_wall``) and one batched solve profiled (CUDA kernels
-    per L-BFGS iteration, beside the N=62 path's single solve); into
-    ``out``."""
+def batched_profiles(env, step_wall, n62_idle, out):
+    """A third vector step of ``env`` profiled: its idle share against the
+    unprofiled ``step_wall`` and its CUDA kernels per L-BFGS iteration,
+    beside the N=62 path's single step; into ``out``."""
     iters = LbfgsIters()
     try:
         step_prof, step_busy, step_kernels = device_busy_seconds(
             lambda: env.step(env.hint))
-        prof_iters = iters.since(0)
-        rho, mask, _ = env._lane_rho_mask()
-        n0 = len(iters.calls)
-        b_wall, b_busy, b_kernels = device_busy_seconds(
-            lambda: backend.calibrate_batched(env.bep, rho, mask=mask))
-        b_iters = iters.since(n0)
     finally:
         iters.restore()
-    single = n62_idle["solve_kernels_per_iter"]
+    its = iters.since(0)
+    per_iter = step_kernels / max(its["iters_max"], 1)
+    single = n62_idle.get("step_kernels_per_iter")
     out.update(
         profiled_step={"wall_s": step_prof, "busy_s": step_busy,
-                       "kernels": step_kernels, **prof_iters},
-        profiled_batched_solve={
-            "wall_s": b_wall, "busy_s": b_busy, "kernels": b_kernels,
-            "kernels_per_iter": b_kernels / max(b_iters["iters_max"], 1),
-            **b_iters},
-        single_solve_kernels_per_iter=single,
+                       "kernels": step_kernels, "kernels_per_iter": per_iter,
+                       **its},
+        single_step_kernels_per_iter=single,
         step_idle_share=idle_share("batched vector step (E=4)", step_wall,
                                    step_busy, step_prof))
-    print(f"  profiled: one batched solve {b_kernels} kernels and copies "
-          f"over {b_iters['iters_max']} iterations = "
-          f"{out['profiled_batched_solve']['kernels_per_iter']:.0f} per "
-          f"iteration ({b_wall:.3f} s profiled, device busy {b_busy} s; "
-          f"the N=62 path's single solve {single:.0f} per iteration); a "
-          f"vector step {step_kernels} kernels and copies", flush=True)
+    print(f"  profiled: a vector step {step_kernels} kernels and copies over "
+          f"{its['iters_max']} iterations = {per_iter:.0f} per iteration "
+          f"(the N=62 path's single step {single} per iteration)",
+          flush=True)
 
 
 def prefetch_phase(dev, zero_counts, read_counts):
@@ -2962,7 +2931,8 @@ def demix_env_phase(dev, zero_counts, read_counts):
     and read just after; stage seconds, L-BFGS iterations per call, peak
     memory; the hint's shape and range; the sweep of every selection at
     a few L-BFGS iterations one mask at a time, 8 and 32 at a time (rtol
-    1e-3), and at admm_iters=2 8 and 32 at a time (printed).  Returns
+    1e-3), and at admm_iters=2 32 at a time beside a 1-ulp change of V
+    (printed).  Returns
     (report, env) for :func:`demix_profile`."""
     from smartcal_tpu_torch.envs.demixing import DemixingEnv
     from smartcal_tpu_torch.train import demix_sac
@@ -3018,8 +2988,8 @@ def demix_env_phase(dev, zero_counts, read_counts):
     # x 2), where round-off stays round-off: the card's reductions change
     # order with the lane count, and at the backend's 30 init iterations
     # the solve is chaotic even at admm_iters=2 (ROADMAP queue 3).  At
-    # admm_iters=2 on the backend itself the difference of 8 and 32 at a
-    # time is printed beside the 1-ulp spread of V, not held.
+    # admm_iters=2 on the backend itself, 32 at a time, the 1-ulp spread of
+    # V is printed, not held.
     masks, valid = env.hint_masks()
     held_backend = demix_sac.make_backend(DEMIX_TIER, dev)
     for k, v in SWEEP_HELD.items():
@@ -3030,7 +3000,7 @@ def demix_env_phase(dev, zero_counts, read_counts):
         sweep[b] = held_backend.hint_sweep(env.ep, env.rho, masks,
                                            batch=b).cpu().numpy()
         sweep_s[b] = time.perf_counter() - t0
-        if b == 1:      # 32 full solves one after another: ~40 s, not held
+        if b != 32:     # one at a time: 32 full solves, ~40 s
             continue
         t0 = time.perf_counter()
         free[b] = backend.hint_sweep(env.ep, env.rho, masks,
@@ -3045,10 +3015,8 @@ def demix_env_phase(dev, zero_counts, read_counts):
               for b in (8, 32)}
     ratios["batch32_vs_batch8"] = tol_ratio(sweep[32], sweep[8], SWEEP_RTOL,
                                             0.0)
-    free_rel = {"batch32_vs_batch8": float(np.max(np.abs(
-        free[32] - free[8]) / free[8])),
-        "batch32_under_1ulp_of_V": float(np.max(np.abs(
-            ulp - free[32]) / free[32]))}
+    free_rel = {"batch32_under_1ulp_of_V": float(np.max(np.abs(
+        ulp - free[32]) / free[32]))}
     if launches != read_counts() or any(launches.values()):
         raise AssertionError(f"the demixing env launched {launches}: its "
                              "influence map (N=14, npix=128) reaches no "
@@ -3326,8 +3294,10 @@ def demix_drivers_phase(dev, out_dir, zero_counts, read_counts):
 # session of the process -------------------------------------------------
 
 SUP_K, SUP_SAMPLES, SUP_EPOCHS = 6, 3, 200
-SUP_HINT_SAMPLES, SUP_MLP_ITERS, SUP_TSK_ITERS = 2, 1000, 2000
+SUP_HINT_SAMPLES, SUP_MLP_ITERS, SUP_TSK_ITERS = 2, 250, 500
+SUP_HINT_ADMM = 10       # the hint backend's depth (the env's default 30)
 SUP_HINT_BATCH = 32
+SUP_TSK_N_AVG = 1        # inputs the TSK influence averages over
 # the transformer influence's reduced width: its (P, N) cross derivative
 # is ~40.0M x 98,352 floats at the default width (npix 128, model_dim 66)
 SUP_INFLUENCE = dict(npix=16, model_dim=6, warmup_epochs=5, samples=12)
@@ -3630,10 +3600,11 @@ def supervised_phase(dev, out_dir, zero_counts, read_counts, n_sm):
           flush=True)
 
     # (f) the regressors on the hint dataset.  The hint backend is the
-    # demixing env's default (admm_iters=30) with the sweep's 32 selections
-    # in one batched solve (SUP_HINT_BATCH): 4x less than 8 at a time at
-    # N=14 (PERF.md section 7), the same algorithm
-    hb = RadioBackend(admm_iters=30, hint_batch=SUP_HINT_BATCH, device=dev)
+    # demixing env's at a third of its depth (SUP_HINT_ADMM) with the
+    # sweep's 32 selections in one batched solve (SUP_HINT_BATCH): 4x less
+    # than 8 at a time at N=14 (PERF.md section 7), the same algorithm
+    hb = RadioBackend(admm_iters=SUP_HINT_ADMM, hint_batch=SUP_HINT_BATCH,
+                      device=dev)
     zero_counts()
     t0 = time.perf_counter()
     hbuf = supervised.make_hint_dataset(n_iter=SUP_HINT_SAMPLES, K=K,
@@ -3681,8 +3652,8 @@ def supervised_phase(dev, out_dir, zero_counts, read_counts, n_sm):
     Yi = np.tanh(Xi[:, :K - 1]).astype(np.float32)
     zero_counts()
     t0 = time.perf_counter()
-    tsk_if = model_influence.tsk_influence(tsk["params"], Xi, Yi, n_avg=20,
-                                           device=dev)
+    tsk_if = model_influence.tsk_influence(tsk["params"], Xi, Yi,
+                                           n_avg=SUP_TSK_N_AVG, device=dev)
     tsk_if_s = time.perf_counter() - t0
     red = SUP_INFLUENCE
     rnpix, nout = red["npix"], red["npix"] ** 2 + 8
@@ -3705,7 +3676,8 @@ def supervised_phase(dev, out_dir, zero_counts, read_counts, n_sm):
         raise AssertionError(f"model influence: {tsk_if.shape} "
                              f"{If.shape}, launches {inf_launches}")
     rep["influence"] = {
-        "tsk_seconds": tsk_if_s, "tsk_n_avg": 20, "tsk_shape": [K - 1, M],
+        "tsk_seconds": tsk_if_s, "tsk_n_avg": SUP_TSK_N_AVG,
+        "tsk_shape": [K - 1, M],
         "transformer_seconds": tr_if_s,
         "transformer_shape": [K - 1, K * nout],
         "transformer_parameters": sum(p.numel() for p in iparams.values()),
@@ -3714,7 +3686,8 @@ def supervised_phase(dev, out_dir, zero_counts, read_counts, n_sm):
                     " model_dim 66): neither package can hold it"},
         "launches": inf_launches}
     n_p = rep["influence"]["transformer_parameters"]
-    print(f"model influence: TSK (M={M}, n_avg 20) {tsk_if_s:.3f} s; "
+    print(f"model influence: TSK (M={M}, n_avg {SUP_TSK_N_AVG}) "
+          f"{tsk_if_s:.3f} s; "
           f"transformer (reduced: npix {rnpix}, model_dim "
           f"{red['model_dim']}x{K}, {n_p} parameters x {K * nout} inputs, "
           f"{red['warmup_epochs']} warm-up epochs) {tr_if_s:.3f} s",
@@ -4199,14 +4172,17 @@ RR_PER_SIZE, RR_PER_BATCH, RR_PER_SAMPLES = 2048, 32, 50
 RR_AGENT_MEM, RR_LEARNS = 256, 20
 # a delay about the tiny solve's ~0.3 s rep, in every timed rep
 RR_GATE_DELAY_S = 0.3
-RR_GATE_ARGS = []                   # the gate on the card (its default)
+# the gate on the card, 3 timed reps a stage (its default 5): a FIRE needs
+# the mean 40% up and the bootstrap CI's low end past +15%
+RR_GATE_ARGS = ["--samples", "3"]
 # (e)/(f): the cheapest trainer that learns: demix_fuzzy_sac on the tiny
 # tier with the influence map (the CNN whose cuDNN backward is not
-# deterministic by default), batch 1, 3 steps per episode: 3 learns in
+# deterministic by default), batch 1, 2 steps per episode: 2 learns in
 # the first episode, then the kill
+RR_FUZZY_STEPS = 2
 RR_FUZZY = ["--small", "--K", "3", "--batch_size", "1", "--memory", "64",
-            "--warmup", "0", "--use_influence", "--steps", "3", "--seed",
-            "0", "--quiet", "--deterministic"]
+            "--warmup", "0", "--use_influence", "--steps",
+            str(RR_FUZZY_STEPS), "--seed", "0", "--quiet", "--deterministic"]
 # the JAX host-vs-fused tolerances (tests/test_cal_backend.py:218-261)
 RR_HOST_TOL = {"J": (2e-3, 2e-4), "residual": (2e-3, 2e-3),
                "sigma_res": (1e-3, 0.0)}
@@ -4527,11 +4503,12 @@ def rr_gate(dev, out_dir):
     # and capture nothing
     if any(clean["compile_events"][k] for k in ("serve_batch", "publish")):
         raise AssertionError(f"perf gate serve stages compiled: {clean}")
-    # both faults in one run over every stage: each must fire on its own
-    # stage and the influence stage on none (3 samples: a fault is a
-    # multiple of the noise, not a fraction)
+    # both faults in one run over their stages and the influence stage:
+    # each must fire on its own stage and the influence stage on none (3
+    # samples: a fault is a multiple of the noise, not a fraction)
     k = 3
-    hit = gate("faults", ["--samples", str(k)], {
+    hit = gate("faults", ["--samples", str(k), "--stages",
+                          "solve,influence,imager"], {
         "delay_stage": "gate_solve", "delay_at": 0, "delay_span": k,
         "delay_s": RR_GATE_DELAY_S, "perturb_stage": "gate_numeric_imager",
         "perturb_at": 0, "perturb_rel": 0.5})
@@ -4556,7 +4533,8 @@ def rr_gate(dev, out_dir):
 
 def rr_deterministic(dev, out_dir, tmp):
     """(e) --deterministic on demix_fuzzy_sac: straight 2 episodes against
-    1 killed + resumed to 2, bit for bit, 3 learns before the kill; (f)
+    1 killed + resumed to 2, bit for bit, a learn per step before the
+    kill; (f)
     the straight run carries --diag --metrics: its run log must hold the
     card's roofline_peak and cost events with flops and bytes for solve,
     influence and agent_update_sac."""
@@ -4593,7 +4571,7 @@ def rr_deterministic(dev, out_dir, tmp):
     learned = int(pa["agent_state"]["learn_counter"])
     diff = _payload_diff(pa, pb)
     if (step_a != 2 or step_b != 2 or s_a != s_b or s_a[:1] != s_b1
-            or killed_learns < 3 or diff):
+            or killed_learns < RR_FUZZY_STEPS or diff):
         raise AssertionError(f"--deterministic resume: scores {s_a} / "
                              f"{s_b} (killed {s_b1}), steps {step_a} "
                              f"{step_b}, {killed_learns} learns before the "
@@ -4618,8 +4596,9 @@ def rr_deterministic(dev, out_dir, tmp):
                                                    "bytes_accessed",
                                                    "peak_bytes")}
                     for s in sorted(cost)}}
-    print(f"runtime_rest: demix_fuzzy_sac --deterministic 2 episodes x 3 "
-          f"steps straight ({straight_s:.3f} s, with --diag) against 1 + "
+    print(f"runtime_rest: demix_fuzzy_sac --deterministic 2 episodes x "
+          f"{RR_FUZZY_STEPS} steps straight ({straight_s:.3f} s, with "
+          "--diag) against 1 + "
           f"--resume to 2 ({killed_s:.3f} + {resumed_s:.3f} s): "
           f"bit-identical, {killed_learns} learns before the kill, "
           f"{learned} in all; the run log's roofline_peak "
@@ -6235,8 +6214,8 @@ SERVE_M, SERVE_LANES = 10, 4           # the reference backend's M, 4 lanes
 # (k, diffuse, maxiter, pinned rho?) per job of the heterogeneous batch
 SERVE_JOBS = ((2, False, None, True), (5, True, 9, False),
               (7, False, 12, True), (10, False, None, False))
-# 3 batches: the sentinel's replay of batch b runs beside batch b + 1
-SERVE_WORKER_JOBS = 12
+# 2 batches: the sentinel's replay of the first runs beside the second
+SERVE_WORKER_JOBS = 8
 SERVE_CALIB = ["--tier", "medium", "--M", "4", "--lanes", "4", "--rates",
                "4", "--duration", "0.5", "--pool", "1", "--seed", "0",
                "--policy", "--quiet"]
@@ -6843,6 +6822,482 @@ def serve_learn_run(out_dir):
     return dict(record=rec, seconds=secs)
 
 
+# -- the sharded calibration routes: k positions on the one card ------------
+
+SHARD_FP, SHARD_SP, SHARD_BP, SHARD_LANES = 3, 2, 4, 4
+# the held solve's depth: tests/test_sharded_cal.py's shallow L-BFGS (init 4,
+# 3 per outer iteration) at 2 ADMM iterations; with the N=62 phase's 30 init
+# iterations the float32 solve is chaotic already (a 1-ulp change of V moves
+# it as far as the psum's reassociation does), so that depth is reported
+# beside the 1-ulp spread, not held
+SHARD_SHALLOW = {"init_iters": 4, "lbfgs_iters": 3, "admm_iters": 2}
+SHARD_SHALLOW_ADMM = SHARD_SHALLOW["admm_iters"]
+ULP = 1 + 2 ** -23
+# tests/test_sharded_cal.py: J and Z (rtol, atol), the residual's relative
+# norm, sigma_res relative; tests/test_mesh_compose.py: the composed images
+SHARD_SOLVE_TOL = {"J": (5e-3, 5e-4), "Z": (5e-3, 5e-4), "residual": 1e-3,
+                   "sigma_res": 1e-3}
+SHARD_INFL_REL = 1e-4
+# (rtol, atol): the atol is this times max|ref| (the rule of the script's
+# large cases): the images' far pixels are near zero while their centre
+# reaches ~1e3, so an absolute 2e-5 would hold round-off to ~1e-8 relative
+SHARD_COMPOSE_TOL = (2e-3, 2e-5)
+SHARD_COMPOSE = (2, 2)            # (lanes, baselines) at N=256, E=2
+
+
+class positions:
+    """``parallel/mesh.default_devices`` replaced by ``k`` positions on
+    ``dev`` for a block: the backend's routes lay their meshes over them
+    (the port's way to run a mesh of k on one card)."""
+
+    def __init__(self, dev, k):
+        self.devices = [dev] * k
+
+    def __enter__(self):
+        from smartcal_tpu_torch.parallel import mesh
+        self.mesh, self.orig = mesh, mesh.default_devices
+        mesh.default_devices = lambda device=None: list(self.devices)
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh.default_devices = self.orig
+
+
+class ThreadCalls:
+    """Stands in for ``module.name`` and keeps the arguments of the first
+    call each thread makes (a sharded route's positions call from threads
+    of their own), keyed by thread name."""
+
+    def __init__(self, module, name):
+        import threading
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls, self.lock = {}, threading.Lock()
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        import threading
+        with self.lock:
+            self.calls.setdefault(threading.current_thread().name,
+                                  (args, kw))
+        return self.fn(*args, **kw)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def timed_s(fn):
+    """(fn(), seconds), the device synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def solve_gap(got, want):
+    """The sharded solve against another: J and Z as tolerance ratios
+    (<= 1 within ``SHARD_SOLVE_TOL``), the residual's relative norm and
+    sigma_res's relative difference."""
+    out = {k: tol_ratio(getattr(got, k).cpu(), getattr(want, k).cpu(),
+                        *SHARD_SOLVE_TOL[k]) for k in ("J", "Z")}
+    out["residual"] = rel_norm(got.residual, want.residual)
+    out["sigma_res"] = abs(float(got.sigma_res) / float(want.sigma_res) - 1)
+    out["held"] = (out["J"] <= 1 and out["Z"] <= 1
+                   and out["residual"] < SHARD_SOLVE_TOL["residual"]
+                   and out["sigma_res"] < SHARD_SOLVE_TOL["sigma_res"])
+    return out
+
+
+def span_routes(path):
+    """(name, route, shards) of the solve and influence spans of a run
+    log."""
+    out = []
+    for line in open(path):
+        ev = json.loads(line)
+        if ev.get("event") == "span" and ev.get("name") in ("solve",
+                                                            "influence"):
+            out.append((ev["name"], ev.get("route"),
+                        ev.get("shards", ev.get("baseline_shards"))))
+    return out
+
+
+def sharded_n62_checks(dev, ep, backend, res, res_s, rho, mask, alpha):
+    """The frequency and chunk routes on the N=62 phase's episode and fused
+    solve (``res``, which took ``res_s`` seconds), ``SHARD_FP`` fp
+    positions on the card: a shallow ``solve_admm_sharded``
+    (``SHARD_SHALLOW``) held against ``solve_admm`` at the CPU tests'
+    tolerances; the full-depth one held finite with sigma_res <
+    sigma_data, its gap to the fused solve reported beside the gap of
+    ``solve_admm`` under a 1-ulp change of V to the fused solve (the solve
+    is chaotic in float32 at the N=62 depth); ``influence_images_sharded`` and
+    a ``SHARD_SP``-position ``influence_sharded`` (band 0) on the fused
+    solve against the single-device influence (relative norm 1e-4, the
+    same bits twice).  Each beside the single-device route's seconds."""
+    from smartcal_tpu_torch.cal import influence, solver
+    from smartcal_tpu_torch.parallel import mesh as pm
+    from smartcal_tpu_torch.parallel import sharded_cal as sc
+    cfg = backend._solver_cfg(ep.n_dirs)
+    C = ep.Ccal * torch.as_tensor(mask, device=dev)[None, :, None, None,
+                                                    None]
+    r = torch.as_tensor(rho, device=dev)
+    n_ch, N, npix = backend.n_chunks, backend.n_stations, backend.npix
+    fp = pm.make_mesh((SHARD_FP,), (pm.AXIS_FREQ,), devices=[dev] * SHARD_FP)
+    sp = pm.make_mesh((SHARD_SP,), (pm.AXIS_CHUNK,),
+                      devices=[dev] * SHARD_SP)
+    out = {"positions": {"fp": SHARD_FP, "sp": SHARD_SP}}
+
+    def single(c=cfg, V=ep.V, **kw):
+        return solver.solve_admm(V, C, ep.obs.freqs, ep.f0, r, c,
+                                 n_chunks=n_ch, **kw)
+
+    def sharded(c=cfg, **kw):
+        return sc.solve_admm_sharded(fp, ep.V, C, ep.obs.freqs, ep.f0, r, c,
+                                     n_chunks=n_ch, **kw)
+
+    def gap_text(g):
+        return (f"J {g['J']:.3f}, Z {g['Z']:.3f} of the tolerance, residual "
+                f"rel {g['residual']:.3e}, sigma_res rel {g['sigma_res']:.3e}")
+
+    shallow = cfg._replace(init_iters=SHARD_SHALLOW["init_iters"],
+                           lbfgs_iters=SHARD_SHALLOW["lbfgs_iters"])
+    adm = {"admm_iters": SHARD_SHALLOW_ADMM}
+    ref, t_ref = timed_s(lambda: single(shallow, **adm))
+    got, t_got = timed_s(lambda: sharded(shallow, **adm))
+    gap = solve_gap(got, ref)
+    ulp = solve_gap(single(shallow, ep.V * ULP, **adm), ref)
+    print(f"sharded solve (N=62, {SHARD_FP} fp positions, {SHARD_SHALLOW}): "
+          f"{t_got:.3f} s against solve_admm's {t_ref:.3f} s; "
+          f"{gap_text(gap)} -> {'ok' if gap['held'] else 'FAIL'} (a 1-ulp "
+          f"change of V moves solve_admm by {gap_text(ulp)})", flush=True)
+    if not gap["held"]:
+        raise AssertionError("the shallow sharded solve is outside the CPU "
+                             "tests' tolerances of solve_admm")
+    out["shallow"] = dict(gap, seconds=t_got, single_seconds=t_ref,
+                          depth=SHARD_SHALLOW, ulp_spread=ulp)
+    del got, ref
+    full, t_full = timed_s(sharded)
+    ulp = solve_gap(single(V=ep.V * ULP), res)
+    ok = (solver.result_finite(full)
+          and float(full.sigma_res) < float(full.sigma_data))
+    gap = solve_gap(full, res)
+    print(f"sharded solve at full depth: {t_full:.3f} s against the fused "
+          f"solve's {res_s:.3f} s; finite with sigma_res "
+          f"{float(full.sigma_res):.6f} < sigma_data "
+          f"{float(full.sigma_data):.6f}: {ok}; gap to the fused solve: "
+          f"{gap_text(gap)} (solve_admm under a 1-ulp change of V: "
+          f"{gap_text(ulp)})", flush=True)
+    if not ok:
+        raise AssertionError("the full-depth sharded solve is not finite or "
+                             "did not reduce the residual")
+    out["full"] = dict(gap, seconds=t_full, fused_seconds=res_s,
+                       sigma_res=float(full.sigma_res),
+                       sigma_data=float(full.sigma_data), ulp_spread=ulp)
+    del full
+
+    statics = backend._influence_statics(npix)
+    hadd_all = influence.consensus_hadd_all(
+        np.asarray(rho, np.float32), np.asarray(alpha, np.float32),
+        ep.obs.freqs, ep.f0, n_poly=backend.n_poly,
+        polytype=backend.polytype)
+    uvw = ep.obs.uvw.reshape(-1, 3)
+    cell = backend._cell(ep)
+    img_ref, t_img_ref = timed_s(lambda: backend.influence_image(
+        ep, res, rho, alpha))
+
+    def freq_image():
+        return sc.influence_images_sharded(
+            fp, res.residual, ep.Ccal, res.J, hadd_all, ep.obs.freqs, uvw,
+            cell, N, n_ch, npix, **statics)
+
+    img, t_img = timed_s(freq_image)
+    img2, t_img2 = timed_s(freq_image)
+    Rk = solver.residual_to_kernel(res.residual[0])
+    kw = {"block_baselines": statics["block_baselines"],
+          "precision": statics["precision"]}
+    vis_ref, t_vis_ref = timed_s(lambda: influence.influence_visibilities(
+        Rk, ep.Ccal[0], res.J[0], hadd_all[0], N, n_ch, **kw))
+
+    def chunk_vis():
+        return sc.influence_sharded(sp, Rk, ep.Ccal[0], res.J[0],
+                                    hadd_all[0], N, n_ch, **kw)
+
+    vis, t_vis = timed_s(chunk_vis)
+    vis2, _ = timed_s(chunk_vis)
+    e_img, e_vis = rel_norm(img, img_ref), rel_norm(vis.vis, vis_ref.vis)
+    e_llr = rel_norm(vis.llr, vis_ref.llr)
+    same = (torch.equal(img, img2) and torch.equal(vis.vis, vis2.vis)
+            and torch.equal(vis.llr, vis2.llr))
+    print(f"influence_images_sharded ({SHARD_FP} fp positions): {t_img:.4f} "
+          f"/ {t_img2:.4f} s against the single-device route's "
+          f"{t_img_ref:.4f} s, image rel {e_img:.3e}; influence_sharded "
+          f"({SHARD_SP} sp positions, band 0): {t_vis:.4f} s against "
+          f"{t_vis_ref:.4f} s, vis rel {e_vis:.3e}, llr rel {e_llr:.3e}; "
+          f"the same bits twice: {same}", flush=True)
+    if not (max(e_img, e_vis, e_llr) <= SHARD_INFL_REL and same):
+        raise AssertionError("a sharded influence route disagrees with the "
+                             "single-device one, or with itself")
+    out["influence"] = {
+        "freq_sharded_s": [t_img, t_img2], "single_s": t_img_ref,
+        "image_rel": e_img, "chunk_sharded_s": t_vis,
+        "chunk_single_s": t_vis_ref, "vis_rel": e_vis, "llr_rel": e_llr,
+        "same_bits": same}
+    return out
+
+
+def sharded_ska_checks(dev, backend, ep, res, rho, alpha, zero_counts,
+                       read_counts, n_sm, ref=None):
+    """The baseline route at the SKA tier, ``SHARD_BP`` bp positions on the
+    card: ``influence_image`` routed ``baseline_sharded`` against the
+    single-device route (relative norm 1e-4; ``ref`` the path's own image
+    too), its launches counted (kernel 3 once per position, interval and
+    band; kernel 2 once per band, on the gathered visibilities), and each
+    position's first kernel-3 launch (the subset layout, B/4 baselines)
+    timed beside the single-device launch (the full-set layout) and held
+    against the plain version."""
+    from smartcal_tpu_torch.cal import kernels
+    from smartcal_tpu_torch.ops import hessian_blocks
+    full = FirstCall(hessian_blocks, "hessian_block_sums_cuda")
+    try:
+        single, t_single = timed_s(lambda: backend.influence_image(
+            ep, res, rho, alpha))
+    finally:
+        full.restore()
+    calls = ThreadCalls(hessian_blocks, "hessian_block_sums_cuda")
+    try:
+        with positions(dev, SHARD_BP):
+            zero_counts()
+            img, t_img = timed_s(lambda: backend.influence_image(
+                ep, res, rho, alpha))
+            launches = read_counts()
+    finally:
+        calls.restore()
+    e_img = rel_norm(img, single)
+    e_ref = rel_norm(img, ref) if ref is not None else None
+    want = {"hessian_blocks": SHARD_BP * backend.n_chunks * backend.n_freqs,
+            "factored_imager": backend.n_freqs}
+    print(f"baseline-sharded influence_image (SKA, {SHARD_BP} bp "
+          f"positions): {t_img:.3f} s against the single-device route's "
+          f"{t_single:.3f} s; image rel {e_img:.3e} (to the step's own "
+          f"{e_ref}); launches {launches} (want {want})", flush=True)
+    if not (e_img <= SHARD_INFL_REL
+            and (e_ref is None or e_ref <= SHARD_INFL_REL)):
+        raise AssertionError("the baseline-sharded influence disagrees with "
+                             "the single-device route")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"baseline-sharded launches {launches}, "
+                             f"expected {want}")
+    fargs, fkw = full.args
+    f_ms = cuda_ms(lambda: hessian_blocks.hessian_block_sums_cuda(
+        *fargs, **fkw), 20)
+    f_bound = hessian_bound_ms(fargs, n_sm)
+    pos = []
+    for name in sorted(calls.calls):
+        a, kw = calls.calls[name]
+        err = check_hessian(hessian_blocks, kernels, a, kw,
+                            f"sharded SKA position {name} B={a[1].shape[2]}")
+        pos.append({"thread": name, "B": int(a[1].shape[2]),
+                    "ms": cuda_ms(lambda: hessian_blocks.
+                                  hessian_block_sums_cuda(*a, **kw), 20),
+                    "bound_ms": hessian_bound_ms(a, n_sm)[0],
+                    "max_abs_err": max(err)})
+    B = fargs[1].shape[2]
+    print(f"kernel 3 per position (subset layout, {pos[0]['B']} baselines): "
+          + ", ".join(f"{p['ms']:.4f}" for p in pos)
+          + f" ms (bound {pos[0]['bound_ms']:.4f}); the single-device "
+          f"launch (full set, {B} baselines) {f_ms:.4f} ms (bound "
+          f"{f_bound[0]:.4f}): per baseline "
+          f"{1e6 * np.mean([p['ms'] for p in pos]) / pos[0]['B']:.3f} ns "
+          f"against {1e6 * f_ms / B:.3f} ns", flush=True)
+    return {"positions": SHARD_BP, "seconds": t_img,
+            "single_seconds": t_single, "image_rel": e_img,
+            "image_rel_to_step": e_ref, "launches": launches,
+            "kernel3_positions": pos, "kernel3_single_ms": f_ms,
+            "kernel3_single_bound_ms": f_bound[0]}
+
+
+def sharded_phase(dev, out_dir, zero_counts, read_counts, n_sm):
+    """``--sharded``: the backend's routes with k positions on the card.
+    A routed N=62 CalibEnv reset and step (``SHARD_FP`` positions: the
+    ``sharded`` solve and the ``freq_sharded`` influence, the tags read
+    from the run log's spans) beside the same seed unsharded; the N=62
+    checks of the default run on its episode; BatchedCalibEnv(E=4) reset
+    and step with ``SHARD_LANES`` positions (``batched_sharded``) beside
+    the unsharded one; at N=256, E=2 lanes solved, then the composed lane x
+    baseline influence (``batched_lane_bshard``, ``SHARD_COMPOSE``) against
+    the vmap route, the composed solve beside the vmap one (shallow), and
+    lane 0's ``baseline_sharded`` influence image (the default run's SKA
+    checks)."""
+    from smartcal_tpu_torch import obs, prng
+    from smartcal_tpu_torch.cal import solver
+    from smartcal_tpu_torch.envs.calib import BatchedCalibEnv, CalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    report = {}
+    log = os.path.join(out_dir, "sharded_run.jsonl")
+
+    def routed(k, fn):
+        rl = obs.activate(obs.RunLog(log, flush_lines=1))
+        try:
+            with positions(dev, k):
+                zero_counts()
+                out = fn()
+                launches = read_counts()
+        finally:
+            obs.deactivate(rl)
+            rl.close()
+        return out, launches, span_routes(log)
+
+    def env_run(env):
+        t0 = time.perf_counter()
+        obs0 = env.reset()
+        t_reset = time.perf_counter() - t0
+        obs1, steps = run_steps(env, 1)
+        return obs0, obs1, t_reset, steps
+
+    plain = CalibEnv(M=10, backend=RadioBackend(device=dev, **N62), seed=0,
+                     provide_hint=True, device=dev)
+    p0, p1, p_reset, p_steps = env_run(plain)
+    if os.path.exists(log):
+        os.remove(log)
+    renv = CalibEnv(M=10, backend=RadioBackend(device=dev, **N62), seed=0,
+                    provide_hint=True, device=dev)
+    (r0, r1, r_reset, r_steps), launches, routes = routed(
+        SHARD_FP, lambda: env_run(renv))
+    check_outputs((r0, r1), r_steps, N62["npix"], renv.M)
+    want = [("solve", "sharded", SHARD_FP),
+            ("influence", "freq_sharded", SHARD_FP)]
+    print(f"routed N=62 CalibEnv ({SHARD_FP} positions): reset {r_reset:.3f} "
+          f"s, step {r_steps[0]['seconds']:.3f} s (unsharded {p_reset:.3f} / "
+          f"{p_steps[0]['seconds']:.3f} s); reward {r_steps[0]['reward']:.6f} "
+          f"(unsharded {p_steps[0]['reward']:.6f}); spans {routes}; "
+          f"launches {launches}", flush=True)
+    if not all(w in routes for w in want):
+        raise AssertionError(f"routed N=62 spans {routes}, expected {want}")
+    report["n62_env"] = {"positions": SHARD_FP, "reset_s": r_reset,
+                         "step_s": r_steps[0]["seconds"],
+                         "plain_reset_s": p_reset,
+                         "plain_step_s": p_steps[0]["seconds"],
+                         "reward": r_steps[0]["reward"],
+                         "plain_reward": p_steps[0]["reward"],
+                         "routes": routes, "launches": launches}
+    env = plain
+    mask = np.zeros(env.M, np.float32)
+    mask[:env.K] = 1.0
+    rho = np.ones(env.M, np.float32)
+    rho[:env.K] = env.rho_spectral[:env.K]
+    alpha = np.zeros(env.M, np.float32)
+    alpha[:env.K] = env.rho_spatial[:env.K]
+    res, res_s = timed_s(lambda: env.backend.calibrate(env.ep, rho,
+                                                      mask=mask))
+    report["n62"] = sharded_n62_checks(dev, env.ep, env.backend, res, res_s,
+                                       rho, mask, alpha)
+    del plain, renv, env, res
+
+    def batched_run(env):
+        t0 = time.perf_counter()
+        env.reset()
+        t_reset = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obs1, rew, _, _, info = env.step(env.hint)
+        sec = time.perf_counter() - t0
+        check_batched(obs1, rew, info, SHARD_LANES, N62["npix"], BATCH_M)
+        return t_reset, sec, rew
+
+    b_reset, b_step, b_rew = batched_run(BatchedCalibEnv(
+        M=BATCH_M, n_envs=SHARD_LANES, backend=RadioBackend(device=dev, **N62),
+        seed=0, provide_hint=True, device=dev))
+    os.remove(log)
+    (s_reset, s_step, s_rew), launches, routes = routed(
+        SHARD_LANES, lambda: batched_run(BatchedCalibEnv(
+            M=BATCH_M, n_envs=SHARD_LANES,
+            backend=RadioBackend(device=dev, **N62), seed=0,
+            provide_hint=True, device=dev)))
+    print(f"lane-sharded BatchedCalibEnv (E={SHARD_LANES}, {SHARD_LANES} "
+          f"positions): reset {s_reset:.3f} s, step {s_step:.3f} s "
+          f"(unsharded {b_reset:.3f} / {b_step:.3f} s); rewards "
+          f"{np.round(s_rew, 6).tolist()} (unsharded "
+          f"{np.round(b_rew, 6).tolist()}); spans {routes}", flush=True)
+    if ("solve", "batched_sharded", SHARD_LANES) not in routes:
+        raise AssertionError(f"lane-sharded spans {routes}")
+    report["batched"] = {"E": SHARD_LANES, "reset_s": s_reset,
+                         "step_s": s_step, "plain_reset_s": b_reset,
+                         "plain_step_s": b_step, "rewards": s_rew.tolist(),
+                         "plain_rewards": b_rew.tolist(), "routes": routes,
+                         "launches": launches}
+
+    # the composed lane x baseline route at the SKA tier, E=2
+    sb = RadioBackend(device=dev, **SKA)
+    M, Kc = 10, 5
+    eps, rhos, alphas = [], [], []
+    t0 = time.perf_counter()
+    for i in range(2):
+        ep, mdl = sb.new_calib_episode(prng.PRNGKey(40 + i), Kc, M)
+        eps.append(ep)
+        r = np.ones(M, np.float32)
+        r[:Kc] = mdl.rho
+        a = np.zeros(M, np.float32)
+        a[:Kc] = mdl.rho_spatial
+        rhos.append(r)
+        alphas.append(a)
+    bep = sb.stack_episodes(eps)
+    rho, alpha = np.stack(rhos), np.stack(alphas)
+    mask = np.zeros((2, M), np.float32)
+    mask[:, :Kc] = 1.0
+    t_eps = time.perf_counter() - t0
+    res, t_solve = timed_s(lambda: sb.calibrate_batched(bep, rho, mask=mask))
+    ref, t_ref = timed_s(lambda: sb.influence_images_batched(
+        bep, res, rho, alpha, compose=(0, 0)))
+    with positions(dev, SHARD_COMPOSE[0] * SHARD_COMPOSE[1]):
+        zero_counts()
+        img, t_img = timed_s(lambda: sb.influence_images_batched(
+            bep, res, rho, alpha, compose=SHARD_COMPOSE))
+        c_launches = read_counts()
+    ratio = tol_ratio(img.cpu(), ref.cpu(), SHARD_COMPOSE_TOL[0],
+                      SHARD_COMPOSE_TOL[1] * float(ref.abs().max()))
+    e_img = rel_norm(img, ref)
+    # a position holds E / n_lane lanes: per lane and band one kernel-2
+    # image of its baselines and one kernel-3 launch per interval
+    per_pos = SHARD_COMPOSE[1] * len(eps) * sb.n_freqs
+    want = {"hessian_blocks": per_pos * sb.n_chunks,
+            "factored_imager": per_pos}
+    print(f"composed lane x baseline influence (N=256, E=2, {SHARD_COMPOSE}"
+          f"): {t_img:.3f} s against the vmap route's {t_ref:.3f} s; "
+          f"{ratio:.3f} of the tolerance {SHARD_COMPOSE_TOL} (atol x "
+          f"max|ref|), image rel {e_img:.3e}; launches "
+          f"{c_launches} (want {want}); two episodes built in {t_eps:.1f} s, "
+          f"solved (vmap) in {t_solve:.1f} s", flush=True)
+    if ratio > 1 or any(c_launches[k] != v for k, v in want.items()):
+        raise AssertionError("the composed route disagrees with the vmap "
+                             "route or launched the wrong kernels")
+    shallow = {"admm_iters": SHARD_SHALLOW_ADMM}
+    v_res, t_v = timed_s(lambda: sb.calibrate_batched(
+        bep, rho, mask=mask, compose=(0, 0), **shallow))
+    with positions(dev, SHARD_COMPOSE[0] * SHARD_COMPOSE[1]):
+        c_res, t_c = timed_s(lambda: sb.calibrate_batched(
+            bep, rho, mask=mask, compose=SHARD_COMPOSE, **shallow))
+    ok = (solver.result_finite(c_res)
+          and bool((c_res.sigma_res < c_res.sigma_data).all()))
+    j_gap = tol_ratio(c_res.J.cpu(), v_res.J.cpu(), *SHARD_SOLVE_TOL["J"])
+    print(f"composed solve (N=256, E=2, admm_iters {SHARD_SHALLOW_ADMM}): "
+          f"{t_c:.3f} s against the vmap route's {t_v:.3f} s; finite with "
+          f"sigma_res < sigma_data: {ok}; J {j_gap:.3f} of the tolerance",
+          flush=True)
+    if not ok:
+        raise AssertionError("the composed solve is not finite or did not "
+                             "reduce the residual")
+    report["composed"] = {
+        "shape": SHARD_COMPOSE, "seconds": t_img, "vmap_seconds": t_ref,
+        "tol_ratio": ratio, "image_rel": e_img, "launches": c_launches,
+        "solve_seconds": t_c, "solve_vmap_seconds": t_v, "solve_J": j_gap,
+        "episodes_s": t_eps, "full_solve_s": t_solve}
+    ep0 = eps[0]
+    res0 = solver.SolveResult(*(x[0] for x in res))
+    report["ska"] = sharded_ska_checks(dev, sb, ep0, res0, rho[0], alpha[0],
+                                       zero_counts, read_counts, n_sm,
+                                       ref=ref[0])
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="smoke_out",
@@ -6892,6 +7347,11 @@ def main():
                          "the programs against their eager bodies, "
                          "enet_sac at --block 20 and 1 over twice the "
                          "episodes)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="build the kernels and run the sharded routes' "
+                         "phase alone (a routed N=62 CalibEnv, the "
+                         "lane-sharded E=4 batched step, the composed lane x "
+                         "baseline route at N=256 E=2)")
     ap.add_argument("--diag-determinism", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--hessian-split", metavar="PARENT_CU",
@@ -6916,7 +7376,7 @@ def main():
         return diag_determinism_main()
     if (args.runtime or args.runtime_rest or args.supervised or args.bf16
             or args.deterministic_sweep or args.fleet or args.serve
-            or args.oracle or args.enet_program):
+            or args.oracle or args.enet_program or args.sharded):
         from smartcal_tpu_torch.ops import (build, dft_imager, enet_lbfgs,
                                             factored_imager, hessian_blocks,
                                             sym_eigvals)
@@ -6933,6 +7393,10 @@ def main():
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
             name, out = "enet_program_phase", enet_program_phase(
                 dev, args.out, zero, read, n_sm, deep=True)
+        elif args.sharded:
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            name, out = "sharded_phase", sharded_phase(dev, args.out, zero,
+                                                       read, n_sm)
         elif args.runtime:
             name, out = "runtime_phase", runtime_phase(dev, args.out, zero,
                                                        read)
@@ -7023,17 +7487,15 @@ def main():
     report["demix_fuzzy"] = demix_fuzzy_phase(dev, zero_counts, read_counts)
     report["demix_drivers"] = demix_drivers_phase(dev, args.out, zero_counts,
                                                   read_counts)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the supervised slice, still before the first profiler session -----
     report["supervised"] = supervised_phase(dev, args.out, zero_counts,
                                             read_counts, n_sm)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- reference-scale path: CalibEnv(M=10) at N=62, reset + 2 steps ------
-    backend = RadioBackend(n_stations=62, n_freqs=3, n_times=20, tdelta=10,
-                           n_poly=2, admm_iters=10, lbfgs_iters=8,
-                           init_iters=30, npix=128, device=dev)
+    backend = RadioBackend(device=dev, **N62)
     env = CalibEnv(M=10, backend=backend, seed=0, provide_hint=True,
                    device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -7054,8 +7516,8 @@ def main():
                          peak_mem_bytes=peak, launches=n62_launches,
                          sigma_data_img=env._sigma_data_img)
 
-    # device idle share: one more solve timed here; a third step and the
-    # solve profiled at the end, the shares taken against the unprofiled
+    # one more solve timed here, for the oracle and sharded checks; a third
+    # step profiled at the end, its idle share taken against the unprofiled
     # seconds (the profiler slows the host)
     mask = np.zeros(env.M, np.float32)
     mask[:env.K] = 1.0
@@ -7067,7 +7529,7 @@ def main():
     report["n62"]["idle"] = {
         "step_wall_s": float(np.mean([s["seconds"] for s in steps])),
         "solve_wall_s": solve_wall}
-    defer(n62_profiles, env, backend, rho, mask, report["n62"]["idle"])
+    defer(n62_profiles, env, report["n62"]["idle"])
 
     # -- the oracle chain on this episode and solve (no new solve) ---------
     alpha = np.zeros(env.M, np.float32)
@@ -7075,6 +7537,11 @@ def main():
     report["n62"]["oracle"] = oracle_checks(
         dev, env, backend, n62_res, rho, alpha, zero_counts, read_counts,
         n_sm)
+
+    # -- the frequency and chunk routes on this episode and solve, with
+    # positions on the card --------------------------------------------------
+    report["n62"]["sharded"] = sharded_n62_checks(
+        dev, env.ep, backend, n62_res, solve_wall, rho, mask, alpha)
     del n62_res
 
     # -- imager kernel at the N=62 path's shapes, and ragged cases ---------
@@ -7113,7 +7580,7 @@ def main():
 
     # -- train path: train/calib_sac.py on the N=62 backend, 2 episodes ----
     report["train"] = train_path(dev, args.out, zero_counts, read_counts)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the elastic-net slice: one step measured, then the trainers --------
     print(f"enet phases: step path reset + 3 steps + 1 hint; enet_sac "
@@ -7130,21 +7597,21 @@ def main():
                                                   read_counts)
     report["enet_program"] = enet_program_phase(dev, args.out, zero_counts,
                                                 read_counts, n_sm)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
     report["calib_td3_ddpg"] = calib_td3_ddpg_phase(dev, args.out,
                                                     zero_counts, read_counts)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the batched slice at N=62: BatchedCalibEnv (E=4) and its oracle,
-    # the E sweep, prefetch, the batched trainer ---------------------------
+    # prefetch, the batched trainer -----------------------------------------
     n62_step_s = float(np.mean([s["seconds"] for s in report["n62"]["steps"]]))
     report["batched"] = batched_env_phase(
         dev, zero_counts, read_counts, n62_step_s, report["n62"]["idle"])
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
     report["prefetch"] = prefetch_phase(dev, zero_counts, read_counts)
     report["batched_train"] = batched_train_phase(dev, args.out, zero_counts,
                                                   read_counts)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- SKA-tier path: CalibEnv(M=10) at N=256, npix=1024, reset + step ---
     ska_held = held_bytes(dev)
@@ -7195,14 +7662,22 @@ def main():
                          sigma_data_img=ska_env._sigma_data_img)
     report["ska"]["idle"] = {"step_wall_s": ska_steps[0]["seconds"]}
     defer(step_profile, "SKA step", ska_env, report["ska"]["idle"])
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the bf16 influence path on the SKA and N=62 steps' own operands,
     # kernel 2's bf16 mode at the SKA path's ------------------------------
     report["bf16"] = bf16_phase(dev, zero_counts, read_counts, n_sm,
                                 args.out, spies, n62_spies)
-    del spies["influence_image"], n62_spies
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    del n62_spies
+
+    # -- the baseline route on the SKA step's own operands, with positions
+    # on the card ----------------------------------------------------------
+    (ska_ep, ska_res, ska_rho, ska_alpha), _ = spies["influence_image"].args
+    report["ska"]["sharded"] = sharded_ska_checks(
+        dev, ska_backend, ska_ep, ska_res, ska_rho, ska_alpha, zero_counts,
+        read_counts, n_sm, ref=spies["influence_image"].result)
+    del spies["influence_image"], ska_ep, ska_res
+    stamp(t_start)
 
     # -- hessian_blocks: path operands (band 0, chunk 0 of the step) -------
     hargs, hkw = spies["hessian_blocks"].args
@@ -7370,30 +7845,31 @@ def main():
     # (the runtime phase's --trace run) ---------------------------------------
     report["runtime_rest"] = runtime_rest_phase(dev, args.out, zero_counts,
                                                 read_counts)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the distributed-training slice, before the first profiler session
     report["fleet"] = fleet_phase(dev, args.out, zero_counts, read_counts,
                                   n_sm)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the serving slice, before the first profiler session -------------
     report["serve"] = serve_phase(dev, args.out, zero_counts, read_counts,
                                   n_sm)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the runtime slice, the last timed phase: its final run holds a
     # profiler session ------------------------------------------------------
     report["runtime"] = runtime_phase(dev, args.out, zero_counts,
                                       read_counts)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    stamp(t_start)
 
     # -- the profiled measurements the phases queued ----------------------
-    run_deferred()
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    run_deferred(t_start)
+    stamp(t_start)
 
     sup = report["supervised"]
     orc = report["n62"]["oracle"]
+    shd = report["ska"]["sharded"]
     fl = report["fleet"]["demix"]
     sv = report["serve"]
     bf, bfk = report["bf16"], report["bf16"]["kernel"]
@@ -7424,9 +7900,6 @@ def main():
                 report["batched"]["launches"][name],
                 "launches_batched_oracle":
                 report["batched"]["oracle"]["launches"][name],
-                "launches_e_sweep": sum(
-                    v["launches"][name] for k, v in
-                    report["batched"]["e_sweep"].items() if k != "4"),
                 "launches_prefetch_path":
                 report["prefetch"]["with"]["launches"][name],
                 "launches_batched_train_path":
@@ -7509,7 +7982,18 @@ def main():
          "replaces": "smartcal_tpu/ops/pallas_hessian.py:60",
          "launches": ska_launches["hessian_blocks"],
          "launches_bf16_paths": bf16_launches("hessian_blocks"),
-         "max_abs_err": max(h_err), "ms": h_ms, "device_ms": h_dev_ms,
+         "launches_sharded_ska_path": shd["launches"]["hessian_blocks"],
+         "sharded_positions": shd["positions"],
+         "sharded_position_shapes": [f"B={p['B']} (subset layout)"
+                                     for p in shd["kernel3_positions"]],
+         "sharded_position_ms": [p["ms"] for p in
+                                 shd["kernel3_positions"]],
+         "sharded_position_bound_ms": [p["bound_ms"] for p in
+                                       shd["kernel3_positions"]],
+         "sharded_single_ms": shd["kernel3_single_ms"],
+         "max_abs_err": max(h_err + [p["max_abs_err"] for p in
+                                     shd["kernel3_positions"]]),
+         "ms": h_ms, "device_ms": h_dev_ms,
          "plain_ms": h_plain_ms, "bound_ms": h_bound, "bound_by": h_bound_by,
          "device_ms_one_launch": h_dev_one, "library_ms": None,
          "shapes": h_lab, "bit_identical": True,
@@ -7520,6 +8004,7 @@ def main():
          "replaces": "smartcal_tpu/ops/pallas_imager.py:159",
          "launches": ska_launches["factored_imager"],
          "launches_bf16_paths": bf16_launches("factored_imager"),
+         "launches_sharded_ska_path": shd["launches"]["factored_imager"],
          "max_abs_err": max(f_err), "ms": f_ms, "plain_ms": f_plain_ms,
          **f32_bounds(f_bounds), "library_ms": f_lib_ms,
          "shapes": f"npix={npix} R={f_R}", **new_paths("factored_imager")},

@@ -28,8 +28,14 @@ Two formulations, as in the JAX package (``optimized``):
   plain reference the optimized chain is held to, and the
   ``RadioBackend(vectorized=False)`` host-loop route.
 
-The sharded tiers are not ported: on one card they map to the
-single-device route.
+The baseline-sharded engine (:func:`influence_visibilities_blocal`, the
+body of ``parallel/sharded_cal.influence_baseline_sharded`` and of the
+composed lane x baseline route) runs on one position's baseline slice:
+kernel 3's wrapper on the slice (any index set), the local off-diagonal
+blocks placed at the slice's offset in the global table so that the psum of
+the assembled partial Hessians is the global Hessian, then the psummed
+station sum of the adjoint chain and the psummed LLR norms
+(``ops/collectives.py``).
 """
 
 from typing import NamedTuple
@@ -39,7 +45,7 @@ import torch
 
 from smartcal_tpu_torch.cal import consensus, creal, imager, kernels
 from smartcal_tpu_torch.cal import precision as prec
-from smartcal_tpu_torch.ops import hessian_blocks
+from smartcal_tpu_torch.ops import collectives, hessian_blocks
 
 
 def consensus_hadd_all(rho_spectral, rho_spatial, freqs, f0, n_poly=2,
@@ -203,6 +209,76 @@ def influence_visibilities(R, C, J, hadd, n_stations, n_chunks,
         vis = vis_b.unsqueeze(-4).expand(lead + (n_chunks, Td, B, 4, 2)) \
             .reshape(lead + (T * B, 4, 2))
     return InfluenceResult(vis=vis * (8.0 * B * Td), llr=llr)
+
+
+def _chunk_influence_bshard(r3l, c5l, jpl, jql, lhs_l, p_idx_l, q_idx_l,
+                            b_offset, hadd, n_stations, b_total, perdir,
+                            axis_name, precision, sched=None):
+    """One calibration interval on this position's baseline slice (every
+    operand local, as :func:`_chunk_influence_opt` takes them on one
+    interval).  The slice's block sums are kernel 3's wrapper on the slice's
+    indices (``sched`` its subset schedule, built once per call); the local
+    off-diagonal blocks go to their global slots, which no other position
+    writes, so the psum of the assembled partials is the global Hessian.
+    Then the psummed adjoint column means of the local baselines and the
+    psummed LLR.  Returns ((Bl, 4, 2) or (K, Bl, 4, 2) vis, (K,) llr)."""
+    K, Td, Bl = c5l.shape[0], c5l.shape[1], c5l.shape[2]
+    off_l, dsum_l = hessian_blocks.hessian_block_sums(
+        r3l, c5l, jpl, jql, p_idx_l, q_idx_l, n_stations, sched=sched)
+    off_tab = off_l.new_zeros((K, b_total, 4, 4, 2))
+    off_tab[:, b_offset:b_offset + Bl] = off_l
+    H = kernels._hessian_assemble(off_tab, dsum_l, n_stations, b_total, Td)
+    H = collectives.psum(H, axis_name)
+    diag = torch.arange(H.shape[-2], device=H.device)
+    H[:, diag, diag, 0] += hadd[:, None]
+    pol_means = kernels._colmeans_adjoint_bshard_sr(
+        lhs_l, H, p_idx_l, n_stations, Td, b_total, perdir, axis_name,
+        contract_dtype=prec.contraction_dtype("colmeans_contract",
+                                              precision))
+    vis = torch.sum(pol_means, dim=-5 if perdir else -4) \
+        .transpose(-3, -2).clone()      # ([K,] Bl, 4, 2)
+    vis[..., 1:3, :] = 0.0              # fullpol=False: XY, YX dropped
+    return vis, kernels._llr_bshard_sr(r3l, c5l, jpl, jql, axis_name)
+
+
+def influence_visibilities_blocal(R3, C5, J, p_idx_l, q_idx_l, hadd,
+                                  n_stations, b_total, perdir=False,
+                                  axis_name="bp", precision="f32"):
+    """Position-local body of the baseline-sharded influence engine (inside
+    ``parallel/sharded_cal.shard_map``; ``axis_name`` the baseline axis,
+    the registry's ``AXIS_BASELINE``, named here because ``parallel``
+    imports this module).
+
+    R3 (Ts, Td, Bl, 2, 2, 2); C5 (Ts, K, Td, Bl, 2, 2, 2); J (Ts, K, 2N, 2,
+    2) replicated; p_idx_l / q_idx_l (Bl,) this position's station indices,
+    the slice at ``axis_index * Bl`` of the global baselines.  Returns vis
+    (Ts*Td, Bl, 4, 2), or (K, Ts*Td, Bl, 4, 2) with ``perdir``, scaled by
+    8*B*Td, and llr (Ts, K) replicated."""
+    Ts, Td, Bl = R3.shape[0], R3.shape[1], R3.shape[2]
+    K = C5.shape[1]
+    b_offset = collectives.axis_index(axis_name) * Bl
+    J4 = J.reshape(Ts, K, n_stations, 2, 2, 2)
+    Jp, Jq = J4[:, :, p_idx_l], J4[:, :, q_idx_l]     # (Ts, K, Bl, 2, 2, 2)
+    Csum = torch.sum(C5, dim=2)                       # (Ts, K, Bl, 2, 2, 2)
+    lhs = creal.einsum("skbuv,skbwv->skbuw", Jq, creal.conj(Csum))
+    sched = None
+    if R3.device.type == "cuda":
+        sched = hessian_blocks.subset_schedule(p_idx_l, q_idx_l, n_stations,
+                                               R3.device)
+    outs = [_chunk_influence_bshard(
+        R3[s], C5[s], Jp[s], Jq[s], lhs[s], p_idx_l, q_idx_l, b_offset,
+        hadd, n_stations, b_total, perdir, axis_name, precision, sched)
+        for s in range(Ts)]
+    vis_b = torch.stack([o[0] for o in outs])         # (Ts, [K,] Bl, 4, 2)
+    llr = torch.stack([o[1] for o in outs])
+    scale = 8.0 * b_total * Td
+    if perdir:         # (Ts, K, Bl, ..) -> (K, Ts*Td, Bl, ..)
+        vis = vis_b.unsqueeze(2).expand(Ts, K, Td, Bl, 4, 2) \
+            .transpose(0, 1).reshape(K, Ts * Td, Bl, 4, 2)
+    else:
+        vis = vis_b.unsqueeze(1).expand(Ts, Td, Bl, 4, 2) \
+            .reshape(Ts * Td, Bl, 4, 2)
+    return InfluenceResult(vis=vis * scale, llr=llr)
 
 
 class PerdirSummary(NamedTuple):

@@ -32,6 +32,7 @@ import torch
 from smartcal_tpu_torch import resolve_device
 from smartcal_tpu_torch.cal import creal
 from smartcal_tpu_torch.cal import precision as prec
+from smartcal_tpu_torch.ops import collectives
 
 EPS_SINGULAR = 1e-12   # reference: EPS in Dsolutions (calibration_tools.py:696)
 EPS_DIV = 1e-12        # reference: EPS in log_likelihood_ratio (:1203)
@@ -200,11 +201,26 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False,
     f32 bits.
     """
     N = n_stations
-    lead, K, B = lhs.shape[:-5], lhs.shape[-5], lhs.shape[-4]
+    B = lhs.shape[-4]
     dev, dt = lhs.device, lhs.dtype
     onehot_p = baseline_onehots(N, dt, dev)[0]
     # G[k, n, i, j] = sum over baselines with p(b) = n of -conj(lhs)
     G = torch.einsum("nb,...kbijz->...knijz", onehot_p, -creal.conj(lhs))
+    return _colmeans_from_g(G, lhs, Dgs, baseline_indices(N, dev)[0], N, T,
+                            B, perdir, contract_dtype)
+
+
+def _colmeans_from_g(G, lhs, Dgs, p_idx, n_stations, T, B, perdir,
+                     contract_dtype):
+    """The column means from the per-station sum G (K, N, 2, 2, 2): the W
+    build, the regularized 4-RHS transpose solve and the Yr x Lr gather
+    tail, shared by the single-device core and the baseline-sharded path
+    (they differ only in how G was formed, locally or psummed).
+    ``lhs``/``p_idx`` may cover a subset of the baselines; ``B`` is always
+    the global count (the normalization)."""
+    N = n_stations
+    lead, K = lhs.shape[:-5], lhs.shape[-5]
+    dev, dt = lhs.device, lhs.dtype
     eye2 = torch.eye(2, dtype=dt, device=dev)
     W = torch.einsum("...knijz,vu->...kjnviuz", G, eye2).reshape(
         lead + (K, 4 * N, 4, 2))
@@ -214,7 +230,6 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False,
 
     # gather y at each baseline's p station, contract against lhs
     bbt = float(B) * B * T      # float: the int product overflows at N>=256
-    p_idx = baseline_indices(N, dev)[0]
     Y6 = Y.reshape(lead + (K, 2, N, 2, 4, 2))            # (k,j,n,u',c,2)
     Yr = Y6[..., p_idx, :, :, :][
         ..., torch.as_tensor(_V_OF_R, device=dev), :, :]
@@ -231,6 +246,20 @@ def _colmeans_adjoint_core_sr(lhs, Dgs, n_stations, T, perdir=False,
     return torch.where(odd, creal.mul_i(out), out) / bbt
 
 
+def _colmeans_adjoint_bshard_sr(lhs_l, Dgs, p_idx_l, n_stations, T, b_total,
+                                perdir, axis_name, contract_dtype=None):
+    """Baseline-sharded adjoint column means: ``lhs_l``/``p_idx_l`` are
+    this position's baseline slice, ``Dgs`` the psummed (replicated)
+    consensus-augmented Hessian.  The per-station sum G is the one
+    collective; the transpose solve runs on every position; the gather
+    tail covers the local baselines only."""
+    onehot_p = _block_onehot(p_idx_l, n_stations, lhs_l.dtype)
+    G = torch.einsum("nb,kbijz->knijz", onehot_p, -creal.conj(lhs_l))
+    G = collectives.psum(G, axis_name)
+    return _colmeans_from_g(G, lhs_l, Dgs, p_idx_l, n_stations, T, b_total,
+                            perdir, contract_dtype)
+
+
 def _llr_core_sr(R3, C5, Jp, Jq):
     """Per-direction log-likelihood ratio (K,): (||r+mu||^2 - ||r||^2) /
     sigma^2 with mu = Jp C Jq^H per sample and sigma^2 from Stokes V of
@@ -243,6 +272,19 @@ def _llr_core_sr(R3, C5, Jp, Jq):
     rn2 = torch.sum(creal.abs2(R3), dim=(-4, -3, -2, -1))[..., None]
     rpmu2 = torch.sum(creal.abs2(R3.unsqueeze(-6) + mu),
                       dim=(-4, -3, -2, -1))
+    return (rpmu2 - rn2) / (sigma2 + EPS_DIV)
+
+
+def _llr_bshard_sr(R3l, C5l, Jpl, Jql, axis_name):
+    """Baseline-sharded :func:`_llr_core_sr` on one interval: the three
+    norms are this position's partial sums, psummed over ``axis_name``."""
+    tmp = creal.einsum("kbuv,ktbvw->ktbuw", Jpl, C5l)
+    mu = creal.einsum("ktbuw,kbxw->ktbux", tmp, creal.conj(Jql))
+    sV = 0.5 * (R3l[..., 0, 1, :] - R3l[..., 1, 0, :])
+    sigma2 = collectives.psum(torch.sum(creal.abs2(sV)), axis_name)
+    rn2 = collectives.psum(torch.sum(creal.abs2(R3l)), axis_name)
+    rpmu2 = collectives.psum(
+        torch.sum(creal.abs2(R3l[None] + mu), dim=(1, 2, 3, 4)), axis_name)
     return (rpmu2 - rn2) / (sigma2 + EPS_DIV)
 
 

@@ -12,8 +12,12 @@ JAX package's host-segmented solve: ``solve_admm`` with its inner solves
 cut into bounded segments (``lbfgs_resume``), which JAX runs to stay under
 a TPU watchdog.  Here it gives the fused route's bits; it is the last rung
 of ``solve_admm_safe``'s ladder, as in JAX, but on the port that rung
-repeats a non-finite fused solve rather than rescuing it.  The sharded
-routes are not ported.  ``collect_stats=True`` returns the solver's telemetry
+repeats a non-finite fused solve rather than rescuing it.  With
+``axis_name`` the frequency axis is sharded over that mesh axis
+(``parallel/sharded_cal.solve_admm_sharded``): Nf is the local band count
+and the cross-frequency sums (the data scale, ``btb``, the Z update, the
+residual norms, the telemetry) are the collectives of
+``ops/collectives.py``.  ``collect_stats=True`` returns the solver's telemetry
 (:class:`SolverStats`) beside the result; ``cost_eval_flops`` is the
 analytic flop model of the inner evaluations beside counted ones
 (``obs.costs``).
@@ -33,7 +37,7 @@ from smartcal_tpu_torch import obs
 from smartcal_tpu_torch.cal import consensus, creal
 from smartcal_tpu_torch.cal.kernels import baseline_indices, baseline_onehots
 from smartcal_tpu_torch.obs import costs
-from smartcal_tpu_torch.ops import lbfgs
+from smartcal_tpu_torch.ops import collectives, lbfgs
 from smartcal_tpu_torch.ops.autodiff import lane_value_and_grad
 
 
@@ -359,19 +363,28 @@ def _stats(admm_iters, resid, inner, init_iters, search, lead=(),
         phi_evals=search.phi_evals, linesearches=search.calls)
 
 
-def _prep(V, C, freqs, f0, rho, cfg: SolverConfig, Ts):
+def _prep(V, C, freqs, f0, rho, cfg: SolverConfig, Ts, freq_range=None,
+          axis_name=None):
     """Scale normalization + chunking + consensus operators.  Data and model
     are divided by the data scale and rho by its square (the minimizer is
-    unchanged, the f32 arithmetic stays O(1)); _finalize undoes it."""
+    unchanged, the f32 arithmetic stays O(1)); _finalize undoes it.  With
+    ``axis_name`` the data scale is the mean over every shard's bands and
+    ``btb`` the global sum."""
     B = V.shape[2]
-    data_scale = torch.sqrt(torch.mean(V * V)) + 1e-20
+    vmean = torch.mean(V * V)
+    if axis_name is not None:
+        vmean = collectives.pmean(vmean, axis_name)
+    data_scale = torch.sqrt(vmean) + 1e-20
     V = V / data_scale
     C = C / data_scale
     rho = rho / (data_scale * data_scale)
     V6 = vis_to_chunks(V, Ts)                            # (Nf,Ts,td,B,...)
     C7 = coherency_to_chunks(C, B, Ts)                   # (Nf,Ts,K,td,B,...)
-    bfull = consensus.poly_basis(freqs, f0, cfg.n_poly, cfg.polytype)
+    bfull = consensus.poly_basis(freqs, f0, cfg.n_poly, cfg.polytype,
+                                 frange=freq_range)
     btb = bfull.T @ bfull
+    if axis_name is not None:
+        btb = collectives.psum(btb, axis_name)
     tr = torch.trace(btb) / cfg.n_poly
     eye = torch.eye(cfg.n_poly, dtype=btb.dtype, device=btb.device)
     A = (rho[:, None, None] * btb
@@ -391,21 +404,30 @@ def _bz(bfull, Z):
     return torch.einsum("fe,tkenij->ftknij", bfull, Z)
 
 
-def _z_update(bfull, Bi, rho, J, Y):
-    """Z = Bi_k sum_f b_f (rho_k J_fk + Y_fk)."""
+def _z_update(bfull, Bi, rho, J, Y, axis_name=None):
+    """Z = Bi_k sum_f b_f (rho_k J_fk + Y_fk), the sum over every shard's
+    bands with ``axis_name``."""
     w = rho[None, None, :, None, None, None] * J + Y
     S = torch.einsum("fe,ftknij->tkenij", bfull, w)
+    if axis_name is not None:
+        S = collectives.psum(S, axis_name)
     return torch.einsum("kem,tkmnij->tkenij", Bi, S)
 
 
-def _finalize(J, V6, C7, data_scale, cost, cfg: SolverConfig, T):
-    """Residual over the full data + noise statistics, in DATA units."""
+def _finalize(J, V6, C7, data_scale, cost, cfg: SolverConfig, T,
+              axis_name=None):
+    """Residual over the full data + noise statistics, in DATA units (the
+    statistics over every shard's bands with ``axis_name``)."""
     Nf, B = V6.shape[0], V6.shape[3]
     r = V6 - predict_vis_sr(J, C7, cfg.n_stations)
     residual = r.reshape(Nf, T, B, 2, 2, 2) * data_scale
     n_res = torch.sum(residual * residual)
     n_dat = torch.sum(V6 * V6) * data_scale * data_scale
     count = float(residual.numel())
+    if axis_name is not None:
+        n_res = collectives.psum(n_res, axis_name)
+        n_dat = collectives.psum(n_dat, axis_name)
+        count = collectives.psum(count, axis_name)
     return (residual, torch.sqrt(n_res / count), torch.sqrt(n_dat / count),
             cost * data_scale * data_scale)
 
@@ -422,7 +444,9 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig,
                n_chunks: Optional[int] = None,
                admm_iters: Optional[int] = None,
                collect_stats: bool = False, J0=None,
-               seg_iters: Optional[int] = None) -> SolveResult:
+               seg_iters: Optional[int] = None,
+               axis_name: Optional[str] = None,
+               freq_range=None) -> SolveResult:
     """Consensus-ADMM calibration over frequency sub-bands.
 
     V     : (Nf, T, B, 2, 2, 2) observed visibilities (split-real 2x2)
@@ -444,7 +468,19 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig,
             (``lbfgs_resume`` after the first), the same trajectory and
             bits (:func:`solve_admm_host`); ``SolverStats.n_segments``
             counts them
+    axis_name : mesh axis of the sharded frequency axis (inside
+            ``parallel/sharded_cal.shard_map``): V, C, freqs (and J0) are
+            this position's bands, the cross-frequency sums are psums over
+            it, and the statistics and telemetry come out global
+    freq_range : (fmin, fmax) band edges of the Bernstein basis; required
+            with ``axis_name`` and ``polytype=1`` (every shard must build
+            the global band's basis, not its own)
     """
+    if axis_name is not None and cfg.polytype == 1 and freq_range is None:
+        raise ValueError(
+            "sharded frequency axis with Bernstein polytype needs explicit "
+            "freq_range=(fmin, fmax): local shard min/max would build "
+            "incompatible bases across shards")
     dev = V.device
     Nf, T = V.shape[0], V.shape[1]
     K, N = cfg.n_dirs, cfg.n_stations
@@ -458,7 +494,7 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig,
     niter = cfg.admm_iters if admm_iters is None else int(admm_iters)
     rho = torch.as_tensor(rho, dtype=V.dtype, device=dev)
     V6, C7, rho, data_scale, bfull, Bi = _prep(V, C, freqs, f0, rho, cfg,
-                                               Ts)
+                                               Ts, freq_range, axis_name)
     warm = J0 is not None
     if warm:
         J = torch.as_tensor(J0, dtype=V.dtype, device=dev).reshape(
@@ -496,11 +532,13 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig,
         J = res.x.reshape(J.shape)
         if collect_stats:
             init_iters = res.n_iters.sum()
+            if axis_name is not None:
+                init_iters = collectives.psum(init_iters, axis_name)
 
     half_rho = 0.5 * rho
     rho6 = rho[None, None, :, None, None, None]
     Y = torch.zeros_like(J)
-    Z = _z_update(bfull, Bi, rho, J, Y)
+    Z = _z_update(bfull, Bi, rho, J, Y, axis_name)
     cost = torch.zeros((Nf, Ts), dtype=V.dtype, device=dev)
     resid, inner = [], []
     for _ in range(niter):
@@ -509,15 +547,20 @@ def solve_admm(V, C, freqs, f0, rho, cfg: SolverConfig,
                           half_rho, cfg.lbfgs_iters)
         J = res.x.reshape(J.shape)
         cost = res.loss.reshape(Nf, Ts)
-        Z = _z_update(bfull, Bi, rho, J, Y)
+        Z = _z_update(bfull, Bi, rho, J, Y, axis_name)
         r = J - _bz(bfull, Z)
         Y = Y + rho6 * r
         if collect_stats:
-            resid.append(torch.sqrt(torch.sum(r * r) / r.numel()))
-            inner.append(res.n_iters.sum())
+            rss, nel, nit = torch.sum(r * r), r.numel(), res.n_iters.sum()
+            if axis_name is not None:
+                rss = collectives.psum(rss, axis_name)
+                nel = collectives.psum(nel, axis_name)
+                nit = collectives.psum(nit, axis_name)
+            resid.append(torch.sqrt(rss / nel))
+            inner.append(nit)
 
     residual, sigma_res, sigma_data, fcost = _finalize(
-        J, V6, C7, data_scale, cost, cfg, T)
+        J, V6, C7, data_scale, cost, cfg, T, axis_name)
     result = SolveResult(J=J, Z=Z, residual=residual, sigma_res=sigma_res,
                          sigma_data=sigma_data, final_cost=fcost)
     if collect_stats:

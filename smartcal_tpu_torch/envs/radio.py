@@ -3,33 +3,44 @@ smartcal_tpu/envs/radio.py): simulate an observation, calibrate it, map
 its influence, and image the data and the residual.
 
 Direction selection is a MASK over a fixed M-direction coherency tensor,
-as in the JAX package.  Routes: the JAX backend picks among sharded,
-host-segmented, fused and vectorized routes by device count and problem
-size (radio.py:508-566, 745-795).  On one GPU this port keeps one route
-each, with the same math:
+as in the JAX package.  Routes, chosen as the JAX backend chooses them
+(smartcal_tpu/envs/radio.py:417-465, 508-566, 744-979, 1082-1290), by the
+number of mesh positions the backend sees (:meth:`RadioBackend.
+_mesh_devices`: ``parallel/mesh.default_devices`` of the backend's device,
+every local GPU; with one device no route shards) and the problem size:
 
-* ``calibrate``       -> ``solver.solve_admm`` (the fused route), wrapped
-  in ``solve_admm_safe``'s ladder: rho-boosted retries, then the
-  host-segmented route ``solver.solve_admm_host``.  The JAX backend picks
-  the host-segmented route itself above 1e7 calibration units
-  (``_fused_work``, recorded on the solve span here: its guard against a
-  TPU watchdog on one fused XLA program).  The port's solve is a
-  host-driven loop with no such program, so the automatic choice here is
-  always the fused route;
-  ``SMARTCAL_HOST_SOLVER=1`` forces the host-segmented route (``=0`` the
-  fused one), and ``SMARTCAL_ROBUST_SOLVER=0/1`` overrides the
-  constructor's ``robust_solver``.  The two routes give the same bits, so
-  the host rung repeats a non-finite fused solve (one more solve before
-  ``SolverDegradedError``) rather than rescuing it;
-* ``influence_image`` -> ``influence.influence_image_single_sr`` per
-  sub-band, averaged (the JAX host-segmented route's unit), with the
-  SKA-tier statics of :meth:`RadioBackend._influence_statics`: the blocked
-  Hessian from B >= 8128 (N >= 128) and the large-tier factored imager
-  from npix >= 512, each a hand-written CUDA kernel on the card, and the
-  backend's ``precision`` (``"bf16"``: the bf16 column means and kernel
-  2's bf16 mode).  The JAX package's sharded influence routes carry the
-  same ``precision`` (smartcal_tpu/parallel/sharded_cal.py); on one card
-  they map to this route;
+* ``calibrate`` -> ``parallel/sharded_cal.solve_admm_sharded`` (route
+  ``sharded``) when the sub-bands divide over >= 2 positions
+  (:meth:`_shard_size`: the largest divisor of Nf the positions hold; under
+  ``shard="auto"`` only from 1e6 calibration units, ``_SHARD_MIN_WORK``)
+  and each shard's work stays under the JAX backend's watchdog limit
+  (``_WATCHDOG_WORK``, 1e7 units of :meth:`_fused_work` per shard, so the
+  routes match JAX's: at the SKA tier neither shards the solve); else
+  ``solver.solve_admm`` (``fused``).  Either sits in ``solve_admm_safe``'s
+  ladder: rho-boosted retries, then the host-segmented route
+  ``solver.solve_admm_host``.  The JAX backend picks the host-segmented
+  route itself above 1e7 units; the port's solve is a host-driven loop
+  with no fused XLA program to guard, so only ``SMARTCAL_HOST_SOLVER=1``
+  picks it (``=0`` the fused one), and it beats the mesh route;
+  ``SMARTCAL_SHARD=0/1`` overrides ``shard``; ``SMARTCAL_ROBUST_SOLVER=0/1``
+  overrides ``robust_solver``.  The fused and host-segmented routes give
+  the same bits, so the host rung repeats a non-finite fused solve (one
+  more solve before ``SolverDegradedError``) rather than rescuing it;
+* ``influence_image`` -> at B >= 8128 with a baseline divisor,
+  ``baseline_sharded`` (``sharded_cal.influence_baseline_sharded`` band by
+  band: the axis that makes an N >= 256 influence chain fit, each
+  position's Hessian sums one kernel-3 launch per interval, the gathered
+  visibilities imaged by kernel 2 at npix >= 512); else ``freq_sharded``
+  (``sharded_cal.influence_images_sharded``); else ``chunk_sharded``
+  (``sharded_cal.influence_sharded`` band by band); else ``per_band``:
+  ``influence.influence_image_single_sr`` per sub-band, averaged (the JAX
+  host-segmented route's unit).  Every route takes the SKA-tier statics of
+  :meth:`RadioBackend._influence_statics`: the blocked Hessian from B >=
+  8128 (N >= 128) and the large-tier factored imager from npix >= 512,
+  each a hand-written CUDA kernel on the card, and the backend's
+  ``precision`` (``"bf16"``: the bf16 column means and kernel 2's bf16
+  mode).  Each position runs the single-device route's kernels at its
+  local shapes;
 * ``data_image`` / ``residual_image`` -> ``imager.multifreq_image_sr``,
   one direct-DFT kernel launch per sub-band;
 * ``vectorized=False`` is the JAX backend's host-loop route (the parity
@@ -50,22 +61,25 @@ Episodes: ``new_calib_episode`` (with the optional diffuse shapelet
 component of cluster 0, ``_add_shapelet``) and ``new_demixing_episode``
 (A-team outliers and the target field, ``simulate.simulate_demixing_sky``).
 
-Batched episodes (:class:`BatchedEpisode`, the batched envs' operands).
-The JAX backend routes a batch by device count and size: a plain
-``vmap``, a ``shard_map`` over a lane mesh (``_batch_shard_size``), or a
-composed lane x baseline mesh (``_compose_sizes``, ``_mesh2``), for the
-solve and the influence chain alike (smartcal_tpu/envs/radio.py:1082-1109,
-1134-1152, 1269-1285).  On one GPU every arm collapses to the ``vmap``
-route:
+Batched episodes (:class:`BatchedEpisode`, the batched envs' operands),
+routed as the JAX backend routes a batch: the lanes divide over the
+positions (:meth:`_batch_shard_size`), and positions left over go to a
+baseline axis at B >= 8128 or under ``SMARTCAL_COMPOSE=1``
+(:meth:`_compose_sizes`; ``compose=`` forces a shape):
 
 * ``calibrate_batched``        -> ``solver.solve_admm_batched``: the
-  E*Nf*Ts inner solves as lanes of one L-BFGS, the rest per episode.  Like
-  the JAX route it has no rho-boost retry;
-* ``influence_images_batched`` -> ``influence.influence_images_lanes``:
-  the episodes' bands as leading lane axes of the plain chain and of the
-  factored imager's matmuls; the SKA-tier CUDA kernels, which take one
-  lane per launch, in a loop over lanes (the JAX package vmaps the
-  ``pallas_call``);
+  E*Nf*Ts inner solves as lanes of one L-BFGS, the rest per episode
+  (``batched_vmap``); with a lane axis, the lanes split over the positions
+  in one ``shard_map`` (``batched_sharded``; on the composed mesh the
+  baseline axis holds copies).  Like the JAX route it has no rho-boost
+  retry;
+* ``influence_images_batched`` -> with a baseline axis,
+  ``sharded_cal.influence_images_batched_sharded`` on the composed lane x
+  baseline mesh (``batched_lane_bshard``); else
+  ``influence.influence_images_lanes``: the episodes' bands as leading lane
+  axes of the plain chain and of the factored imager's matmuls; the
+  SKA-tier CUDA kernels, which take one lane per launch, in a loop over
+  lanes (the JAX package vmaps the ``pallas_call``);
 * ``image_sigmas_batched``     -> the factored imager over all lanes, as in
   the JAX package (not the DFT kernel: the fused reward differs from the
   sequential env's by round-off only).
@@ -115,6 +129,18 @@ from smartcal_tpu_torch.cal import (coherency, imager, influence, observation,
                                     shapelets, simulate, solver)
 from smartcal_tpu_torch.cal import precision as prec
 from smartcal_tpu_torch.obs import costs as obs_costs
+from smartcal_tpu_torch.parallel import mesh as mesh_mod
+from smartcal_tpu_torch.parallel.mesh import (AXIS_BASELINE, AXIS_CHUNK,
+                                              AXIS_FREQ, AXIS_LANE,
+                                              largest_divisor)
+
+# calibration units (RadioBackend._fused_work) of the JAX backend's routing:
+# one fused program above _WATCHDOG_WORK risks a TPU watchdog there, and a
+# shard of the solve must stay below it; below _SHARD_MIN_WORK sharding
+# costs more in collectives than it returns, so "auto" leaves tiny
+# configurations alone
+_WATCHDOG_WORK = 1e7
+_SHARD_MIN_WORK = 1e6
 
 # SKA-tier thresholds (the JAX backend's, smartcal_tpu/envs/radio.py:69-72):
 # from _BLOCK_MIN_B baselines (N=128 -> B=8128) the influence chain's
@@ -194,10 +220,12 @@ class RadioBackend:
     in one expression and maps the influence with the optimized chain;
     False is the host-loop route (module docstring): band by band, the
     noise in host numpy, the influence on the oracle chain imaged by
-    kernel 1.  ``shard`` ("auto", True, False or None) is the JAX
-    backend's mesh switch, accepted for its signature: with one GPU no
-    mesh divides, so every value runs the single-device route, exactly as
-    the JAX backend does on one device."""
+    kernel 1.  ``shard`` is the JAX backend's mesh switch: "auto" shards
+    over the positions of :meth:`_mesh_devices` when there are >= 2 and the
+    episode is big enough (``_SHARD_MIN_WORK``), True whenever a divisible
+    mesh exists, False or None never; ``SMARTCAL_SHARD=0/1`` overrides.
+    With one device no mesh divides, and every value runs the
+    single-device route, as the JAX backend does on one device."""
 
     def __init__(self, n_stations=14, n_freqs=3, n_times=20, tdelta=10,
                  n_poly=2, admm_iters=10, lbfgs_iters=8, init_iters=30,
@@ -241,6 +269,7 @@ class RadioBackend:
         self._prefetch_ex = None
         self._prefetch_stream = None
         self.prefetch_counts = {"hit": 0, "stall": 0, "miss": 0}
+        self._meshes = {}
 
     @contextmanager
     def _stage(self, name, span=None, **tags):
@@ -405,10 +434,60 @@ class RadioBackend:
         ``SMARTCAL_HOST_SOLVER=1`` says yes (``=0`` and unset: no)."""
         return os.environ.get("SMARTCAL_HOST_SOLVER", "").strip() == "1"
 
+    def _mesh_devices(self):
+        """The positions the routes lay meshes over:
+        ``parallel/mesh.default_devices`` of the backend's device (read at
+        each call, so a run can replace it)."""
+        return mesh_mod.default_devices(self.device)
+
+    def _shard_size(self, n_items, work):
+        """Mesh axis size for sharding ``n_items`` (0: do not shard): the
+        largest divisor >= 2 of n_items that the positions hold, subject to
+        the shard mode (JAX radio.py:417-438)."""
+        mode = self.shard
+        override = os.environ.get("SMARTCAL_SHARD", "").strip()
+        if override in ("0", "1"):
+            mode = override == "1"
+        if mode is False or mode is None:
+            return 0
+        if mode == "auto" and work < _SHARD_MIN_WORK:
+            return 0
+        ndev = len(self._mesh_devices())
+        if ndev < 2:
+            return 0
+        for size in range(min(ndev, n_items), 1, -1):
+            if n_items % size == 0:
+                return size
+        return 0
+
+    def _mesh(self, size, axis=AXIS_FREQ):
+        """Cached 1-D mesh of ``size`` positions whose axis carries the
+        registry name of the role it plays."""
+        key = (size, axis, tuple(self._mesh_devices()[:size]))
+        mesh = self._meshes.get(key)
+        if mesh is None:
+            mesh = self._meshes[key] = mesh_mod.make_mesh(
+                (size,), (axis,), devices=list(key[2]))
+        return mesh
+
+    def _mesh2(self, n_lane, n_baseline):
+        """Cached composed lane x baseline mesh: the batched solve (lanes
+        split, the baseline axis holding copies) and the composed influence
+        program share it."""
+        devs = tuple(self._mesh_devices())
+        key = (n_lane, n_baseline, devs)
+        mesh = self._meshes.get(key)
+        if mesh is None:
+            mesh = self._meshes[key] = mesh_mod.compose_mesh(
+                {AXIS_LANE: n_lane, AXIS_BASELINE: n_baseline},
+                devices=list(devs))
+        return mesh
+
     def calibrate(self, ep: Episode, rho, mask=None, admm_iters=None):
         """Solve with per-direction rho; ``mask`` (K,) in {0, 1} excludes
         directions by zeroing their model (one solver for every subset).
-        The route is the fused solve, or the host-segmented one under
+        The route (module docstring) is the frequency-sharded solve over a
+        mesh, the fused solve, or the host-segmented one under
         ``SMARTCAL_HOST_SOLVER=1``, inside the degradation ladder
         (:meth:`_robustify`).  While a RunLog is active the solve collects
         its telemetry and logs a ``solver`` event with the route (JAX
@@ -449,17 +528,31 @@ class RadioBackend:
                 else torch.tensor(int(admm_iters)))
             return out
 
+        @collecting
+        def sharded_route(r):
+            from smartcal_tpu_torch.parallel import sharded_cal
+
+            return sharded_cal.solve_admm_sharded(
+                self._mesh(nfp, AXIS_FREQ), ep.V, C, ep.obs.freqs, ep.f0, r,
+                cfg, axis=AXIS_FREQ, n_chunks=self.n_chunks,
+                admm_iters=admm_iters, collect_stats=collect)
+
+        work = self._fused_work(admm_iters)
         host = self._use_host_solver()
-        route = "host_segmented" if host else "fused"
-        with self._stage("solve", route=route,
-                         work=self._fused_work(admm_iters)) as sp:
+        nfp = 0 if host else self._shard_size(self.n_freqs, work)
+        if nfp and work / nfp <= _WATCHDOG_WORK:
+            route, route_fn, tags = "sharded", sharded_route, {"shards": nfp}
+        else:
+            route = "host_segmented" if host else "fused"
+            route_fn = host_route if host else fused_route
+            tags = {}
+        with self._stage("solve", route=route, work=work, **tags) as sp:
             if mask is not None:
                 m = torch.as_tensor(np.asarray(mask, np.float32),
                                     device=self.device)
                 C = C * m[None, :, None, None, None]
             rho_t = torch.as_tensor(np.asarray(rho, np.float32),
                                     device=self.device)
-            route_fn = host_route if host else fused_route
             res, final = self._robustify(route_fn(rho_t), route_fn,
                                          None if host else host_route,
                                          rho_t, route)
@@ -551,9 +644,12 @@ class RadioBackend:
 
     def influence_image(self, ep: Episode, result: solver.SolveResult, rho,
                         rho_spatial, npix=None):
-        """Mean Stokes-I influence dirty image over sub-bands: the
-        optimized chain band by band, or with ``vectorized=False`` the
-        host loop on the oracle chain (:meth:`_influence_image_loop`)."""
+        """Mean Stokes-I influence dirty image over sub-bands, on the route
+        the module docstring gives (JAX radio.py:744-795): baseline-,
+        frequency- or chunk-sharded with a mesh, else the optimized chain
+        band by band; with ``vectorized=False`` the host loop on the oracle
+        chain (:meth:`_influence_image_loop`).  The stage span carries the
+        route and its shards."""
         npix = npix or self.npix
         if not self.vectorized:
             with self._stage("influence", route="host_loop",
@@ -561,32 +657,114 @@ class RadioBackend:
                 return self._influence_image_loop(ep, result, rho,
                                                   rho_spatial, npix)
         statics = self._influence_statics(npix)
-        with self._stage("influence", route="per_band", bands=self.n_freqs,
-                         precision=self.precision):
+        work = self._fused_work()
+        route, shards = "per_band", 0
+        # the baseline axis first at the SKA tier: partitioning B is what
+        # makes an N >= 256 chain fit; the frequency fan-out only speeds up
+        if self.n_baselines >= _BLOCK_MIN_B:
+            shards = self._shard_size(self.n_baselines, work)
+            route = "baseline_sharded" if shards else route
+        if not shards:
+            shards = self._shard_size(self.n_freqs, work)
+            route = "freq_sharded" if shards else route
+        if not shards:
+            shards = self._shard_size(self.n_chunks, work)
+            route = "chunk_sharded" if shards else route
+        tags = {"shards": shards} if shards else {"bands": self.n_freqs}
+        with self._stage("influence", route=route, precision=self.precision,
+                         **tags):
             uvw = ep.obs.uvw.reshape(-1, 3)
             cell = self._cell(ep)
             hadd_all = influence.consensus_hadd_all(
                 np.asarray(rho, np.float32),
                 np.asarray(rho_spatial, np.float32), ep.obs.freqs, ep.f0,
                 n_poly=self.n_poly, polytype=self.polytype)   # (Nf, K)
-            freqs = ep.obs.freqs.tolist()
-            acc = None
-            for fi in range(self.n_freqs):
+            if route == "freq_sharded":
+                from smartcal_tpu_torch.parallel import sharded_cal
+
+                out = sharded_cal.influence_images_sharded(
+                    self._mesh(shards, AXIS_FREQ), result.residual, ep.Ccal,
+                    result.J, hadd_all, ep.obs.freqs, uvw, cell,
+                    self.n_stations, self.n_chunks, npix, axis=AXIS_FREQ,
+                    **statics)
+            elif route == "per_band":
+                out = self._influence_bands(ep, result, hadd_all, uvw, cell,
+                                            npix, statics)
+            else:
+                out = self._influence_bands(
+                    ep, result, hadd_all, uvw, cell, npix, statics,
+                    route=route, shards=shards)
+            # one band's chain, inside the span: counted between episodes;
+            # a sharded route counts its single-device equivalent, its
+            # footprint divided by the shards (JAX radio.py:798-820)
+            axis = {"baseline_sharded": AXIS_BASELINE,
+                    "freq_sharded": AXIS_FREQ,
+                    "chunk_sharded": AXIS_CHUNK}.get(route)
+            obs_costs.record_stage_cost(
+                "influence", influence.influence_image_single_sr,
+                result.residual[0], ep.Ccal[0], result.J[0], hadd_all[0],
+                float(ep.obs.freqs[0]), uvw, cell, defer=True,
+                compute_dtype=self._imager_dtype(),
+                shards={axis: shards} if axis else 1,
+                n_stations=self.n_stations, n_chunks=self.n_chunks,
+                npix=npix, **statics)
+            self._record_kernel_costs(ep.n_dirs, npix, cell, statics)
+            return out
+
+    def _influence_bands(self, ep, result, hadd_all, uvw, cell, npix,
+                         statics, route="per_band", shards=0):
+        """Mean over the sub-bands of one band's influence image each: the
+        optimized chain (``per_band``), or the band's influence
+        visibilities over a baseline or chunk mesh (``baseline_sharded`` /
+        ``chunk_sharded``, JAX radio.py:915-979) imaged on the mesh's first
+        device by the factored imager (its large tier, kernel 2 on the
+        card, from npix >= 512)."""
+        freqs = ep.obs.freqs.tolist()
+        acc = None
+        for fi in range(self.n_freqs):
+            if route == "per_band":
                 img = influence.influence_image_single_sr(
                     result.residual[fi], ep.Ccal[fi], result.J[fi],
                     hadd_all[fi], freqs[fi], uvw, cell,
                     n_stations=self.n_stations, n_chunks=self.n_chunks,
                     npix=npix, **statics)
-                acc = img if acc is None else acc + img
-            # one band's chain, inside the span: counted between episodes
-            obs_costs.record_stage_cost(
-                "influence", influence.influence_image_single_sr,
-                result.residual[0], ep.Ccal[0], result.J[0], hadd_all[0],
-                freqs[0], uvw, cell, defer=True,
-                compute_dtype=self._imager_dtype(), n_stations=self.n_stations,
-                n_chunks=self.n_chunks, npix=npix, **statics)
-            self._record_kernel_costs(ep.n_dirs, npix, cell, statics)
-            return acc / self.n_freqs
+            else:
+                img = self._image_ivis(uvw, influence.stokes_i_influence(
+                    self._sharded_vis(ep, result, hadd_all, fi, route,
+                                      shards, statics).vis),
+                    freqs[fi], cell, npix, statics)
+            acc = img if acc is None else acc + img
+        return acc / self.n_freqs
+
+    def _sharded_vis(self, ep, result, hadd_all, fi, route, shards, statics):
+        """Band ``fi``'s influence visibilities over a baseline or chunk
+        mesh of ``shards`` positions."""
+        from smartcal_tpu_torch.parallel import sharded_cal
+
+        Rk = solver.residual_to_kernel(result.residual[fi])
+        if route == "baseline_sharded":
+            return sharded_cal.influence_baseline_sharded(
+                self._mesh(shards, AXIS_BASELINE), Rk, ep.Ccal[fi],
+                result.J[fi], hadd_all[fi], self.n_stations, self.n_chunks,
+                axis=AXIS_BASELINE, precision=statics["precision"])
+        return sharded_cal.influence_sharded(
+            self._mesh(shards, AXIS_CHUNK), Rk, ep.Ccal[fi], result.J[fi],
+            hadd_all[fi], self.n_stations, self.n_chunks, axis=AXIS_CHUNK,
+            block_baselines=statics["block_baselines"],
+            precision=statics["precision"])
+
+    def _image_ivis(self, uvw, ivis, freq, cell, npix, statics):
+        """Factored DFT image of one band's gathered influence visibilities
+        under the SKA-tier statics: the large tier (kernel 2 on the card)
+        when ``imager_block_r`` is set, else the plain factored imager."""
+        if statics["imager_block_r"]:
+            return imager.dirty_image_factored_large_sr(
+                uvw, ivis, freq, cell, npix=npix,
+                block_r=statics["imager_block_r"],
+                precision=statics["precision"])
+        return imager.dirty_image_factored_sr(
+            uvw, ivis, freq, cell, npix=npix,
+            precision=statics["precision"])
 
     def _influence_image_loop(self, ep, result, rho, rho_spatial, npix):
         """The JAX backend's host loop (pre-pipeline path): per sub-band the
@@ -836,20 +1014,75 @@ class RadioBackend:
 
         return solve
 
+    def _batch_shard_size(self, n_lanes):
+        """Lane-axis mesh size of the batched routes (0: no lane axis): the
+        per-episode policy of :meth:`_shard_size`, its work gate on the
+        whole batch's calibration units."""
+        return self._shard_size(n_lanes, self._fused_work() * n_lanes)
+
+    def _compose_sizes(self, n_lanes):
+        """(n_lane, n_baseline) of the composed batched mesh (JAX
+        radio.py:1090-1109): lanes fill the positions first (no
+        collectives), and the positions left over go to a baseline axis only
+        at B >= ``_BLOCK_MIN_B``, where partitioning B makes the program fit.
+        ``SMARTCAL_COMPOSE=1`` forces the baseline axis below that, ``=0``
+        turns it off.  ``n_baseline`` is 0 when it would be lane-only."""
+        nl = self._batch_shard_size(n_lanes)
+        env = os.environ.get("SMARTCAL_COMPOSE", "").strip().lower()
+        if env in ("0", "false", "no", "off"):
+            return nl, 0
+        spare = len(self._mesh_devices()) // max(nl, 1)
+        want_b = env in ("1", "true", "yes", "on") or \
+            self.n_baselines >= _BLOCK_MIN_B
+        if not want_b or spare < 2:
+            return nl, 0
+        nb = largest_divisor(self.n_baselines, spare)
+        return nl, (nb if nb >= 2 else 0)
+
     def calibrate_batched(self, bep: BatchedEpisode, rho, mask=None,
-                          admm_iters=None) -> solver.SolveResult:
+                          admm_iters=None,
+                          compose=None) -> solver.SolveResult:
         """Batched :meth:`calibrate`: the E masked ADMM solves as one
         (``solver.solve_admm_batched``).  ``rho`` and ``mask`` are (E, K);
         ``admm_iters`` a scalar, (E,) per-lane counts, or None.  No
-        rho-boost retry, as on the JAX package's batched route."""
+        rho-boost retry, as on the JAX package's batched route.
+        ``compose`` forces the (n_lane, n_baseline) mesh shape (None: the
+        :meth:`_compose_sizes` policy); with a lane axis the lanes split
+        over its positions (``batched_sharded``), on the composed mesh
+        when the baseline size is >= 2 (its positions hold copies)."""
         E = bep.n_envs
-        with self._stage("solve", route="batched_vmap", lanes=E):
+        nl, nb = self._compose_sizes(E) if compose is None \
+            else (int(compose[0]), int(compose[1]))
+        nb = nb if nl else 0
+        route = "batched_sharded" if nl else "batched_vmap"
+        tags = {"shards": nl} if nl else {}
+        if nl and nb:
+            tags["baseline_shards"] = nb
+        with self._stage("solve", route=route, lanes=E, **tags):
             obs.gauge_set("batched_lanes", E)
             V, C, freqs, f0, rho, iters = self.batched_solve_operands(
                 bep, rho, mask, admm_iters)
-            return solver.solve_admm_batched(
-                V, C, freqs, f0, rho, self._solver_cfg(bep.n_dirs),
-                n_chunks=self.n_chunks, admm_iters=iters)
+            cfg, n_chunks = self._solver_cfg(bep.n_dirs), self.n_chunks
+            if not nl:
+                return solver.solve_admm_batched(
+                    V, C, freqs, f0, rho, cfg, n_chunks=n_chunks,
+                    admm_iters=iters)
+            from smartcal_tpu_torch.parallel import sharded_cal
+
+            mesh_mod.check_axis_divides(E, nl, axis=AXIS_LANE,
+                                        what="calibrate_batched E")
+            mesh = self._mesh2(nl, nb) if nb else self._mesh(nl, AXIS_LANE)
+            lane = mesh_mod.P(AXIS_LANE)
+
+            def local(v, c, f, f0_, r, it):
+                return solver.solve_admm_batched(v, c, f, f0_, r, cfg,
+                                                 n_chunks=n_chunks,
+                                                 admm_iters=it)
+
+            return sharded_cal.shard_map(
+                local, mesh, (lane,) * 6,
+                solver.SolveResult(*(lane,) * 6))(V, C, freqs, f0, rho,
+                                                  iters)
 
     def batched_influence_operands(self, bep: BatchedEpisode,
                                    result: solver.SolveResult, rho,
@@ -889,27 +1122,69 @@ class RadioBackend:
 
     def influence_images_batched(self, bep: BatchedEpisode,
                                  result: solver.SolveResult, rho,
-                                 rho_spatial, npix=None):
+                                 rho_spatial, npix=None, compose=None):
         """Batched :meth:`influence_image`: (E, npix, npix) mean influence
         images; ``rho``/``rho_spatial`` are (E, K).  The SKA-tier statics
-        are those of the single-episode route."""
+        are those of the single-episode route.  ``compose`` forces the
+        (n_lane, n_baseline) mesh shape (None: the :meth:`_compose_sizes`
+        policy); a baseline size >= 2 runs the composed lane x baseline
+        program (``sharded_cal.influence_images_batched_sharded``, route
+        ``batched_lane_bshard``), else the lanes go through the chain
+        together (``batched_vmap``)."""
         npix = npix or self.npix
+        E = bep.n_envs
         statics = self._influence_statics(npix)
+        nl, nb = self._compose_sizes(E) if compose is None \
+            else (int(compose[0]), int(compose[1]))
+        if nb >= 2:
+            from smartcal_tpu_torch.parallel import sharded_cal
+
+            nl = max(int(nl), 1)
+            K = bep.n_dirs
+            with self._stage("influence", route="batched_lane_bshard",
+                             lanes=E, lane_shards=nl, baseline_shards=nb,
+                             precision=self.precision):
+                out = sharded_cal.influence_images_batched_sharded(
+                    self._mesh2(nl, nb), result.residual, bep.Ccal, result.J,
+                    np.asarray(rho, np.float32).reshape(E, K),
+                    np.asarray(rho_spatial, np.float32).reshape(E, K),
+                    bep.freqs, bep.f0, bep.uvw, bep.cell, self.n_stations,
+                    self.n_chunks, npix, n_poly=self.n_poly,
+                    polytype=self.polytype,
+                    imager_block_r=statics["imager_block_r"],
+                    precision=self.precision)
+                self._record_batched_influence_cost(
+                    bep, result, rho, rho_spatial, npix, statics,
+                    shards={AXIS_LANE: nl, AXIS_BASELINE: nb})
+                return out
         with self._stage("influence", route="batched_vmap",
                          lanes=bep.n_envs, precision=self.precision):
             ops = self.batched_influence_operands(bep, result, rho,
                                                   rho_spatial)
             imgs = self.batched_influence_callable(bep.n_dirs, npix)(*ops)
-            residual, C, J, hadd = ops[:4]
-            obs_costs.record_stage_cost(
-                "influence", influence.influence_images_lanes, residual, C,
-                J, hadd, bep.freqs, bep.uvw[:, None], bep.cell[:, None],
-                defer=True, compute_dtype=self._imager_dtype(),
-                n_stations=self.n_stations, n_chunks=self.n_chunks,
-                npix=npix, **statics)
-            self._record_kernel_costs(bep.n_dirs, npix,
-                                      float(bep.cell[0]), statics)
+            self._record_batched_influence_cost(bep, result, rho,
+                                                rho_spatial, npix, statics,
+                                                ops=ops)
             return imgs
+
+    def _record_batched_influence_cost(self, bep, result, rho, rho_spatial,
+                                       npix, statics, ops=None, shards=1):
+        """Deferred cost event of the batched influence stage: the lanes'
+        chain on one device (the composed route counts that single-device
+        equivalent, its footprint divided by ``shards``), and the SKA-tier
+        kernels' events."""
+        if ops is None:
+            ops = self.batched_influence_operands(bep, result, rho,
+                                                  rho_spatial)
+        residual, C, J, hadd = ops[:4]
+        obs_costs.record_stage_cost(
+            "influence", influence.influence_images_lanes, residual, C,
+            J, hadd, bep.freqs, bep.uvw[:, None], bep.cell[:, None],
+            defer=True, compute_dtype=self._imager_dtype(), shards=shards,
+            n_stations=self.n_stations, n_chunks=self.n_chunks,
+            npix=npix, **statics)
+        self._record_kernel_costs(bep.n_dirs, npix, float(bep.cell[0]),
+                                  statics)
 
     def image_sigmas_batched(self, bep: BatchedEpisode,
                              result: solver.SolveResult, npix=None):

@@ -36,6 +36,7 @@ torch is read from ``sys.modules``: importing this never initialises a
 device.
 """
 
+import math
 import subprocess
 import sys
 import threading
@@ -47,7 +48,8 @@ from .runlog import active
 _lock = threading.Lock()
 _enabled = False
 _cache: dict = {}      # (stage, signature) -> result dict
-_pending: list = []    # deferred (sig, stage, fn, args, kwargs, dtype)
+_pending: list = []    # deferred (sig, stage, fn, args, kwargs, dtype,
+                       # shards)
 _local = threading.local()
 
 #: Published dense peaks (NVIDIA's H100 SXM data sheet, 700 W): bf16 on
@@ -289,12 +291,34 @@ def _signature(args, kwargs) -> str:
     return ";".join(parts)
 
 
-def _compute_and_log(stage, fn, args, kwargs, compute_dtype=None) -> dict:
+def _shard_footprint(cost, shards):
+    """``cost`` with the per-shard footprint of a sharded route (the JAX
+    package's accounting): the counted run is the single-device equivalent,
+    so the peak per position is its peak over the shards; a ``{axis:
+    size}`` mapping divides by the product and also logs each axis alone."""
+    axes = None
+    if isinstance(shards, dict):
+        axes = {str(a): int(n) for a, n in shards.items() if int(n) > 1}
+        shards = math.prod(axes.values())
+    if not shards or shards <= 1 or "peak_bytes" not in cost:
+        return cost
+    cost = dict(cost, shards=int(shards),
+                peak_bytes_per_shard=cost["peak_bytes"] / shards)
+    if axes:
+        cost["shard_axes"] = axes
+        cost["peak_bytes_per_axis"] = {a: cost["peak_bytes"] / n
+                                       for a, n in axes.items()}
+    return cost
+
+
+def _compute_and_log(stage, fn, args, kwargs, compute_dtype=None,
+                     shards=1) -> dict:
     rl = active()
     try:
         cost = stage_cost(fn, *args, **kwargs)
     except Exception as e:  # noqa: BLE001 — never kill the observed run
         cost = {"error": f"{type(e).__name__}: {e}"}
+    cost = _shard_footprint(cost, shards)
     if compute_dtype is not None:
         cost = dict(cost, compute_dtype=str(compute_dtype))
     if rl is not None:
@@ -306,7 +330,7 @@ def _compute_and_log(stage, fn, args, kwargs, compute_dtype=None) -> dict:
 def record_stage_cost(stage: str, fn: Callable, *args: object,
                       defer: bool = False,
                       compute_dtype: Optional[str] = None,
-                      **kwargs: object) -> Optional[dict]:
+                      shards=1, **kwargs: object) -> Optional[dict]:
     """Log the ``cost`` event of ``stage`` once per shape signature.
 
     A strict no-op unless a RunLog is active and collection is enabled.
@@ -314,7 +338,10 @@ def record_stage_cost(stage: str, fn: Callable, *args: object,
     raised.  ``defer=True`` (call sites inside a timed span) queues the
     counted run for :func:`flush_pending`.  ``compute_dtype`` tags the
     event with the stage's policy dtype ("bf16"/"f32") for the report's
-    choice of peak; it is not passed to ``fn``.  Returns the cost dict, or
+    choice of peak; it is not passed to ``fn``.  ``shards`` (an int or
+    ``{axis: size}``, not passed to ``fn`` either) marks a sharded route's
+    count of its single-device equivalent: the event adds the per-shard
+    peak.  Returns the cost dict, or
     None (always None for a just-deferred signature)."""
     rl = active()
     if rl is None or not _enabled:
@@ -325,9 +352,10 @@ def record_stage_cost(stage: str, fn: Callable, *args: object,
             return _cache[sig]
         _cache[sig] = None               # claim: concurrent callers skip
         if defer:
-            _pending.append((sig, stage, fn, args, kwargs, compute_dtype))
+            _pending.append((sig, stage, fn, args, kwargs, compute_dtype,
+                             shards))
             return None
-    cost = _compute_and_log(stage, fn, args, kwargs, compute_dtype)
+    cost = _compute_and_log(stage, fn, args, kwargs, compute_dtype, shards)
     with _lock:
         _cache[sig] = cost
     return cost
@@ -341,8 +369,10 @@ def flush_pending() -> int:
         with _lock:
             if not _pending:
                 return n
-            sig, stage, fn, args, kwargs, compute_dtype = _pending.pop(0)
-        cost = _compute_and_log(stage, fn, args, kwargs, compute_dtype)
+            sig, stage, fn, args, kwargs, compute_dtype, shards = \
+                _pending.pop(0)
+        cost = _compute_and_log(stage, fn, args, kwargs, compute_dtype,
+                                shards)
         with _lock:
             _cache[sig] = cost
         n += 1

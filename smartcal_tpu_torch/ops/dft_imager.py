@@ -28,6 +28,7 @@ on either path.
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -39,8 +40,10 @@ F32 = torch.float32
 TILE = 128               # output rows = columns per block (engine kTile)
 STAGE_SAMPLES = 16       # samples per pipeline stage (engine kSamples)
 
-#: kernel launches so far (one per image); only the CUDA path counts
+#: kernel launches so far (one per image); only the CUDA path counts, under
+#: a lock (a sharded route launches from its positions' threads)
 launches = 0
+_count_lock = threading.Lock()
 
 _argtypes_set = False
 
@@ -156,7 +159,8 @@ def dirty_image_cuda(uv, vis, npix, cell):
     if uv.shape[0] == 0 or npix <= 0:
         raise ValueError("dft_imager: no visibilities or no pixels")
     out = engine_image(_lib(), "dft_image", uv, vis, npix, cell)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 

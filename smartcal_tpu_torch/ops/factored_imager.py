@@ -44,6 +44,7 @@ the tensors' device.  ``launches`` counts the f32 mode's launches and
 ``launches_bf16`` the bf16 mode's.
 """
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -58,9 +59,11 @@ F32 = torch.float32
 BF16_TILE_ROWS, BF16_TILE_COLS, BF16_STAGE_SAMPLES = 128, 256, 32
 
 #: kernel launches so far (one per image) of the f32 mode and of the bf16
-#: mode; only the CUDA path counts
+#: mode; only the CUDA path counts, under a lock (a sharded route launches
+#: from its positions' threads)
 launches = 0
 launches_bf16 = 0
+_count_lock = threading.Lock()
 
 #: the C entry point of each mode (``<prefix>_launch``)
 ENTRY = {"f32": "factored_image", "bf16": "factored_image_bf16"}
@@ -130,8 +133,9 @@ def dirty_image_factored_cuda(uvw, vis, freq, cell, npix=1024,
     out = dft_imager.engine_image(
         _lib(), ENTRY[mode], uv, vis, npix, cell,
         plan=_bf16_split if mode == "bf16" else split_plan)
-    if mode == "bf16":
-        launches_bf16 += 1
-    else:
-        launches += 1
+    with _count_lock:
+        if mode == "bf16":
+            launches_bf16 += 1
+        else:
+            launches += 1
     return out

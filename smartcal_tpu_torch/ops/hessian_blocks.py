@@ -40,6 +40,7 @@ kernel table), added to an ``obs.costs`` count on either path.
 """
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -52,8 +53,10 @@ F32 = torch.float32
 ROWS, COLS = 8, 8        # p-stations x q-stations per tile (csrc kRows, kCols)
 CELLS = ROWS * COLS
 
-#: kernel launches so far; only the CUDA path counts
+#: kernel launches so far; only the CUDA path counts (under a lock: the
+#: positions of a sharded route launch from threads of their own)
 launches = 0
+_count_lock = threading.Lock()
 
 _argtypes_set = False
 _full = {}
@@ -262,7 +265,8 @@ def hessian_block_sums_cuda(R3, C5, Jp, Jq, p_idx, q_idx, n_stations,
     if rc != 0:
         raise RuntimeError("hessian_blocks launch failed: "
                            + lib.hessian_blocks_error_string(rc).decode())
-    launches += 1
+    with _count_lock:
+        launches += 1
     return off, dsum
 
 

@@ -1,9 +1,11 @@
-"""Distributed training of the port (counterpart of smartcal_tpu/parallel)
-on one GPU: the mesh registry collapsed onto one device (``mesh``), the
-simulated multi-host edge (``multihost``), the batched SAC trainer
-(``trainer``), the distributed PER learners and their supervised actor
-fleets for the elastic-net (``learner``) and demixing (``demix_learner``)
-workloads."""
+"""Distributed training and sharded calibration of the port (counterpart of
+smartcal_tpu/parallel): the mesh registry and meshes of positions
+(``mesh``), the sharded calibration routes (``sharded_cal``, imported as a
+submodule by its callers, as in the JAX package, so that importing this
+package does not import the solver), the simulated multi-host edge
+(``multihost``), the batched SAC trainer (``trainer``), the distributed PER
+learners and their supervised actor fleets for the elastic-net
+(``learner``) and demixing (``demix_learner``) workloads."""
 
 from .mesh import (  # noqa: F401
     AXIS_BASELINE,

@@ -1,21 +1,27 @@
-"""Mesh-axis registry and the one-device mesh (counterpart of
+"""Mesh-axis registry and device meshes (counterpart of
 smartcal_tpu/parallel/mesh.py).
 
 The JAX package lays its parallel axes over a device mesh: replay shards
 (``rp``), data-parallel actors (``dp``), episode lanes (``lane``), sub-bands
-(``fp``), calibration chunks (``sp``) and baselines (``bp``).  The port runs
-on one GPU, where every axis collapses onto that device:
+(``fp``), calibration chunks (``sp``) and baselines (``bp``).  In the port:
 
+* the sub-band, chunk, baseline and lane axes of the calibration routes
+  (``parallel/sharded_cal.py``, ``envs/radio.py``) are meshes of positions,
+  one SPMD program per route with explicit collectives
+  (``ops/collectives.py``).  A mesh may name a device more than once: k
+  positions on one card run the same program, collectives included, as k
+  cards would;
 * ``dp`` actors become the lanes of one batched program
   (``parallel/trainer.py``, ``parallel/learner.py``);
 * replay shards become the leading axis of an ``(n_shards, local_size)``
-  ring on the device (``rl/replay_sharded.py``);
-* the sub-band, chunk and baseline axes of ``parallel/sharded_cal.py`` map
-  to the single-device routes ``envs/radio.py`` already takes.
+  ring on the device (``rl/replay_sharded.py``).
 
-:class:`Mesh` keeps the JAX package's vocabulary (axis names, ``shape``,
-:class:`MeshFactorizationError`) so code written against it runs
-unchanged; a mesh that wants more devices than the process has raises.
+:func:`default_devices` is the device list of every default mesh and of
+the backend's routes: every local CUDA device, or the CPU when asked for.
+A run with k positions on one device replaces that function (the tests and
+``chip_smoke.py`` do).  :class:`Mesh` keeps the JAX package's vocabulary
+(axis names, ``shape``, :class:`MeshFactorizationError`, ``P``); a mesh
+that wants more positions than its device list has raises.
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -42,8 +48,9 @@ class MeshFactorizationError(ValueError):
 
 
 class Mesh:
-    """A named device mesh: ``devices`` an ndarray of ``torch.device`` of
-    shape ``tuple(shape.values())``, ``shape`` axis name -> size."""
+    """A named mesh of positions: ``devices`` an ndarray of
+    ``torch.device`` of shape ``tuple(shape.values())`` (a device may
+    repeat), ``shape`` axis name -> size."""
 
     def __init__(self, devices, axis_names: Sequence[str]):
         self.devices = np.asarray(devices, dtype=object)
@@ -53,7 +60,8 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The mesh's (first) device: where a one-device program runs."""
+        """The mesh's first device: where a one-device program runs and
+        where a sharded program's global result goes."""
         return self.devices.reshape(-1)[0]
 
     @property
@@ -98,20 +106,40 @@ def check_axis_divides(n_items: int, n_shards: int, *, axis: str,
 
 
 def default_devices(device=None) -> list:
-    """The devices a mesh lays out by default: ``device`` when given, else
-    the current CUDA device (the port runs on the card unless asked for
-    the CPU; without a GPU this raises, as ``resolve_device`` does)."""
+    """The devices a mesh lays out by default: every local CUDA device
+    (``torch.cuda.device_count()``) when ``device`` is None or a CUDA
+    device, the CPU when ``device`` is the CPU.  Without a GPU a CUDA
+    request raises, as ``resolve_device`` does."""
     from smartcal_tpu_torch import resolve_device
 
-    return [resolve_device(device if device is not None else "cuda")]
+    dev = resolve_device(device if device is not None else "cuda")
+    if dev.type != "cuda":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class PartitionSpec(tuple):
+    """How an operand lies over a mesh (``jax.sharding.PartitionSpec``):
+    entry d names the mesh axis (or a tuple of axes, or None) that splits
+    dimension d; trailing dimensions are whole.  ``P()`` is replicated."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
+P = PartitionSpec
 
 
 def make_mesh(axis_sizes: Optional[Tuple[int, ...]] = None,
               axis_names: Sequence[str] = (AXIS_DATA,),
               devices=None) -> Mesh:
     """A mesh over ``devices`` (default: :func:`default_devices`), all of
-    them on one ``AXIS_DATA`` axis unless ``axis_sizes`` reshapes them.  On
-    one GPU every axis has size 1; a mesh that wants more devices raises
+    them on one ``AXIS_DATA`` axis unless ``axis_sizes`` reshapes them
+    (row-major).  A device may appear more than once (positions sharing a
+    device); a mesh that wants more positions than ``devices`` has raises
     :class:`MeshFactorizationError` with the nearest valid shape."""
     devices = default_devices() if devices is None else list(devices)
     if axis_sizes is None:

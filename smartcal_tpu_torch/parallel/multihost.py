@@ -2,9 +2,11 @@
 smartcal_tpu/parallel/multihost.py).
 
 The JAX package brings hosts together with ``jax.distributed.initialize``.
-The port runs one process on one GPU; a multi-process NCCL route is not
-part of it, so :func:`initialize` asked for more than one process raises
-instead of running as one process without saying so.  The simulated
+The port runs one process, its meshes over the local GPUs
+(``parallel/mesh.py``); a multi-process route (a ``torch.distributed``
+form of ``ops/collectives.py``) is not part of it yet, so
+:func:`initialize` asked for more than one process raises instead of
+running as one process without saying so.  The simulated
 multi-host rehearsal of the process fleet is ported as is: each spawned
 actor records its ``(host_id, n_hosts)`` in ``SMARTCAL_SIM_HOST``.
 

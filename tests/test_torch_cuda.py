@@ -772,3 +772,63 @@ def test_enet_episode_program_replays_its_eager_body():
         assert buf.cntr == buf_e.cntr and st.learn_counter == \
             st_e.learn_counter
     assert prog.program.replays == 3 and st.learn_counter == 3
+
+
+@pytest.mark.cuda
+def test_sharded_routes_on_two_positions_of_one_gpu():
+    """Two mesh positions on cuda:0 against the single-device route: the
+    frequency-sharded solve (N=8, Nf=2) at the CPU tests' tolerances
+    (tests/test_sharded_cal.py), and the baseline-sharded influence (B=28
+    over 2 positions: one kernel-3 launch per position and interval on
+    its baseline slice) at relative norm 1e-5 with the LLR at rtol / atol
+    1e-4 (tests/test_nscale_kernels.py), the same bits over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from smartcal_tpu_torch import prng
+    from smartcal_tpu_torch.cal import influence, solver
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.ops import hessian_blocks
+    from smartcal_tpu_torch.parallel import mesh as pm
+    from smartcal_tpu_torch.parallel import sharded_cal as sc
+    dev = torch.device("cuda", 0)
+    N, Ts, K = 8, 4, 3
+    be = RadioBackend(n_stations=N, n_freqs=2, n_times=8, tdelta=2,
+                      admm_iters=3, lbfgs_iters=3, init_iters=4, npix=16,
+                      device=dev)
+    ep, mdl = be.new_demixing_episode(prng.PRNGKey(3), K)
+    cfg = be._solver_cfg(K)
+    rho = torch.as_tensor(np.asarray(mdl.rho, np.float32), device=dev)
+    ref = solver.solve_admm(ep.V, ep.Ccal, ep.obs.freqs, ep.f0, rho, cfg,
+                            n_chunks=Ts)
+    out = sc.solve_admm_sharded(
+        pm.make_mesh((2,), (pm.AXIS_FREQ,), devices=[dev] * 2), ep.V,
+        ep.Ccal, ep.obs.freqs, ep.f0, rho, cfg, n_chunks=Ts)
+    for name in ("J", "Z"):
+        np.testing.assert_allclose(getattr(out, name).cpu().numpy(),
+                                   getattr(ref, name).cpu().numpy(),
+                                   rtol=5e-3, atol=5e-4)
+    d = torch.linalg.vector_norm(out.residual - ref.residual)
+    assert float(d / torch.linalg.vector_norm(ref.residual)) < 1e-3
+    assert float(out.sigma_res) == pytest.approx(float(ref.sigma_res),
+                                                 rel=1e-3)
+
+    hadd = influence.consensus_hadd_all(
+        np.asarray(mdl.rho, np.float32), np.zeros(K, np.float32),
+        ep.obs.freqs, ep.f0, n_poly=be.n_poly, polytype=be.polytype)[0]
+    Rk = solver.residual_to_kernel(ref.residual[0])
+    want = influence.influence_visibilities(Rk, ep.Ccal[0], ref.J[0], hadd,
+                                            N, Ts)
+    bp = pm.make_mesh((2,), (pm.AXIS_BASELINE,), devices=[dev] * 2)
+    before = hessian_blocks.launches
+    got = sc.influence_baseline_sharded(bp, Rk, ep.Ccal[0], ref.J[0], hadd,
+                                        N, Ts)
+    assert hessian_blocks.launches == before + 2 * Ts
+    again = sc.influence_baseline_sharded(bp, Rk, ep.Ccal[0], ref.J[0],
+                                          hadd, N, Ts)
+    rel = torch.linalg.vector_norm(got.vis - want.vis) \
+        / torch.linalg.vector_norm(want.vis)
+    assert float(rel) < 1e-5
+    np.testing.assert_allclose(got.llr.cpu().numpy(), want.llr.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.vis, again.vis) and torch.equal(got.llr,
+                                                           again.llr)

@@ -63,6 +63,7 @@ def test_port_has_modules():
                 "runtime/ipc", "runtime/supervisor", "parallel/__init__",
                 "parallel/mesh", "parallel/multihost", "parallel/trainer",
                 "parallel/learner", "parallel/demix_learner",
+                "ops/collectives", "parallel/sharded_cal",
                 "obs/slo", "obs/flightrec", "obs/collect",
                 "serve/__init__", "serve/router", "serve/export",
                 "serve/server", "serve/loadgen", "serve/fleet",
@@ -86,6 +87,8 @@ def test_new_modules_import_without_jax():
             "smartcal_tpu_torch.train.blocks, "
             "smartcal_tpu_torch.parallel.learner, "
             "smartcal_tpu_torch.parallel.demix_learner, "
+            "smartcal_tpu_torch.ops.collectives, "
+            "smartcal_tpu_torch.parallel.sharded_cal, "
             "smartcal_tpu_torch.rl.replay_sharded, "
             "smartcal_tpu_torch.rl.sac_discrete, "
             "smartcal_tpu_torch.runtime.supervisor, "
