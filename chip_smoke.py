@@ -207,6 +207,19 @@
    one DSAC learn and one fused sharded step held against the CPU from
    states with Adam history, and the synchronizing CUDA calls of one
    fused step counted;
+9a*. drives the multi-process slice (``multiprocess_phase``), after the
+   distributed-training slice: 2 ranks spawned on the card
+   (``parallel/multihost.launch``, gloo: the ranks share the GPU), the
+   kernels built beforehand in this process; in each rank a
+   ``process_allgather`` of the rank ids, a psum over an ``fp`` axis of
+   the ranks (held bit for bit against the thread form's on the card),
+   ``make_parallel_sac`` with 4 lanes over ``dp`` = 2 for 2 train steps
+   (kernels 4 and 5 in each rank; one learn) and one ``train_distributed_demix``
+   episode with one actor per rank (N=14, npix=128, influence maps:
+   kernel 1, Nf per observation), counts zeroed just before and read just
+   after each path and summed over the ranks
+   (``ops/build.summed_over_ranks``), then each kernel held in its rank
+   against its plain version; the replicas' digests equal;
 9a''. drives the serving slice (``serve_phase``), before the runtime
    phase's profiler session: one ``CalibServer`` at the N=62 backend, M=10,
    4 lanes, a fresh SAC policy (obs_dim 128² + 11·7): a cold warmup into
@@ -279,6 +292,18 @@ steady-state compile events), ``tools.serve_fleet`` with 2
 replica processes on the card and a replica kill (replica 1 warm from the
 shared cache with 0 nvcc builds), and ``tools.serve_learn`` with at least
 3 publishes and 0 compile events in its window (DIR/serve_phase.json).
+
+    python3 chip_smoke.py --multiprocess [--out DIR]
+
+builds the kernels and runs the deeper multi-process phase
+(``mp_deep_phase``): NCCL's answer to two ranks on one GPU; the N=62
+full-depth ``solve_admm_sharded`` over 3 ``fp`` ranks beside the fused
+solve and the thread route (3 positions) on the same operands, and a
+routed CalibEnv reset and step over the 3 ranks; the SKA
+``influence_image`` over 2 ``bp`` ranks (kernels 3 and 2 in each rank,
+held there) within 1e-4 of the single-device route, beside it and the
+thread route; ``python -m smartcal_tpu_torch.parallel.learner`` over 2
+ranks with ``--replay-shards 2`` (DIR/multiprocess_deep.json).
 
     python3 chip_smoke.py --enet-program [--out DIR]
 
@@ -7298,6 +7323,615 @@ def sharded_phase(dev, out_dir, zero_counts, read_counts, n_sm):
     return report
 
 
+# -- the multi-process slice (multiprocess_phase, --multiprocess) -------------
+MP_RANKS = 2                   # ranks of the default phase, on the one card
+MP_ENVS, MP_STEPS = 4, 2       # make_parallel_sac lanes (dp = 2) and steps:
+#                                the second step's learn is the first
+MP_ENET_AGENT = {"batch_size": 8, "mem_size": 256}
+MP_DEMIX_AGENT = {"batch_size": 2, "mem_size": 16}
+MP_DEMIX_OBS = 2               # an actor's observations: r0's and 1 step's
+MP_JOIN_S = 600.0              # a job's whole run, the build excluded
+MP_FP, MP_BP = 3, 2            # --multiprocess: N=62 fp ranks, SKA bp ranks
+MP_LEARNER = ["--episodes", "1", "--n-actors", "2", "--replay-shards", "2",
+              "--seed", "0", "--quiet"]
+
+
+class PsumTimer:
+    """Stands in for ``collectives.psum`` and keeps, per call, the operand's
+    bytes (0 for a Python number) and the call's host seconds with the
+    device synchronised before and after (the wait for the other ranks
+    included)."""
+
+    def __init__(self):
+        from smartcal_tpu_torch.ops import collectives
+        self.module, self.fn = collectives, collectives.psum
+        self.calls = []
+        collectives.psum = self
+
+    def __call__(self, x, axis_name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(x, axis_name)
+        torch.cuda.synchronize()
+        nbytes = (x.numel() * x.element_size()
+                  if isinstance(x, torch.Tensor) else 0)
+        self.calls.append((nbytes, time.perf_counter() - t0))
+        return out
+
+    def restore(self):
+        self.module.psum = self.fn
+
+    def summary(self):
+        return {"calls": len(self.calls),
+                "bytes": int(sum(b for b, _ in self.calls)),
+                "largest_bytes": int(max((b for b, _ in self.calls),
+                                         default=0)),
+                "seconds": float(sum(t for _, t in self.calls))}
+
+
+def mp_operand(rank):
+    """Rank ``rank``'s psum operand (host, seeded)."""
+    return torch.from_numpy(np.random.default_rng(rank).standard_normal(
+        1 << 16).astype(np.float32) * np.float32(10.0) ** rank)
+
+
+def mp_counters():
+    """(zero_counts, read_counts) of this process's kernel counts."""
+    from smartcal_tpu_torch.ops import (dft_imager, enet_lbfgs,
+                                        factored_imager, hessian_blocks,
+                                        sym_eigvals)
+    return launch_counters(
+        {"dft_imager": dft_imager, "hessian_blocks": hessian_blocks,
+         "factored_imager": factored_imager, "enet_lbfgs": enet_lbfgs,
+         "sym_eigvals": sym_eigvals}, factored_imager)
+
+
+def mp_save(out_dir, name, obj):
+    torch.save(obj, os.path.join(out_dir, name))
+
+
+def mp_load(out_dir, name):
+    return torch.load(os.path.join(out_dir, name), weights_only=False,
+                      map_location="cpu")
+
+
+def mp_rank(rank, out_dir):
+    """One rank of the default multi-process phase (the job's device is
+    this rank's share of the card, over gloo): a ``process_allgather`` of
+    the rank ids and a psum over an ``fp`` axis of the ranks;
+    ``make_parallel_sac`` with ``MP_ENVS`` lanes over ``dp`` = 2 (this
+    rank's lanes: kernels 4 and 5) for ``MP_STEPS`` train steps; one
+    ``train_distributed_demix`` episode with one actor per rank, one epoch
+    of one step, influence maps (kernel 1, Nf launches per observation);
+    the counts zeroed just before and read just after each path, then
+    summed over the ranks; then each kernel held in the rank against its
+    plain version at the path's first operands (launches not counted)."""
+    from smartcal_tpu_torch.envs import enet, radio
+    from smartcal_tpu_torch.ops import (build, collectives, dft_imager,
+                                        enet_lbfgs, sym_eigvals)
+    from smartcal_tpu_torch.parallel import (demix_learner, make_parallel_sac,
+                                             multihost)
+    from smartcal_tpu_torch.parallel import mesh as pm
+    from smartcal_tpu_torch.parallel.trainer import agent_digest
+    from smartcal_tpu_torch.rl import sac
+    t_rank = time.perf_counter()
+    dev = multihost.local_device()
+    zero_counts, read_counts = mp_counters()
+    res = {"summary": multihost.runtime_summary(),
+           "ids": collectives.process_allgather(
+               np.asarray([rank])).reshape(-1).tolist()}
+    with collectives.on_mesh(pm.make_mesh((MP_RANKS,), (pm.AXIS_FREQ,))):
+        res["psum"] = collectives.psum(mp_operand(rank).to(dev),
+                                       pm.AXIS_FREQ).cpu()
+
+    cfg = enet.EnetConfig(**FLEET_ENET, lbfgs_iters=FLEET_LBFGS)
+    acfg = sac.SACConfig(obs_dim=cfg.obs_dim, n_actions=2, prioritized=True,
+                         **MP_ENET_AGENT)
+    k4 = FirstCall(enet_lbfgs, "solve_cuda")
+    k5 = FirstCall(enet, "sym_eigvals")
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        init, step, _ = make_parallel_sac(cfg, acfg, pm.make_mesh(), MP_ENVS)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st = init(gen)
+        rewards = []
+        for _ in range(MP_STEPS):
+            st, m = step(st, gen)
+            rewards.append(float(m["mean_reward"]))
+        torch.cuda.synchronize(dev)
+    finally:
+        k4.restore()
+        k5.restore()
+    res["trainer"] = {"seconds": time.perf_counter() - t0,
+                      "launches": read_counts(), "rewards": rewards,
+                      "digest": agent_digest(st.agent),
+                      "learns": st.agent.learn_counter,
+                      "stored": st.buf.cntr}
+    del st
+
+    backend = radio.RadioBackend(device=dev, **FLEET_DEMIX)
+    k1 = FirstCall(dft_imager, "dirty_image_cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        dst, dscores = demix_learner.train_distributed_demix(
+            seed=0, episodes=1, n_actors=MP_RANKS, K=FLEET_K,
+            backend=backend, provide_influence=True, rollout_epochs=1,
+            rollout_steps=1, quiet=True, device=dev,
+            agent_kwargs=MP_DEMIX_AGENT)
+        torch.cuda.synchronize(dev)
+    finally:
+        k1.restore()
+    res["demix"] = {"seconds": time.perf_counter() - t0,
+                    "launches": read_counts(), "scores": dscores,
+                    "digest": agent_digest(dst.agent),
+                    "learns": dst.agent.learn_counter,
+                    "stored": dst.buf.cntr, "n_freqs": backend.n_freqs}
+    del dst
+    for path in ("trainer", "demix"):
+        res[path]["launches_all_ranks"] = build.summed_over_ranks(
+            res[path]["launches"])
+
+    a4, _ = k4.args
+    holds = {"enet_lbfgs": kernel4_iterations(
+        enet_lbfgs, tuple(None if x is None else x.cpu() for x in a4), a4,
+        f"rank {rank} trainer path")}
+    (B,), _ = k5.args
+    want = sym_eigvals.sym_eigvals_plain(B)
+    holds["sym_eigvals"] = check_close(
+        "sym_eigvals", f"rank {rank} trainer path ({B.shape[0]} x "
+        f"{B.shape[1]} x {B.shape[2]})", sym_eigvals.sym_eigvals_cuda(B),
+        want, EIG_RTOL, EIG_ATOL_REL, float(want.abs().max()))
+    (uv, vis, npix, cell), _ = k1.args
+    holds["dft_imager"] = check_imager(dft_imager, uv, vis, npix, cell,
+                                       f"rank {rank} demix path")
+    res["holds"] = holds
+    res["kernel1_shapes"] = {"P": npix * npix, "R": int(uv.shape[0])}
+    res["seconds"] = time.perf_counter() - t_rank
+    mp_save(out_dir, f"rank{rank}.pt", res)
+
+
+def thread_psum_on(dev, xs):
+    """The thread form's psum of ``xs`` over ``len(xs)`` positions on
+    ``dev``."""
+    from smartcal_tpu_torch.ops import collectives
+    from smartcal_tpu_torch.parallel import mesh as pm
+    from smartcal_tpu_torch.parallel import sharded_cal
+    mesh = pm.make_mesh((len(xs),), (pm.AXIS_FREQ,), devices=[dev] * len(xs))
+    f = sharded_cal.shard_map(lambda x: collectives.psum(x[0], pm.AXIS_FREQ),
+                              mesh, (pm.P(pm.AXIS_FREQ),), pm.P())
+    return f(torch.stack(xs).to(dev)).cpu()
+
+
+def multiprocess_phase(dev):
+    """The default run's multi-process phase: ``MP_RANKS`` spawned ranks on
+    the card over gloo (``mp_rank``), the kernels built beforehand in this
+    process.  Holds every rank's ``runtime_summary`` and rank ids, its
+    psum against the thread form's on the card (the same bits), the
+    replicas' digests (trainer and demix agents) and rewards equal, kernels
+    4 and 5 launched in each rank's trainer path and kernel 1 Nf times per
+    observation in each rank's demix path (counts summed over the ranks
+    beside each rank's), and each kernel's hold in its rank.  A rank that
+    fails fails the phase."""
+    import shutil
+    import tempfile
+
+    from smartcal_tpu_torch.parallel import multihost
+    d = tempfile.mkdtemp(prefix="mp_phase_")
+    try:
+        t0 = time.perf_counter()
+        multihost.launch(mp_rank, MP_RANKS, args=(d,),
+                         join_timeout=MP_JOIN_S)
+        wall = time.perf_counter() - t0
+        ranks = [mp_load(d, f"rank{r}.pt") for r in range(MP_RANKS)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    want = thread_psum_on(dev, [mp_operand(r) for r in range(MP_RANKS)])
+    for r, res in enumerate(ranks):
+        s = res["summary"]
+        if (s["process_index"], s["process_count"], s["backend"]) != \
+                (r, MP_RANKS, "gloo") or res["ids"] != list(range(MP_RANKS)):
+            raise AssertionError(f"rank {r}: summary {s}, ids {res['ids']}")
+        if not torch.equal(res["psum"], want):
+            raise AssertionError(f"rank {r}: the process psum differs from "
+                                 "the thread form's")
+        tl, dl = res["trainer"]["launches"], res["demix"]["launches"]
+        if tl["enet_lbfgs"] < 1 or tl["sym_eigvals"] < 1:
+            raise AssertionError(f"rank {r}: trainer path launches {tl}")
+        if dl["dft_imager"] != res["demix"]["n_freqs"] * MP_DEMIX_OBS:
+            raise AssertionError(f"rank {r}: demix path launches {dl}, "
+                                 f"expected Nf x {MP_DEMIX_OBS}")
+    for path in ("trainer", "demix"):
+        digests = {res[path]["digest"] for res in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"the replicas' {path} agents differ")
+        if ranks[0][path]["learns"] < 1:
+            raise AssertionError(f"{path}: no learn step ran")
+    if ranks[0]["trainer"]["rewards"] != ranks[1]["trainer"]["rewards"]:
+        raise AssertionError("the ranks' trainer rewards differ")
+    summed = {k: ranks[0]["trainer"]["launches_all_ranks"][k]
+              + ranks[0]["demix"]["launches_all_ranks"][k]
+              for k in ranks[0]["trainer"]["launches_all_ranks"]}
+    out = {"ranks": MP_RANKS, "backend": "gloo", "seconds": wall,
+           "launches": summed,
+           "per_rank": [{"trainer_launches": res["trainer"]["launches"],
+                         "demix_launches": res["demix"]["launches"],
+                         "trainer_s": res["trainer"]["seconds"],
+                         "demix_s": res["demix"]["seconds"],
+                         "rank_s": res["seconds"], "holds": res["holds"]}
+                        for res in ranks],
+           "kernel1_shapes": ranks[0]["kernel1_shapes"],
+           "max_abs_err": {k: max(res["holds"][k] for res in ranks)
+                           for k in ranks[0]["holds"]},
+           "digest_trainer": ranks[0]["trainer"]["digest"],
+           "digest_demix": ranks[0]["demix"]["digest"],
+           "rewards": ranks[0]["trainer"]["rewards"],
+           "demix_scores": ranks[0]["demix"]["scores"]}
+    print(f"multiprocess phase: {MP_RANKS} ranks on {dev} over gloo, "
+          f"{wall:.1f} s (ranks {[round(r['seconds'], 1) for r in ranks]} s "
+          f"after start-up; make_parallel_sac {MP_ENVS} lanes x {MP_STEPS} "
+          f"steps {[round(r['trainer']['seconds'], 2) for r in ranks]} s, "
+          f"demix episode {[round(r['demix']['seconds'], 2) for r in ranks]}"
+          f" s); psum = the thread form's bits; the replicas' digests "
+          f"equal; launches per rank "
+          f"{[dict(r['trainer']['launches'], **{'dft_imager': r['demix']['launches']['dft_imager']}) for r in ranks]}"
+          f", summed {summed}; holds {out['max_abs_err']} -> ok",
+          flush=True)
+    return out
+
+
+def mp_nccl_rank(rank, port, out_dir):
+    """Ask NCCL for two ranks on one GPU and keep its answer."""
+    import datetime
+
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        answer = f"no error: all_reduce gave {float(x)}"
+    except Exception as e:                  # noqa: BLE001 — kept
+        answer = f"{type(e).__name__}: {e}"
+    with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as fh:
+        fh.write(answer)
+
+
+def nccl_one_gpu(out_dir):
+    """NCCL's answer to two ranks on one GPU (each rank's, verbatim)."""
+    import torch.multiprocessing as mp
+    from smartcal_tpu_torch.parallel import multihost
+    ctx = mp.start_processes(mp_nccl_rank, args=(multihost.free_port(),
+                                                 out_dir),
+                             nprocs=2, join=False, start_method="spawn")
+    t0 = time.monotonic()
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() - t0 > 180:
+            for p in ctx.processes:
+                p.kill()
+            break
+    answers = []
+    for r in range(2):
+        path = os.path.join(out_dir, f"nccl{r}.txt")
+        answers.append(open(path).read() if os.path.exists(path)
+                       else "no answer within 180 s (killed)")
+    print(f"NCCL, two ranks on one GPU: {answers}", flush=True)
+    return answers
+
+
+def mp_n62_rank(rank, out_dir):
+    """``--multiprocess``, N=62 over ``MP_FP`` fp ranks: the full-depth
+    ``solve_admm_sharded`` on the parent's operands, twice; then a routed
+    CalibEnv(M=10) reset and step (the backend's mesh over the ranks, the
+    routes read from this rank's run log)."""
+    from smartcal_tpu_torch import obs
+    from smartcal_tpu_torch.cal import solver
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.parallel import multihost
+    from smartcal_tpu_torch.parallel import mesh as pm
+    from smartcal_tpu_torch.parallel import sharded_cal as sc
+    dev = multihost.local_device()
+    ops = torch.load(os.path.join(out_dir, "n62_ops.pt"), map_location=dev,
+                     weights_only=False)
+    fp = pm.make_mesh((MP_FP,), (pm.AXIS_FREQ,))
+    cfg = solver.SolverConfig(*ops["cfg"])
+
+    def solve():
+        return sc.solve_admm_sharded(fp, ops["V"], ops["C"], ops["freqs"],
+                                     ops["f0"], ops["rho"], cfg,
+                                     n_chunks=ops["n_chunks"])
+
+    first, t_first = timed_s(solve)
+    psums = PsumTimer()
+    try:
+        again, t_again = timed_s(solve)
+    finally:
+        psums.restore()
+    res = {"solve_s": [t_first, t_again], "psums": psums.summary(),
+           "solve": solver.SolveResult(*(x.cpu() for x in again)),
+           "same_bits_twice": all(torch.equal(a, b)
+                                  for a, b in zip(first, again))}
+    del first, again, ops
+    log = os.path.join(out_dir, "n62_env.jsonl")
+    env = CalibEnv(M=10, backend=RadioBackend(device=dev, **N62), seed=0,
+                   provide_hint=True, device=dev)
+    rl = obs.activate(obs.RunLog(log, flush_lines=1))
+    try:
+        t0 = time.perf_counter()
+        o0 = env.reset()
+        t_reset = time.perf_counter() - t0
+        o1, steps = run_steps(env, 1)
+    finally:
+        obs.deactivate(rl)
+        rl.close()
+    check_outputs((o0, o1), steps, N62["npix"], env.M)
+    res.update(reset_s=t_reset, step_s=steps[0]["seconds"],
+               reward=steps[0]["reward"],
+               routes=span_routes(multihost.rank_path(log)),
+               stage_seconds=dict(env.backend.stage_seconds))
+    mp_save(out_dir, f"n62_rank{rank}.pt", res)
+
+
+def mp_ska_rank(rank, out_dir):
+    """``--multiprocess``, SKA over ``MP_BP`` bp ranks: the parent's step
+    operands through ``influence_image`` routed ``baseline_sharded`` (the
+    backend's mesh over the ranks), twice, counts zeroed just before and
+    read just after the first; this rank's first kernel-3 launch (its
+    baselines, the subset layout) and first kernel-2 launch held against
+    their plain versions (launches not counted)."""
+    from smartcal_tpu_torch.cal import imager, kernels
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.ops import build, factored_imager, hessian_blocks
+    from smartcal_tpu_torch.parallel import multihost
+    dev = multihost.local_device()
+    zero_counts, read_counts = mp_counters()
+    ops = torch.load(os.path.join(out_dir, "ska_ops.pt"), map_location=dev,
+                     weights_only=False)
+    backend = RadioBackend(device=dev, **SKA)
+    k3 = FirstCall(hessian_blocks, "hessian_block_sums_cuda")
+    k2 = FirstCall(factored_imager, "dirty_image_factored_cuda")
+    zero_counts()
+    try:
+        img, t_img = timed_s(lambda: backend.influence_image(
+            ops["ep"], ops["res"], ops["rho"], ops["alpha"]))
+        launches = read_counts()
+    finally:
+        k3.restore()
+        k2.restore()
+    psums = PsumTimer()
+    try:
+        again, t_again = timed_s(lambda: backend.influence_image(
+            ops["ep"], ops["res"], ops["rho"], ops["alpha"]))
+    finally:
+        psums.restore()
+    a3, kw3 = k3.args
+    err3 = check_hessian(hessian_blocks, kernels, a3, kw3,
+                         f"rank {rank} SKA B={a3[1].shape[2]}")
+    (u, v, f, c), kw2 = k2.args
+    want = imager.dirty_image_factored_blocked_sr(
+        u, v, f, c, npix=kw2["npix"], block_r=SKA_STATICS["imager_block_r"])
+    err2 = check_close("factored_imager", f"rank {rank} SKA npix="
+                       f"{kw2['npix']} R={u.shape[0]}",
+                       factored_imager.dirty_image_factored_cuda(
+                           u, v, f, c, npix=kw2["npix"]),
+                       want, FACTORED_RTOL, FACTORED_ATOL,
+                       float(want.abs().max()))
+    mp_save(out_dir, f"ska_rank{rank}.pt", {
+        "image": img.cpu(), "seconds": [t_img, t_again],
+        "same_bits_twice": torch.equal(img, again), "launches": launches,
+        "psums": psums.summary(),
+        "launches_all_ranks": build.summed_over_ranks(launches),
+        "kernel3_B": int(a3[1].shape[2]), "max_abs_err": {
+            "hessian_blocks": max(err3), "factored_imager": err2}})
+
+
+def mp_learner_rank(rank, out_dir):
+    """``--multiprocess``: the learner's CLI with ``MP_LEARNER`` (the ring
+    sharded over an ``rp`` axis of the ranks), timed."""
+    from smartcal_tpu_torch.parallel import learner
+    t0 = time.perf_counter()
+    scores = learner.main(MP_LEARNER)
+    torch.cuda.synchronize()
+    mp_save(out_dir, f"learner_rank{rank}.pt",
+            {"seconds": time.perf_counter() - t0, "scores": scores})
+
+
+def mp_deep_phase(dev):
+    """``--multiprocess``: NCCL's answer to two ranks on one GPU; at N=62
+    the full-depth ``solve_admm_sharded`` over ``MP_FP`` fp ranks beside
+    the fused solve and the thread route (``MP_FP`` positions) on the same
+    operands, and a routed CalibEnv reset and step over the ranks beside
+    the unsharded one; at the SKA tier ``influence_image`` over ``MP_BP``
+    bp ranks (kernels 3 and 2 in each rank) held within 1e-4 of the
+    single-device route, beside it and the thread route (``MP_BP``
+    positions); the learner's CLI over 2 ranks with the ring sharded over
+    them.  Seconds for each; a failed rank fails the phase.  The ranks'
+    operands and results go through a temporary directory."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="mp_deep_")
+    try:
+        return _mp_deep(dev, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _mp_deep(dev, d):
+    """:func:`mp_deep_phase` with the ranks' files in ``d``."""
+    from smartcal_tpu_torch.cal import solver
+    from smartcal_tpu_torch.envs.calib import CalibEnv
+    from smartcal_tpu_torch.envs.radio import RadioBackend
+    from smartcal_tpu_torch.parallel import mesh as pm
+    from smartcal_tpu_torch.parallel import multihost
+    from smartcal_tpu_torch.parallel import sharded_cal as sc
+    report = {"nccl_one_gpu": nccl_one_gpu(d)}
+
+    # N=62: the fused solve, the thread route, then the ranks (the
+    # single-device references shard over no card the machine has)
+    env = CalibEnv(M=10, backend=RadioBackend(device=dev, shard=False,
+                                              **N62),
+                   seed=0, provide_hint=True, device=dev)
+    t0 = time.perf_counter()
+    env.reset()
+    p_reset = time.perf_counter() - t0
+    _, p_steps = run_steps(env, 1)
+    backend, ep = env.backend, env.ep
+    mask = np.zeros(env.M, np.float32)
+    mask[:env.K] = 1.0
+    rho = np.ones(env.M, np.float32)
+    rho[:env.K] = env.rho_spectral[:env.K]
+    cfg = backend._solver_cfg(ep.n_dirs)
+    C = ep.Ccal * torch.as_tensor(mask, device=dev)[None, :, None, None,
+                                                    None]
+    r = torch.as_tensor(rho, device=dev)
+    n_ch = backend.n_chunks
+    fused, t_fused = timed_s(lambda: solver.solve_admm(
+        ep.V, C, ep.obs.freqs, ep.f0, r, cfg, n_chunks=n_ch))
+    threads = pm.make_mesh((MP_FP,), (pm.AXIS_FREQ,), devices=[dev] * MP_FP)
+    thr, t_thr = timed_s(lambda: sc.solve_admm_sharded(
+        threads, ep.V, C, ep.obs.freqs, ep.f0, r, cfg, n_chunks=n_ch))
+    thr2, t_thr2 = timed_s(lambda: sc.solve_admm_sharded(
+        threads, ep.V, C, ep.obs.freqs, ep.f0, r, cfg, n_chunks=n_ch))
+    cards = None
+    if torch.cuda.device_count() >= MP_FP:
+        # on a machine with a card per position, the thread route over them
+        over = pm.make_mesh((MP_FP,), (pm.AXIS_FREQ,), devices=[
+            torch.device("cuda", i) for i in range(MP_FP)])
+        for _ in range(2):
+            thr_c, t_c = timed_s(lambda: sc.solve_admm_sharded(
+                over, ep.V, C, ep.obs.freqs, ep.f0, r, cfg, n_chunks=n_ch))
+            cards = [t_c] if cards is None else cards + [t_c]
+        cards_bits = all(torch.equal(a, b) for a, b in zip(thr_c, thr))
+        del thr_c
+    torch.save({"V": ep.V, "C": C, "freqs": ep.obs.freqs, "f0": ep.f0,
+                "rho": r, "cfg": tuple(cfg), "n_chunks": n_ch},
+               os.path.join(d, "n62_ops.pt"))
+    del env, backend, ep, C, r, thr2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multihost.launch(mp_n62_rank, MP_FP, args=(d,), join_timeout=MP_JOIN_S)
+    job_s = time.perf_counter() - t0
+    n62 = [mp_load(d, f"n62_rank{r}.pt") for r in range(MP_FP)]
+    got = n62[0]["solve"]
+    gap = solve_gap(got, solver.SolveResult(*(x.cpu() for x in fused)))
+    same_threads = all(torch.equal(a, b.cpu()) for a, b in zip(got, thr))
+    ok = (solver.result_finite(got)
+          and float(got.sigma_res) < float(got.sigma_data)
+          and all(all(torch.equal(a, b) for a, b in zip(x["solve"], got))
+                  for x in n62))
+    want = [("solve", "sharded", MP_FP), ("influence", "freq_sharded",
+                                         MP_FP)]
+    routed = all(all(w in x["routes"] for w in want) for x in n62)
+    print(f"N=62 full-depth solve_admm_sharded over {MP_FP} fp ranks: "
+          f"{[round(x, 3) for x in n62[0]['solve_s']]} s (first, second) "
+          f"against the fused solve's {t_fused:.3f} s and the thread route's "
+          f"{t_thr:.3f} / {t_thr2:.3f} s ({MP_FP} positions), the same run; "
+          f"finite, sigma_res < sigma_data, the same on every rank: {ok}; "
+          f"the thread route's bits: {same_threads}; gap to the fused "
+          f"solve J {gap['J']:.3f} Z {gap['Z']:.3f} of the tolerance; "
+          f"routed CalibEnv over the ranks reset {n62[0]['reset_s']:.3f} s, "
+          f"step {n62[0]['step_s']:.3f} s (unsharded {p_reset:.3f} / "
+          f"{p_steps[0]['seconds']:.3f} s), spans {n62[0]['routes']}; "
+          f"psums of the second solve {[x['psums'] for x in n62]}; "
+          f"job {job_s:.1f} s"
+          + (f"; the thread route over {MP_FP} cards {cards} s, the "
+             f"one-card thread route's bits: {cards_bits}" if cards else ""),
+          flush=True)
+    if not (ok and routed):
+        raise AssertionError("the N=62 process routes failed their checks")
+    report["n62"] = {
+        "ranks": MP_FP, "process_solve_s": n62[0]["solve_s"],
+        "process_solve_s_by_rank": [x["solve_s"] for x in n62],
+        "fused_solve_s": t_fused, "thread_solve_s": [t_thr, t_thr2],
+        "same_bits_as_threads": same_threads, "gap_to_fused": gap,
+        "process_same_bits_twice": n62[0]["same_bits_twice"],
+        "env_reset_s": [x["reset_s"] for x in n62],
+        "env_step_s": [x["step_s"] for x in n62],
+        "plain_env_reset_s": p_reset,
+        "plain_env_step_s": p_steps[0]["seconds"],
+        "routes": n62[0]["routes"], "job_s": job_s,
+        "thread_cards_solve_s": cards,
+        "thread_cards_same_bits": cards_bits if cards else None,
+        "psums_second_solve": [x["psums"] for x in n62]}
+    del fused, thr
+    torch.cuda.empty_cache()
+
+    # SKA: the single device, the thread route, then the ranks
+    ska = CalibEnv(M=10, backend=RadioBackend(device=dev, shard=False,
+                                              **SKA),
+                   seed=0, provide_hint=True, device=dev)
+    spy = FirstCall(ska.backend, "influence_image")
+    try:
+        ska.reset()
+    finally:
+        spy.restore()
+    (s_ep, s_res, s_rho, s_alpha), _ = spy.args
+    single, t_single = timed_s(lambda: ska.backend.influence_image(
+        s_ep, s_res, s_rho, s_alpha))
+    routed = RadioBackend(device=dev, **SKA)
+    with positions(dev, MP_BP):
+        thr_img, t_thr_img = timed_s(lambda: routed.influence_image(
+            s_ep, s_res, s_rho, s_alpha))
+    torch.save({"ep": s_ep, "res": s_res, "rho": s_rho, "alpha": s_alpha},
+               os.path.join(d, "ska_ops.pt"))
+    single, e_thr = single.cpu(), rel_norm(thr_img, single)
+    del ska, spy, s_ep, s_res, thr_img, routed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multihost.launch(mp_ska_rank, MP_BP, args=(d,), join_timeout=MP_JOIN_S)
+    job_s = time.perf_counter() - t0
+    sk = [mp_load(d, f"ska_rank{r}.pt") for r in range(MP_BP)]
+    errs = [rel_norm(x["image"], single) for x in sk]
+    n_freqs, n_chunks = SKA["n_freqs"], SKA["n_times"] // SKA["tdelta"]
+    want = {"hessian_blocks": MP_BP * n_chunks * n_freqs,
+            "factored_imager": MP_BP * n_freqs}
+    summed = sk[0]["launches_all_ranks"]
+    print(f"SKA influence_image over {MP_BP} bp ranks: "
+          f"{[[round(t, 3) for t in x['seconds']] for x in sk]} s (first, "
+          f"second, by rank) against the single-device route's "
+          f"{t_single:.3f} s and the thread route's {t_thr_img:.3f} s "
+          f"({MP_BP} positions, rel {e_thr:.3e}), the same run; image rel "
+          f"{errs}; launches by rank {[x['launches'] for x in sk]}, summed "
+          f"{summed} (want {want}); holds "
+          f"{[x['max_abs_err'] for x in sk]}; psums of the second call "
+          f"{[x['psums'] for x in sk]}; job {job_s:.1f} s", flush=True)
+    if max(errs) > SHARD_INFL_REL or any(summed[k] != v
+                                         for k, v in want.items()):
+        raise AssertionError("the SKA process route disagrees with the "
+                             "single-device route or launched "
+                             f"{summed}, expected {want}")
+    report["ska"] = {
+        "ranks": MP_BP, "process_s": [x["seconds"] for x in sk],
+        "single_s": t_single, "thread_s": t_thr_img,
+        "thread_image_rel": e_thr, "image_rel": errs,
+        "same_bits_twice": [x["same_bits_twice"] for x in sk],
+        "launches": summed, "per_rank_launches": [x["launches"] for x in sk],
+        "kernel3_B_per_rank": sk[0]["kernel3_B"],
+        "max_abs_err": {k: max(x["max_abs_err"][k] for x in sk)
+                        for k in sk[0]["max_abs_err"]}, "job_s": job_s,
+        "psums_second_call": [x["psums"] for x in sk]}
+
+    t0 = time.perf_counter()
+    multihost.launch(mp_learner_rank, 2, args=(d,), join_timeout=MP_JOIN_S)
+    job_s = time.perf_counter() - t0
+    ln = [mp_load(d, f"learner_rank{r}.pt") for r in range(2)]
+    if ln[0]["scores"] != ln[1]["scores"] or not np.all(
+            np.isfinite(ln[0]["scores"])):
+        raise AssertionError(f"learner scores {[x['scores'] for x in ln]}")
+    print(f"learner {' '.join(MP_LEARNER)} over 2 ranks: "
+          f"{[round(x['seconds'], 2) for x in ln]} s (by rank), scores "
+          f"{ln[0]['scores']}; job {job_s:.1f} s", flush=True)
+    report["learner"] = {"args": MP_LEARNER, "seconds": [x["seconds"]
+                                                        for x in ln],
+                         "scores": ln[0]["scores"], "job_s": job_s}
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="smoke_out",
@@ -7352,6 +7986,12 @@ def main():
                          "phase alone (a routed N=62 CalibEnv, the "
                          "lane-sharded E=4 batched step, the composed lane x "
                          "baseline route at N=256 E=2)")
+    ap.add_argument("--multiprocess", action="store_true",
+                    help="build the kernels and run the deeper multi-process "
+                         "phase alone (NCCL on one GPU, the N=62 sharded "
+                         "solve and a routed CalibEnv over 3 fp ranks, the "
+                         "SKA influence over 2 bp ranks, the learner over 2 "
+                         "ranks with its ring sharded over them)")
     ap.add_argument("--diag-determinism", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--hessian-split", metavar="PARENT_CU",
@@ -7376,7 +8016,8 @@ def main():
         return diag_determinism_main()
     if (args.runtime or args.runtime_rest or args.supervised or args.bf16
             or args.deterministic_sweep or args.fleet or args.serve
-            or args.oracle or args.enet_program or args.sharded):
+            or args.oracle or args.enet_program or args.sharded
+            or args.multiprocess):
         from smartcal_tpu_torch.ops import (build, dft_imager, enet_lbfgs,
                                             factored_imager, hessian_blocks,
                                             sym_eigvals)
@@ -7397,6 +8038,8 @@ def main():
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
             name, out = "sharded_phase", sharded_phase(dev, args.out, zero,
                                                        read, n_sm)
+        elif args.multiprocess:
+            name, out = "multiprocess_deep", mp_deep_phase(dev)
         elif args.runtime:
             name, out = "runtime_phase", runtime_phase(dev, args.out, zero,
                                                        read)
@@ -7852,6 +8495,10 @@ def main():
                                   n_sm)
     stamp(t_start)
 
+    # -- the multi-process slice: ranks spawned on the card ---------------
+    report["multiprocess"] = multiprocess_phase(dev)
+    stamp(t_start)
+
     # -- the serving slice, before the first profiler session -------------
     report["serve"] = serve_phase(dev, args.out, zero_counts, read_counts,
                                   n_sm)
@@ -8026,6 +8673,13 @@ def main():
          "ptxas": bfk["ptxas"], **new_paths("factored_imager_bf16")},
         enet_kernel_entry("enet_lbfgs", report),
         enet_kernel_entry("sym_eigvals", report)]
+    mp = report["multiprocess"]
+    for entry in kernels_line:
+        if entry["name"] in mp["max_abs_err"]:
+            entry["launches_multiprocess_path"] = \
+                mp["launches"][entry["name"]]
+            entry["multiprocess_max_abs_err"] = \
+                mp["max_abs_err"][entry["name"]]
     report.update(kernels=kernels_line, card=card, tiny_rel=tiny_rel,
                   tiny_blocked_rel=tiny_blk_rel,
                   kernel_ms_repeats={"dft_imager": [dft_ms, dft_ms2],

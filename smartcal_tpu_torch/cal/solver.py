@@ -269,8 +269,11 @@ class _QuarticLineSearch:
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # thread-local: the episode-prefetch thread may allocate and
-        # launch on its own stream while this thread captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # launch on its own stream while this thread captures; the capture
+        # stream is this device's (torch's default one is made once, on
+        # whichever device captures first)
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
             self.step = self._search(self.coeffs)
         self._graph_evals = self._evals
         self.graph = graph

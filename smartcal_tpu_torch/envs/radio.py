@@ -7,7 +7,9 @@ as in the JAX package.  Routes, chosen as the JAX backend chooses them
 (smartcal_tpu/envs/radio.py:417-465, 508-566, 744-979, 1082-1290), by the
 number of mesh positions the backend sees (:meth:`RadioBackend.
 _mesh_devices`: ``parallel/mesh.default_devices`` of the backend's device,
-every local GPU; with one device no route shards) and the problem size:
+every local GPU; with one device no route shards; in a job of several
+processes, ``parallel/multihost``, one position per rank, and a route
+shards over all of them or none) and the problem size:
 
 * ``calibrate`` -> ``parallel/sharded_cal.solve_admm_sharded`` (route
   ``sharded``) when the sub-bands divide over >= 2 positions
@@ -443,7 +445,9 @@ class RadioBackend:
     def _shard_size(self, n_items, work):
         """Mesh axis size for sharding ``n_items`` (0: do not shard): the
         largest divisor >= 2 of n_items that the positions hold, subject to
-        the shard mode (JAX radio.py:417-438)."""
+        the shard mode (JAX radio.py:417-438).  In a job of several
+        processes the positions are the ranks, and a mesh takes all of
+        them or none."""
         mode = self.shard
         override = os.environ.get("SMARTCAL_SHARD", "").strip()
         if override in ("0", "1"):
@@ -452,9 +456,13 @@ class RadioBackend:
             return 0
         if mode == "auto" and work < _SHARD_MIN_WORK:
             return 0
-        ndev = len(self._mesh_devices())
+        devs = self._mesh_devices()
+        ndev = len(devs)
         if ndev < 2:
             return 0
+        if isinstance(devs[0], mesh_mod.RankDevice):
+            # a mesh of processes spans every rank of the job
+            return ndev if n_items % ndev == 0 else 0
         for size in range(min(ndev, n_items), 1, -1):
             if n_items % size == 0:
                 return size

@@ -106,15 +106,28 @@ def _device_meta() -> dict:
     return meta
 
 
+def _multihost():
+    """The port's ``parallel/multihost`` inside a job of several processes
+    (read from ``sys.modules``), else None."""
+    mh = sys.modules.get("smartcal_tpu_torch.parallel.multihost")
+    return mh if mh is not None and mh.is_initialized() else None
+
+
 class RunLog:
     """Append-mode, buffered, rotating JSONL event stream (``None`` path
-    disables it — every method is then a no-op)."""
+    disables it — every method is then a no-op).  In a job of several
+    processes each rank writes its own file (``<stem>.rank<r><ext>``,
+    ``parallel/multihost.rank_path``) and the header carries the rank's
+    ``runtime_summary()``."""
 
     def __init__(self, path: Optional[str], run_id: Optional[str] = None,
                  flush_interval: float = 2.0, flush_lines: int = 64,
                  max_bytes: int = 256 * 1024 * 1024, header: bool = True,
                  meta: Optional[dict] = None):
         self.run_id = run_id or _gen_run_id()
+        mh = _multihost()
+        if path and mh is not None:
+            path = mh.rank_path(path)
         self._path = path
         self._lock = threading.RLock()
         self._buf: list = []
@@ -149,6 +162,9 @@ class RunLog:
                "schema": SCHEMA_VERSION, "run_id": self.run_id,
                "rotated": self._rotations, "argv": sys.argv}
         rec.update(_device_meta())
+        mh = _multihost()
+        if mh is not None:
+            rec["multihost"] = mh.runtime_summary()
         if self._meta:
             rec["meta"] = self._meta
         self._emit(rec, force_flush=True)

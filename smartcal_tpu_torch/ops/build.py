@@ -155,3 +155,17 @@ class DeviceLaunchCount:
         for t in self._counts.values():
             t.zero_()
         self._sync()
+
+
+def summed_over_ranks(counts: dict) -> dict:
+    """``{kernel: launches}`` of this process summed over every rank of a
+    job of several processes (``ops/collectives.process_allgather``; each
+    process keeps its own counts); ``counts`` itself on one process."""
+    import numpy as np
+
+    from smartcal_tpu_torch.ops import collectives
+
+    names = sorted(counts)
+    every = collectives.process_allgather(
+        np.asarray([int(counts[k]) for k in names], np.int64))
+    return dict(zip(names, (int(v) for v in every.sum(axis=0))))

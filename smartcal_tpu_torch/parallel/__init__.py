@@ -2,10 +2,11 @@
 smartcal_tpu/parallel): the mesh registry and meshes of positions
 (``mesh``), the sharded calibration routes (``sharded_cal``, imported as a
 submodule by its callers, as in the JAX package, so that importing this
-package does not import the solver), the simulated multi-host edge
-(``multihost``), the batched SAC trainer (``trainer``), the distributed PER
-learners and their supervised actor fleets for the elastic-net
-(``learner``) and demixing (``demix_learner``) workloads."""
+package does not import the solver), the multi-process runs and the
+simulated multi-host edge (``multihost``), the batched SAC trainer
+(``trainer``), the distributed PER learners and their supervised actor
+fleets for the elastic-net (``learner``) and demixing (``demix_learner``)
+workloads."""
 
 from .mesh import (  # noqa: F401
     AXIS_BASELINE,
@@ -17,9 +18,13 @@ from .mesh import (  # noqa: F401
     MESH_AXES,
     Mesh,
     MeshFactorizationError,
+    NamedSharding,
+    RankDevice,
     compose_mesh,
     make_mesh,
     nearest_factorization,
+    replicated,
+    sharded_batch,
 )
 from . import multihost  # noqa: F401
 from .trainer import (  # noqa: F401

@@ -1,5 +1,5 @@
 """Distributed PER learner/actors for the demixing workload (counterpart
-of smartcal_tpu/parallel/demix_learner.py) on one GPU.
+of smartcal_tpu/parallel/demix_learner.py).
 
 Parity target: ``demixing_rl/distributed_per_sac.py``: actions are the
 2^(K-1) direction subsets (``:34``, ``:180-184`` scalar_to_kvec); each
@@ -20,7 +20,11 @@ uploads its buffer; the learner trains a discrete PER SAC agent on
   card, Nf launches per observation.  (The JAX package takes its XLA form
   there, as ``pallas_call`` has no partitioning rule for the mesh.);
 * :func:`train_distributed_demix` runs the actors one after another and
-  then learns (the one-program learner); :func:`train_supervised_demix` is
+  then learns (the one-program learner); in a job of several processes
+  (``parallel/multihost``) each process runs its block of the actors and
+  the learner is replicated (``parallel/trainer.DataParallel``), so each
+  rank's rollouts launch kernel 1 for their own observations;
+  :func:`train_supervised_demix` is
   the actor fleet of ``parallel/learner``, each actor simulating its own
   workload from its ``fold_in`` key.
 """
@@ -43,6 +47,7 @@ from smartcal_tpu_torch.parallel.learner import (_mesh_for, actor_weights,
                                                  make_sharded_fleet_buffer,
                                                  run_supervised_loop)
 from smartcal_tpu_torch.parallel.mesh import AXIS_DATA
+from smartcal_tpu_torch.parallel.trainer import DataParallel
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl import sac_discrete as dsac
 
@@ -75,13 +80,16 @@ def mask_table(K: int) -> np.ndarray:
 
 
 def make_workloads(backend: radio.RadioBackend, K: int, n_actors: int,
-                   n_epochs: int, key) -> DemixWorkload:
+                   n_epochs: int, key, actors=None) -> DemixWorkload:
     """n_actors x n_epochs simulated observations from ``split(key,
     n_actors * n_epochs)`` (the reference's per-epoch ``env.reset()``,
-    distributed_per_sac.py:131)."""
+    distributed_per_sac.py:131); ``actors`` (a range) makes only those
+    actors' observations."""
+    actors = range(n_actors) if actors is None else actors
     fields = {k: [] for k in ("V", "Ccal", "freqs", "f0", "rho", "metadata",
                               "uvw", "cell")}
-    for k in prng.split(key, n_actors * n_epochs):
+    keys = prng.split(key, n_actors * n_epochs)
+    for k in keys[actors.start * n_epochs:actors.stop * n_epochs]:
         ep, mdl = backend.new_demixing_episode(k, K)
         freqs = ep.obs.freqs.cpu().numpy()
         md = np.zeros(3 * K + 2, np.float32)
@@ -105,7 +113,7 @@ def make_workloads(backend: radio.RadioBackend, K: int, n_actors: int,
 
     def pack(xs):
         a = torch.stack([x.to(dev, torch.float32) for x in xs])
-        return a.reshape((n_actors, n_epochs) + tuple(a.shape[1:]))
+        return a.reshape((len(actors), n_epochs) + tuple(a.shape[1:]))
 
     wl = {k: pack(v) for k, v in fields.items()}
     return DemixWorkload(**wl, freqs_host=wl["freqs"].cpu().numpy(),
@@ -238,10 +246,12 @@ def make_distributed_demix_sac(backend: radio.RadioBackend, K: int,
     with the episode's frozen weights, stores their transitions and
     learns (per transition, or once).  ``provide_influence`` fills the
     observation's map (else zeros, and ``agent_cfg.use_image`` should be
-    False)."""
-    if n_actors % mesh.shape[AXIS_DATA] != 0:
-        raise ValueError(f"n_actors={n_actors} not divisible by dp axis "
-                         f"{mesh.shape[AXIS_DATA]}")
+    False).  On a mesh of processes each rank makes the workloads of its
+    block of the actors and rolls them out (its generator stepped past the
+    other ranks' draws), the transitions are all-gathered in actor order,
+    and rank 0's agent and ring priorities are broadcast after each
+    learn (``parallel/trainer.DataParallel``)."""
+    dp = DataParallel(mesh, n_actors)
     dev = mesh.device
     n_trans = rollout_epochs * rollout_steps
     spec = dsac.transition_spec(agent_cfg.obs_dim)
@@ -253,22 +263,36 @@ def make_distributed_demix_sac(backend: radio.RadioBackend, K: int,
         return DistDemixState(dsac.dsac_init(agent_cfg, generator, dev),
                               rp.replay_init(agent_cfg.mem_size, spec, dev))
 
+    def skip(n_actors_, generator):
+        """Advance ``generator`` past the draws of ``n_actors_`` actors'
+        rollouts (another rank's), as drawing them would."""
+        for _ in range(n_actors_ * n_trans):
+            torch.rand((1, agent_cfg.n_actions), generator=generator,
+                       device=dev)
+
     def run_episode(st: DistDemixState, wl: DemixWorkload, generator):
-        flat = _lanes_rollout(rollout, st.agent, wl, generator, n_actors)
+        skip(dp.start, generator)
+        flat = _lanes_rollout(rollout, st.agent, wl, generator, dp.n_local)
+        skip(n_actors - dp.start - dp.n_local, generator)
+        flat = dp.gather(flat)
         if learn_per_transition:
             for i in range(n_actors * n_trans):
                 rp.replay_add(st.buf, {k: v[i] for k, v in flat.items()})
                 m = dsac.learn(agent_cfg, st.agent, st.buf, generator)
+                dp.sync(st.agent, st.buf)
             metrics = {"critic_loss": m["critic_loss"]}
         else:
             rp.replay_add_batch(st.buf, flat)
             metrics = dsac.learn(agent_cfg, st.agent, st.buf, generator)
+            dp.sync(st.agent, st.buf)
         metrics["mean_reward"] = torch.mean(flat["reward"])
         st.episode += 1
         return st, metrics
 
     def make_workloads_fn(key):
-        return make_workloads(backend, K, n_actors, rollout_epochs, key)
+        return make_workloads(backend, K, n_actors, rollout_epochs, key,
+                              actors=range(dp.start,
+                                           dp.start + dp.n_local))
 
     return init_fn, make_workloads_fn, run_episode
 
@@ -298,13 +322,15 @@ def train_distributed_demix(seed=0, episodes=10, n_actors=None, mesh=None,
     ``(state, scores)``."""
     import time
 
+    from smartcal_tpu_torch.parallel import multihost
     from smartcal_tpu_torch.runtime import pack_replay, unpack_replay
     from smartcal_tpu_torch.train.blocks import (TrainRuntime,
                                                  generator_state,
                                                  set_generator_state,
                                                  train_obs)
 
-    backend = backend or radio.RadioBackend(device=device)
+    backend = backend or radio.RadioBackend(
+        device=multihost.local_device() or device)
     mesh = _mesh_for(mesh, backend.device)
     dev = mesh.device
     n_actors = n_actors or mesh.shape[AXIS_DATA]
@@ -322,7 +348,8 @@ def train_distributed_demix(seed=0, episodes=10, n_actors=None, mesh=None,
     tob = train_obs("demix_learner", metrics=metrics, quiet=quiet,
                     diag=diag, watchdog=watchdog, seed=seed,
                     n_actors=n_actors, K=K)
-    rt = TrainRuntime("demix_learner", ckpt_dir=ckpt_dir,
+    rt = TrainRuntime("demix_learner",
+                      ckpt_dir=multihost.rank_path(ckpt_dir),
                       ckpt_every=ckpt_every, resume=resume, tob=tob)
     ep0 = 0
     restored = rt.restore()
@@ -508,6 +535,11 @@ def main(argv=None):
     Usage: python -m smartcal_tpu_torch.parallel.demix_learner --episodes 10
         [--supervised] [--n-actors 8] [--K 4] [--small]
         [--provide_influence] [--device cpu]
+        [--coordinator host:port --num_processes N --process_id i]
+
+    With ``--num_processes`` N > 1 (the same ``--coordinator`` and
+    ``--num_processes`` on every process, each its own ``--process_id``)
+    the one-program learner runs with one ``dp`` position per process.
     """
     import argparse
 
@@ -547,14 +579,23 @@ def main(argv=None):
     multihost.add_cli_args(p)
     args = p.parse_args(argv)
     n_actors = args.n_actors or args.actors
-    multihost.initialize_from_args(args)
+    multi = multihost.initialize_from_args(args)
+    if multi:
+        obs.echo(f"multihost: {multihost.runtime_summary()}",
+                 event="multihost", **multihost.runtime_summary())
+        if args.supervised or args.actor_mode == "process" \
+                or args.replay_shards or args.sim_hosts > 1:
+            raise SystemExit(
+                "the supervised actor fleet is one learner process; a job "
+                "of several processes runs the one-program learner")
     if args.small:
         backend_kwargs = dict(n_stations=6, n_times=4, tdelta=2,
                               npix=16, admm_iters=2, lbfgs_iters=3,
                               init_iters=4)
     else:
         backend_kwargs = dict(n_stations=args.stations, npix=args.npix)
-    backend = radio.RadioBackend(device=args.device, **backend_kwargs)
+    backend = radio.RadioBackend(
+        device=multihost.local_device() or args.device, **backend_kwargs)
     if args.actor_mode == "process" or args.replay_shards \
             or args.sim_hosts > 1:
         args.supervised = True

@@ -1,5 +1,5 @@
 """Distributed prioritized-experience-replay learner/actor training
-(counterpart of smartcal_tpu/parallel/learner.py) on one GPU.
+(counterpart of smartcal_tpu/parallel/learner.py).
 
 Parity target: ``elasticnet/distributed_per_sac.py``: a Learner owns the
 SAC agent and a PER ring; per episode its Actors roll out ``epochs x
@@ -12,7 +12,11 @@ Two forms, as in the JAX package:
 * :func:`train_distributed`: one program.  The JAX package shards the
   actors over the mesh's ``dp`` axis; here the actors are the lanes of
   one batched rollout (``envs/enet``'s lane form: the actors' inner solves
-  are the lanes of one L-BFGS solve), followed by ingestion and learning;
+  are the lanes of one L-BFGS solve), followed by ingestion and learning.
+  In a job of several processes (``parallel/multihost``) each process
+  rolls out its block of the actors and the learner is replicated
+  (``parallel/trainer.DataParallel``), its ring optionally sharded over
+  the processes;
 * :func:`train_supervised`: the asynchronous fleet.  Each actor is a
   thread (its own ``torch.Generator`` and CUDA stream) or a spawned
   process (``runtime/supervisor``) rolling out ``batch_envs`` lanes against
@@ -39,6 +43,7 @@ import torch
 from smartcal_tpu_torch import obs, prng, resolve_device
 from smartcal_tpu_torch.envs import enet
 from smartcal_tpu_torch.parallel.mesh import AXIS_DATA
+from smartcal_tpu_torch.parallel.trainer import DataParallel
 from smartcal_tpu_torch.rl import replay as rp
 from smartcal_tpu_torch.rl import sac
 
@@ -65,7 +70,7 @@ def _stack_lanes(steps_per_epoch, n_trans):
 def make_fleet_rollout(env_cfg: enet.EnetConfig, agent_cfg: sac.SACConfig,
                        batch_envs: int, rollout_epochs: int,
                        rollout_steps: int, use_hint: bool = False,
-                       record_logp: bool = True):
+                       record_logp: bool = True, dp=None):
     """An actor's program ``(agent, generator) -> transitions``: per epoch,
     ``batch_envs`` env lanes reset (with the first noise draw and, with
     ``use_hint``, the lanes' hints), then ``rollout_steps`` lane steps
@@ -75,20 +80,33 @@ def make_fleet_rollout(env_cfg: enet.EnetConfig, agent_cfg: sac.SACConfig,
     ``record_logp`` adds ``behavior_logp`` (log pi of each sampled action:
     the denominator of the learner's IMPACT ratio); the actions are the
     same draws either way.  Draws come from ``generator``, on the device
-    the rollout runs on."""
+    the rollout runs on.  ``dp`` (``parallel/trainer.DataParallel``) runs
+    this rank's block of the lanes: the draws are made for every lane and
+    sliced, and the block's transitions come back (lane-major)."""
+    if dp is not None and record_logp:
+        raise ValueError("a data-parallel rollout records no log-probs "
+                         "(the one-program learner does not read them)")
     E = batch_envs
-    n_trans = E * rollout_epochs * rollout_steps
+    local = dp.local if dp is not None else (lambda x: x)
+    E_l = dp.n_local if dp is not None else E
+    n_trans = E_l * rollout_epochs * rollout_steps
 
     def _rollout(agent, generator):
         dev = generator.device
+
+        def randn(n):
+            return local(torch.randn((E, n), generator=generator,
+                                     device=dev))
+
         epochs = []
         for _ in range(rollout_epochs):
-            st, o = enet.reset_lanes(env_cfg, *enet.reset_draws_lanes(
-                env_cfg, E, generator, dev))
-            st = enet.draw_noise(env_cfg, st, torch.randn(
-                (E, env_cfg.N), generator=generator, device=dev))
+            st, o = enet.reset_lanes(env_cfg, *(
+                local(d) for d in enet.reset_draws_lanes(env_cfg, E,
+                                                         generator, dev)))
+            st = enet.draw_noise(env_cfg, st, randn(env_cfg.N))
             hint = (enet.get_hint_lanes(env_cfg, st) if use_hint
-                    else torch.zeros((E, agent_cfg.n_actions), device=dev))
+                    else torch.zeros((E_l, agent_cfg.n_actions),
+                                     device=dev))
             steps = []
             for t in range(rollout_steps):
                 noise = torch.randn((E, agent_cfg.n_actions),
@@ -96,10 +114,12 @@ def make_fleet_rollout(env_cfg: enet.EnetConfig, agent_cfg: sac.SACConfig,
                 if record_logp:
                     a, lp = sac.choose_action_logp(agent_cfg, agent, o,
                                                    noise)
+                elif dp is not None:
+                    a = dp.act(lambda o_, n_: sac.choose_action(
+                        agent_cfg, agent, o_, n_), o, noise)
                 else:
                     a = sac.choose_action(agent_cfg, agent, o, noise)
-                env_noise = None if t == 0 else torch.randn(
-                    (E, env_cfg.N), generator=generator, device=dev)
+                env_noise = None if t == 0 else randn(env_cfg.N)
                 st, o2, r, done = enet.step_lanes(env_cfg, st, a, env_noise,
                                                   keepnoise=t == 0)
                 tr = {"state": o, "action": a, "reward": r,
@@ -250,9 +270,10 @@ def _enet_fleet_work_fn(env_kwargs=None, agent_kwargs=None, use_hint=False,
 
 
 def make_sharded_fleet_buffer(mem_size: int, spec: dict,
-                              replay_shards: int, device="cuda"):
-    """The fleet's sharded ring (``rl/replay_sharded``) on ``device``; the
-    shard count must divide the ring size."""
+                              replay_shards: int, device="cuda", mesh=None):
+    """The sharded ring (``rl/replay_sharded``) on ``device``, placed on
+    ``mesh``'s ``rp`` axis when given; the shard count must divide the
+    ring size."""
     from smartcal_tpu_torch.rl import replay_sharded as rps
 
     if mem_size % replay_shards != 0:
@@ -260,7 +281,7 @@ def make_sharded_fleet_buffer(mem_size: int, spec: dict,
             f"--replay-shards {replay_shards} must divide mem_size "
             f"{mem_size} (equal round-robin ring shards)")
     return rps.place_on_mesh(rps.replay_init(mem_size, spec, replay_shards,
-                                             device=device))
+                                             device=device), mesh)
 
 
 def make_distributed_per_sac(env_cfg: enet.EnetConfig,
@@ -268,39 +289,52 @@ def make_distributed_per_sac(env_cfg: enet.EnetConfig,
                              rollout_epochs: int = 10,
                              rollout_steps: int = 10,
                              use_hint: bool = False,
-                             learn_per_transition: bool = False):
+                             learn_per_transition: bool = False,
+                             replay_shards: int = 0):
     """``(init_fn, run_episode)`` on ``mesh``'s device.  One
     ``run_episode(st, generator)`` is the reference Learner's
     ``run_episodes`` body (:60-74): the ``n_actors`` actors roll out with
     the episode's frozen weights as the lanes of one program, then the
     learner stores everything and learns once per transition
     (``learn_per_transition``, the reference cadence) or once per
-    episode."""
-    if n_actors % mesh.shape[AXIS_DATA] != 0:
-        raise ValueError(f"n_actors={n_actors} not divisible by dp axis "
-                         f"{mesh.shape[AXIS_DATA]}")
+    episode.  On a mesh of processes each rank rolls out its block of the
+    actors (``dp``), the blocks are all-gathered in actor order, every
+    rank stores and learns, and rank 0's agent (and the replicated ring's
+    priorities) is broadcast after each learn.  ``replay_shards`` > 0
+    keeps the ring sharded (``rl/replay_sharded``), over an ``rp`` axis of
+    the same processes in a job of several."""
+    dp = DataParallel(mesh, n_actors)
     dev = mesh.device
     n_trans = rollout_epochs * rollout_steps
     rollout = make_fleet_rollout(env_cfg, agent_cfg, n_actors,
                                  rollout_epochs, rollout_steps,
-                                 use_hint=use_hint, record_logp=False)
+                                 use_hint=use_hint, record_logp=False,
+                                 dp=dp)
+    spec = rp.transition_spec(env_cfg.obs_dim, agent_cfg.n_actions)
 
     def init_fn(generator) -> DistPERState:
         agent = sac.sac_init(agent_cfg, generator, dev)
-        buf = rp.replay_init(agent_cfg.mem_size, rp.transition_spec(
-            env_cfg.obs_dim, agent_cfg.n_actions), dev)
+        if replay_shards:
+            buf = make_sharded_fleet_buffer(agent_cfg.mem_size, spec,
+                                            replay_shards, dev,
+                                            mesh=_replay_mesh(mesh))
+        else:
+            buf = rp.replay_init(agent_cfg.mem_size, spec, dev)
         return DistPERState(agent, buf, 0)
 
     def run_episode(st: DistPERState, generator):
-        flat = rollout(st.agent, generator)
+        flat = dp.gather(rollout(st.agent, generator))
+        rpb = rp.backend_for(st.buf)
         if learn_per_transition:
             for i in range(n_actors * n_trans):
-                rp.replay_add(st.buf, {k: v[i] for k, v in flat.items()})
+                rpb.replay_add(st.buf, {k: v[i] for k, v in flat.items()})
                 m = sac.learn(agent_cfg, st.agent, st.buf, generator)
+                dp.sync(st.agent, st.buf)
             metrics = {"critic_loss": m["critic_loss"]}
         else:
-            rp.replay_add_batch(st.buf, flat)
+            rpb.replay_add_batch(st.buf, flat)
             metrics = sac.learn(agent_cfg, st.agent, st.buf, generator)
+            dp.sync(st.agent, st.buf)
         metrics["mean_reward"] = torch.mean(flat["reward"])
         st.episode += 1
         return st, metrics
@@ -308,10 +342,27 @@ def make_distributed_per_sac(env_cfg: enet.EnetConfig,
     return init_fn, run_episode
 
 
+def _replay_mesh(mesh):
+    """An ``rp`` mesh over the processes of ``mesh`` (None on one
+    process: the ring stays on the device)."""
+    if not mesh.is_process:
+        return None
+    from smartcal_tpu_torch.parallel.mesh import AXIS_REPLAY, make_mesh
+
+    return make_mesh((mesh.size,), (AXIS_REPLAY,))
+
+
 def _mesh_for(mesh, device):
+    """``mesh``, else the learner's default: one position per process in a
+    job of several (``dp`` over the processes), else ``device``."""
+    from smartcal_tpu_torch.parallel import multihost
     from smartcal_tpu_torch.parallel.mesh import make_mesh
 
-    return mesh or make_mesh(devices=[resolve_device(device)])
+    if mesh is not None:
+        return mesh
+    if multihost.is_initialized():
+        return make_mesh()
+    return make_mesh(devices=[resolve_device(device)])
 
 
 def train_distributed(seed=0, episodes=100, n_actors=None, mesh=None,
@@ -319,12 +370,19 @@ def train_distributed(seed=0, episodes=100, n_actors=None, mesh=None,
                       learn_per_transition=False, quiet=False,
                       rollout_epochs=10, rollout_steps=10, metrics=None,
                       diag=False, watchdog=False, ckpt_dir=None,
-                      ckpt_every=0, resume=False, device="cuda"):
+                      ckpt_every=0, resume=False, device="cuda",
+                      replay_shards=0):
     """Host loop of the one-program learner (``run_process`` +
     ``Learner.run_episodes``, distributed_per_sac.py:60-82, :154-174).
     Records per-episode actor throughput (``actor_transitions_per_s``) and
-    the weight-staleness bound (the rollout's epochs x steps).  Returns
-    ``(state, scores)``."""
+    the weight-staleness bound (the rollout's epochs x steps).  In a job of
+    several processes the default mesh has one ``dp`` position per
+    process, ``replay_shards`` > 0 shards the ring over an ``rp`` axis of
+    the same processes, and each rank checkpoints the whole state to its
+    own directory (``multihost.rank_path``).  Returns ``(state,
+    scores)``."""
+    from smartcal_tpu_torch.parallel import multihost
+    from smartcal_tpu_torch.rl import replay_sharded as rps
     from smartcal_tpu_torch.runtime import pack_replay, unpack_replay
     from smartcal_tpu_torch.train.blocks import (TrainRuntime,
                                                  generator_state,
@@ -342,22 +400,27 @@ def train_distributed(seed=0, episodes=100, n_actors=None, mesh=None,
     init_fn, run_episode = make_distributed_per_sac(
         env_cfg, agent_cfg, mesh, n_actors, use_hint=use_hint,
         rollout_epochs=rollout_epochs, rollout_steps=rollout_steps,
-        learn_per_transition=learn_per_transition)
+        learn_per_transition=learn_per_transition,
+        replay_shards=replay_shards)
     gen = torch.Generator(device=dev).manual_seed(seed)
     st = init_fn(gen)
     scores = []
     n_trans = n_actors * rollout_epochs * rollout_steps
     tob = train_obs("parallel_learner", metrics=metrics, quiet=quiet,
                     diag=diag, watchdog=watchdog, seed=seed,
-                    n_actors=n_actors)
-    rt = TrainRuntime("parallel_learner", ckpt_dir=ckpt_dir,
+                    n_actors=n_actors, replay_shards=replay_shards)
+    rt = TrainRuntime("parallel_learner",
+                      ckpt_dir=multihost.rank_path(ckpt_dir),
                       ckpt_every=ckpt_every, resume=resume, tob=tob)
     ep0 = 0
     restored = rt.restore()
     if restored is not None:
+        buf = unpack_replay(restored["replay"], dev)
+        if replay_shards:
+            buf = rps.place_on_mesh(buf, _replay_mesh(mesh))
         st = DistPERState(
             sac.SACState.from_host(agent_cfg, restored["agent_state"], dev),
-            unpack_replay(restored["replay"], dev), restored["episode"])
+            buf, restored["episode"])
         set_generator_state(gen, restored["generator"],
                             restored.get("generator_device"))
         scores = list(restored["scores"])
@@ -713,6 +776,12 @@ def main(argv=None):
         [--ere 0.98] [--actor-mode process] [--replay-shards 4]
         [--sim-hosts 2] [--use_hint] [--learn_per_transition]
         [--device cpu]
+        [--coordinator host:port --num_processes N --process_id i]
+
+    With ``--num_processes`` N > 1 (the same ``--coordinator`` and
+    ``--num_processes`` on every process, each its own ``--process_id``)
+    the one-program learner runs with one ``dp`` position per process,
+    ``--replay-shards`` sharding its ring over them.
     """
     import argparse
 
@@ -745,8 +814,17 @@ def main(argv=None):
     multihost.add_cli_args(p)
     args = p.parse_args(argv)
     n_actors = args.n_actors or args.actors
-    multihost.initialize_from_args(args)
-    if args.actor_mode == "process" or args.replay_shards \
+    multi = multihost.initialize_from_args(args)
+    if multi:
+        obs.echo(f"multihost: {multihost.runtime_summary()}",
+                 event="multihost", **multihost.runtime_summary())
+        if args.supervised or args.actor_mode == "process" \
+                or args.sim_hosts > 1:
+            raise SystemExit(
+                "the supervised actor fleet is one learner process; a job "
+                "of several processes runs the one-program learner "
+                "(--replay-shards shards its ring over the processes)")
+    elif args.actor_mode == "process" or args.replay_shards \
             or args.sim_hosts > 1:
         args.supervised = True
     if args.supervised:
@@ -775,7 +853,8 @@ def main(argv=None):
         diag=diag_from_args(args),
         watchdog=getattr(args, "watchdog", False),
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        resume=args.resume, device=args.device)
+        resume=args.resume, device=args.device,
+        replay_shards=args.replay_shards if multi else 0)
     return scores
 
 

@@ -7,18 +7,22 @@ The reference distributes calibration over sub-bands with MPI ranks
 intervals with a process pool.  Here, as in the JAX package, each is one
 SPMD program over a :class:`~smartcal_tpu_torch.parallel.mesh.Mesh`:
 
-* :func:`shard_map` runs the program once per mesh position, each in a
-  host thread of its own (PyTorch's in-process idiom,
-  ``torch.nn.parallel.parallel_apply``), on the card with a CUDA stream of
-  its own.  Each global operand is split by its :class:`P` spec onto the
-  positions' devices; the thread binds its axis context, so the
-  collectives of ``ops/collectives.py`` (``psum``, ``pmean``,
-  ``axis_index``) run between the positions; the outputs are assembled by
-  their out-specs (a sharded axis concatenated in mesh order, a
-  replicated output taken from the first position) on the mesh's first
-  device.  A position that raises, or a collective that waits past the
-  timeout, aborts the run and the call raises: nothing hangs, nothing is
-  dropped.
+* :func:`shard_map` runs the program once per mesh position.  On a mesh
+  of devices each position is a host thread of its own (PyTorch's
+  in-process idiom, ``torch.nn.parallel.parallel_apply``), on the card
+  with a CUDA stream of its own.  On a mesh of processes
+  (``parallel/multihost``) each rank runs its one position in its main
+  thread, on its current stream: every rank is handed the same global
+  operands and takes its own block, and every rank assembles the same
+  outputs from all ranks' (``torch.distributed`` gathers).  Each global
+  operand is split by its :class:`P` spec onto the positions' devices;
+  the position binds its axis context, so the collectives of
+  ``ops/collectives.py`` (``psum``, ``pmean``, ``axis_index``) run
+  between the positions; the outputs are assembled by their out-specs (a
+  sharded axis concatenated in mesh order, a replicated output taken from
+  the first position) on the mesh's device.  A position that raises, or a
+  collective that waits past the timeout, makes the call raise (on a mesh
+  of processes, on every rank): nothing hangs, nothing is dropped.
 * :func:`solve_admm_sharded` shards the frequency axis over ``fp``: the
   solver's data scale is a ``pmean``, its ``btb``, Z-update sum, residual
   norms and telemetry are ``psum`` s over ``fp`` (the MPI allreduce).
@@ -133,8 +137,8 @@ def _leaves(x):
 
 
 def _assemble_leaf(spec, outs, mesh, coords_of):
-    """One output leaf from every position's value under ``spec`` (a
-    non-tensor is taken from the first position)."""
+    """One output leaf on ``mesh.device`` from every position's value
+    under ``spec`` (a non-tensor is taken from the first position)."""
     if not isinstance(outs[0], torch.Tensor):
         return outs[0]
     dims = [(d, _axis_names(e)) for d, e in enumerate(spec)]
@@ -144,7 +148,7 @@ def _assemble_leaf(spec, outs, mesh, coords_of):
     def build(k, fixed):
         if k == len(dims):
             key = tuple(fixed.get(a, 0) for a in mesh.axis_names)
-            return outs[flat_of[key]]
+            return outs[flat_of[key]].to(mesh.device)
         d, names = dims[k]
         if not names:
             return build(k + 1, fixed)
@@ -154,10 +158,7 @@ def _assemble_leaf(spec, outs, mesh, coords_of):
             parts.append(build(k + 1, dict(fixed, **dict(zip(names, idx)))))
         return torch.cat(parts, dim=d)
 
-    out = build(0, {})
-    if isinstance(out, torch.Tensor) and out.device != mesh.device:
-        out = out.to(mesh.device)
-    return out
+    return build(0, {})
 
 
 def _assemble(spec, outs, mesh, coords_of):
@@ -186,7 +187,8 @@ def shard_map(f, mesh, in_specs, out_specs, timeout: Optional[float] = None):
     streams; the caller's stream then waits on every position's, and the
     outputs are assembled on ``mesh.device``.  Grad mode follows the
     caller's.  ``timeout`` (default :data:`TIMEOUT_S`) bounds each
-    collective's wait.  Raises the first error a position raised other
+    collective's wait (on a mesh of processes the job's timeout does,
+    ``parallel/multihost.initialize``).  Raises the first error a position raised other
     than a broken collective's :class:`~smartcal_tpu_torch.ops.
     collectives.CollectiveError`, or the first of those."""
     timeout = TIMEOUT_S if timeout is None else float(timeout)
@@ -196,6 +198,8 @@ def shard_map(f, mesh, in_specs, out_specs, timeout: Optional[float] = None):
         if len(args) != len(in_specs):
             raise ValueError(f"shard_map: {len(args)} operands for "
                              f"{len(in_specs)} in_specs")
+        if mesh.is_process:
+            return _run_process(f, mesh, in_specs, out_specs, args)
         spots = list(_positions(mesh))
         coords_of = [c for _, c, _ in spots]
         state = collectives.Run(mesh, timeout)
@@ -259,6 +263,41 @@ def shard_map(f, mesh, in_specs, out_specs, timeout: Optional[float] = None):
         return _assemble(out_specs, outs, mesh, coords_of)
 
     return run
+
+
+def _gather_trees(x):
+    """Every rank's output tree, by rank (tensors on this rank's device)."""
+    if isinstance(x, torch.Tensor):
+        return collectives._world_gather(x)
+    if isinstance(x, tuple):
+        rows = zip(*(_gather_trees(v) for v in x))
+        if hasattr(x, "_fields"):
+            return [type(x)(*r) for r in rows]
+        return [type(x)(r) for r in rows]
+    return collectives._world_gather(x)
+
+
+def _run_process(f, mesh, in_specs, out_specs, args):
+    """:func:`shard_map`'s run on a mesh of processes: this rank's block of
+    every operand on its device, ``f`` in this thread (on the current
+    stream) under its position's axis context, then every rank's outputs
+    gathered and assembled by ``out_specs`` on every rank."""
+    coords = mesh.local_coords
+    dev = mesh.device
+    local = [_local(a, s, mesh, coords, dev, f"operand {k}")
+             for k, (a, s) in enumerate(zip(args, in_specs))]
+    prev = collectives.current()
+    collectives.bind(collectives.Position(collectives.ProcessRun(mesh),
+                                          coords))
+    try:
+        out = f(*local)
+    finally:
+        collectives.bind(prev)
+    by_rank = _gather_trees(out)
+    spots = list(_positions(mesh))
+    ranks = mesh.ranks.reshape(-1)
+    return _assemble(out_specs, [by_rank[int(ranks[i])] for i, _, _ in spots],
+                     mesh, [c for _, c, _ in spots])
 
 
 def _host(x):

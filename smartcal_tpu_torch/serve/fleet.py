@@ -44,7 +44,8 @@ tuples, kind first):
 Job payloads carry the episode as host numpy (:func:`_episode_to_host`),
 rebuilt on the replica's device; weight frames carry host numpy too.  One
 machine: :meth:`FleetRouter.replica_host` maps every replica to host 0
-(``parallel/multihost.initialize`` raises beyond one process).
+(the replicas are processes of one host, not a ``parallel/multihost``
+job).
 
 The module imports nothing of the backend at import time: stub-server
 replicas (tests) pay only the package and obs import, and the real server
@@ -892,9 +893,9 @@ class FleetRouter:
 
     # -- topology ----------------------------------------------------------
     def replica_host(self, rid: int) -> int:
-        """Host of replica ``rid``: 0 for every replica.  The port runs on
-        one machine (``parallel/multihost.initialize`` raises beyond one
-        process), so ``hosts`` is recorded, not spread over."""
+        """Host of replica ``rid``: 0 for every replica.  The fleet's
+        replicas are processes of one machine (not a ``parallel/multihost``
+        job), so ``hosts`` is recorded, not spread over."""
         del rid
         return 0
 

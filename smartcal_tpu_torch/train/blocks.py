@@ -915,7 +915,7 @@ class EpisodeProgram:
                     "state)")
             graph.register_generator_state(gen)
             try:
-                with torch.cuda.graph(graph,
+                with torch.cuda.graph(graph, stream=side,
                                       capture_error_mode="thread_local"):
                     out = self._stack([self.body(st, buf, draws)
                                        for _ in range(self.block)])

@@ -38,6 +38,18 @@ STEP = dict(rtol=1e-4, atol=1e-5)
 LR = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.as_tensor(np.array(x))
 

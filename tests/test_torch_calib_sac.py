@@ -45,6 +45,18 @@ CFG = dict(obs_dim=NPIX * NPIX + (M + 1) * 7, n_actions=2 * M, gamma=0.99,
            use_hint=True, hint_distance="kld", img_shape=(NPIX, NPIX))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _next_sub(jagent):
     """The key ``jagent._next_key()`` will hand out next."""
     return jax.random.split(jagent.key)[1]

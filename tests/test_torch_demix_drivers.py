@@ -22,6 +22,18 @@ from smartcal_tpu_torch.train import (calib_sac, demix_fuzzy_sac, demix_sac,
 CPU = ["--device", "cpu", "--quiet", "--K", "3"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _load(path):
     with open(path, "rb") as fh:
         return pickle.load(fh)

@@ -55,6 +55,18 @@ SWEEP_ITERS = 2
 F64 = torch.float64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def backend(**kw):
     return RadioBackend(device="cpu", **dict(SMALL, **kw))
 

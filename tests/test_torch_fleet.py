@@ -56,6 +56,18 @@ ENV_KW = {"M": 4, "N": 4, "lbfgs_iters": 10}
 AGENT_KW = {"batch_size": 8, "mem_size": 64}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def in_tmp(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

@@ -101,11 +101,16 @@ def test_to_host_never_ships_tensors():
     assert h["c"] == 3
 
 
-def test_multihost_is_one_process():
+def test_multihost_is_one_process(monkeypatch):
+    for v in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID"):
+        monkeypatch.delenv(v, raising=False)
     assert multihost.initialize() is False
     assert multihost.initialize(num_processes=1) is False
-    with pytest.raises(NotImplementedError, match="one process"):
-        multihost.initialize("localhost:1234", 2, 0)
+    # more than one process is a multi-process job now
+    # (tests/test_torch_multihost.py); without this process's id it raises
+    with pytest.raises(ValueError, match="process's id"):
+        multihost.initialize("localhost:1234", 2)
     assert multihost.attach_simulated(1, 2) == {
         "simulated": True, "host_id": 1, "n_hosts": 2}
 

@@ -34,6 +34,18 @@ TINY = dict(n_stations=6, n_freqs=2, n_times=4, tdelta=2, admm_iters=2,
             lbfgs_iters=3, init_iters=5, npix=16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)

@@ -32,6 +32,18 @@ from smartcal_tpu_torch.train import blocks, calib_sac, enet_ddpg, enet_sac
 from smartcal_tpu_torch.train import enet_td3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def in_tmp(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

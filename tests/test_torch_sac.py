@@ -49,6 +49,18 @@ VARIANTS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fill(jcfg, n, seed=1):
     """A JAX ring and a port ring holding the same ``n`` transitions."""
     rng = np.random.default_rng(seed)

@@ -57,6 +57,18 @@ K, NPIX, SEED = 3, 8, 3
 NOUT = NPIX * NPIX + 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on small batches: one intra-op thread for the module, its
+    fixtures included (the suite runs six workers on the host's cores, and
+    their oversubscribed thread pools slowed this file's trainers several
+    times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
